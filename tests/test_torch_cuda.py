@@ -1,0 +1,112 @@
+"""The CUDA kernels against their plain PyTorch versions, on a GPU.
+
+K1 (csrc/blur.cu) and K2 (csrc/remap.cu) are built to round exactly where
+``blur_plain`` and ``remap_plain`` do, so the bound asserted here — at most
+1 LSB on under 0.5% of pixels — is expected to hold with 0 differences.
+The cases cover every border rule and tap count of K2 and every stereo
+raster of K1 at small sizes.  Marked ``cuda``: they skip without a GPU.
+On the GPU host, which has no jax, run them without the suite's
+conftest.py (which imports jax):
+
+    python -m pytest --noconftest -q tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import transform360_tpu_torch as P
+from transform360_tpu_torch.config import Interpolation, Layout, StereoFormat, TransformConfig
+from transform360_tpu_torch.filtering import blur_plain
+from transform360_tpu_torch.ops import blur, remap
+from transform360_tpu_torch.sampling import remap_plain, round_u8
+
+pytestmark = pytest.mark.cuda
+
+MONO = dict(input_stereo_format=StereoFormat.MONO, output_stereo_format=StereoFormat.MONO)
+CASES = {
+    "cubic-cubemap": (TransformConfig(**MONO), 512, 256, 192, 128),
+    "linear-barrel": (TransformConfig(output_layout=Layout.BARREL,
+                                      interpolation_alg=Interpolation.LINEAR, **MONO),
+                      256, 128, 160, 64),
+    "lanczos4-barrel": (TransformConfig(output_layout=Layout.BARREL_SPLIT,
+                                        interpolation_alg=Interpolation.LANCZOS4, **MONO),
+                        256, 128, 192, 64),
+    "nearest-barrel": (TransformConfig(output_layout=Layout.BARREL,
+                                       interpolation_alg=Interpolation.NEAREST, **MONO),
+                       256, 128, 160, 64),
+    "lanczos4-eac": (TransformConfig(output_layout=Layout.EAC_32,
+                                     interpolation_alg=Interpolation.LANCZOS4, **MONO),
+                     256, 128, 96, 64),
+    "tb-odd": (TransformConfig(input_stereo_format=StereoFormat.TB,
+                               output_stereo_format=StereoFormat.TB), 256, 161, 96, 128),
+    "lr-odd": (TransformConfig(input_stereo_format=StereoFormat.LR,
+                               output_stereo_format=StereoFormat.LR), 513, 80, 192, 64),
+    "adaptive-32x15": (TransformConfig(num_vertical_segments=32,
+                                       num_horizontal_segments=15, **MONO), 960, 480, 240, 160),
+    "offcenter-3seg": (TransformConfig(num_horizontal_segments=3, fixed_cube_offcenter_z=0.5,
+                                       **MONO), 256, 80, 96, 64),
+}
+
+
+@pytest.fixture
+def gpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _assert_close(got, want, what):
+    d = (got.int() - want.int()).abs()
+    frac = float((d > 0).float().mean())
+    assert int(d.max()) <= 1 and frac < 0.005, (what, int(d.max()), frac)
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_kernels_match_plain(name, gpu):
+    cfg, iw, ih, ow, oh = CASES[name]
+    plan = P.build_plan(cfg, iw, ih, ow, oh, "yuv420p")
+    g = torch.Generator(device=gpu).manual_seed(0)
+    for pp in (plan.luma, plan.chroma):
+        t = pp.tables(gpu)
+        x = torch.randint(0, 256, (5, pp.in_h, pp.in_w), dtype=torch.uint8,
+                          device=gpu, generator=g)
+        if t.blur is not None:
+            n = blur.LAUNCHES
+            got = blur.blur_u8(t.blur, x)
+            torch.cuda.synchronize()
+            assert blur.LAUNCHES > n
+            _assert_close(got, round_u8(blur_plain(t.blur.plan, x.float())), f"K1 {name}")
+        n = remap.LAUNCHES
+        got = remap.remap_u8(t.remap, x)
+        torch.cuda.synchronize()
+        assert remap.LAUNCHES == n + 1
+        _assert_close(got, round_u8(remap_plain(t.remap, x)), f"K2 {name}")
+
+
+def test_blur_chunks_the_batch(gpu, monkeypatch):
+    cfg, iw, ih, ow, oh = CASES["cubic-cubemap"]
+    t = P.build_plan(cfg, iw, ih, ow, oh, "gray").luma.tables(gpu)
+    x = torch.randint(0, 256, (7, ih, iw), dtype=torch.uint8, device=gpu)
+    want = blur.blur_u8(t.blur, x)
+    monkeypatch.setattr(blur, "SCRATCH_BYTES", 2 * t.blur.S * t.blur.W * 4)  # 2 frames
+    n = blur.LAUNCHES
+    got = blur.blur_u8(t.blur, x)
+    torch.cuda.synchronize()
+    assert blur.LAUNCHES == n + 4 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("pix_fmt", ["yuv420p", "gray"])
+def test_engine_cuda_matches_engine_cpu(pix_fmt, gpu):
+    opts = "cube_edge_length=64:interpolation_alg=cubic:input_stereo_format=mono"
+    rng = np.random.default_rng(3)
+    planes = [rng.integers(0, 256, (9, 256, 512), dtype=np.uint8)]
+    if pix_fmt != "gray":
+        planes += [rng.integers(0, 256, (9, 128, 256), dtype=np.uint8) for _ in range(2)]
+    got = P.open_filter(opts, 512, 256, pix_fmt=pix_fmt, device=gpu).transform(*planes)
+    want = P.open_filter(opts, 512, 256, pix_fmt=pix_fmt, device="cpu").transform(*planes)
+    if pix_fmt == "gray":
+        got, want = (got,), (want,)
+    for a, b in zip(got, want):
+        assert a.device.type == "cuda"
+        _assert_close(a.cpu(), b, f"engine {pix_fmt}")

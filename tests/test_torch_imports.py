@@ -1,0 +1,128 @@
+"""The port stands alone: it imports neither jax nor the JAX package, ships
+its CUDA sources, and refuses (never falls back from) a CUDA request it
+cannot serve."""
+
+import os
+import subprocess
+import sys
+import tomllib
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import transform360_tpu_torch as t3
+from transform360_tpu_torch.ops import _build, blur, remap
+
+ROOT = Path(__file__).resolve().parent.parent
+MODULES = [
+    "transform360_tpu_torch",
+    "transform360_tpu_torch.api",
+    "transform360_tpu_torch.config",
+    "transform360_tpu_torch.filtering",
+    "transform360_tpu_torch.geometry",
+    "transform360_tpu_torch.pipeline",
+    "transform360_tpu_torch.plan",
+    "transform360_tpu_torch.sampling",
+    "transform360_tpu_torch.utils.expr",
+    "transform360_tpu_torch.ops.blur",
+    "transform360_tpu_torch.ops.remap",
+    "transform360_tpu_torch.ops._build",
+]
+
+
+def test_import_pulls_in_no_jax():
+    code = (
+        "import sys, importlib\n"
+        f"for m in {MODULES!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'transform360_tpu' or m.startswith('transform360_tpu.'))\n"
+        "print(repr(bad))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, env=env,
+        cwd=str(ROOT), timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_cuda_sources_exist_and_are_packaged():
+    for name in ("blur.cu", "remap.cu", "common.cuh"):
+        assert (_build.CSRC / name).is_file()
+    with open(ROOT / "pyproject.toml", "rb") as f:
+        data = tomllib.load(f)["tool"]["setuptools"]["package-data"]
+    assert data["transform360_tpu_torch"] == ["csrc/*.cu", "csrc/*.cuh"]
+    # sm_90a target (wgmma/TMA-capable Hopper) and no silent FMA contraction
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    assert "-fmad=false" in _build.NVCC_FLAGS
+
+
+def test_cuda_engine_refused_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the refusal path is not reachable")
+    with pytest.raises(RuntimeError, match="cuda"):
+        t3.open_filter("cube_edge_length=32:input_stereo_format=mono", 256, 128)
+
+
+def test_missing_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(_build, "DEFAULT_NVCC", str(tmp_path / "nvcc"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.nvcc_path()
+
+
+def test_wrappers_refuse_other_devices_and_bad_inputs():
+    eng = t3.open_filter(
+        "cube_edge_length=32:input_stereo_format=mono", 256, 128, device="cpu"
+    )
+    t = eng.plan.luma.tables("cpu")
+    meta = torch.empty((1, 128, 256), dtype=torch.uint8, device="meta")
+    for fn, tab in ((blur.blur_u8, t.blur), (remap.remap_u8, t.remap)):
+        with pytest.raises(ValueError):
+            fn(tab, meta)  # neither cpu nor cuda: no silent fallback
+        with pytest.raises(TypeError):
+            fn(tab, torch.zeros((1, 128, 256), dtype=torch.float32))
+        with pytest.raises(ValueError):
+            fn(tab, torch.zeros((1, 64, 256), dtype=torch.uint8))
+        with pytest.raises(ValueError):
+            fn(tab, torch.zeros((1, 256, 128), dtype=torch.uint8).transpose(1, 2))
+    # CPU tensors run the plain versions and never count as kernel launches
+    before = (blur.LAUNCHES, remap.LAUNCHES)
+    x = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (2, 128, 256), np.uint8))
+    assert eng.transform_frame_plane(x, 0, 256, 128).shape == (2, 64, 96)
+    assert (blur.LAUNCHES, remap.LAUNCHES) == before
+
+
+@pytest.mark.parametrize(
+    "kwargs, item",
+    [
+        (dict(backend="native"), "A14"),
+        (dict(mesh=object()), "A13"),
+        (dict(pix_fmt="yuv420p10le"), "A10"),
+        (dict(width_scale_factor=2.0), "A6b"),
+    ],
+)
+def test_unported_options_raise_naming_the_roadmap_item(kwargs, item):
+    cfg_kw = {k: v for k, v in kwargs.items() if k == "width_scale_factor"}
+    eng_kw = {k: v for k, v in kwargs.items() if k != "width_scale_factor"}
+    cfg = t3.TransformConfig(
+        input_stereo_format=t3.StereoFormat.MONO,
+        output_stereo_format=t3.StereoFormat.MONO,
+        **cfg_kw,
+    )
+    with pytest.raises(NotImplementedError, match=item):
+        t3.Transform360(cfg, 96, 64, device="cpu", **eng_kw)
+
+
+def test_plan_files_raise_naming_the_roadmap_item(tmp_path):
+    eng = t3.open_filter(
+        "cube_edge_length=32:input_stereo_format=mono", 256, 128, device="cpu"
+    )
+    with pytest.raises(NotImplementedError, match="A11"):
+        eng.save_plan(str(tmp_path / "p.npz"))
+    with pytest.raises(NotImplementedError, match="A11"):
+        eng.load_plan(str(tmp_path / "p.npz"))

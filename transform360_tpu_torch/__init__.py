@@ -1,0 +1,48 @@
+"""transform360_tpu_torch — the PyTorch/CUDA port of transform360_tpu.
+
+360° video re-projection (equirect ↔ cubemap and friends) on an NVIDIA
+GPU: plan-time warp maps and prefilter plans built on the CPU, and two
+hand-written CUDA kernels on the frame path — the adaptive prefilter
+(``csrc/blur.cu``) and the remap (``csrc/remap.cu``) — each with a plain
+PyTorch version that serves CPU tensors.  The JAX package
+``transform360_tpu`` is the reference; this package imports neither it
+nor jax.
+"""
+
+from .config import (
+    FaceType,
+    FilterOptions,
+    Interpolation,
+    Layout,
+    StereoFormat,
+    TransformConfig,
+    chroma_dims,
+    negotiate_output_geometry,
+    parse_options,
+    resolve_stereo_formats,
+)
+from .api import Transform360, open_filter
+from .plan import TransformPlan, build_plan, plan_from_jax
+from .pipeline import transform_batch
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "FaceType",
+    "FilterOptions",
+    "Interpolation",
+    "Layout",
+    "StereoFormat",
+    "TransformConfig",
+    "Transform360",
+    "TransformPlan",
+    "build_plan",
+    "chroma_dims",
+    "negotiate_output_geometry",
+    "open_filter",
+    "parse_options",
+    "plan_from_jax",
+    "resolve_stereo_formats",
+    "transform_batch",
+    "__version__",
+]

@@ -1,0 +1,189 @@
+"""Public API: :class:`Transform360` and :func:`open_filter`, as in
+``transform360_tpu.api``, with an explicit torch ``device``.
+
+* :class:`Transform360` mirrors the C ABI surface
+  (``VideoFrameTransformHandler.h:24-47``): construct from a config,
+  generate maps, transform plane buffers.
+* :func:`open_filter` mirrors the FFmpeg filter shell: it parses the
+  option string (``vf_transform360.c:407-987``), negotiates the output
+  geometry (``vf_transform360.c:167-304``) and returns a ready engine.
+
+The engine's device (default ``"cuda"``) is where planes are transformed:
+inputs are moved there, outputs are uint8 tensors there.  Options the
+port does not serve yet raise ``NotImplementedError`` naming the ROADMAP
+item; nothing degrades silently.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from .config import (
+    StereoFormat,
+    TransformConfig,
+    get_pixel_format,
+    negotiate_output_geometry,
+    parse_options,
+    resolve_stereo_formats,
+)
+from .pipeline import transform_batch, transform_plane
+from .plan import TransformPlan, build_plan
+
+
+def _as_plane(p, device: torch.device) -> Optional[torch.Tensor]:
+    if p is None:
+        return None
+    t = p if isinstance(p, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(p))
+    return t.to(device).contiguous()
+
+
+class Transform360:
+    """Stateful transform engine for one (config, output size) on one device."""
+
+    def __init__(
+        self,
+        config: TransformConfig,
+        out_w: Optional[int] = None,
+        out_h: Optional[int] = None,
+        backend: str = "auto",
+        pix_fmt: str = "yuv420p",
+        mesh=None,
+        device="cuda",
+    ):
+        """``backend``: "auto" only; the dependency-free C++ engine
+        ("native") is not ported yet.  ``mesh``: batch sharding over several
+        devices is not ported yet.  ``device``: where frames are
+        transformed ("cuda" launches the hand-written kernels; "cpu" runs
+        their plain PyTorch versions)."""
+        config.validate()
+        if backend == "native":
+            raise NotImplementedError(
+                "backend='native' (the C++ engine) is not ported yet: ROADMAP A14"
+            )
+        if backend != "auto":
+            raise ValueError(f"unknown backend {backend!r}")
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh= (multi-GPU batch sharding) is not ported yet: ROADMAP A13"
+            )
+        self._pix_fmt = get_pixel_format(pix_fmt)
+        if self._pix_fmt.depth > 8:
+            raise NotImplementedError(
+                f"{self._pix_fmt.name}: deep formats are not ported yet: ROADMAP A10"
+            )
+        if config.width_scale_factor != 1.0 or config.height_scale_factor != 1.0:
+            raise NotImplementedError(
+                "scale factors other than 1 (supersampling + INTER_AREA) are "
+                "not ported yet: ROADMAP A6b"
+            )
+        self._device = torch.device(device)
+        if self._device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "device='cuda' but torch.cuda.is_available() is False "
+                "(pass device='cpu' to run the plain PyTorch path)"
+            )
+        self._cfg = config
+        self._out_w = out_w
+        self._out_h = out_h
+        self._plan: Optional[TransformPlan] = None
+
+    @property
+    def config(self) -> TransformConfig:
+        return self._cfg
+
+    @property
+    def plan(self) -> Optional[TransformPlan]:
+        return self._plan
+
+    def generate_map(self, in_w: int, in_h: int) -> TransformPlan:
+        """Build (on the CPU) the warp maps + filter plan for this input
+        size and move their arrays to the engine's device."""
+        if self._out_w is None or self._out_h is None:
+            raise ValueError("output size not set; use open_filter or pass out_w/out_h")
+        cfg = self._cfg
+        if StereoFormat.GUESS in (cfg.input_stereo_format, cfg.output_stereo_format):
+            in_fmt, out_fmt = resolve_stereo_formats(cfg, in_w, in_h)
+            cfg = cfg.replace(input_stereo_format=in_fmt, output_stereo_format=out_fmt)
+        self.use_plan(build_plan(cfg, in_w, in_h, self._out_w, self._out_h, self._pix_fmt))
+        return self._plan
+
+    def use_plan(self, plan: TransformPlan) -> None:
+        """Adopt a ready plan (e.g. :func:`..plan.plan_from_jax`) and move
+        its arrays to the engine's device."""
+        if plan.pix_fmt != self._pix_fmt.name:
+            raise ValueError(
+                f"plan was built for pix_fmt {plan.pix_fmt!r} but this engine "
+                f"is {self._pix_fmt.name!r}"
+            )
+        for pp in (plan.luma, plan.chroma):
+            if pp is not None:
+                pp.tables(self._device)
+        self._plan = plan
+        self._out_w, self._out_h = plan.out_w, plan.out_h
+
+    def _ensure_plan(self, in_w: int, in_h: int) -> TransformPlan:
+        if self._plan is None or self._plan.in_w != in_w or self._plan.in_h != in_h:
+            self.generate_map(in_w, in_h)
+        return self._plan
+
+    def transform(self, y, u=None, v=None):
+        """Transform one frame or a batch of planar frames.
+
+        ``y``: uint8 [H, W] or [B, H, W] (numpy array or tensor);
+        ``u``/``v`` the chroma planes (omit for single-plane formats).
+        Maps are generated lazily on the first frame, like the reference
+        filter.  Returns uint8 tensors on the engine's device (a bare
+        tensor for single-plane formats).  CUDA work is queued on the
+        current stream; reading the result waits for it.
+        """
+        planes = [_as_plane(p, self._device) for p in (y, u, v)]
+        in_h, in_w = planes[0].shape[-2:]
+        plan = self._ensure_plan(int(in_w), int(in_h))
+        return transform_batch(plan, *planes)
+
+    def transform_frame_plane(
+        self, plane, map_plane_index: int, in_w: int, in_h: int
+    ) -> torch.Tensor:
+        """Single-plane raw-buffer entry, mirroring
+        ``VideoFrameTransform_transformFramePlane``
+        (``VideoFrameTransformHandler.h:36-47``)."""
+        if map_plane_index == 0:
+            self._ensure_plan(in_w, in_h)
+        elif self._plan is None:
+            raise RuntimeError("generate luma map before transforming chroma planes")
+        return transform_plane(self._plan, _as_plane(plane, self._device), map_plane_index)
+
+    def output_dims(self) -> Tuple[int, int]:
+        return self._out_w, self._out_h
+
+    def save_plan(self, path: str) -> None:
+        raise NotImplementedError("plan files are not ported yet: ROADMAP A11")
+
+    def load_plan(self, path: str) -> None:
+        raise NotImplementedError("plan files are not ported yet: ROADMAP A11")
+
+
+def open_filter(
+    options: str,
+    in_w: int,
+    in_h: int,
+    eager: bool = True,
+    backend: str = "auto",
+    pix_fmt: str = "yuv420p",
+    mesh=None,
+    device="cuda",
+) -> Transform360:
+    """FFmpeg-shell analog: parse the option string, negotiate output
+    geometry against the input size, and return a ready engine on
+    ``device``."""
+    opts = parse_options(options)
+    out_w, out_h, cfg = negotiate_output_geometry(opts, in_w, in_h)
+    t = Transform360(
+        cfg, out_w, out_h, backend=backend, pix_fmt=pix_fmt, mesh=mesh, device=device
+    )
+    if eager:
+        t.generate_map(in_w, in_h)
+    return t

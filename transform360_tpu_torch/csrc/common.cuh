@@ -1,0 +1,36 @@
+// Shared helpers of the transform360_tpu_torch kernels.
+//
+// Every entry point has a plain C interface (no PyTorch headers), takes
+// device pointers and a cudaStream_t as void*, launches on that stream,
+// never synchronises, allocates nothing, and returns cudaGetLastError().
+
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace t360 {
+
+// OpenCV-style half-up rounding with uint8 saturation: floor(x + 0.5),
+// clamped to [0, 255].  (Round-half-to-even would differ on ties.)
+__device__ __forceinline__ uint8_t round_u8(float x) {
+  float r = floorf(__fadd_rn(x, 0.5f));
+  r = fminf(fmaxf(r, 0.0f), 255.0f);
+  return static_cast<uint8_t>(r);
+}
+
+__device__ __forceinline__ int clamp_idx(int i, int n) {
+  return min(max(i, 0), n - 1);
+}
+
+}  // namespace t360
+
+#define T360_CHECK_LAUNCH()                 \
+  do {                                      \
+    cudaError_t e_ = cudaGetLastError();    \
+    if (e_ != cudaSuccess) return (int)e_;  \
+  } while (0)
+
+extern "C" const char* t360_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

@@ -1,0 +1,100 @@
+"""Batched frame pipeline: one route per plane, prefilter → round → remap.
+
+Planes are batch-major uint8 ``[B, H, W]`` tensors end to end.  Each plane
+runs K1 (the prefilter, with its half-up round to uint8, when the plan has
+one) and then K2 (the remap, with its half-up round), through the
+wrappers in :mod:`.ops`, which launch the CUDA kernels for CUDA tensors and
+run the plain versions for CPU tensors.  The JAX package routes by batch
+size between five TPU kernels (``pipeline.py:144-226`` there); on Hopper
+one kernel per stage serves every batch size, so there is no routing.
+
+Rounding parity: the reference filters into a uint8 plane and remaps it
+with fixed-point arithmetic; both stages round with ``floor(x + 0.5)`` and
+uint8 saturation (``VideoFrameTransform.cpp:620-777``): inside the kernels,
+and through :func:`.sampling.round_u8` in their plain versions.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+
+from .ops.blur import blur_u8
+from .ops.remap import remap_u8
+from .plan import PlanePlan, TransformPlan
+
+
+def _plane_program(pp: PlanePlan, x: torch.Tensor) -> torch.Tensor:
+    """uint8 [B, in_h, in_w] → uint8 [B, out_h, out_w] on ``x``'s device."""
+    t = pp.tables(x.device)
+    if t.blur is not None:
+        x = blur_u8(t.blur, x)
+    return remap_u8(t.remap, x)
+
+
+def _check_plane(x, h: int, w: int, what: str) -> None:
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"{what}: expected a torch.Tensor, got {type(x).__name__}")
+    if x.dtype != torch.uint8:
+        raise TypeError(f"{what}: expected uint8 samples, got {x.dtype}")
+    if x.dim() != 3 or tuple(x.shape[1:]) != (h, w):
+        raise ValueError(f"{what}: expected [B, {h}, {w}], got {tuple(x.shape)}")
+
+
+def transform_frame_planes(
+    plan: TransformPlan, planes: Sequence[torch.Tensor]
+) -> Tuple[torch.Tensor, ...]:
+    """uint8 [B, H, W] planes in, same layout out.
+
+    Plane 0 uses the luma map; every other plane shares the chroma map
+    (``vf_transform360.c:372``).  The chroma planes are stacked on the
+    batch axis into one launch of each kernel.
+    """
+    if len(planes) != plan.n_planes:
+        raise ValueError(
+            f"expected {plan.n_planes} plane(s) for {plan.pix_fmt}, got {len(planes)}"
+        )
+    _check_plane(planes[0], plan.luma.in_h, plan.luma.in_w, "plane 0")
+    outs = [_plane_program(plan.luma, planes[0].contiguous())]
+    rest = planes[1:]
+    if rest:
+        for i, p in enumerate(rest, 1):
+            _check_plane(p, plan.chroma.in_h, plan.chroma.in_w, f"plane {i}")
+        stacked = _plane_program(plan.chroma, torch.cat(rest, dim=0))
+        outs.extend(torch.split(stacked, [p.shape[0] for p in rest], dim=0))
+    return tuple(outs)
+
+
+def transform_batch(plan: TransformPlan, y, u=None, v=None):
+    """Transform a batch of planar frames.
+
+    ``y``: uint8 [B, H, W] (or [H, W] for one frame); ``u``/``v``: the
+    chroma planes (omit for single-plane formats).  Returns uint8 planes
+    at the negotiated output size on the inputs' device (a bare tensor
+    for single-plane formats).
+    """
+    planes = [p for p in (y, u, v) if p is not None]
+    squeeze = planes[0].dim() == 2
+    if squeeze:
+        planes = [p[None] for p in planes]
+    outs = transform_frame_planes(plan, planes)
+    if squeeze:
+        outs = tuple(o[0] for o in outs)
+    return outs if len(outs) > 1 else outs[0]
+
+
+def transform_plane(plan: TransformPlan, plane: torch.Tensor, map_plane_index: int):
+    """Single-plane entry, mirroring the C ABI's
+    ``VideoFrameTransform_transformFramePlane``
+    (``VideoFrameTransformHandler.h:36-47``): the caller picks the map
+    plane (0 = luma, 1 = chroma) for the given image plane."""
+    pp = plan.luma if map_plane_index == 0 else plan.chroma
+    if pp is None:
+        raise ValueError(f"plan has no map plane {map_plane_index} ({plan.pix_fmt})")
+    squeeze = plane.dim() == 2
+    if squeeze:
+        plane = plane[None]
+    _check_plane(plane, pp.in_h, pp.in_w, "plane")
+    out = _plane_program(pp, plane.contiguous())
+    return out[0] if squeeze else out
