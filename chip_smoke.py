@@ -1,26 +1,45 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one GPU and check its kernels.
+"""Drive the PyTorch/CUDA port's paths on one GPU and check its kernels.
 
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with an NVIDIA Hopper GPU,
-nvcc and CUDA PyTorch (no jax needed).  Phases, one line each:
+nvcc and CUDA PyTorch (no jax needed).  Phases:
 
 1. the device, and ``nvidia-smi``'s name and power limit;
-2. build both kernels from ``transform360_tpu_torch/csrc`` with nvcc;
-3. K1 (prefilter) against ``blur_plain`` and K2 (remap) against
-   ``remap_plain`` on the card, at the flagship's luma and chroma shapes,
-   with the TF32 switches on and off (nothing here may depend on them);
-4. the main path: ``open_filter(<flagship>, 3840, 2160, device="cuda")
-   .transform(y, u, v)`` on 128 video-like frames, with both kernels'
-   launch counters reset just before it; its output against the plain
-   functions on the same tensors, and a small size against the CPU engine;
+2. build the three kernels from ``transform360_tpu_torch/csrc`` with nvcc,
+   one process per source, all at once, and print ptxas's registers,
+   spills and shared memory;
+3. each kernel against its plain version on the card, with the TF32
+   switches on and off (nothing here may depend on them): K1 (prefilter)
+   against ``blur_plain`` and K2 (remap) against ``remap_plain`` at the
+   flagship's luma and chroma shapes; K3 (small-batch remap) against
+   ``remap_plain`` at those shapes at batch 1, 2 and 7, and on small
+   barrel cases for the clamp-with-fill (linear) and REFLECT_101
+   (lanczos4) rules; K2 at batch 8, 16, 32 and 64, the JAX package's
+   B3/B4 range;
+4. the batch path: ``open_filter(<flagship>, 3840, 2160, device="cuda")
+   .transform(y, u, v)`` on 128 video-like frames, with every launch
+   counter set to 0 just before it and read just after (K1 and K2, not
+   K3); its output against the plain functions on the same tensors, and
+   a small size against the CPU engine;
 5. times with CUDA events after warm-up (medians, with a tail percentile
-   and the sample count): each kernel beside its plain version, in turns,
-   and the whole flagship step at batch 128.
+   and the sample count): K1 and K2 beside their plain versions on 16
+   luma frames, in turns, and the whole flagship step at batch 128;
+6. the latency path: ``transform(y, u, v)`` with ``[H, W]`` planes, the
+   counters set to 0 just before it and read just after (K1 and K3, not
+   K2), its output against the plain path; device time and host wall;
+   K3 beside its plain version on one luma frame;
+7. the batch ladder 1 ... 128: whole-step device ms, frames/s and host
+   wall, K3 and K2 side by side on the luma plane and on the stacked
+   chroma planes (2 per frame), and the tile plan's build time;
+8. the CLI (``transform360_tpu_torch.cli.main``) on a raw yuv420p file of
+   8 frames at 3840x2160, ``--batch 1`` and ``--batch 8``: its output
+   bytes equal the API's; wall time per frame.
 
 Bound for kernel vs plain: at most 1 LSB on under 0.5% of the pixels
-(the kernels are built to be bit-identical, so 0 is expected).  The
+(the kernels are built to be bit-identical, so 0 is expected).  Every
+timing line carries ``nvidia-smi``'s name and power limit.  The
 second-to-last line is a JSON object with each kernel's numbers; the last
 is ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero; without a GPU the script exits non-zero before printing a
@@ -30,9 +49,11 @@ result.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 FLAGSHIP = (
@@ -41,7 +62,10 @@ FLAGSHIP = (
 )
 IN_W, IN_H = 3840, 2160
 BATCH = 128
+LADDER = (1, 2, 4, 7, 8, 16, 32, 64, 128)
 MAX_WRONG = 0.005  # fraction of pixels allowed to differ, by 1 LSB at most
+HBM_BYTES_PER_MS = 3.35e9  # H100 SXM: 3.35 TB/s
+FP32_FLOP_PER_MS = 67e9  # H100 SXM: 67 TFLOP/s float32 outside the tensor cores
 
 
 def say(msg: str) -> None:
@@ -105,10 +129,68 @@ def cuda_times(fn, reps: int) -> list:
     return times
 
 
+def host_walls(fn, reps: int) -> list:
+    """Milliseconds of host wall of each of reps runs of fn() + synchronize."""
+    import torch
+
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return walls
+
+
 def pct(xs, q: float) -> float:
     """The q-quantile of xs (nearest rank)."""
     s = sorted(xs)
     return s[min(len(s) - 1, int(q * len(s)))]
+
+
+def in_turns(kern, plain, rounds=10, per_round=4):
+    """(kernel median, plain median, kernel samples) timed in turns."""
+    kern(), plain()  # warm-up
+    ks, ps = [], []
+    for _ in range(rounds):  # plain, kernel x per_round, plain, ...
+        ps += cuda_times(plain, 1)
+        ks += cuda_times(kern, per_round)
+    return statistics.median(ks), statistics.median(ps), ks
+
+
+def tensor_bytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def bound(nbytes: float, flops: float):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    float32 operations over the card's peak float32 rate."""
+    tb, to = nbytes / HBM_BYTES_PER_MS, flops / FP32_FLOP_PER_MS
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def remap_bound(ds, B: int, plan_bytes: int):
+    """The remap's compulsory bytes (plane in, plane out, its plan once)
+    and its multiply-adds (T*T taps per output pixel and frame)."""
+    n = ds.out_shape[0] * ds.out_shape[1]
+    nbytes = B * ds.in_h * ds.in_w + B * n + plan_bytes
+    return bound(nbytes, 2.0 * ds.taps * ds.taps * n * B)
+
+
+def blur_bound(bt, B: int):
+    """The prefilter's compulsory bytes (plane in, plane out, its tables)
+    and its multiply-adds: each output pixel of a band row takes its
+    band's x taps and y taps."""
+    import numpy as np
+
+    rb = bt.row_band.cpu().numpy()
+    rx, ry = bt.rx.cpu().numpy(), bt.ry.cpu().numpy()
+    rows = rb >= 0
+    taps = (2 * rx[rb[rows]] + 1) + (2 * ry[rb[rows]] + 1)
+    flops = 2.0 * float(np.sum(taps)) * bt.W * B
+    tables = tensor_bytes(bt.s_src, bt.s_band, bt.row_band, bt.row_s0, bt.col_seg,
+                          bt.kx, bt.rx, bt.ky, bt.ry)
+    return bound(2 * B * bt.H * bt.W + tables, flops)
 
 
 def main() -> int:
@@ -119,10 +201,25 @@ def main() -> int:
               file=sys.stderr)
         return 2
 
-    from transform360_tpu_torch import open_filter
+    import numpy as np
+
+    from transform360_tpu_torch import build_plan, cli, open_filter, pipeline
+    from transform360_tpu_torch.config import (
+        Interpolation, Layout, StereoFormat, TransformConfig,
+    )
     from transform360_tpu_torch.filtering import blur_plain
-    from transform360_tpu_torch.ops import _build, blur, remap
+    from transform360_tpu_torch.ops import _build, blur, remap, window
     from transform360_tpu_torch.sampling import remap_plain, round_u8
+    from transform360_tpu_torch.utils.yuv import write_yuv420_batch
+
+    counters = {"blur": blur, "remap": remap, "window": window}
+
+    def reset_counts():
+        for m in counters.values():
+            m.LAUNCHES = 0
+
+    def read_counts():
+        return {k: m.LAUNCHES for k, m in counters.items()}
 
     # -- 1. device -------------------------------------------------------
     kind = torch.cuda.get_device_name(0)
@@ -136,14 +233,16 @@ def main() -> int:
 
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    _build.library("blur")
-    _build.library("remap")
-    say(f"[2] built blur.cu + remap.cu for sm_90a in {time.perf_counter() - t0:.2f} s "
+    _build.build_all(["blur", "remap", "window"])
+    say(f"[2] built blur.cu + remap.cu + window.cu for sm_90a in "
+        f"{time.perf_counter() - t0:.2f} s, one nvcc each in parallel "
         f"(nvcc: {_build.BUILD_SECONDS})")
     for name, log in _build.BUILD_LOG.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "smem" in line:
                 say(f"    ptxas {name}: {line.strip()}")
+    say(f"    K3 dynamic shared memory per CTA: {window.TABLE_BYTES} B weight table "
+        f"+ 2 x the class's window bytes (classes {window.CLASS_BYTES} B)")
 
     # -- plan (CPU) ------------------------------------------------------
     t0 = time.perf_counter()
@@ -153,9 +252,26 @@ def main() -> int:
     chroma_t = plan.chroma.tables("cuda")
     say(f"    plan {IN_W}x{IN_H} -> {plan.out_w}x{plan.out_h} built and moved in "
         f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    wplans = [window.build_window_plan(pp.spec, pp.fill) for pp in (plan.luma, plan.chroma)]
+    t_wplan = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    luma_w = plan.luma.window_tables("cuda")
+    chroma_w = plan.chroma.window_tables("cuda")
+    torch.cuda.synchronize()
+    t_wmove = time.perf_counter() - t0
+    for pname, wp in zip(("luma", "chroma"), wplans):
+        staged = wp.meta[:, 5] > 0
+        halo = float((wp.meta[:, 4] * wp.meta[:, 5])[staged].sum()) / (wp.in_h * wp.in_w)
+        say(f"    K3 tile plan {pname}: {wp.meta.shape[0]} tiles of {window.TH}x{window.TW}, "
+            f"per class {[int((wp.tile_class == c).sum()) for c in range(len(window.CLASS_BYTES))]}"
+            f", {int((~staged).sum())} global-path tiles; launches (first, tiles, window "
+            f"bytes) {wp.groups}; windows stage {halo:.3f}x the plane's bytes per frame")
+    say(f"    K3 tile plans built in {t_wplan:.3f} s (numpy, luma + chroma), "
+        f"built again and moved by window_tables in {t_wmove:.3f} s")
 
     y, u, v = video_like_planes(IN_W, IN_H)
-    err = {"blur": 0, "remap": 0}
+    err = {"blur": 0, "remap": 0, "window": 0}
 
     # -- 3. kernels vs plain on the card -----------------------------------
     rng = torch.Generator(device="cuda").manual_seed(0)
@@ -174,22 +290,57 @@ def main() -> int:
             want = round_u8(remap_plain(t.remap, x))
             torch.cuda.synchronize()
             err["remap"] = max(err["remap"], compare(got, want, f"K2 {pname}"))
+            for b in (1, 2, 7):
+                got = window.remap_window_u8(pp.window_tables("cuda"), x[:b].contiguous())
+                want = round_u8(remap_plain(t.remap, x[:b]))
+                torch.cuda.synchronize()
+                err["window"] = max(err["window"], compare(got, want, f"K3 {pname} b={b}"))
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     say(f"[3] K1 vs blur_plain, K2 vs remap_plain at luma {plan.luma.in_h}x{plan.luma.in_w}"
         f" and chroma {plan.chroma.in_h}x{plan.chroma.in_w}, TF32 on and off: "
         f"max |diff| blur {err['blur']} LSB, remap {err['remap']} LSB")
-
-    # -- 4. main path ------------------------------------------------------
+    say(f"[3] K3 vs remap_plain at the same shapes, batch 1, 2 and 7, TF32 on and off: "
+        f"max |diff| {err['window']} LSB")
+    mono = dict(input_stereo_format=StereoFormat.MONO, output_stereo_format=StereoFormat.MONO)
+    small = (
+        ("barrel+linear (clamp-with-fill)", TransformConfig(
+            output_layout=Layout.BARREL, interpolation_alg=Interpolation.LINEAR, **mono),
+         1024, 512, 640, 256),
+        ("barrel+lanczos4 (REFLECT_101)", TransformConfig(
+            output_layout=Layout.BARREL_SPLIT, interpolation_alg=Interpolation.LANCZOS4,
+            **mono), 1024, 512, 768, 256),
+    )
+    for what, cfg, iw, ih, ow, oh in small:
+        sp = build_plan(cfg, iw, ih, ow, oh, "yuv420p")
+        for pp in (sp.luma, sp.chroma):
+            for b in (1, 3):
+                x = torch.randint(0, 256, (b, pp.in_h, pp.in_w), dtype=torch.uint8,
+                                  device="cuda", generator=rng)
+                got = window.remap_window_u8(pp.window_tables("cuda"), x)
+                want = round_u8(remap_plain(pp.tables("cuda").remap, x))
+                torch.cuda.synchronize()
+                err["window"] = max(err["window"], compare(got, want, f"K3 {what}"))
+        say(f"[3] K3 vs remap_plain, {what} {iw}x{ih} -> {ow}x{oh}, luma and chroma, "
+            f"batch 1 and 3: max |diff| {err['window']} LSB")
     yb, ub, vb = batch_of(y, BATCH), batch_of(u, BATCH), batch_of(v, BATCH)
+    for b in (8, 16, 32, 64):
+        got = remap.remap_u8(luma_t.remap, yb[:b])
+        want = round_u8(remap_plain(luma_t.remap, yb[:b]))
+        torch.cuda.synchronize()
+        err["remap"] = max(err["remap"], compare(got, want, f"K2 luma b={b}"))
+        del want
+    say(f"[3] K2 vs remap_plain on flagship luma at batch 8, 16, 32, 64 (the B3/B4 "
+        f"range): max |diff| {err['remap']} LSB")
+
+    # -- 4. batch path -----------------------------------------------------
     torch.cuda.synchronize()
-    blur.LAUNCHES = 0
-    remap.LAUNCHES = 0
+    reset_counts()
     oy, ou, ov = eng.transform(yb, ub, vb)
     torch.cuda.synchronize()
-    launches = {"blur": blur.LAUNCHES, "remap": remap.LAUNCHES}
-    if min(launches.values()) <= 0:
-        raise SystemExit(f"FAIL main path did not launch every kernel: {launches}")
+    launches = read_counts()
+    if launches["blur"] <= 0 or launches["remap"] <= 0 or launches["window"] != 0:
+        raise SystemExit(f"FAIL batch path did not launch K1 and K2 (and not K3): {launches}")
     want_shapes = [(BATCH, plan.out_h, plan.out_w)] + 2 * [
         (BATCH, plan.chroma.out_h, plan.chroma.out_w)
     ]
@@ -203,14 +354,14 @@ def main() -> int:
     ):
         x = xin[frames]
         want = round_u8(remap_plain(t.remap, round_u8(blur_plain(t.blur.plan, x.float()))))
-        compare(o[frames], want, f"main path {pname} vs plain")
-    small = FLAGSHIP.replace("=512", "=64")
+        compare(o[frames], want, f"batch path {pname} vs plain")
+    small_opts = FLAGSHIP.replace("=512", "=64")
     sy, su, sv = video_like_planes(512, 256)
-    g = open_filter(small, 512, 256, device="cuda").transform(sy, su, sv)
-    c = open_filter(small, 512, 256, device="cpu").transform(sy, su, sv)
+    g = open_filter(small_opts, 512, 256, device="cuda").transform(sy, su, sv)
+    c = open_filter(small_opts, 512, 256, device="cpu").transform(sy, su, sv)
     for a, b, pname in zip(g, c, "YUV"):
         compare(a.cpu(), b, f"small {pname} cuda vs cpu engine")
-    say(f"[4] main path {IN_W}x{IN_H} -> {plan.out_w}x{plan.out_h} yuv420p, batch {BATCH}: "
+    say(f"[4] batch path {IN_W}x{IN_H} -> {plan.out_w}x{plan.out_h} yuv420p, batch {BATCH}: "
         f"shapes ok, frames {frames} match the plain path, 512x256 matches the CPU "
         f"engine; launches {launches}")
 
@@ -226,37 +377,163 @@ def main() -> int:
         "remap": (lambda: remap.remap_u8(luma_t.remap, bl),
                   lambda: round_u8(remap_plain(luma_t.remap, bl))),
     }
-    for name, (kern, plain) in runs.items():
-        kern(), plain()  # warm-up
-        ks, ps = [], []
-        for _ in range(10):  # in turns: plain, kernel x4, plain, kernel x4, ...
-            ps += cuda_times(plain, 1)
-            ks += cuda_times(kern, 4)
-        times[name] = (statistics.median(ks), statistics.median(ps))
-        say(f"[5] {name}: kernel median {times[name][0]:.3f} ms (p75 {pct(ks, 0.75):.3f}, "
-            f"n={len(ks)}), plain median {times[name][1]:.3f} ms (n={len(ps)}) per call on "
+    for name, (kern, plain_fn) in runs.items():
+        km, pm, ks = in_turns(kern, plain_fn)
+        times[name] = (km, pm)
+        say(f"[5] {name}: kernel median {km:.4f} ms (p75 {pct(ks, 0.75):.4f}, "
+            f"n={len(ks)}), plain median {pm:.4f} ms per call on "
             f"{tb} luma frames {IN_W}x{IN_H}  ({smi})")
+    bounds = {
+        "blur": blur_bound(luma_t.blur, tb),
+        "remap": remap_bound(luma_t.remap, tb, tensor_bytes(
+            luma_t.remap.base_y, luma_t.remap.base_x, luma_t.remap.fy, luma_t.remap.fx,
+            luma_t.remap.valid, luma_t.remap.wtab)),
+    }
     cuda_times(lambda: eng.transform(yb, ub, vb), 2)  # warm-up
     steps = cuda_times(lambda: eng.transform(yb, ub, vb), 100)
     step = statistics.median(steps)
-    walls = []
-    for _ in range(10):
-        t0 = time.perf_counter()
-        eng.transform(yb, ub, vb)
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    say(f"[5] flagship step, batch {BATCH}: device median {step:.3f} ms "
-        f"(p90 {pct(steps, 0.9):.3f}, n={len(steps)}) = {BATCH / step * 1e3:.1f} frames/s; "
-        f"host wall incl. sync median {statistics.median(walls):.3f} ms (n={len(walls)})  "
-        f"({smi})")
+    walls = host_walls(lambda: eng.transform(yb, ub, vb), 10)
+    say(f"[5] flagship step, batch {BATCH}: device median {step:.4f} ms "
+        f"(p90 {pct(steps, 0.9):.4f}, n={len(steps)}) = {BATCH / step * 1e3:.1f} frames/s; "
+        f"host wall incl. sync median {statistics.median(walls):.4f} ms "
+        f"(p90 {pct(walls, 0.9):.4f}, n={len(walls)})  ({smi})")
+
+    # -- 6. latency path ---------------------------------------------------
+    y1, u1, v1 = yb[0], ub[0], vb[0]  # [H, W] planes on the card
+    torch.cuda.synchronize()
+    reset_counts()
+    ly, lu, lv = eng.transform(y1, u1, v1)
+    torch.cuda.synchronize()
+    lat_launches = read_counts()
+    if lat_launches["blur"] <= 0 or lat_launches["window"] <= 0 or lat_launches["remap"] != 0:
+        raise SystemExit(f"FAIL latency path did not launch K1 and K3 (and not K2): "
+                         f"{lat_launches}")
+    for pname, xin, o, t in (("Y", y1, ly, luma_t), ("U", u1, lu, chroma_t),
+                             ("V", v1, lv, chroma_t)):
+        want = round_u8(remap_plain(t.remap, round_u8(blur_plain(t.blur.plan, xin[None].float()))))
+        if tuple(o.shape) != tuple(want.shape[1:]):
+            raise SystemExit(f"FAIL latency path {pname} shape {tuple(o.shape)}")
+        compare(o[None], want, f"latency path {pname} vs plain")
+        compare(o, oy[0] if pname == "Y" else (ou[0] if pname == "U" else ov[0]),
+                f"latency path {pname} vs the same frame in the batch")
+    say(f"[6] latency path, one [H, W] frame {IN_W}x{IN_H}: output matches the plain "
+        f"path and frame 0 of the batch; launches {lat_launches}")
+    lat = cuda_times(lambda: eng.transform(y1, u1, v1), 5)
+    lat = cuda_times(lambda: eng.transform(y1, u1, v1), 200)
+    lat_walls = host_walls(lambda: eng.transform(y1, u1, v1), 200)
+    yn, un, vn = y, u, v  # numpy planes: host to device and back included
+
+    def from_host():
+        return [o.cpu() for o in eng.transform(yn, un, vn)]
+
+    e2e = host_walls(from_host, 50)
+    say(f"[6] latency, batch 1: device median {statistics.median(lat):.4f} ms "
+        f"(p90 {pct(lat, 0.9):.4f}, n={len(lat)}); host wall incl. sync, planes on the "
+        f"card, median {statistics.median(lat_walls):.4f} ms (p90 {pct(lat_walls, 0.9):.4f}, "
+        f"n={len(lat_walls)}); numpy in to CPU tensors out median "
+        f"{statistics.median(e2e):.4f} ms (p90 {pct(e2e, 0.9):.4f}, n={len(e2e)})  ({smi})")
+    x1 = yb[:1].contiguous()
+    c2 = torch.cat([ub[:1], vb[:1]])
+    stages = {
+        "K1 luma": lambda: blur.blur_u8(luma_t.blur, x1),
+        "K1 chroma (U+V)": lambda: blur.blur_u8(chroma_t.blur, c2),
+        "K3 luma": lambda: window.remap_window_u8(luma_w, x1),
+        "K3 chroma (U+V)": lambda: window.remap_window_u8(chroma_w, c2),
+        "cat of U and V": lambda: torch.cat([ub[0][None], vb[0][None]]),
+    }
+    parts = {}
+    for name, fn in stages.items():
+        cuda_times(fn, 3)
+        parts[name] = statistics.median(cuda_times(fn, 50))
+    say(f"[6] batch-1 stages, device medians of 50 by CUDA events: "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items())
+        + f"; sum {sum(parts.values()):.4f} ms  ({smi})")
+    km, pm, ks = in_turns(lambda: window.remap_window_u8(luma_w, x1),
+                          lambda: round_u8(remap_plain(luma_t.remap, x1)), rounds=20)
+    times["window"] = (km, pm)
+    wplan_bytes = tensor_bytes(luma_w.meta, luma_w.pos, luma_w.fy, luma_w.fx, luma_w.w1)
+    bounds["window"] = remap_bound(luma_t.remap, 1, wplan_bytes)
+    say(f"[6] window: kernel median {km:.4f} ms (p75 {pct(ks, 0.75):.4f}, n={len(ks)}), "
+        f"plain median {pm:.4f} ms per call on 1 luma frame {IN_W}x{IN_H}; "
+        f"bound {bounds['window'][0]:.4f} ms ({bounds['window'][1]}; "
+        f"{wplan_bytes / 1e6:.2f} MB of tile plan)  ({smi})")
+
+    # -- 7. ladder ---------------------------------------------------------
+    ladder = []
+    for b in LADDER:
+        ys, us, vs = yb[:b], ub[:b], vb[:b]
+        cuda_times(lambda: eng.transform(ys, us, vs), 3)
+        reps = max(10, 400 // b)
+        dev = cuda_times(lambda: eng.transform(ys, us, vs), reps)
+        hw = host_walls(lambda: eng.transform(ys, us, vs), max(5, reps // 4))
+        row = {"batch": b, "step_ms": statistics.median(dev), "step_p90": pct(dev, 0.9),
+               "n": len(dev), "fps": b / statistics.median(dev) * 1e3,
+               "wall_ms": statistics.median(hw)}
+        cs = torch.cat([ub[:b], vb[:b]])
+        for pname, xk, wt, ds in (("luma", yb[:b], luma_w, luma_t.remap),
+                                  ("chroma", cs, chroma_w, chroma_t.remap)):
+            k3 = lambda: window.remap_window_u8(wt, xk)
+            k2 = lambda: remap.remap_u8(ds, xk)
+            k3(), k2()
+            r3, r2 = [], []
+            for _ in range(6):  # in turns: K2, K3, K3, K2, ...
+                r2 += cuda_times(k2, 2)
+                r3 += cuda_times(k3, 4)
+                r2 += cuda_times(k2, 2)
+            row[pname] = (statistics.median(r3), statistics.median(r2), len(r3), len(r2))
+        ladder.append(row)
+        say(f"[7] batch {b:3d}: step device median {row['step_ms']:.4f} ms "
+            f"(p90 {row['step_p90']:.4f}, n={row['n']}) = {row['fps']:.1f} frames/s, host "
+            f"wall {row['wall_ms']:.4f} ms (n={len(hw)}); remap K3 vs K2: luma "
+            f"{row['luma'][0]:.4f} vs {row['luma'][1]:.4f} ms, chroma ({2 * b} planes) "
+            f"{row['chroma'][0]:.4f} vs {row['chroma'][1]:.4f} ms "
+            f"(n={row['luma'][2]}/{row['luma'][3]}); routes luma "
+            f"{'K3' if b <= pipeline.WINDOW_MAX_BATCH else 'K2'}, chroma "
+            f"{'K3' if 2 * b <= pipeline.WINDOW_MAX_BATCH else 'K2'}  ({smi})")
+    for pname in ("luma", "chroma"):
+        wins = [r["batch"] for r in ladder if r[pname][0] < r[pname][1]]
+        say(f"[7] K3 beats K2 on the flagship {pname} plane at frame batches {wins}; "
+            f"WINDOW_MAX_BATCH = {pipeline.WINDOW_MAX_BATCH} (plane batch)")
+
+    # -- 8. CLI ------------------------------------------------------------
+    n_cli = 8
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "in.yuv")
+        write_yuv420_batch(src, *(t[:n_cli].cpu().numpy() for t in (yb, ub, vb)))
+        api = eng.transform(yb[:n_cli], ub[:n_cli], vb[:n_cli])
+        api = [o.cpu().numpy() for o in api]
+        want = b"".join(api[p][k].tobytes() for k in range(n_cli) for p in range(3))
+        for b in (1, 8):
+            out = os.path.join(tmp, f"out{b}.yuv")
+            t0 = time.perf_counter()
+            rc = cli.main(["--vf", FLAGSHIP, "--input-size", f"{IN_W}x{IN_H}", "-i", src,
+                           "-o", out, "--batch", str(b), "--device", "cuda"])
+            dt = time.perf_counter() - t0
+            with open(out, "rb") as f:
+                got = f.read()
+            if rc != 0 or got != want:
+                raise SystemExit(f"FAIL CLI --batch {b}: rc {rc}, output "
+                                 f"{'equals' if got == want else 'differs from'} the API's")
+            say(f"[8] CLI --batch {b}: {n_cli} frames {IN_W}x{IN_H} raw yuv420p, output "
+                f"bytes equal the API's; wall {dt * 1e3 / n_cli:.2f} ms per frame "
+                f"(file IO included)  ({smi})")
+
+    def entry(name, src, replaces, **extra):
+        return {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                "launches": (lat_launches if name == "window" else launches)[name],
+                "max_abs_err": err[name], "ms": times[name][0],
+                "plain_ms": times[name][1], "bound_ms": bounds[name][0],
+                "bound_by": bounds[name][1], "library_ms": None, **extra}
 
     kernels = [
-        {"name": "blur", "route": "cuda", "source": "transform360_tpu_torch/csrc/blur.cu",
-         "replaces": "transform360_tpu/ops/blur_lane.py:269", "launches": launches["blur"],
-         "max_abs_err": err["blur"], "ms": times["blur"][0], "plain_ms": times["blur"][1]},
-        {"name": "remap", "route": "cuda", "source": "transform360_tpu_torch/csrc/remap.cu",
-         "replaces": "transform360_tpu/ops/remap_lane.py:906", "launches": launches["remap"],
-         "max_abs_err": err["remap"], "ms": times["remap"][0], "plain_ms": times["remap"][1]},
+        entry("blur", "transform360_tpu_torch/csrc/blur.cu",
+              "transform360_tpu/ops/blur_lane.py:269", batches="all", shape="16 luma frames"),
+        entry("remap", "transform360_tpu_torch/csrc/remap.cu",
+              "transform360_tpu/ops/remap_lane.py:906", serves="B2, B3, B4",
+              batches=f">{pipeline.WINDOW_MAX_BATCH}", shape="16 luma frames"),
+        entry("window", "transform360_tpu_torch/csrc/window.cu",
+              "transform360_tpu/ops/remap_pallas.py:441", serves="B5",
+              batches=f"1-{pipeline.WINDOW_MAX_BATCH}", shape="1 luma frame"),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,10 +1,11 @@
 """The CUDA kernels against their plain PyTorch versions, on a GPU.
 
-K1 (csrc/blur.cu) and K2 (csrc/remap.cu) are built to round exactly where
-``blur_plain`` and ``remap_plain`` do, so the bound asserted here — at most
-1 LSB on under 0.5% of pixels — is expected to hold with 0 differences.
-The cases cover every border rule and tap count of K2 and every stereo
-raster of K1 at small sizes.  Marked ``cuda``: they skip without a GPU.
+K1 (csrc/blur.cu), K2 (csrc/remap.cu) and K3 (csrc/window.cu) are built to
+round exactly where ``blur_plain`` and ``remap_plain`` do, so the bound
+asserted here — at most 1 LSB on under 0.5% of pixels — is expected to
+hold with 0 differences.  The cases cover every border rule and tap count
+of K2 and K3 and every stereo raster of K1 at small sizes, and K3's
+global-path tiles.  Marked ``cuda``: they skip without a GPU.
 On the GPU host, which has no jax, run them without the suite's
 conftest.py (which imports jax):
 
@@ -18,7 +19,8 @@ import torch
 import transform360_tpu_torch as P
 from transform360_tpu_torch.config import Interpolation, Layout, StereoFormat, TransformConfig
 from transform360_tpu_torch.filtering import blur_plain
-from transform360_tpu_torch.ops import blur, remap
+from transform360_tpu_torch import pipeline
+from transform360_tpu_torch.ops import blur, remap, window
 from transform360_tpu_torch.sampling import remap_plain, round_u8
 
 pytestmark = pytest.mark.cuda
@@ -110,3 +112,59 @@ def test_engine_cuda_matches_engine_cpu(pix_fmt, gpu):
     for a, b in zip(got, want):
         assert a.device.type == "cuda"
         _assert_close(a.cpu(), b, f"engine {pix_fmt}")
+
+
+@pytest.mark.parametrize("name", sorted(CASES) + ["decimated-global"])
+def test_window_kernel_matches_plain(name, gpu):
+    if name == "decimated-global":  # pole windows beyond every class
+        cfg, iw, ih, ow, oh = TransformConfig(**MONO), 2048, 1024, 192, 128
+    else:
+        cfg, iw, ih, ow, oh = CASES[name]
+    plan = P.build_plan(cfg, iw, ih, ow, oh, "yuv420p")
+    g = torch.Generator(device=gpu).manual_seed(1)
+    for pp in (plan.luma, plan.chroma):
+        wt = pp.window_tables(gpu)
+        for B in (1, 3, 8):
+            x = torch.randint(0, 256, (B, pp.in_h, pp.in_w), dtype=torch.uint8,
+                              device=gpu, generator=g)
+            n = window.LAUNCHES
+            got = window.remap_window_u8(wt, x)
+            torch.cuda.synchronize()
+            assert window.LAUNCHES == n + len(wt.groups)
+            want = round_u8(remap_plain(pp.tables(gpu).remap, x))
+            assert torch.equal(got, want), f"K3 {name} B={B}"
+    if name == "decimated-global":
+        wp = window.build_window_plan(plan.luma.spec, plan.luma.fill)
+        assert (wp.tile_class < 0).any()
+
+
+def test_window_kernel_unaligned_plane(gpu):
+    # a plane that does not start on a 16-byte boundary: byte loads only
+    cfg, iw, ih, ow, oh = CASES["cubic-cubemap"]
+    pp = P.build_plan(cfg, iw, ih, ow, oh, "gray").luma
+    wt = pp.window_tables(gpu)
+    buf = torch.randint(0, 256, (2 * ih * iw + 1,), dtype=torch.uint8, device=gpu)
+    x = buf[1:].view(2, ih, iw)
+    got = window.remap_window_u8(wt, x)
+    assert torch.equal(got, round_u8(remap_plain(pp.tables(gpu).remap, x)))
+
+
+def test_engine_routes_by_batch_on_the_card(gpu):
+    opts = "cube_edge_length=64:interpolation_alg=cubic:input_stereo_format=mono"
+    rng = np.random.default_rng(4)
+    k = pipeline.WINDOW_MAX_BATCH
+    y = rng.integers(0, 256, (2 * k + 2, 256, 512), dtype=np.uint8)
+    uv = [rng.integers(0, 256, (2 * k + 2, 128, 256), dtype=np.uint8) for _ in range(2)]
+    eng = P.open_filter(opts, 512, 256, device=gpu)
+    cpu = P.open_filter(opts, 512, 256, device="cpu")
+    for b, want_k3, want_k2 in ((1, 2, 0), (2 * k + 2, 0, 2)):
+        planes = (y[0], uv[0][0], uv[1][0]) if b == 1 else (y, *uv)
+        n3, n2 = window.LAUNCHES, remap.LAUNCHES
+        got = eng.transform(*planes)
+        torch.cuda.synchronize()
+        wt = (eng.plan.luma.window_tables(gpu), eng.plan.chroma.window_tables(gpu))
+        groups = len(wt[0].groups) + len(wt[1].groups)
+        assert window.LAUNCHES - n3 == (groups if want_k3 else 0)
+        assert remap.LAUNCHES - n2 == want_k2
+        for a, c in zip(got, cpu.transform(*planes)):
+            assert torch.equal(a.cpu(), c)

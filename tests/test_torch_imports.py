@@ -3,6 +3,7 @@ its CUDA sources, and refuses (never falls back from) a CUDA request it
 cannot serve."""
 
 import os
+import pkgutil
 import subprocess
 import sys
 import tomllib
@@ -13,23 +14,21 @@ import pytest
 import torch
 
 import transform360_tpu_torch as t3
-from transform360_tpu_torch.ops import _build, blur, remap
+from transform360_tpu_torch.ops import _build, blur, remap, window
 
 ROOT = Path(__file__).resolve().parent.parent
-MODULES = [
-    "transform360_tpu_torch",
-    "transform360_tpu_torch.api",
-    "transform360_tpu_torch.config",
-    "transform360_tpu_torch.filtering",
-    "transform360_tpu_torch.geometry",
-    "transform360_tpu_torch.pipeline",
-    "transform360_tpu_torch.plan",
-    "transform360_tpu_torch.sampling",
-    "transform360_tpu_torch.utils.expr",
-    "transform360_tpu_torch.ops.blur",
-    "transform360_tpu_torch.ops.remap",
-    "transform360_tpu_torch.ops._build",
-]
+# every module of the package, found by walking it (a new module cannot
+# escape the check)
+MODULES = ["transform360_tpu_torch"] + sorted(
+    m.name for m in pkgutil.walk_packages(t3.__path__, "transform360_tpu_torch.")
+)
+
+
+def test_every_module_is_walked():
+    for m in ("transform360_tpu_torch.ops.window", "transform360_tpu_torch.cli",
+              "transform360_tpu_torch.utils.yuv", "transform360_tpu_torch.utils.video",
+              "transform360_tpu_torch.utils.profiling", "transform360_tpu_torch.ops.remap"):
+        assert m in MODULES
 
 
 def test_import_pulls_in_no_jax():
@@ -50,7 +49,7 @@ def test_import_pulls_in_no_jax():
 
 
 def test_cuda_sources_exist_and_are_packaged():
-    for name in ("blur.cu", "remap.cu", "common.cuh"):
+    for name in ("blur.cu", "remap.cu", "window.cu", "common.cuh"):
         assert (_build.CSRC / name).is_file()
     with open(ROOT / "pyproject.toml", "rb") as f:
         data = tomllib.load(f)["tool"]["setuptools"]["package-data"]
@@ -80,8 +79,10 @@ def test_wrappers_refuse_other_devices_and_bad_inputs():
         "cube_edge_length=32:input_stereo_format=mono", 256, 128, device="cpu"
     )
     t = eng.plan.luma.tables("cpu")
+    wt = eng.plan.luma.window_tables("cpu")
     meta = torch.empty((1, 128, 256), dtype=torch.uint8, device="meta")
-    for fn, tab in ((blur.blur_u8, t.blur), (remap.remap_u8, t.remap)):
+    for fn, tab in ((blur.blur_u8, t.blur), (remap.remap_u8, t.remap),
+                    (window.remap_window_u8, wt)):
         with pytest.raises(ValueError):
             fn(tab, meta)  # neither cpu nor cuda: no silent fallback
         with pytest.raises(TypeError):
@@ -91,10 +92,11 @@ def test_wrappers_refuse_other_devices_and_bad_inputs():
         with pytest.raises(ValueError):
             fn(tab, torch.zeros((1, 256, 128), dtype=torch.uint8).transpose(1, 2))
     # CPU tensors run the plain versions and never count as kernel launches
-    before = (blur.LAUNCHES, remap.LAUNCHES)
-    x = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (2, 128, 256), np.uint8))
-    assert eng.transform_frame_plane(x, 0, 256, 128).shape == (2, 64, 96)
-    assert (blur.LAUNCHES, remap.LAUNCHES) == before
+    before = (blur.LAUNCHES, remap.LAUNCHES, window.LAUNCHES)
+    x = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (9, 128, 256), np.uint8))
+    assert eng.transform_frame_plane(x[:2], 0, 256, 128).shape == (2, 64, 96)  # K3's route
+    assert eng.transform_frame_plane(x, 0, 256, 128).shape == (9, 64, 96)  # K2's route
+    assert (blur.LAUNCHES, remap.LAUNCHES, window.LAUNCHES) == before
 
 
 @pytest.mark.parametrize(

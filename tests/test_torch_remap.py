@@ -7,10 +7,16 @@
   interpret mode (with the BORDER_TRANSPARENT fix-up the pipeline applies):
   at most 1 LSB on under 0.5% of pixels (the bound of
   tests/test_remap_lane.py: the lane kernel contracts y taps first).
+* ``remap_plain`` against the pack-K (B3, ``build_lane_pack``) and
+  merged-window (B4, ``build_lane_merged``) lane kernels at K = 2, the
+  JAX pipeline's batch 8-64 route, in interpret mode at batch 8 and 20:
+  the same bound.  K2 serves that batch range in the port, so these hold
+  K2's function against B3 and B4.
 The CUDA kernel K2 itself runs only on a GPU (tests/test_torch_cuda.py,
 chip_smoke.py).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,7 +24,13 @@ import torch
 
 import transform360_tpu as J
 from transform360_tpu.config import Interpolation, Layout, StereoFormat, TransformConfig
-from transform360_tpu.ops.remap_lane import build_lane_remap, remap_lane
+from transform360_tpu.ops.remap_lane import (
+    build_lane_merged,
+    build_lane_pack,
+    build_lane_remap,
+    remap_lane,
+    remap_lane_hwb_pack,
+)
 from transform360_tpu.pipeline import _round_u8
 from transform360_tpu.sampling import fixup_values, partial_fixup, remap_const
 from transform360_tpu_torch.ops.remap import remap_u8
@@ -75,3 +87,44 @@ def test_remap_plain_vs_remap_lane_interpret(interp, layout, rng):
     diff = np.abs(got.astype(int) - want.astype(int))
     assert diff.max() <= 1, f"max diff {diff.max()}"
     assert (diff > 0).mean() < 0.005
+
+
+def _assert_within_a_tie(got, want):
+    diff = np.abs(got.astype(int) - want.astype(int))
+    assert diff.max() <= 1, f"max diff {diff.max()}"
+    assert (diff > 0).mean() < 0.005, (diff > 0).mean()
+
+
+@pytest.mark.parametrize(
+    "kernel, interp, layout",
+    [("B3-pack", Interpolation.CUBIC, Layout.CUBEMAP_32),
+     ("B4-merged", Interpolation.CUBIC, Layout.CUBEMAP_32),
+     ("B4-merged", Interpolation.LINEAR, Layout.BARREL)],
+)
+def test_remap_plain_vs_lane_pack_and_merged_interpret(kernel, interp, layout):
+    """Set up as tests/test_remap_lane.py's pack cases and the pipeline's
+    pack route (pipeline.py:179-204): frames zero-padded to a 64-lane
+    group and duplicated into both groups, [H, W, 128] in."""
+    jpp, ds = _case(interp, layout)
+    lp = build_lane_remap(jpp.spec, jpp.fill)
+    build = build_lane_pack if kernel == "B3-pack" else build_lane_merged
+    pk = build(lp, 2)
+    assert pk is not None and pk.packs
+    G = 64
+    # one compile serves both batches: the padded lane layout has one shape
+    run = jax.jit(lambda ct: remap_lane_hwb_pack(pk, ct, interpret=True))
+    fix = partial_fixup(jpp.spec, float(jpp.fill))
+    rng = np.random.default_rng(11)
+    for B in (8, 20):
+        x = rng.integers(0, 256, (B, jpp.in_h, jpp.in_w), dtype=np.uint8)
+        c = np.concatenate([x, np.zeros((G - B,) + x.shape[1:], np.uint8)])
+        ct = jnp.transpose(jnp.asarray(np.concatenate([c, c])), (1, 2, 0))
+        want = np.array(run(ct))[:B]
+        if fix is not None:  # the pipeline's BORDER_TRANSPARENT patch
+            vals = np.asarray(_round_u8(fixup_values(fix, jnp.asarray(x).reshape(B, -1))))
+            want = want.reshape(B, -1)
+            want[:, fix[0]] = vals
+            want = want.reshape(B, jpp.out_h, jpp.out_w)
+        got = remap_u8(ds, torch.from_numpy(x)).numpy()
+        assert got.shape == want.shape
+        _assert_within_a_tie(got, want)

@@ -1,10 +1,12 @@
 """transform360_tpu_torch — the PyTorch/CUDA port of transform360_tpu.
 
 360° video re-projection (equirect ↔ cubemap and friends) on an NVIDIA
-GPU: plan-time warp maps and prefilter plans built on the CPU, and two
+GPU: plan-time warp maps and prefilter plans built on the CPU, and three
 hand-written CUDA kernels on the frame path — the adaptive prefilter
-(``csrc/blur.cu``) and the remap (``csrc/remap.cu``) — each with a plain
-PyTorch version that serves CPU tensors.  The JAX package
+(``csrc/blur.cu``), and the remap for small batches (``csrc/window.cu``)
+and for large ones (``csrc/remap.cu``) — each with a plain PyTorch
+version that serves CPU tensors.  ``python -m transform360_tpu_torch.cli``
+is the command-line front end.  The JAX package
 ``transform360_tpu`` is the reference; this package imports neither it
 nor jax.
 """

@@ -98,6 +98,10 @@ class Transform360:
     def plan(self) -> Optional[TransformPlan]:
         return self._plan
 
+    @property
+    def device(self) -> torch.device:
+        return self._device
+
     def generate_map(self, in_w: int, in_h: int) -> TransformPlan:
         """Build (on the CPU) the warp maps + filter plan for this input
         size and move their arrays to the engine's device."""
@@ -137,8 +141,18 @@ class Transform360:
         Maps are generated lazily on the first frame, like the reference
         filter.  Returns uint8 tensors on the engine's device (a bare
         tensor for single-plane formats).  CUDA work is queued on the
-        current stream; reading the result waits for it.
+        current stream; reading the result waits for it.  A batch of at
+        most ``pipeline.WINDOW_MAX_BATCH`` frames takes the small-batch
+        remap (K3); larger batches take K2; both give the same bytes.
         """
+        return self.transform_async(y, u, v)
+
+    def transform_async(self, y, u=None, v=None):
+        """Submit a transform without waiting for the card: the name the
+        CLI pipeline calls (as ``transform360_tpu.api.Transform360
+        .transform_async``).  Returns device tensors whose work is queued
+        on the current stream; ``.cpu()`` waits for it.  Batches retire
+        in submission order because one stream runs them in order."""
         planes = [_as_plane(p, self._device) for p in (y, u, v)]
         in_h, in_w = planes[0].shape[-2:]
         plan = self._ensure_plan(int(in_w), int(in_h))

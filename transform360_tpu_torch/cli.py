@@ -1,0 +1,306 @@
+"""Command-line interface — the FFmpeg filter-shell analog, on the GPU.
+
+The port of ``transform360_tpu.cli``: it accepts the reference filter's
+ffmpeg-style ``key=value:key=value`` option string verbatim
+(``vf_transform360.c:407-987``) and applies the transform, batching frames
+onto the card::
+
+    python -m transform360_tpu_torch.cli \\
+        --vf "cube_edge_length=512:interpolation_alg=cubic" \\
+        -i in.mp4 -o out.mp4 --batch 8 --device cuda
+
+Video containers (.mp4/.mkv/.avi/...) are decoded/encoded through the
+:mod:`.utils.video` shim (ffmpeg subprocess when available, OpenCV
+otherwise).  Decode runs on its own thread and device batches are queued
+without waiting (``--prefetch`` batches in flight), so host IO overlaps
+the card's work.  Raw planar streams (.yuv/.raw/.i420) are read/written
+directly and need ``--input-size``; ``-`` pipes raw planes through
+stdin/stdout (the ffmpeg rawvideo idiom)::
+
+    ffmpeg -i in.mp4 -f rawvideo -pix_fmt yuv420p - \\
+      | python -m transform360_tpu_torch.cli --vf "cube_edge_length=512" \\
+          --input-size 3840x2160 -i - -o out.yuv
+
+``--batch 1`` is the live-stream setting (one frame per step, the
+small-batch remap K3); larger batches trade latency for frames/s.
+Options that need modules not ported yet raise ``NotImplementedError``
+naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import argparse
+import queue
+import sys
+import threading
+import time
+from collections import deque
+
+import numpy as np
+
+from .api import open_filter
+from .config import get_pixel_format
+from .utils.profiling import StageStats
+from .utils.video import VideoReader, VideoWriter, is_raw_path
+from .utils.yuv import read_planar_frames, write_yuv420_frames
+
+
+def _parse_size(s: str):
+    try:
+        w, h = s.lower().split("x")
+        return int(w), int(h)
+    except ValueError as e:
+        raise argparse.ArgumentTypeError(f"bad size {s!r}, expected WxH") from e
+
+
+def start_reader(frames_in, batch: int):
+    """Decode on a separate thread so demux/decode overlaps the device
+    step and the encode of earlier batches.  The consumer must set
+    ``stop`` on ANY exit (normal or error) so the reader never stays
+    blocked on the bounded queue.
+
+    Returns ``(queue, stop_event)``; the queue carries per-frame plane
+    tuples, then ``None`` at end of stream (exceptions are forwarded as
+    queue items and re-raised by the consumer).
+    """
+    inq: queue.Queue = queue.Queue(maxsize=max(2 * batch, 8))
+    stop = threading.Event()
+
+    def _put(item) -> bool:
+        while not stop.is_set():
+            try:
+                inq.put(item, timeout=0.2)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def read_loop():
+        try:
+            for planes in frames_in:
+                if not _put(planes):
+                    return
+            _put(None)
+        except BaseException as e:  # surfaced in the consumer
+            _put(e)
+        finally:
+            close = getattr(frames_in, "close", None)
+            if close is not None:
+                close()
+
+    threading.Thread(target=read_loop, daemon=True).start()
+    return inq, stop
+
+
+def batched_outputs(transform_async, inq, n_planes, batch, prefetch, stats):
+    """Yield per-frame output plane tuples (numpy) from a reader queue,
+    submitting ``batch``-frame device steps without waiting (up to
+    ``prefetch`` batches in flight) and retiring them in submission order.
+
+    A short tail batch is submitted as it is: the port runs eagerly, so a
+    new batch size costs no compile, and both remap routes compute the
+    same bytes."""
+    batches = [[] for _ in range(n_planes)]
+    pending: deque = deque()  # (frames, device outputs) not yet retired
+
+    def submit():
+        n = len(batches[0])
+        if not n:
+            return
+        pending.append((n, transform_async(*[np.stack(b) for b in batches])))
+        for b in batches:
+            b.clear()
+
+    def retire():
+        n, outs = pending.popleft()
+        if not isinstance(outs, tuple):
+            outs = (outs,)
+        tb = time.perf_counter()
+        host = [o.cpu().numpy() for o in outs]  # waits for the device
+        # "seconds" counts time BLOCKED on device results; with
+        # prefetch > 0 compute hidden behind host IO is excluded
+        # (wall_seconds is the end-to-end number).
+        stats.record(n, time.perf_counter() - tb)
+        for k in range(n):
+            yield tuple(h[k] for h in host)
+
+    while True:
+        item = inq.get()
+        if item is None:
+            break
+        if isinstance(item, BaseException):
+            raise item
+        for b, p in zip(batches, item):
+            b.append(p)
+        if len(batches[0]) >= batch:
+            submit()
+            while len(pending) > max(prefetch, 0):
+                yield from retire()
+    submit()
+    while pending:
+        yield from retire()
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="transform360_tpu_torch",
+        description="360 video re-projection on an NVIDIA GPU (Transform360 parity).",
+    )
+    p.add_argument(
+        "--vf", default="",
+        help="ffmpeg-style transform360 option string (key=value:key=value)",
+    )
+    p.add_argument(
+        "--input-size", type=_parse_size, default=None, metavar="WxH",
+        help="input frame size (required for raw .yuv input), e.g. 3840x2160",
+    )
+    p.add_argument(
+        "-i", "--input", required=True,
+        help="input video file, or raw planar stream (.yuv/.raw/.i420, "
+             "or '-' for stdin)",
+    )
+    p.add_argument(
+        "-o", "--output", required=True,
+        help="output video file, or raw planar stream (.yuv/.raw/.i420, "
+             "or '-' for stdout)",
+    )
+    p.add_argument(
+        "--fps", type=float, default=None,
+        help="output frame rate (default: input rate, or 30 for raw input)",
+    )
+    p.add_argument(
+        "--pix-fmt", default="yuv420p",
+        help="planar pixel format of raw streams (yuv420p/yuv422p/"
+             "yuv444p/yuv411p/yuv410p/gray); video containers are yuv420p",
+    )
+    p.add_argument("--batch", type=int, default=8, help="frames per device step")
+    p.add_argument(
+        "--device", default="cuda",
+        help="torch device that transforms the frames ('cuda' runs the "
+             "hand-written kernels; 'cpu' their plain PyTorch versions)",
+    )
+    p.add_argument(
+        "--devices", type=int, default=None,
+        help="shard each batch over this many GPUs (not ported yet: "
+             "ROADMAP A13; only 1 is accepted)",
+    )
+    p.add_argument(
+        "--latency-bands", type=int, default=0, metavar="N",
+        help="band each frame's output rows over N devices (not ported "
+             "yet: ROADMAP A13)",
+    )
+    p.add_argument(
+        "--prefetch", type=int, default=1,
+        help="batches in flight on the device while the host decodes/"
+             "encodes neighboring batches (0 = fully synchronous)",
+    )
+    p.add_argument("--frames", type=int, default=0, help="max frames (0 = all)")
+    p.add_argument(
+        "--save-plan", default=None,
+        help="serialize the built plan (not ported yet: ROADMAP A11)",
+    )
+    p.add_argument(
+        "--load-plan", default=None,
+        help="reuse a previously saved plan (not ported yet: ROADMAP A11)",
+    )
+    p.add_argument("--stats", action="store_true", help="print a JSON stats line")
+    p.add_argument(
+        "--backend", choices=("auto", "native"), default="auto",
+        help="'auto' = the PyTorch/CUDA pipeline; 'native' = the C++ "
+             "engine (not ported yet: ROADMAP A14)",
+    )
+    p.add_argument(
+        "--distributed", default=None, metavar="SPEC",
+        help="join a multi-host run (not ported yet: ROADMAP A13)",
+    )
+    return p
+
+
+def _refuse_unported(args) -> None:
+    """Raise for flags whose modules are not ported yet."""
+    if args.devices not in (None, 1):
+        raise NotImplementedError("--devices (multi-GPU batch sharding) is not ported yet: ROADMAP A13")
+    if args.latency_bands:
+        raise NotImplementedError("--latency-bands (row-band latency sharding) is not ported yet: ROADMAP A13")
+    if args.distributed:
+        raise NotImplementedError("--distributed (multi-host runs) is not ported yet: ROADMAP A13")
+    if args.backend == "native":
+        raise NotImplementedError("--backend native (the C++ engine) is not ported yet: ROADMAP A14")
+    if args.save_plan or args.load_plan:
+        raise NotImplementedError("plan files (--save-plan/--load-plan) are not ported yet: ROADMAP A11")
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    _refuse_unported(args)
+
+    pf = get_pixel_format(args.pix_fmt)
+    if is_raw_path(args.input):
+        if args.input_size is None:
+            print("error: --input-size is required for raw YUV input", file=sys.stderr)
+            return 2
+        in_w, in_h = args.input_size
+        fps = args.fps or 30.0
+        frames_in = read_planar_frames(args.input, in_w, in_h, args.frames, pf)
+    else:
+        if pf.name != "yuv420p":
+            print("error: video containers decode as yuv420p; --pix-fmt "
+                  "applies to raw streams only", file=sys.stderr)
+            return 2
+        reader = VideoReader(args.input, args.frames)
+        in_w, in_h = reader.width, reader.height
+        if args.input_size and args.input_size != (in_w, in_h):
+            print(
+                f"error: --input-size {args.input_size[0]}x{args.input_size[1]}"
+                f" does not match the stream ({in_w}x{in_h})",
+                file=sys.stderr,
+            )
+            return 2
+        fps = args.fps or reader.fps
+        frames_in = iter(reader)
+
+    if not is_raw_path(args.output) and pf.name != "yuv420p":
+        # validate before the reader thread starts (see read_loop)
+        print("error: video-container output requires yuv420p", file=sys.stderr)
+        return 2
+
+    t = open_filter(args.vf, in_w, in_h, pix_fmt=pf, device=args.device)
+
+    # with stdout as the output stream, diagnostics must not corrupt it
+    stats = StageStats(stream=sys.stderr if args.output == "-" else sys.stdout)
+    t0 = time.perf_counter()
+    inq, stop = start_reader(frames_in, args.batch)
+    out_iter = batched_outputs(
+        t.transform_async, inq, pf.n_planes, args.batch, args.prefetch, stats
+    )
+    try:
+        if is_raw_path(args.output):
+            write_yuv420_frames(args.output, out_iter)
+        else:
+            out_w, out_h = t.output_dims()
+            with VideoWriter(args.output, out_w, out_h, fps) as w:
+                for oy, ou, ov in out_iter:
+                    w.write(oy, ou, ov)
+    finally:
+        stop.set()  # release a reader blocked on the full queue
+    dt = time.perf_counter() - t0
+
+    out_w, out_h = t.output_dims()
+    if args.stats:
+        stats.emit(
+            in_size=f"{in_w}x{in_h}",
+            out_size=f"{out_w}x{out_h}",
+            wall_seconds=round(dt, 3),
+            device=str(t.device),
+        )
+    else:
+        print(
+            f"{stats.frames} frames {in_w}x{in_h} -> {out_w}x{out_h} in {dt:.2f}s "
+            f"on {t.device}",
+            file=sys.stderr,
+        )
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -5,9 +5,12 @@
 // the two pieces that complete it there: the XLA gather patch for tiles
 // wider than every window class (_run_lane_fallback, remap_lane.py:1070)
 // and the BORDER_TRANSPARENT partial-footprint fix-up
-// (sampling.fixup_values, sampling.py:342).  It computes the function of
-// the other Pallas remaps too (remap_lane.py:1097 and :1266,
-// remap_pallas.py:441), which differ only in how they tile the TPU.
+// (sampling.fixup_values, sampling.py:342).  It also serves the batch
+// range of the pack-K and merged-window lane remaps (remap_lane.py:1097
+// and :1266), which compute the same function with a TPU lane-occupancy
+// tiling.  The pipeline routes plane batches of at most WINDOW_MAX_BATCH
+// frames to K3 (window.cu, the port of remap_pallas.py:441), which
+// computes the same function bit for bit, and larger batches here.
 //
 // Per output pixel n the plan gives the first-tap row/column
 // (base_y/base_x, int32), the 1/32 fraction indices (fy/fx, uint8) and,

@@ -19,8 +19,9 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -92,3 +93,13 @@ def library(name: str) -> ctypes.CDLL:
             _LIBS[name] = lib
         return lib
 
+
+
+def build_all(names: Sequence[str]) -> None:
+    """Build several sources at once, one nvcc each, all started together
+    (each writes its own hash-named file), then load them."""
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as ex:
+        for f in [ex.submit(_build, n) for n in names]:
+            f.result()
+    for n in names:
+        library(n)

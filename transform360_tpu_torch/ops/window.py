@@ -1,0 +1,346 @@
+"""Window-gather remap for small batches: the tile plan, the CUDA kernel K3
+(``csrc/window.cu``) and, for a tensor on the CPU, its plain version.
+
+K3 computes the function of K2 (:func:`..sampling.remap_plain`, the
+remap with its half-up round) with another schedule, for batches of a
+few frames: one CTA per output tile of ``TH x TW`` pixels stages the
+tile's source window into shared memory frame by frame and samples every
+tap from there.
+
+Plan time (numpy, vectorized): :func:`build_window_plan` cuts the output
+into tiles and gives each its source window -- origin, height, row
+pitch -- and a class by the window's bytes (``CLASS_BYTES``: one kernel
+launch per class, with that class's shared memory).  Tiles whose window
+exceeds the largest class are flagged (pitch 0) and gather straight
+from device memory inside the same kernel.  Per pixel the plan keeps the
+window-relative first tap ``ly``/``lx`` (packed in one int32) and the
+1/32 fraction indices ``fy``/``fx`` (one byte each; bit 7 of ``fy``
+marks a pixel outside the transparent ``valid`` mask): 6 B per pixel.
+Weights come from the separable float64 table ``w1 [32, T]``:
+``float32(w1[fy, ty] * w1[fx, tx])`` is exactly the entry of
+:func:`..sampling.weight_table`.
+
+For a CUDA tensor :func:`remap_window_u8` launches the kernel or
+raises; it never falls back.  ``LAUNCHES`` counts kernel launches (one
+per class present in the plan).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from ..sampling import (
+    BORDER_FILL,
+    BORDER_WRAP,
+    INTER_TAB_SIZE,
+    SampleSpec,
+    _TAPS,
+    _resolve,
+    _tap_weights,
+    border_mode,
+    frac_index,
+    round_u8,
+)
+from . import _build
+
+LAUNCHES = 0
+
+TH, TW = 16, 16  # output tile (rows, columns): one CTA of 256 threads, a pixel each
+VEC = 16  # window rows are staged in 16-byte chunks from a 16-aligned column
+# Window bytes (height x pitch) of each class, one frame; the CTA holds two
+# frames' windows (double buffer) plus the 2 KB weight table.  12 KB lets
+# eight CTAs share an SM's shared memory; 48 KB takes the pole tiles of a
+# 4K cubemap.
+CLASS_BYTES = (12 * 1024, 48 * 1024)
+TABLE_BYTES = INTER_TAB_SIZE * 8 * 8  # float64 [32, T <= 8]
+# A CTA's dynamic shared memory is TABLE_BYTES + 2 x its launch's window
+# bytes, at most SMEM_MAX, the most one CTA may use on Hopper.
+SMEM_MAX = 227 * 1024
+MAX_LX = (1 << 15) - 1  # lx is packed in the high half of an int32
+
+_c_void_p = ctypes.c_void_p
+_c_int = ctypes.c_int
+
+
+def _circular_origin_rows(vals: np.ndarray, n: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Row-wise narrowest arc covering ``[m, k]`` ints on a ring of size n:
+    its origin and extent per row.  The origin is the value after the
+    largest gap, or the smallest value when the wrap-around gap is the
+    largest (ties keep the first maximal gap), as in the JAX package's
+    ``ops/remap_lane._circular_origin_rows``."""
+    s = np.sort(vals, axis=1)
+    gaps = np.diff(s, axis=1)
+    wrap_gap = s[:, 0] + n - s[:, -1]
+    k = np.argmax(gaps, axis=1)
+    rows = np.arange(len(s))
+    use_gap = gaps[rows, k] > wrap_gap
+    after = s[rows, k + 1]
+    origin = np.where(use_gap, after, s[:, 0])
+    extent = np.where(use_gap, s[rows, k] + n - after + 1, s[:, -1] - s[:, 0] + 1)
+    return origin, extent
+
+
+@dataclasses.dataclass(frozen=True)
+class WindowPlan:
+    """Host (numpy) tile plan of one plane class; tiles are stored in
+    launch order (see ``groups``)."""
+
+    meta: np.ndarray  # int32 [n, 6]: out row, out col, y0, x0, wh, pitch (0: global)
+    tile_class: np.ndarray  # int8 [n]: class index, or -1 for a global-path tile
+    pos: np.ndarray  # int32 [n * TH * TW]: ly | lx << 16
+    fy: np.ndarray  # uint8 [n * TH * TW]: fy | (not valid) << 7
+    fx: np.ndarray  # uint8 [n * TH * TW]
+    w1: np.ndarray  # float64 [32, T]
+    groups: Tuple[Tuple[int, int, int], ...]  # launches: (first tile, tiles, window bytes)
+    in_h: int
+    in_w: int
+    out_h: int
+    out_w: int
+    taps: int
+    mode: int
+    fill: float
+
+
+def build_window_plan(spec: SampleSpec, fill: float) -> WindowPlan:
+    """The tile plan of a sample spec (the Hopper counterpart of the JAX
+    package's ``build_pallas_remap``, sized for shared memory)."""
+    T = _TAPS[spec.interp]
+    H, W = spec.in_h, spec.in_w
+    mode = border_mode(spec)
+    out_h, out_w = spec.base_y.shape
+    if H + T >= 1 << 16 or W + T + VEC > MAX_LX:
+        raise ValueError(f"input {W}x{H} is too large for the window plan's 16-bit offsets")
+    n_ty, n_tx = -(-out_h // TH), -(-out_w // TW)
+    n = n_ty * n_tx
+
+    def tiles(a):
+        """[out_h, out_w] -> [n, TH*TW], ragged edge padded by replication."""
+        a = np.pad(a, ((0, n_ty * TH - out_h), (0, n_tx * TW - out_w)), mode="edge")
+        return a.reshape(n_ty, TH, n_tx, TW).transpose(0, 2, 1, 3).reshape(n, TH * TW)
+
+    by = tiles(spec.base_y.astype(np.int64))
+    bx = tiles(spec.base_x.astype(np.int64))
+    if mode == BORDER_WRAP:
+        y0, ey = _circular_origin_rows(by, H)
+        x0, ex = _circular_origin_rows(bx, W)
+        ly = np.mod(by - y0[:, None], H)
+        lxs = np.mod(bx - x0[:, None], W)
+    else:
+        # transparent layouts: bases lie in [-(T-1), n-1] and never wrap.
+        # Pixels outside the valid mask take the fill whatever they read,
+        # so the window covers the valid ones and the others read its
+        # first byte.
+        ok = np.ones(by.shape, bool) if spec.valid is None else tiles(spec.valid)
+        any_ok = ok.any(axis=1)
+        big = np.iinfo(np.int64).max
+
+        def span(b):
+            lo = np.where(any_ok, np.where(ok, b, big).min(axis=1), 0)
+            hi = np.where(any_ok, np.where(ok, b, -big).max(axis=1), 0)
+            return lo, hi - lo + 1, np.where(ok, b - lo[:, None], 0)
+
+        y0, ey, ly = span(by)
+        x0, ex, lxs = span(bx)
+    wh = ey + T - 1
+    x0a = np.floor_divide(x0, VEC) * VEC  # 16-aligned origin: vector loads
+    lx = lxs + (x0 - x0a)[:, None]
+    pitch = -(-(x0 - x0a + ex + T - 1) // VEC) * VEC
+    nbytes = wh * pitch
+    cls = np.full(n, -1, np.int8)
+    for c in range(len(CLASS_BYTES) - 1, -1, -1):
+        cls[nbytes <= CLASS_BYTES[c]] = c
+    glob = cls < 0
+    pitch = np.where(glob, 0, pitch)
+
+    # launch order: global-path tiles first (the longest CTAs start
+    # early) within class 0's launch, then each class in raster order
+    order, groups, start = [], [], 0
+    for c in range(len(CLASS_BYTES)):
+        ids = np.flatnonzero(cls == c)
+        if c == 0:
+            ids = np.concatenate([np.flatnonzero(glob), ids])
+        if ids.size:
+            win = int(nbytes[ids][cls[ids] == c].max(initial=0))
+            groups.append((start, int(ids.size), win))
+            order.append(ids)
+            start += ids.size
+    order = np.concatenate(order)
+
+    ti, tj = np.divmod(np.arange(n), n_tx)
+    meta = np.stack([ti * TH, tj * TW, y0, x0a, wh, pitch], axis=1)[order]
+    fy = frac_index(spec.frac_y)
+    if spec.valid is not None:
+        fy = fy | ((~spec.valid).astype(np.uint8) << 7)
+    return WindowPlan(
+        meta=np.ascontiguousarray(meta, np.int32),
+        tile_class=cls[order],
+        pos=np.ascontiguousarray((ly | (lx << 16))[order].reshape(-1), np.int32),
+        fy=np.ascontiguousarray(tiles(fy)[order].reshape(-1)),
+        fx=np.ascontiguousarray(tiles(frac_index(spec.frac_x))[order].reshape(-1)),
+        w1=np.stack(
+            _tap_weights(spec.interp, np.arange(INTER_TAB_SIZE) / INTER_TAB_SIZE, np),
+            axis=1,
+        ).astype(np.float64),
+        groups=tuple(groups),
+        in_h=H,
+        in_w=W,
+        out_h=out_h,
+        out_w=out_w,
+        taps=T,
+        mode=mode,
+        fill=float(fill),
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class WindowTables:
+    """A window plan's arrays on one device, in the kernel's form."""
+
+    meta: torch.Tensor  # int32 [n, 6]
+    pos: torch.Tensor  # int32 [n * TH * TW]
+    fy: torch.Tensor  # uint8 [n * TH * TW]
+    fx: torch.Tensor  # uint8 [n * TH * TW]
+    w1: torch.Tensor  # float64 [32, T]
+    groups: Tuple[Tuple[int, int, int], ...]
+    in_h: int
+    in_w: int
+    out_h: int
+    out_w: int
+    taps: int
+    mode: int
+    fill: float
+
+    @classmethod
+    def from_plan(cls, wp: WindowPlan, device) -> "WindowTables":
+        def put(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+        return cls(
+            meta=put(wp.meta), pos=put(wp.pos), fy=put(wp.fy), fx=put(wp.fx),
+            w1=put(wp.w1), groups=wp.groups, in_h=wp.in_h, in_w=wp.in_w,
+            out_h=wp.out_h, out_w=wp.out_w, taps=wp.taps, mode=wp.mode, fill=wp.fill,
+        )
+
+
+def remap_window_plain(wt: WindowTables, x: torch.Tensor) -> torch.Tensor:
+    """Plain version of K3: uint8 ``[B, in_h, in_w]`` → float32
+    ``[B, out_h, out_w]`` (before rounding), walking the tile plan as the
+    kernel does.  A tap at window offset (i, j) of a tile reads source
+    pixel (y0 + i, x0 + j) under the loader's border rule; its weight is
+    ``float32(w1[fy, ty] * w1[fx, tx])``; the sum runs ty-major and
+    tx-minor, the fill term is added last, then the ``valid`` mask --
+    the order of :func:`..sampling.remap_plain`, which it equals exactly."""
+    B = x.shape[0]
+    H, W, T, mode = wt.in_h, wt.in_w, wt.taps, wt.mode
+    flat = x.reshape(B, H * W)
+    meta = wt.meta.long()
+    npx = TH * TW
+    tile = torch.arange(meta.shape[0], device=x.device).repeat_interleave(npx)
+    p = torch.arange(npx, device=x.device).repeat(meta.shape[0])
+    pos = wt.pos.long()
+    ay = meta[tile, 2] + (pos & 0xFFFF)  # source row of the first tap
+    ax = meta[tile, 3] + (pos >> 16)  # source column of the first tap
+    fy = wt.fy.long()
+    fx = wt.fx.long()
+    invalid = (fy & 0x80) != 0
+    fy = fy & 0x7F
+    acc = None
+    fill_w = None
+    for ty in range(T):
+        yy = ay + ty
+        row = _resolve(yy, H, mode) * W
+        for tx in range(T):
+            xx = ax + tx
+            g = flat[:, row + _resolve(xx, W, mode)].float()
+            if T == 1:
+                term = g
+            else:
+                w = (wt.w1[fy, ty] * wt.w1[fx, tx]).float()
+                if mode == BORDER_FILL:  # on absolute coordinates
+                    outside = (yy < 0) | (yy >= H) | (xx < 0) | (xx >= W)
+                    ow = torch.where(outside, w, 0.0)
+                    fill_w = ow if fill_w is None else fill_w + ow
+                    w = torch.where(outside, 0.0, w)
+                term = w[None, :] * g
+            acc = term if acc is None else acc + term
+    if fill_w is not None:
+        acc = acc + (fill_w * wt.fill)[None, :]
+    acc = torch.where(invalid[None, :], wt.fill, acc)
+    oy = meta[tile, 0] + torch.div(p, TW, rounding_mode="floor")
+    ox = meta[tile, 1] + p % TW
+    inside = (oy < wt.out_h) & (ox < wt.out_w)
+    out = torch.empty((B, wt.out_h * wt.out_w), dtype=torch.float32, device=x.device)
+    out[:, (oy * wt.out_w + ox)[inside]] = acc[:, inside]
+    return out.reshape(B, wt.out_h, wt.out_w)
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.library("window")
+    fn = lib.t360_window
+    if fn.argtypes is None:
+        fn.argtypes = [
+            _c_void_p, _c_void_p,  # src, dst
+            _c_int, _c_int, _c_int, _c_int, _c_int,  # B, H, W, out_h, out_w
+            _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,  # meta, pos, fy, fx, w1
+            _c_int, _c_int, _c_int,  # first tile, tiles, window bytes
+            _c_int, _c_int, ctypes.c_float, _c_int,  # taps, mode, fill, vec
+            _c_void_p,  # stream
+        ]
+        fn.restype = _c_int
+        lib.t360_error_string.argtypes = [_c_int]
+        lib.t360_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_input(wt: WindowTables, x: torch.Tensor) -> None:
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"expected a torch.Tensor, got {type(x).__name__}")
+    if x.dtype != torch.uint8:
+        raise TypeError(f"remap takes uint8 planes, got {x.dtype}")
+    if x.dim() != 3 or tuple(x.shape[1:]) != (wt.in_h, wt.in_w):
+        raise ValueError(f"remap expects [B, {wt.in_h}, {wt.in_w}], got {tuple(x.shape)}")
+    if x.shape[0] == 0:
+        raise ValueError("empty batch")
+    if not x.is_contiguous():
+        raise ValueError("remap takes contiguous planes")
+    if x.device != wt.meta.device:
+        raise ValueError(f"plane on {x.device} but the window plan on {wt.meta.device}")
+
+
+def remap_window_u8(wt: WindowTables, x: torch.Tensor) -> torch.Tensor:
+    """Remap + half-up round through the tile plan: uint8
+    ``[B, in_h, in_w]`` → uint8 ``[B, out_h, out_w]`` on ``x``'s device.
+    Any batch size is accepted."""
+    global LAUNCHES
+    _check_input(wt, x)
+    if x.device.type == "cpu":
+        return round_u8(remap_window_plain(wt, x))
+    if x.device.type != "cuda":
+        raise ValueError(f"remap runs on cpu or cuda tensors, not {x.device}")
+    B = x.shape[0]
+    out = torch.empty((B, wt.out_h, wt.out_w), dtype=torch.uint8, device=x.device)
+    vec = int(wt.in_w % VEC == 0 and x.data_ptr() % VEC == 0)
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        for first, count, win in wt.groups:
+            err = lib.t360_window(
+                x.data_ptr(), out.data_ptr(),
+                B, wt.in_h, wt.in_w, wt.out_h, wt.out_w,
+                wt.meta.data_ptr(), wt.pos.data_ptr(), wt.fy.data_ptr(),
+                wt.fx.data_ptr(), wt.w1.data_ptr(),
+                first, count, win,
+                wt.taps, wt.mode, wt.fill, vec,
+                stream,
+            )
+            if err:
+                raise RuntimeError(
+                    f"window kernel launch failed: {lib.t360_error_string(err).decode()}"
+                )
+            LAUNCHES += 1
+    return out

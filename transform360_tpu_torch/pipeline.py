@@ -1,12 +1,16 @@
-"""Batched frame pipeline: one route per plane, prefilter → round → remap.
+"""Batched frame pipeline: prefilter → round → remap, routed by batch size.
 
 Planes are batch-major uint8 ``[B, H, W]`` tensors end to end.  Each plane
 runs K1 (the prefilter, with its half-up round to uint8, when the plan has
-one) and then K2 (the remap, with its half-up round), through the
-wrappers in :mod:`.ops`, which launch the CUDA kernels for CUDA tensors and
-run the plain versions for CPU tensors.  The JAX package routes by batch
-size between five TPU kernels (``pipeline.py:144-226`` there); on Hopper
-one kernel per stage serves every batch size, so there is no routing.
+one) at every batch size, and then the remap with its half-up round: K3,
+the window-gather kernel (:mod:`.ops.window`), for a plane batch of at
+most ``WINDOW_MAX_BATCH`` frames -- the live-stream path -- and K2
+(:mod:`.ops.remap`) above it.  Both remaps compute the same function
+exactly, so the route never changes a byte.  The wrappers in :mod:`.ops`
+launch the CUDA kernels for CUDA tensors and run the plain versions for
+CPU tensors.  The JAX package routes between five TPU kernels
+(``pipeline.py:144-284`` there); its lane-occupancy variants B3/B4 have no
+Hopper meaning, and K2 serves their batch range.
 
 Rounding parity: the reference filters into a uint8 plane and remaps it
 with fixed-point arithmetic; both stages round with ``floor(x + 0.5)`` and
@@ -22,7 +26,16 @@ import torch
 
 from .ops.blur import blur_u8
 from .ops.remap import remap_u8
+from .ops.window import remap_window_u8
 from .plan import PlanePlan, TransformPlan
+
+# Largest plane batch that takes K3; larger batches take K2.  From the
+# chip_smoke.py ladder on one H100 (PERF.md): K3 times the flagship luma
+# remap at 0.066 ms against K2's 0.108 ms at batch 1, 0.966 against 1.942
+# at 64 and 1.924 against 3.912 at 128.  It wins at every rung; the
+# threshold stops at 64 so that the batch-128 path keeps K2 until a later
+# change moves it (ROADMAP B).  The JAX package's threshold is 7.
+WINDOW_MAX_BATCH = 64
 
 
 def _plane_program(pp: PlanePlan, x: torch.Tensor) -> torch.Tensor:
@@ -30,6 +43,8 @@ def _plane_program(pp: PlanePlan, x: torch.Tensor) -> torch.Tensor:
     t = pp.tables(x.device)
     if t.blur is not None:
         x = blur_u8(t.blur, x)
+    if x.shape[0] <= WINDOW_MAX_BATCH:
+        return remap_window_u8(pp.window_tables(x.device), x)
     return remap_u8(t.remap, x)
 
 

@@ -4,7 +4,9 @@ Per map plane (0 = luma, 1 = chroma; U and V share the chroma plane,
 ``vf_transform360.c:372``) a :class:`PlanePlan` holds the quantized sample
 spec and the prefilter plan.  Plans are built on the CPU once per
 (config, size) and memoized; :meth:`PlanePlan.tables` moves their arrays
-to a device once and caches them per device.
+to a device once and caches them per device.  The small-batch route's
+tile plan (:mod:`.ops.window`) is built lazily, on the first batch that
+takes that route, by :meth:`PlanePlan.window_tables`.
 
 :func:`plan_from_jax` converts a ``transform360_tpu`` plan into this
 package's, reading its attributes only (no import of jax or of the JAX
@@ -31,6 +33,7 @@ from .config import (
 )
 from .filtering import BandSpec, BlurPlan, build_blur_plan
 from .ops.blur import BlurTables
+from .ops.window import WindowPlan, WindowTables, build_window_plan
 from .sampling import DeviceSpec, SampleSpec, make_sample_spec
 
 
@@ -43,11 +46,14 @@ class DeviceTables:
 
 
 class _DeviceCache:
-    """Per-device :class:`DeviceTables` of one plane plan, built once."""
+    """Per-device :class:`DeviceTables` of one plane plan, built once, and
+    its window tile plan, built on first use and moved once per device."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._by_device: Dict[str, DeviceTables] = {}
+        self._window_plan: Optional[WindowPlan] = None
+        self._window_by_device: Dict[str, WindowTables] = {}
 
     def get(self, pp: "PlanePlan", device: torch.device) -> DeviceTables:
         key = str(device)
@@ -61,6 +67,17 @@ class _DeviceCache:
                     else BlurTables.from_plan(pp.blur, pp.in_h, pp.in_w, device),
                 )
                 self._by_device[key] = hit
+            return hit
+
+    def window(self, pp: "PlanePlan", device: torch.device) -> WindowTables:
+        key = str(device)
+        with self._lock:
+            hit = self._window_by_device.get(key)
+            if hit is None:
+                if self._window_plan is None:
+                    self._window_plan = build_window_plan(pp.spec, pp.fill)
+                hit = WindowTables.from_plan(self._window_plan, device)
+                self._window_by_device[key] = hit
             return hit
 
 
@@ -83,6 +100,11 @@ class PlanePlan:
     def tables(self, device) -> DeviceTables:
         """This plan's arrays on ``device`` (moved once, then cached)."""
         return self._cache.get(self, torch.device(device))
+
+    def window_tables(self, device) -> WindowTables:
+        """The small-batch tile plan on ``device`` (built on the CPU at
+        the first call, moved once per device, then cached)."""
+        return self._cache.window(self, torch.device(device))
 
 
 @dataclasses.dataclass(frozen=True)
