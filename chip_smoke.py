@@ -7,32 +7,34 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU,
 nvcc and CUDA PyTorch (no jax needed).  Phases:
 
 1. the device, and ``nvidia-smi``'s name and power limit;
-2. build the three kernels from ``transform360_tpu_torch/csrc`` with nvcc,
+2. build the two kernels from ``transform360_tpu_torch/csrc`` with nvcc,
    one process per source, all at once, and print ptxas's registers,
-   spills and shared memory;
+   spills and shared memory, and both kernels' tile plans;
 3. each kernel against its plain version on the card, with the TF32
    switches on and off (nothing here may depend on them): K1 (prefilter)
-   against ``blur_plain`` and K2 (remap) against ``remap_plain`` at the
-   flagship's luma and chroma shapes; K3 (small-batch remap) against
-   ``remap_plain`` at those shapes at batch 1, 2 and 7, and on small
-   barrel cases for the clamp-with-fill (linear) and REFLECT_101
-   (lanczos4) rules; K2 at batch 8, 16, 32 and 64, the JAX package's
-   B3/B4 range;
+   against ``blur_plain`` at the flagship's luma and chroma shapes and on
+   small TB-odd, LR-odd, adaptive 32x15 and wide-y-radius planes (the
+   last one K1's direct kernel); K3 (remap) against ``remap_plain`` at
+   the flagship's shapes at batch 1, 2 and 7, on small barrel cases for
+   the clamp-with-fill (linear) and REFLECT_101 (lanczos4) rules, and on
+   the flagship luma at batch 8 ... 128 (the JAX package's B2-B4 range)
+   and the stacked chroma at 256;
 4. the batch path: ``open_filter(<flagship>, 3840, 2160, device="cuda")
    .transform(y, u, v)`` on 128 video-like frames, with every launch
-   counter set to 0 just before it and read just after (K1 and K2, not
-   K3); its output against the plain functions on the same tensors, and
-   a small size against the CPU engine;
+   counter set to 0 just before it and read just after (K1 once per
+   plane batch, K3; no other remap exists); its output against the plain
+   functions on the same tensors, and a small size against the CPU
+   engine;
 5. times with CUDA events after warm-up (medians, with a tail percentile
-   and the sample count): K1 and K2 beside their plain versions on 16
-   luma frames, in turns, and the whole flagship step at batch 128;
+   and the sample count): K1 and K3 beside their plain versions on 16
+   luma frames, in turns, the whole flagship step at batch 128, and its
+   stages one by one;
 6. the latency path: ``transform(y, u, v)`` with ``[H, W]`` planes, the
-   counters set to 0 just before it and read just after (K1 and K3, not
-   K2), its output against the plain path; device time and host wall;
-   K3 beside its plain version on one luma frame;
+   counters set to 0 just before it and read just after (K1 and K3),
+   its output against the plain path; device time and host wall; its
+   stages; K3 beside its plain version on one luma frame;
 7. the batch ladder 1 ... 128: whole-step device ms, frames/s and host
-   wall, K3 and K2 side by side on the luma plane and on the stacked
-   chroma planes (2 per frame), and the tile plan's build time;
+   wall;
 8. the CLI (``transform360_tpu_torch.cli.main``) on a raw yuv420p file of
    8 frames at 3840x2160, ``--batch 1`` and ``--batch 8``: its output
    bytes equal the API's; wall time per frame.
@@ -179,17 +181,17 @@ def remap_bound(ds, B: int, plan_bytes: int):
 
 def blur_bound(bt, B: int):
     """The prefilter's compulsory bytes (plane in, plane out, its tables)
-    and its multiply-adds: each output pixel of a band row takes its
-    band's x taps and y taps."""
+    and its multiply-adds: each output pixel of a tile takes its band's
+    2*rx+1 x taps and 2*ry+1 y taps (the plan's own radii, not the ring
+    kernel's padding)."""
     import numpy as np
 
-    rb = bt.row_band.cpu().numpy()
+    tl = bt.tiles.cpu().numpy().astype(np.int64)
     rx, ry = bt.rx.cpu().numpy(), bt.ry.cpu().numpy()
-    rows = rb >= 0
-    taps = (2 * rx[rb[rows]] + 1) + (2 * ry[rb[rows]] + 1)
-    flops = 2.0 * float(np.sum(taps)) * bt.W * B
-    tables = tensor_bytes(bt.s_src, bt.s_band, bt.row_band, bt.row_s0, bt.col_seg,
-                          bt.kx, bt.rx, bt.ky, bt.ry)
+    t = tl[tl[:, 4] >= 0]
+    taps = (2 * rx[t[:, 4]] + 1) + (2 * ry[t[:, 4]] + 1)
+    flops = 2.0 * float(np.sum(taps * t[:, 2] * t[:, 3])) * B
+    tables = tensor_bytes(bt.tiles, bt.kx, bt.rx, bt.ky, bt.ry)
     return bound(2 * B * bt.H * bt.W + tables, flops)
 
 
@@ -203,16 +205,16 @@ def main() -> int:
 
     import numpy as np
 
-    from transform360_tpu_torch import build_plan, cli, open_filter, pipeline
+    from transform360_tpu_torch import build_plan, cli, open_filter
     from transform360_tpu_torch.config import (
         Interpolation, Layout, StereoFormat, TransformConfig,
     )
     from transform360_tpu_torch.filtering import blur_plain
-    from transform360_tpu_torch.ops import _build, blur, remap, window
+    from transform360_tpu_torch.ops import _build, blur, window
     from transform360_tpu_torch.sampling import remap_plain, round_u8
     from transform360_tpu_torch.utils.yuv import write_yuv420_batch
 
-    counters = {"blur": blur, "remap": remap, "window": window}
+    counters = {"blur": blur, "window": window}
 
     def reset_counts():
         for m in counters.values():
@@ -233,8 +235,8 @@ def main() -> int:
 
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    _build.build_all(["blur", "remap", "window"])
-    say(f"[2] built blur.cu + remap.cu + window.cu for sm_90a in "
+    _build.build_all(["blur", "window"])
+    say(f"[2] built blur.cu + window.cu for sm_90a in "
         f"{time.perf_counter() - t0:.2f} s, one nvcc each in parallel "
         f"(nvcc: {_build.BUILD_SECONDS})")
     for name, log in _build.BUILD_LOG.items():
@@ -269,27 +271,46 @@ def main() -> int:
             f"bytes) {wp.groups}; windows stage {halo:.3f}x the plane's bytes per frame")
     say(f"    K3 tile plans built in {t_wplan:.3f} s (numpy, luma + chroma), "
         f"built again and moved by window_tables in {t_wmove:.3f} s")
+    for pname, t in (("luma", luma_t), ("chroma", chroma_t)):
+        tl = t.blur.tiles.cpu().numpy()
+        say(f"    K1 tile plan {pname}: {tl.shape[0]} tiles of {sorted(set(tl[:, 2].tolist()))} "
+            f"rows x {sorted(set(tl[:, 3].tolist()))} columns, x radii "
+            f"{sorted(set(t.blur.rx.cpu().tolist()))}, ring kernel y radius {t.blur.ring_ry} "
+            f"(plan: {sorted(set(t.blur.ry.cpu().tolist()))}), 2 x {t.blur.buf_bytes} B "
+            f"of staged rows per CTA")
 
     y, u, v = video_like_planes(IN_W, IN_H)
-    err = {"blur": 0, "remap": 0, "window": 0}
+    err = {"blur": 0, "window": 0}
 
     # -- 3. kernels vs plain on the card -----------------------------------
     rng = torch.Generator(device="cuda").manual_seed(0)
-    cases = (("luma", luma_t, plan.luma, 4), ("chroma", chroma_t, plan.chroma, 8))
+    mono = dict(input_stereo_format=StereoFormat.MONO, output_stereo_format=StereoFormat.MONO)
+    blur_cases = [("flagship luma", luma_t.blur, 4), ("flagship chroma", chroma_t.blur, 8)]
+    for what, cfg, iw, ih, ow, oh in (
+        ("TB odd", TransformConfig(input_stereo_format=StereoFormat.TB,
+                                   output_stereo_format=StereoFormat.TB), 256, 161, 96, 128),
+        ("LR odd", TransformConfig(input_stereo_format=StereoFormat.LR,
+                                   output_stereo_format=StereoFormat.LR), 513, 80, 192, 64),
+        ("adaptive 32x15", TransformConfig(num_vertical_segments=32,
+                                           num_horizontal_segments=15, **mono), 960, 480, 240, 160),
+        ("y radius 5", TransformConfig(min_kernel_half_height=5, **mono), 256, 80, 96, 64),
+    ):
+        sp = build_plan(cfg, iw, ih, ow, oh, "yuv420p")
+        blur_cases += [(f"{what} {pp.in_w}x{pp.in_h}", pp.tables("cuda").blur, 3)
+                       for pp in (sp.luma, sp.chroma)]
     for tf32 in (True, False):
         torch.backends.cudnn.allow_tf32 = tf32
         torch.backends.cuda.matmul.allow_tf32 = tf32
-        for pname, t, pp, n in cases:
-            x = torch.randint(0, 256, (n, pp.in_h, pp.in_w), dtype=torch.uint8,
+        for what, bt, n in blur_cases:
+            x = torch.randint(0, 256, (n, bt.H, bt.W), dtype=torch.uint8, device="cuda",
+                              generator=rng)
+            got = blur.blur_u8(bt, x)
+            want = round_u8(blur_plain(bt.plan, x.float()))
+            torch.cuda.synchronize()
+            err["blur"] = max(err["blur"], compare(got, want, f"K1 {what}"))
+        for pname, t, pp in (("luma", luma_t, plan.luma), ("chroma", chroma_t, plan.chroma)):
+            x = torch.randint(0, 256, (7, pp.in_h, pp.in_w), dtype=torch.uint8,
                               device="cuda", generator=rng)
-            got = blur.blur_u8(t.blur, x)
-            want = round_u8(blur_plain(t.blur.plan, x.float()))
-            torch.cuda.synchronize()
-            err["blur"] = max(err["blur"], compare(got, want, f"K1 {pname}"))
-            got = remap.remap_u8(t.remap, x)
-            want = round_u8(remap_plain(t.remap, x))
-            torch.cuda.synchronize()
-            err["remap"] = max(err["remap"], compare(got, want, f"K2 {pname}"))
             for b in (1, 2, 7):
                 got = window.remap_window_u8(pp.window_tables("cuda"), x[:b].contiguous())
                 want = round_u8(remap_plain(t.remap, x[:b]))
@@ -297,12 +318,12 @@ def main() -> int:
                 err["window"] = max(err["window"], compare(got, want, f"K3 {pname} b={b}"))
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    say(f"[3] K1 vs blur_plain, K2 vs remap_plain at luma {plan.luma.in_h}x{plan.luma.in_w}"
-        f" and chroma {plan.chroma.in_h}x{plan.chroma.in_w}, TF32 on and off: "
-        f"max |diff| blur {err['blur']} LSB, remap {err['remap']} LSB")
-    say(f"[3] K3 vs remap_plain at the same shapes, batch 1, 2 and 7, TF32 on and off: "
+    say(f"[3] K1 vs blur_plain, TF32 on and off, on "
+        + ", ".join(f"{w} (ring y radius {bt.ring_ry})" for w, bt, _ in blur_cases)
+        + f": max |diff| {err['blur']} LSB")
+    say(f"[3] K3 vs remap_plain at luma {plan.luma.in_h}x{plan.luma.in_w} and chroma "
+        f"{plan.chroma.in_h}x{plan.chroma.in_w}, batch 1, 2 and 7, TF32 on and off: "
         f"max |diff| {err['window']} LSB")
-    mono = dict(input_stereo_format=StereoFormat.MONO, output_stereo_format=StereoFormat.MONO)
     small = (
         ("barrel+linear (clamp-with-fill)", TransformConfig(
             output_layout=Layout.BARREL, interpolation_alg=Interpolation.LINEAR, **mono),
@@ -324,14 +345,19 @@ def main() -> int:
         say(f"[3] K3 vs remap_plain, {what} {iw}x{ih} -> {ow}x{oh}, luma and chroma, "
             f"batch 1 and 3: max |diff| {err['window']} LSB")
     yb, ub, vb = batch_of(y, BATCH), batch_of(u, BATCH), batch_of(v, BATCH)
-    for b in (8, 16, 32, 64):
-        got = remap.remap_u8(luma_t.remap, yb[:b])
-        want = round_u8(remap_plain(luma_t.remap, yb[:b]))
-        torch.cuda.synchronize()
-        err["remap"] = max(err["remap"], compare(got, want, f"K2 luma b={b}"))
-        del want
-    say(f"[3] K2 vs remap_plain on flagship luma at batch 8, 16, 32, 64 (the B3/B4 "
-        f"range): max |diff| {err['remap']} LSB")
+    cb = torch.cat([ub, vb])  # the chroma plane batch of the batch path
+    for pname, xs, t, wt, sizes in (("luma", yb, luma_t, luma_w, (8, 16, 32, 64, 128)),
+                                    ("chroma", cb, chroma_t, chroma_w, (2 * BATCH,))):
+        for b in sizes:
+            got = window.remap_window_u8(wt, xs[:b])
+            for f0 in range(0, b, 32):  # the plain version in slices of 32 frames
+                want = round_u8(remap_plain(t.remap, xs[f0:min(b, f0 + 32)]))
+                err["window"] = max(err["window"], compare(
+                    got[f0:f0 + 32], want, f"K3 {pname} b={b}"))
+            del got, want
+    say(f"[3] K3 vs remap_plain on the flagship luma at batch 8, 16, 32, 64, 128 (the "
+        f"JAX package's B2-B4 range) and the stacked chroma at {2 * BATCH}: max |diff| "
+        f"{err['window']} LSB")
 
     # -- 4. batch path -----------------------------------------------------
     torch.cuda.synchronize()
@@ -339,8 +365,11 @@ def main() -> int:
     oy, ou, ov = eng.transform(yb, ub, vb)
     torch.cuda.synchronize()
     launches = read_counts()
-    if launches["blur"] <= 0 or launches["remap"] <= 0 or launches["window"] != 0:
-        raise SystemExit(f"FAIL batch path did not launch K1 and K2 (and not K3): {launches}")
+    if launches["blur"] != 2 or launches["window"] <= 0:
+        raise SystemExit(f"FAIL batch path did not launch K1 once per plane batch and K3: "
+                         f"{launches}")
+    if "transform360_tpu_torch.ops.remap" in sys.modules or (_build.CSRC / "remap.cu").exists():
+        raise SystemExit("FAIL the retired batch remap K2 is still present")
     want_shapes = [(BATCH, plan.out_h, plan.out_w)] + 2 * [
         (BATCH, plan.chroma.out_h, plan.chroma.out_w)
     ]
@@ -374,21 +403,19 @@ def main() -> int:
     runs = {
         "blur": (lambda: blur.blur_u8(luma_t.blur, xl),
                  lambda: round_u8(blur_plain(luma_t.blur.plan, xlf))),
-        "remap": (lambda: remap.remap_u8(luma_t.remap, bl),
-                  lambda: round_u8(remap_plain(luma_t.remap, bl))),
+        "window": (lambda: window.remap_window_u8(luma_w, bl),
+                   lambda: round_u8(remap_plain(luma_t.remap, bl))),
     }
+    wplan_bytes = tensor_bytes(luma_w.meta, luma_w.pos, luma_w.fy, luma_w.fx, luma_w.w1)
+    bounds = {"blur": blur_bound(luma_t.blur, tb),
+              "window": remap_bound(luma_t.remap, tb, wplan_bytes)}
     for name, (kern, plain_fn) in runs.items():
         km, pm, ks = in_turns(kern, plain_fn)
         times[name] = (km, pm)
         say(f"[5] {name}: kernel median {km:.4f} ms (p75 {pct(ks, 0.75):.4f}, "
-            f"n={len(ks)}), plain median {pm:.4f} ms per call on "
-            f"{tb} luma frames {IN_W}x{IN_H}  ({smi})")
-    bounds = {
-        "blur": blur_bound(luma_t.blur, tb),
-        "remap": remap_bound(luma_t.remap, tb, tensor_bytes(
-            luma_t.remap.base_y, luma_t.remap.base_x, luma_t.remap.fy, luma_t.remap.fx,
-            luma_t.remap.valid, luma_t.remap.wtab)),
-    }
+            f"n={len(ks)}), plain median {pm:.4f} ms per call on {tb} luma frames "
+            f"{IN_W}x{IN_H}; bound {bounds[name][0]:.4f} ms ({bounds[name][1]}), "
+            f"{bounds[name][0] / km:.1%} of it reached  ({smi})")
     cuda_times(lambda: eng.transform(yb, ub, vb), 2)  # warm-up
     steps = cuda_times(lambda: eng.transform(yb, ub, vb), 100)
     step = statistics.median(steps)
@@ -397,6 +424,22 @@ def main() -> int:
         f"(p90 {pct(steps, 0.9):.4f}, n={len(steps)}) = {BATCH / step * 1e3:.1f} frames/s; "
         f"host wall incl. sync median {statistics.median(walls):.4f} ms "
         f"(p90 {pct(walls, 0.9):.4f}, n={len(walls)})  ({smi})")
+    yl = blur.blur_u8(luma_t.blur, yb)  # the remaps' inputs on the batch path
+    cl = blur.blur_u8(chroma_t.blur, cb)
+    parts = {}
+    for name, fn in {
+        "K1 luma": lambda: blur.blur_u8(luma_t.blur, yb),
+        "K1 chroma (U+V)": lambda: blur.blur_u8(chroma_t.blur, cb),
+        "K3 luma": lambda: window.remap_window_u8(luma_w, yl),
+        "K3 chroma (U+V)": lambda: window.remap_window_u8(chroma_w, cl),
+        "cat of U and V": lambda: torch.cat([ub, vb]),
+    }.items():
+        cuda_times(fn, 2)
+        parts[name] = statistics.median(cuda_times(fn, 20))
+    say(f"[5] batch-{BATCH} stages, device medians of 20 by CUDA events: "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items())
+        + f"; sum {sum(parts.values()):.4f} ms against the step's {step:.4f}  ({smi})")
+    del yl, cl
 
     # -- 6. latency path ---------------------------------------------------
     y1, u1, v1 = yb[0], ub[0], vb[0]  # [H, W] planes on the card
@@ -405,9 +448,8 @@ def main() -> int:
     ly, lu, lv = eng.transform(y1, u1, v1)
     torch.cuda.synchronize()
     lat_launches = read_counts()
-    if lat_launches["blur"] <= 0 or lat_launches["window"] <= 0 or lat_launches["remap"] != 0:
-        raise SystemExit(f"FAIL latency path did not launch K1 and K3 (and not K2): "
-                         f"{lat_launches}")
+    if lat_launches["blur"] != 2 or lat_launches["window"] <= 0:
+        raise SystemExit(f"FAIL latency path did not launch K1 and K3: {lat_launches}")
     for pname, xin, o, t in (("Y", y1, ly, luma_t), ("U", u1, lu, chroma_t),
                              ("V", v1, lv, chroma_t)):
         want = round_u8(remap_plain(t.remap, round_u8(blur_plain(t.blur.plan, xin[None].float()))))
@@ -448,52 +490,29 @@ def main() -> int:
     say(f"[6] batch-1 stages, device medians of 50 by CUDA events: "
         + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items())
         + f"; sum {sum(parts.values()):.4f} ms  ({smi})")
-    km, pm, ks = in_turns(lambda: window.remap_window_u8(luma_w, x1),
-                          lambda: round_u8(remap_plain(luma_t.remap, x1)), rounds=20)
-    times["window"] = (km, pm)
-    wplan_bytes = tensor_bytes(luma_w.meta, luma_w.pos, luma_w.fy, luma_w.fx, luma_w.w1)
-    bounds["window"] = remap_bound(luma_t.remap, 1, wplan_bytes)
-    say(f"[6] window: kernel median {km:.4f} ms (p75 {pct(ks, 0.75):.4f}, n={len(ks)}), "
-        f"plain median {pm:.4f} ms per call on 1 luma frame {IN_W}x{IN_H}; "
-        f"bound {bounds['window'][0]:.4f} ms ({bounds['window'][1]}; "
-        f"{wplan_bytes / 1e6:.2f} MB of tile plan)  ({smi})")
+    for name, kern, plain_fn, bnd in (
+        ("blur", lambda: blur.blur_u8(luma_t.blur, x1),
+         lambda: round_u8(blur_plain(luma_t.blur.plan, x1.float())), blur_bound(luma_t.blur, 1)),
+        ("window", lambda: window.remap_window_u8(luma_w, x1),
+         lambda: round_u8(remap_plain(luma_t.remap, x1)),
+         remap_bound(luma_t.remap, 1, wplan_bytes)),
+    ):
+        km, pm, ks = in_turns(kern, plain_fn, rounds=20)
+        say(f"[6] {name}: kernel median {km:.4f} ms (p75 {pct(ks, 0.75):.4f}, n={len(ks)}), "
+            f"plain median {pm:.4f} ms per call on 1 luma frame {IN_W}x{IN_H}; "
+            f"bound {bnd[0]:.4f} ms ({bnd[1]})  ({smi})")
 
     # -- 7. ladder ---------------------------------------------------------
-    ladder = []
     for b in LADDER:
         ys, us, vs = yb[:b], ub[:b], vb[:b]
         cuda_times(lambda: eng.transform(ys, us, vs), 3)
         reps = max(10, 400 // b)
         dev = cuda_times(lambda: eng.transform(ys, us, vs), reps)
         hw = host_walls(lambda: eng.transform(ys, us, vs), max(5, reps // 4))
-        row = {"batch": b, "step_ms": statistics.median(dev), "step_p90": pct(dev, 0.9),
-               "n": len(dev), "fps": b / statistics.median(dev) * 1e3,
-               "wall_ms": statistics.median(hw)}
-        cs = torch.cat([ub[:b], vb[:b]])
-        for pname, xk, wt, ds in (("luma", yb[:b], luma_w, luma_t.remap),
-                                  ("chroma", cs, chroma_w, chroma_t.remap)):
-            k3 = lambda: window.remap_window_u8(wt, xk)
-            k2 = lambda: remap.remap_u8(ds, xk)
-            k3(), k2()
-            r3, r2 = [], []
-            for _ in range(6):  # in turns: K2, K3, K3, K2, ...
-                r2 += cuda_times(k2, 2)
-                r3 += cuda_times(k3, 4)
-                r2 += cuda_times(k2, 2)
-            row[pname] = (statistics.median(r3), statistics.median(r2), len(r3), len(r2))
-        ladder.append(row)
-        say(f"[7] batch {b:3d}: step device median {row['step_ms']:.4f} ms "
-            f"(p90 {row['step_p90']:.4f}, n={row['n']}) = {row['fps']:.1f} frames/s, host "
-            f"wall {row['wall_ms']:.4f} ms (n={len(hw)}); remap K3 vs K2: luma "
-            f"{row['luma'][0]:.4f} vs {row['luma'][1]:.4f} ms, chroma ({2 * b} planes) "
-            f"{row['chroma'][0]:.4f} vs {row['chroma'][1]:.4f} ms "
-            f"(n={row['luma'][2]}/{row['luma'][3]}); routes luma "
-            f"{'K3' if b <= pipeline.WINDOW_MAX_BATCH else 'K2'}, chroma "
-            f"{'K3' if 2 * b <= pipeline.WINDOW_MAX_BATCH else 'K2'}  ({smi})")
-    for pname in ("luma", "chroma"):
-        wins = [r["batch"] for r in ladder if r[pname][0] < r[pname][1]]
-        say(f"[7] K3 beats K2 on the flagship {pname} plane at frame batches {wins}; "
-            f"WINDOW_MAX_BATCH = {pipeline.WINDOW_MAX_BATCH} (plane batch)")
+        med = statistics.median(dev)
+        say(f"[7] batch {b:3d}: step device median {med:.4f} ms (p90 {pct(dev, 0.9):.4f}, "
+            f"n={len(dev)}) = {b / med * 1e3:.1f} frames/s, host wall "
+            f"{statistics.median(hw):.4f} ms (n={len(hw)})  ({smi})")
 
     # -- 8. CLI ------------------------------------------------------------
     n_cli = 8
@@ -520,20 +539,18 @@ def main() -> int:
 
     def entry(name, src, replaces, **extra):
         return {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                "launches": (lat_launches if name == "window" else launches)[name],
+                "launches": launches[name],
                 "max_abs_err": err[name], "ms": times[name][0],
                 "plain_ms": times[name][1], "bound_ms": bounds[name][0],
                 "bound_by": bounds[name][1], "library_ms": None, **extra}
 
     kernels = [
         entry("blur", "transform360_tpu_torch/csrc/blur.cu",
-              "transform360_tpu/ops/blur_lane.py:269", batches="all", shape="16 luma frames"),
-        entry("remap", "transform360_tpu_torch/csrc/remap.cu",
-              "transform360_tpu/ops/remap_lane.py:906", serves="B2, B3, B4",
-              batches=f">{pipeline.WINDOW_MAX_BATCH}", shape="16 luma frames"),
+              "transform360_tpu/ops/blur_lane.py:269", serves="B1", batches="all",
+              shape="16 luma frames"),
         entry("window", "transform360_tpu_torch/csrc/window.cu",
-              "transform360_tpu/ops/remap_pallas.py:441", serves="B5",
-              batches=f"1-{pipeline.WINDOW_MAX_BATCH}", shape="1 luma frame"),
+              "transform360_tpu/ops/remap_pallas.py:441", serves="B5; B2, B3, B4 closed on it",
+              batches="all", shape="16 luma frames"),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

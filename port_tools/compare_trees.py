@@ -1,0 +1,85 @@
+"""Time the flagship step of several checkouts of the port, in turns.
+
+    python3 port_tools/compare_trees.py parent=old change=. change=. parent=old
+    python3 port_tools/compare_trees.py k2=old:pipeline.WINDOW_MAX_BATCH=64
+
+Run from the root of a checkout on a machine with one NVIDIA GPU.  Each
+argument is ``label=DIR`` (a directory holding ``transform360_tpu_torch/``,
+for instance an earlier commit unpacked with ``git archive <commit>
+transform360_tpu_torch | tar -x -C DIR``), optionally followed by
+``:module.ATTR=value`` settings applied to that package's modules before
+the run.  Each argument runs in its own process, in the order given, so
+``parent change change parent`` interleaves the two trees on one card.
+Each process builds its kernels, makes the flagship's video-like frames
+(``chip_smoke.py``'s generator), and prints one JSON line: the step's
+device median in ms by CUDA events at batch 128 and at batch 1 (one
+[H, W] frame), the sample count, the K1 launches per step, and the card's
+name and power limit.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def child(label: str, settings: list) -> None:
+    import importlib
+    import statistics
+
+    import torch
+
+    import transform360_tpu_torch as P
+    from transform360_tpu_torch.ops import blur
+
+    sys.path.append(ROOT)
+    from chip_smoke import FLAGSHIP, batch_of, cuda_times, video_like_planes
+
+    for s in settings:
+        name, value = s.split("=", 1)
+        mod, attr = name.rsplit(".", 1)
+        setattr(importlib.import_module(f"transform360_tpu_torch.{mod}"), attr, int(value))
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    eng = P.open_filter(FLAGSHIP, 3840, 2160, device="cuda")
+    y, u, v = video_like_planes(3840, 2160)
+    yb, ub, vb = batch_of(y, 128), batch_of(u, 128), batch_of(v, 128)
+    res = {"label": label, "package": os.path.dirname(P.__file__), "settings": settings,
+           "card": smi}
+    for b, reps in ((128, 60), (1, 300)):
+        planes = (yb, ub, vb) if b == 128 else (yb[0], ub[0], vb[0])
+        cuda_times(lambda: eng.transform(*planes), 3)
+        n0 = blur.LAUNCHES
+        ts = cuda_times(lambda: eng.transform(*planes), reps)
+        res[f"batch{b}"] = {"step_ms": statistics.median(ts), "n": len(ts),
+                            "k1_launches": (blur.LAUNCHES - n0) / len(ts)}
+    print(json.dumps(res), flush=True)
+
+
+def main(argv) -> int:
+    if argv and argv[0] == "--child":
+        child(argv[1], argv[2:])
+        return 0
+    rc = 0
+    for spec in argv:
+        label, rest = spec.split("=", 1)
+        tree, *settings = rest.split(":")
+        env = dict(os.environ, PYTHONPATH=os.path.abspath(tree))
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", label,
+                              *settings], env=env, capture_output=True, text=True)
+        if out.returncode:
+            print(f"{label}: exit {out.returncode}\n{out.stderr[-3000:]}", flush=True)
+            rc = 1
+        else:
+            print(out.stdout.strip().splitlines()[-1], flush=True)
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

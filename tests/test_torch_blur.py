@@ -6,9 +6,13 @@
   mode: at most 1 LSB on under 0.5% of pixels (the bound of
   tests/test_blur_lane.py: that kernel sums vertical-first with a
   bf16x3-split x matmul).
-* The flattened tables the CUDA kernel K1 reads, walked in torch the way
-  the kernel walks them: exact against ``blur_plain``.  (The kernel
-  itself runs only on a GPU: tests/test_torch_cuda.py and chip_smoke.py.)
+* The tile plan the CUDA kernel K1 reads, walked in torch the way the
+  kernel walks it (per tile, the x pass of every staged row with the
+  tile's taps, halo rows included, then the y pass at the kernel's
+  radius and the round): exact against ``blur_plain``.  No tile crosses
+  a band, a segment or an eye, and the tiles cover every output pixel
+  exactly once.  (The kernel itself runs only on a GPU:
+  tests/test_torch_cuda.py and chip_smoke.py.)
 """
 
 import dataclasses
@@ -24,7 +28,15 @@ from transform360_tpu.filtering import apply_blur
 from transform360_tpu.ops.blur_lane import blur_lane, build_blur_lane
 from transform360_tpu.pipeline import _round_u8
 from transform360_tpu_torch.filtering import blur_plain
-from transform360_tpu_torch.ops.blur import BlurTables, blur_u8
+from transform360_tpu_torch.ops.blur import (
+    SMEM_MAX,
+    STRIP_MAX,
+    TW,
+    WARPS,
+    BlurTables,
+    blur_u8,
+    tile_pitch,
+)
 from transform360_tpu_torch.plan import plan_from_jax
 from transform360_tpu_torch.sampling import round_u8
 
@@ -39,6 +51,8 @@ CASES = {
                                        num_horizontal_segments=15, **MONO), 512, 128, 96, 64),
     "per-column-taps": (TransformConfig(num_horizontal_segments=3,
                                         fixed_cube_offcenter_z=0.5, **MONO), 256, 80, 96, 64),
+    # y radius 5: beyond the ring kernels, so K1 runs its direct kernel
+    "wide-y-taps": (TransformConfig(min_kernel_half_height=5, **MONO), 256, 80, 96, 64),
 }
 
 
@@ -87,35 +101,35 @@ def test_blur_plain_vs_blur_lane_interpret(name, rng):
 
 
 def _walk_tables(bt: BlurTables, x: torch.Tensor) -> torch.Tensor:
-    """K1's two passes in torch, reading only the tables, in the kernel's
-    order: horizontal into the float32 scratch, then vertical + round."""
+    """K1's tile walk in torch, reading only the tables, in the kernel's
+    order: per tile, the x pass of its source rows r0 - ry ..
+    r0 + nrows + ry (clamped) with the tile's own taps, then the y pass
+    (at the ring kernel's padded radius, or the tile's own for the
+    direct kernel) and the round.  Zero tiles write 0; a pixel no tile
+    writes keeps the sentinel 77."""
     B, H, W = x.shape
     xf = x.float()
-    RX, RY = (bt.kx.shape[2] - 1) // 2, (bt.ky.shape[2] - 1) // 2
-    seg = bt.col_seg.long().clamp(min=0)
-    c = torch.arange(W)
-    h = torch.empty(B, bt.S, W)
-    for s in range(bt.S):
-        g, src = int(bt.s_band[s]), int(bt.s_src[s])
-        rx = int(bt.rx[g])
-        acc = None
-        for u in range(2 * rx + 1):
-            term = bt.kx[g, seg, RX - rx + u][None] * xf[:, src, (c + u - rx).clamp(0, W - 1)]
-            acc = term if acc is None else acc + term
-        h[:, s] = acc
-    out = torch.zeros(B, H, W, dtype=torch.uint8)
-    for r in range(H):
-        g = int(bt.row_band[r])
-        if g < 0:
+    out = torch.full((B, H, W), 77, dtype=torch.uint8)
+    LX, LY = bt.kx.shape[1], bt.ky.shape[1]
+    for r0, c0, nr, nc, s, _ in bt.tiles.tolist():
+        if s < 0:
+            out[:, r0 : r0 + nr, c0 : c0 + nc] = 0
             continue
-        ry, s0 = int(bt.ry[g]), int(bt.row_s0[r])
+        rx = int(bt.rx[s])
+        ry = bt.ring_ry if bt.ring_ry >= 0 else int(bt.ry[s])
+        k = bt.kx[s, (LX - 1) // 2 - rx :]
+        q = bt.ky[s, (LY - 1) // 2 - ry :]
+        rows = xf[:, torch.arange(r0 - ry, r0 + nr + ry).clamp(0, H - 1)]
+        cols = torch.arange(c0, c0 + nc)
+        h = None
+        for u in range(2 * rx + 1):
+            term = k[u] * rows[:, :, (cols + u - rx).clamp(0, W - 1)]
+            h = term if h is None else h + term
         acc = None
         for t in range(2 * ry + 1):
-            term = bt.ky[g, seg, RY - ry + t][None] * h[:, s0 + t]
+            term = q[t] * h[:, t : t + nr]
             acc = term if acc is None else acc + term
-        row = round_u8(acc)
-        row[:, bt.col_seg < 0] = 0
-        out[:, r] = row
+        out[:, r0 : r0 + nr, c0 : c0 + nc] = round_u8(acc)
     return out
 
 
@@ -126,3 +140,43 @@ def test_kernel_tables_reproduce_blur_plain(name, rng):
     x = torch.from_numpy(rng.integers(0, 256, (2, h, w), dtype=np.uint8))
     want = round_u8(blur_plain(tb, x.float()))
     assert torch.equal(_walk_tables(bt, x), want)
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_tiles_stay_inside_bands_and_cover_once(name):
+    _, tb, h, w = _blur_plan(name)
+    bt = BlurTables.from_plan(tb, h, w, "cpu")
+    tiles = bt.tiles.numpy().astype(np.int64)
+    nseg = max(b.kx.shape[0] for b in tb.bands)
+    # the band and the (eye, segment) of every output pixel, from the plan
+    band = np.full(h, -1)
+    for off in (0, tb.eye_h) if tb.stereo == StereoFormat.TB else (0,):
+        for i, b in enumerate(tb.bands):
+            band[off + b.top : off + b.top + b.height] = i
+    c = np.arange(w)
+    if tb.stereo == StereoFormat.LR:
+        eye, ec, covered = c // tb.eye_w, c % tb.eye_w, c < 2 * tb.eye_w
+    else:
+        eye, ec, covered = 0 * c, c, c < tb.eye_w
+    seg = np.where(covered, np.minimum(ec // tb.tile_w, nseg - 1), -1)
+    hits = np.zeros((h, w), int)
+    for r0, c0, nr, nc, s, pitch in tiles:
+        assert 0 < nr and 0 < nc <= TW
+        rs, cs = slice(r0, r0 + nr), slice(c0, c0 + nc)
+        hits[rs, cs] += 1
+        if s < 0:  # the leftover row or column of odd stereo dims, and only it
+            assert ((band[rs, None] < 0) | (seg[None, cs] < 0)).all()
+            continue
+        # one band, one eye, one segment: one set of taps
+        assert (band[rs] == s // nseg).all()
+        assert (seg[cs] == s % nseg).all() and len(set(eye[cs])) == 1
+        assert nr <= WARPS * STRIP_MAX and pitch == tile_pitch(nc, int(bt.rx[s]))
+        if bt.ring_ry >= 0:  # two staged buffers fit the CTA's shared memory
+            assert (nr + 2 * bt.ring_ry) * pitch <= bt.buf_bytes
+    assert (hits == 1).all()
+    assert 2 * bt.buf_bytes <= SMEM_MAX and bt.buf_bytes % 16 == 0
+    # the zeroed pixels of blur_plain are exactly the zero tiles'
+    zero = np.zeros((h, w), bool)
+    for r0, c0, nr, nc, s, _ in tiles[tiles[:, 4] < 0]:
+        zero[r0 : r0 + nr, c0 : c0 + nc] = True
+    assert (zero == ((band[:, None] < 0) | (seg[None, :] < 0))).all()

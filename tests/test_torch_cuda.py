@@ -1,13 +1,14 @@
 """The CUDA kernels against their plain PyTorch versions, on a GPU.
 
-K1 (csrc/blur.cu), K2 (csrc/remap.cu) and K3 (csrc/window.cu) are built to
-round exactly where ``blur_plain`` and ``remap_plain`` do, so the bound
-asserted here — at most 1 LSB on under 0.5% of pixels — is expected to
-hold with 0 differences.  The cases cover every border rule and tap count
-of K2 and K3 and every stereo raster of K1 at small sizes, and K3's
-global-path tiles.  Marked ``cuda``: they skip without a GPU.
-On the GPU host, which has no jax, run them without the suite's
-conftest.py (which imports jax):
+K1 (csrc/blur.cu) and K3 (csrc/window.cu) are built to round exactly
+where ``blur_plain`` and ``remap_plain`` do, so the bound asserted here
+— at most 1 LSB on under 0.5% of pixels — is expected to hold with 0
+differences.  The cases cover every border rule and tap count of K3 at
+batch 1 to 256, K3's global-path tiles, and every stereo raster of K1 at
+small sizes, its ring kernels (y radius padded to 1 or 3) and its direct
+kernel (a wider y radius), its frame loops and an unaligned plane.
+Marked ``cuda``: they skip without a GPU.  On the GPU host, which has no
+jax, run them without the suite's conftest.py (which imports jax):
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
@@ -19,8 +20,7 @@ import torch
 import transform360_tpu_torch as P
 from transform360_tpu_torch.config import Interpolation, Layout, StereoFormat, TransformConfig
 from transform360_tpu_torch.filtering import blur_plain
-from transform360_tpu_torch import pipeline
-from transform360_tpu_torch.ops import blur, remap, window
+from transform360_tpu_torch.ops import blur, window
 from transform360_tpu_torch.sampling import remap_plain, round_u8
 
 pytestmark = pytest.mark.cuda
@@ -48,6 +48,8 @@ CASES = {
                                        num_horizontal_segments=15, **MONO), 960, 480, 240, 160),
     "offcenter-3seg": (TransformConfig(num_horizontal_segments=3, fixed_cube_offcenter_z=0.5,
                                        **MONO), 256, 80, 96, 64),
+    # y radius 5: K1's direct kernel
+    "wide-y-taps": (TransformConfig(min_kernel_half_height=5, **MONO), 256, 80, 96, 64),
 }
 
 
@@ -77,25 +79,50 @@ def test_kernels_match_plain(name, gpu):
             n = blur.LAUNCHES
             got = blur.blur_u8(t.blur, x)
             torch.cuda.synchronize()
-            assert blur.LAUNCHES > n
+            assert blur.LAUNCHES == n + 1
             _assert_close(got, round_u8(blur_plain(t.blur.plan, x.float())), f"K1 {name}")
-        n = remap.LAUNCHES
-        got = remap.remap_u8(t.remap, x)
+        wt = pp.window_tables(gpu)
+        n = window.LAUNCHES
+        got = window.remap_window_u8(wt, x)
         torch.cuda.synchronize()
-        assert remap.LAUNCHES == n + 1
-        _assert_close(got, round_u8(remap_plain(t.remap, x)), f"K2 {name}")
+        assert window.LAUNCHES == n + len(wt.groups)
+        _assert_close(got, round_u8(remap_plain(t.remap, x)), f"K3 {name}")
 
 
-def test_blur_chunks_the_batch(gpu, monkeypatch):
+def test_blur_frame_loops_match_one_frame_at_a_time(gpu, monkeypatch):
     cfg, iw, ih, ow, oh = CASES["cubic-cubemap"]
     t = P.build_plan(cfg, iw, ih, ow, oh, "gray").luma.tables(gpu)
-    x = torch.randint(0, 256, (7, ih, iw), dtype=torch.uint8, device=gpu)
-    want = blur.blur_u8(t.blur, x)
-    monkeypatch.setattr(blur, "SCRATCH_BYTES", 2 * t.blur.S * t.blur.W * 4)  # 2 frames
+    x = torch.randint(0, 256, (19, ih, iw), dtype=torch.uint8, device=gpu)
+    want = torch.cat([blur.blur_u8(t.blur, x[i : i + 1].contiguous()) for i in range(19)])
+    # every CTA loops over 8 frames: groups of 8, 8 and an odd 3
+    monkeypatch.setattr(blur, "CTAS_TARGET", 1)
+    assert blur.frames_per_cta(19, t.blur.tiles.shape[0]) == blur.CTA_FRAMES == 8
     n = blur.LAUNCHES
     got = blur.blur_u8(t.blur, x)
     torch.cuda.synchronize()
-    assert blur.LAUNCHES == n + 4 and torch.equal(got, want)
+    assert blur.LAUNCHES == n + 1 and torch.equal(got, want)
+
+
+def test_kernels_take_a_batch_of_1024(gpu):
+    # the stacked chroma of a 512-frame batch: K1's frame groups and K3's
+    # frame loop over 1024 planes, against the plain versions
+    cfg, iw, ih, ow, oh = CASES["cubic-cubemap"]
+    pp = P.build_plan(cfg, iw, ih, ow, oh, "yuv420p").chroma
+    t = pp.tables(gpu)
+    x = torch.randint(0, 256, (1024, pp.in_h, pp.in_w), dtype=torch.uint8, device=gpu)
+    b = blur.blur_u8(t.blur, x)
+    assert torch.equal(b, round_u8(blur_plain(t.blur.plan, x.float())))
+    got = window.remap_window_u8(pp.window_tables(gpu), b)
+    assert torch.equal(got, round_u8(remap_plain(t.remap, b)))
+
+
+def test_blur_kernel_unaligned_plane(gpu):
+    # a plane that does not start on a 16-byte boundary: byte loads and stores
+    cfg, iw, ih, ow, oh = CASES["cubic-cubemap"]
+    t = P.build_plan(cfg, iw, ih, ow, oh, "gray").luma.tables(gpu)
+    buf = torch.randint(0, 256, (2 * ih * iw + 1,), dtype=torch.uint8, device=gpu)
+    x = buf[1:].view(2, ih, iw)
+    assert torch.equal(blur.blur_u8(t.blur, x), round_u8(blur_plain(t.blur.plan, x.float())))
 
 
 @pytest.mark.parametrize("pix_fmt", ["yuv420p", "gray"])
@@ -124,7 +151,7 @@ def test_window_kernel_matches_plain(name, gpu):
     g = torch.Generator(device=gpu).manual_seed(1)
     for pp in (plan.luma, plan.chroma):
         wt = pp.window_tables(gpu)
-        for B in (1, 3, 8):
+        for B in (1, 3, 8, 128, 256):
             x = torch.randint(0, 256, (B, pp.in_h, pp.in_w), dtype=torch.uint8,
                               device=gpu, generator=g)
             n = window.LAUNCHES
@@ -150,21 +177,22 @@ def test_window_kernel_unaligned_plane(gpu):
 
 
 def test_engine_routes_by_batch_on_the_card(gpu):
-    opts = "cube_edge_length=64:interpolation_alg=cubic:input_stereo_format=mono"
+    # every batch size launches K1 once per plane batch and K3 once per
+    # window class present, and equals the CPU engine
+    opts = ("cube_edge_length=64:interpolation_alg=cubic:enable_low_pass_filter=1:"
+            "input_stereo_format=mono")
     rng = np.random.default_rng(4)
-    k = pipeline.WINDOW_MAX_BATCH
-    y = rng.integers(0, 256, (2 * k + 2, 256, 512), dtype=np.uint8)
-    uv = [rng.integers(0, 256, (2 * k + 2, 128, 256), dtype=np.uint8) for _ in range(2)]
+    y = rng.integers(0, 256, (130, 256, 512), dtype=np.uint8)
+    uv = [rng.integers(0, 256, (130, 128, 256), dtype=np.uint8) for _ in range(2)]
     eng = P.open_filter(opts, 512, 256, device=gpu)
     cpu = P.open_filter(opts, 512, 256, device="cpu")
-    for b, want_k3, want_k2 in ((1, 2, 0), (2 * k + 2, 0, 2)):
+    for b in (1, 130):
         planes = (y[0], uv[0][0], uv[1][0]) if b == 1 else (y, *uv)
-        n3, n2 = window.LAUNCHES, remap.LAUNCHES
+        n1, n3 = blur.LAUNCHES, window.LAUNCHES
         got = eng.transform(*planes)
         torch.cuda.synchronize()
         wt = (eng.plan.luma.window_tables(gpu), eng.plan.chroma.window_tables(gpu))
-        groups = len(wt[0].groups) + len(wt[1].groups)
-        assert window.LAUNCHES - n3 == (groups if want_k3 else 0)
-        assert remap.LAUNCHES - n2 == want_k2
+        assert blur.LAUNCHES - n1 == 2
+        assert window.LAUNCHES - n3 == len(wt[0].groups) + len(wt[1].groups)
         for a, c in zip(got, cpu.transform(*planes)):
             assert torch.equal(a.cpu(), c)

@@ -14,7 +14,8 @@ import pytest
 import torch
 
 import transform360_tpu_torch as t3
-from transform360_tpu_torch.ops import _build, blur, remap, window
+from transform360_tpu_torch import pipeline
+from transform360_tpu_torch.ops import _build, blur, window
 
 ROOT = Path(__file__).resolve().parent.parent
 # every module of the package, found by walking it (a new module cannot
@@ -27,8 +28,9 @@ MODULES = ["transform360_tpu_torch"] + sorted(
 def test_every_module_is_walked():
     for m in ("transform360_tpu_torch.ops.window", "transform360_tpu_torch.cli",
               "transform360_tpu_torch.utils.yuv", "transform360_tpu_torch.utils.video",
-              "transform360_tpu_torch.utils.profiling", "transform360_tpu_torch.ops.remap"):
+              "transform360_tpu_torch.utils.profiling", "transform360_tpu_torch.ops.blur"):
         assert m in MODULES
+    assert "transform360_tpu_torch.ops.remap" not in MODULES  # K2 is retired
 
 
 def test_import_pulls_in_no_jax():
@@ -49,8 +51,9 @@ def test_import_pulls_in_no_jax():
 
 
 def test_cuda_sources_exist_and_are_packaged():
-    for name in ("blur.cu", "remap.cu", "window.cu", "common.cuh"):
+    for name in ("blur.cu", "window.cu", "common.cuh"):
         assert (_build.CSRC / name).is_file()
+    assert not (_build.CSRC / "remap.cu").exists()
     with open(ROOT / "pyproject.toml", "rb") as f:
         data = tomllib.load(f)["tool"]["setuptools"]["package-data"]
     assert data["transform360_tpu_torch"] == ["csrc/*.cu", "csrc/*.cuh"]
@@ -74,15 +77,14 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
         _build.nvcc_path()
 
 
-def test_wrappers_refuse_other_devices_and_bad_inputs():
+def test_wrappers_refuse_other_devices_and_bad_inputs(monkeypatch):
     eng = t3.open_filter(
         "cube_edge_length=32:input_stereo_format=mono", 256, 128, device="cpu"
     )
     t = eng.plan.luma.tables("cpu")
     wt = eng.plan.luma.window_tables("cpu")
     meta = torch.empty((1, 128, 256), dtype=torch.uint8, device="meta")
-    for fn, tab in ((blur.blur_u8, t.blur), (remap.remap_u8, t.remap),
-                    (window.remap_window_u8, wt)):
+    for fn, tab in ((blur.blur_u8, t.blur), (window.remap_window_u8, wt)):
         with pytest.raises(ValueError):
             fn(tab, meta)  # neither cpu nor cuda: no silent fallback
         with pytest.raises(TypeError):
@@ -92,11 +94,16 @@ def test_wrappers_refuse_other_devices_and_bad_inputs():
         with pytest.raises(ValueError):
             fn(tab, torch.zeros((1, 256, 128), dtype=torch.uint8).transpose(1, 2))
     # CPU tensors run the plain versions and never count as kernel launches
-    before = (blur.LAUNCHES, remap.LAUNCHES, window.LAUNCHES)
+    before = (blur.LAUNCHES, window.LAUNCHES)
+    calls = []
+    real = pipeline.remap_window_u8
+    monkeypatch.setattr(pipeline, "remap_window_u8",
+                        lambda wt, x: calls.append(x.shape[0]) or real(wt, x))
     x = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (9, 128, 256), np.uint8))
-    assert eng.transform_frame_plane(x[:2], 0, 256, 128).shape == (2, 64, 96)  # K3's route
-    assert eng.transform_frame_plane(x, 0, 256, 128).shape == (9, 64, 96)  # K2's route
-    assert (blur.LAUNCHES, remap.LAUNCHES, window.LAUNCHES) == before
+    assert eng.transform_frame_plane(x[:2], 0, 256, 128).shape == (2, 64, 96)
+    assert eng.transform_frame_plane(x, 0, 256, 128).shape == (9, 64, 96)
+    assert calls == [2, 9]  # K3's route at every batch size
+    assert (blur.LAUNCHES, window.LAUNCHES) == before
 
 
 @pytest.mark.parametrize(

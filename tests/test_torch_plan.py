@@ -154,4 +154,6 @@ def test_device_tables_cached_per_device():
     pp = P.build_plan(cfg, 256, 128, 96, 64).luma
     a, b = pp.tables("cpu"), pp.tables("cpu")
     assert a is b and a.remap.base_y.device.type == "cpu"
-    assert a.remap.wtab.shape == (1024, 16) and a.blur.S >= pp.in_h
+    assert a.remap.wtab.shape == (1024, 16) and a.blur.tiles.device.type == "cpu"
+    # the prefilter's tiles cover the plane
+    assert int((a.blur.tiles[:, 2] * a.blur.tiles[:, 3]).sum()) == pp.in_h * pp.in_w

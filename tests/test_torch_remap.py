@@ -10,9 +10,10 @@
 * ``remap_plain`` against the pack-K (B3, ``build_lane_pack``) and
   merged-window (B4, ``build_lane_merged``) lane kernels at K = 2, the
   JAX pipeline's batch 8-64 route, in interpret mode at batch 8 and 20:
-  the same bound.  K2 serves that batch range in the port, so these hold
-  K2's function against B3 and B4.
-The CUDA kernel K2 itself runs only on a GPU (tests/test_torch_cuda.py,
+  the same bound, and the CPU path of ``remap_window_u8`` (K3's plain
+  version, which serves every batch size in the port) equals
+  ``remap_plain`` there.  So these hold K3's function against B3 and B4.
+The CUDA kernel K3 itself runs only on a GPU (tests/test_torch_cuda.py,
 chip_smoke.py).
 """
 
@@ -33,7 +34,7 @@ from transform360_tpu.ops.remap_lane import (
 )
 from transform360_tpu.pipeline import _round_u8
 from transform360_tpu.sampling import fixup_values, partial_fixup, remap_const
-from transform360_tpu_torch.ops.remap import remap_u8
+from transform360_tpu_torch.ops.window import WindowTables, build_window_plan, remap_window_u8
 from transform360_tpu_torch.plan import plan_from_jax
 from transform360_tpu_torch.sampling import DeviceSpec, remap_plain, round_u8
 
@@ -46,14 +47,15 @@ def _case(interp, layout, plane=0):
     jp = J.build_plan(cfg, 256, 128, OUT_W[layout], 64)
     jpp = jp.luma if plane == 0 else jp.chroma
     tpp = plan_from_jax(jp).luma if plane == 0 else plan_from_jax(jp).chroma
-    return jpp, DeviceSpec.from_spec(tpp.spec, tpp.fill, "cpu")
+    wt = WindowTables.from_plan(build_window_plan(tpp.spec, tpp.fill), "cpu")
+    return jpp, DeviceSpec.from_spec(tpp.spec, tpp.fill, "cpu"), wt
 
 
 @pytest.mark.parametrize("plane", [0, 1])
 @pytest.mark.parametrize("layout", [Layout.CUBEMAP_32, Layout.BARREL])
 @pytest.mark.parametrize("interp", list(Interpolation))
 def test_remap_plain_exact_vs_remap_const(interp, layout, plane, rng):
-    jpp, ds = _case(interp, layout, plane)
+    jpp, ds, wt = _case(interp, layout, plane)
     B = 3
     x = rng.integers(0, 256, (B, jpp.in_h, jpp.in_w), dtype=np.uint8)
     want = np.asarray(_round_u8(
@@ -62,8 +64,8 @@ def test_remap_plain_exact_vs_remap_const(interp, layout, plane, rng):
     got = round_u8(remap_plain(ds, torch.from_numpy(x))).numpy()
     assert got.shape == want.shape
     assert np.array_equal(got, want), f"{(got != want).sum()} pixels differ"
-    # the CPU path of the wrapper is exactly the plain version
-    assert np.array_equal(remap_u8(ds, torch.from_numpy(x)).numpy(), got)
+    # K3's wrapper on a CPU tensor (its plain version) gives the same bytes
+    assert np.array_equal(remap_window_u8(wt, torch.from_numpy(x)).numpy(), got)
 
 
 @pytest.mark.parametrize(
@@ -72,7 +74,7 @@ def test_remap_plain_exact_vs_remap_const(interp, layout, plane, rng):
      (Interpolation.LANCZOS4, Layout.CUBEMAP_32)],
 )
 def test_remap_plain_vs_remap_lane_interpret(interp, layout, rng):
-    jpp, ds = _case(interp, layout)
+    jpp, ds, _ = _case(interp, layout)
     lp = build_lane_remap(jpp.spec, jpp.fill)
     assert lp is not None
     x = rng.integers(0, 256, (3, jpp.in_h, jpp.in_w), dtype=np.uint8)
@@ -105,7 +107,7 @@ def test_remap_plain_vs_lane_pack_and_merged_interpret(kernel, interp, layout):
     """Set up as tests/test_remap_lane.py's pack cases and the pipeline's
     pack route (pipeline.py:179-204): frames zero-padded to a 64-lane
     group and duplicated into both groups, [H, W, 128] in."""
-    jpp, ds = _case(interp, layout)
+    jpp, ds, wt = _case(interp, layout)
     lp = build_lane_remap(jpp.spec, jpp.fill)
     build = build_lane_pack if kernel == "B3-pack" else build_lane_merged
     pk = build(lp, 2)
@@ -125,6 +127,7 @@ def test_remap_plain_vs_lane_pack_and_merged_interpret(kernel, interp, layout):
             want = want.reshape(B, -1)
             want[:, fix[0]] = vals
             want = want.reshape(B, jpp.out_h, jpp.out_w)
-        got = remap_u8(ds, torch.from_numpy(x)).numpy()
+        got = round_u8(remap_plain(ds, torch.from_numpy(x))).numpy()
+        assert np.array_equal(remap_window_u8(wt, torch.from_numpy(x)).numpy(), got)
         assert got.shape == want.shape
         _assert_within_a_tie(got, want)

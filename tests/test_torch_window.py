@@ -1,5 +1,5 @@
-"""The small-batch remap (K3's tile plan and plain version) against the
-port's remap and the JAX package's window-gather kernel B5.
+"""The remap (K3's tile plan and plain version) against the port's plain
+remap and the JAX package's window-gather kernel B5.
 
 * The tile plan's invariants: tiles partition the output; every tap of a
   windowed tile lies in its window; each class fits its shared-memory
@@ -16,9 +16,10 @@ port's remap and the JAX package's window-gather kernel B5.
   tests/test_remap_pallas.py's configurations: window classes and pole
   tiles, the transparent border, the residual XLA fallback and a short
   input, at batch 1 and 4.
-* The route: a frame alone equals the same frame inside a batch of 8
-  byte for byte, and a single [H, W] frame matches the JAX engine at the
-  fidelity gate's size.
+* The route: every plane batch, 1 to 256, takes K3's wrapper and no
+  other remap; a frame alone equals the same frame inside a batch of 8
+  and of 33 byte for byte, and a single [H, W] frame matches the JAX
+  engine at the fidelity gate's size.
 K3 itself runs only on a GPU (tests/test_torch_cuda.py, chip_smoke.py).
 """
 
@@ -188,56 +189,44 @@ def test_port_vs_remap_pallas_interpret(name):
 
 
 def _count_routes(monkeypatch):
-    calls = {"window": [], "remap": []}
-    real_w, real_r = pipeline.remap_window_u8, pipeline.remap_u8
+    """Plane batches that reach K3's wrapper; the pipeline has no other remap."""
+    assert not hasattr(pipeline, "remap_u8") and not hasattr(pipeline, "WINDOW_MAX_BATCH")
+    calls = []
+    real = pipeline.remap_window_u8
 
-    def spy_w(wt, x):
-        calls["window"].append(x.shape[0])
-        return real_w(wt, x)
+    def spy(wt, x):
+        calls.append(x.shape[0])
+        return real(wt, x)
 
-    def spy_r(ds, x):
-        calls["remap"].append(x.shape[0])
-        return real_r(ds, x)
-
-    monkeypatch.setattr(pipeline, "remap_window_u8", spy_w)
-    monkeypatch.setattr(pipeline, "remap_u8", spy_r)
+    monkeypatch.setattr(pipeline, "remap_window_u8", spy)
     return calls
-
-
-def _routes(*plane_batches):
-    k = pipeline.WINDOW_MAX_BATCH
-    return {"window": [b for b in plane_batches if b <= k],
-            "remap": [b for b in plane_batches if b > k]}
 
 
 def test_frame_alone_equals_frame_in_batch_of_8(monkeypatch):
     opts = "cube_edge_length=64:interpolation_alg=cubic:enable_low_pass_filter=1:input_stereo_format=mono"
     y, u, v = _video_like_planes(512, 256)
-    n = max(8, (pipeline.WINDOW_MAX_BATCH + 2) // 2)  # chroma of n frames takes K2
+    n = 33  # an odd batch; its chroma is a plane batch of 66
     frames = [np.stack([np.roll(p, 9 * k, axis=1) for k in range(n)]) for p in (y, u, v)]
     eng = P.open_filter(opts, 512, 256, device="cpu")
     calls = _count_routes(monkeypatch)
     alone = eng.transform(*(f[5] for f in frames))
     batch8 = eng.transform(*(f[:8] for f in frames))
     big = eng.transform(*frames)
-    # luma and the stacked chroma (2 planes per frame) route on their own
-    # batch sizes: the lone frame is 1 and 2, the batch 8 and 16
-    assert calls == {k: _routes(1, 2, 8, 16)[k] + _routes(n, 2 * n)[k] for k in calls}
-    assert calls["remap"]  # both remaps ran
+    # luma and the stacked chroma (2 planes per frame) each take K3
+    assert calls == [1, 2, 8, 16, n, 2 * n]
     for a, b8, bn in zip(alone, batch8, big):
         assert torch.equal(b8[5], a) and torch.equal(bn[5], a)
 
 
 def test_route_threshold(monkeypatch):
-    assert pipeline.WINDOW_MAX_BATCH >= 1
+    # no threshold any more: every plane batch takes K3
     eng = P.open_filter("cube_edge_length=32:input_stereo_format=mono", 256, 128,
                         pix_fmt="gray", device="cpu")
     calls = _count_routes(monkeypatch)
-    k = pipeline.WINDOW_MAX_BATCH
-    x = np.random.default_rng(0).integers(0, 256, (k + 1, 128, 256), dtype=np.uint8)
-    eng.transform(x[:k])
-    eng.transform(x)
-    assert calls == {"window": [k], "remap": [k + 1]}
+    x = np.random.default_rng(0).integers(0, 256, (256, 128, 256), dtype=np.uint8)
+    for b in (1, 64, 65, 128, 256):
+        eng.transform(x[:b])
+    assert calls == [1, 64, 65, 128, 256]
 
 
 def test_single_frame_engine_vs_jax_at_gate_size():

@@ -1,11 +1,10 @@
 """transform360_tpu_torch — the PyTorch/CUDA port of transform360_tpu.
 
 360° video re-projection (equirect ↔ cubemap and friends) on an NVIDIA
-GPU: plan-time warp maps and prefilter plans built on the CPU, and three
+GPU: plan-time warp maps and prefilter plans built on the CPU, and two
 hand-written CUDA kernels on the frame path — the adaptive prefilter
-(``csrc/blur.cu``), and the remap for small batches (``csrc/window.cu``)
-and for large ones (``csrc/remap.cu``) — each with a plain PyTorch
-version that serves CPU tensors.  ``python -m transform360_tpu_torch.cli``
+(``csrc/blur.cu``) and the window-gather remap (``csrc/window.cu``) —
+each with a plain PyTorch version that serves CPU tensors.  ``python -m transform360_tpu_torch.cli``
 is the command-line front end.  The JAX package
 ``transform360_tpu`` is the reference; this package imports neither it
 nor jax.

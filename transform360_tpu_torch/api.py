@@ -141,9 +141,8 @@ class Transform360:
         Maps are generated lazily on the first frame, like the reference
         filter.  Returns uint8 tensors on the engine's device (a bare
         tensor for single-plane formats).  CUDA work is queued on the
-        current stream; reading the result waits for it.  A batch of at
-        most ``pipeline.WINDOW_MAX_BATCH`` frames takes the small-batch
-        remap (K3); larger batches take K2; both give the same bytes.
+        current stream; reading the result waits for it.  Every batch
+        size runs the same kernels (K1, then the window-gather remap K3).
         """
         return self.transform_async(y, u, v)
 

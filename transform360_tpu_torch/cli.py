@@ -21,8 +21,8 @@ stdin/stdout (the ffmpeg rawvideo idiom)::
       | python -m transform360_tpu_torch.cli --vf "cube_edge_length=512" \\
           --input-size 3840x2160 -i - -o out.yuv
 
-``--batch 1`` is the live-stream setting (one frame per step, the
-small-batch remap K3); larger batches trade latency for frames/s.
+``--batch 1`` is the live-stream setting (one frame per step); larger
+batches trade latency for frames/s.
 Options that need modules not ported yet raise ``NotImplementedError``
 naming their ROADMAP item.
 """
@@ -98,7 +98,7 @@ def batched_outputs(transform_async, inq, n_planes, batch, prefetch, stats):
     ``prefetch`` batches in flight) and retiring them in submission order.
 
     A short tail batch is submitted as it is: the port runs eagerly, so a
-    new batch size costs no compile, and both remap routes compute the
+    new batch size costs no compile, and every batch size computes the
     same bytes."""
     batches = [[] for _ in range(n_planes)]
     pending: deque = deque()  # (frames, device outputs) not yet retired

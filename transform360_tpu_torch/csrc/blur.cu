@@ -1,135 +1,369 @@
-// K1: the adaptive low-pass prefilter, with the half-up round to uint8.
+// K1: the adaptive low-pass prefilter, with the half-up round to uint8, in
+// one fused pass through shared memory.
 //
 // Replaces the Pallas kernel transform360_tpu/ops/blur_lane.py:269
 // (_make_kernel, entry blur_lane).  It computes what
 // transform360_tpu.filtering.apply_blur followed by pipeline._round_u8
 // computes, and what transform360_tpu_torch.filtering.blur_plain + round
-// computes, bit for bit: per latitude band, a horizontal pass with
-// per-column taps, then a vertical pass, in float32, each product and
-// each sum rounded on its own (built with -fmad=false, and the
-// __fmul_rn/__fadd_rn intrinsics are never contracted), in the plain
-// version's tap order.
+// computes, bit for bit.  For output pixel (r, c) of latitude band g and
+// blur segment s: h_t = sum_u kx[g,s][u] * x[clamp(r - ry + t)][clamp(c + u - rx)]
+// for t = 0 .. 2*ry, then sum_t ky[g,s][t] * h_t, then the round; u and t
+// ascend, and each product and each sum is rounded on its own (built with
+// -fmad=false; __fmul_rn/__fadd_rn are never contracted).  Each h_t is the
+// x pass of its source row with the OUTPUT row's band taps, also for halo
+// rows across a band seam, as apply_blur slices rows
+// [top - ry, top + height + ry) per band.  Rows and columns outside the
+// plane clamp to its edge; seams between bands, segments and stereo eyes
+// read their real neighbours.  The TPU kernel keeps 128 frames in the
+// vector lanes and runs the x pass as a banded Toeplitz matmul on the MXU;
+// both are TPU artifacts and are not carried over: here planes are
+// batch-major uint8 [B, H, W].
 //
-// Layout: batch-major uint8 [B, H, W].  The TPU kernel keeps 128 frames
-// in the vector lanes ([H, W, 128]) and runs the x pass as a banded
-// Toeplitz matmul on the MXU; both are TPU artifacts and are not carried
-// over.
-//
-// The band raster is flattened on the host (ops/blur.py):
-//   * scratch row s holds the horizontal pass of source row s_src[s] with
-//     the taps of band s_band[s].  Each band (per stereo eye) owns
-//     height + 2*ry scratch rows, because the vertical taps of a band's
-//     output rows read neighbour rows filtered with THAT band's x taps,
-//     exactly as apply_blur slices rows [top - ry, top + height + ry);
-//   * output row r reads scratch rows row_s0[r] .. row_s0[r] + 2*ry with
-//     the taps of band row_band[r] (-1: the zeroed leftover row of odd
-//     TB stereo dims);
-//   * column c uses blur segment col_seg[c] (eye-folded for LR; -1: the
-//     zeroed leftover column of odd LR dims);
-//   * kx/ky hold each (band, segment)'s taps centred in a row of
-//     lx = 2*RX+1 / ly = 2*RY+1 floats (RX, RY: the plan's largest
-//     radii); a band of radius rx reads the middle 2*rx+1.  Any radius is
-//     served: the tables stay in global memory (L1-resident), so the
-//     adaptive 32x15 plan's ~87-tap polar kernels need no cap.
-// Source rows and columns outside the plane clamp to the edge (replicate
-// only at true plane edges; seams read real neighbours).
-//
-// What bounds it on the H100: memory traffic.  Per 4K luma frame the
-// input is 8.3 MB of uint8, but the float32 scratch is ~33 MB, written
-// by the first pass and read 2*ry+1 times by the second (mostly from
-// L2).  The design keeps the first version simple and right: one thread
-// per (frame, row, column), coalesced along columns, no shared memory.
-// The wrapper chunks the batch so the scratch stays bounded.  Fusing the
-// two passes through a shared-memory tile, which removes the scratch
-// round trip, is later work.
+// What bounds it on the H100.  The compulsory traffic is 2 bytes per pixel
+// (uint8 in, uint8 out); the work is (2*rx+1) + (2*ry+1) products and as
+// many sums per pixel, a few float32 operations per byte, so bytes and
+// float32 issue are within a factor of about two of each other at the
+// flagship (rx 1..6, ry 1).  The design keeps everything between the two
+// bytes on chip:
+//   * the host (ops/blur.py, BlurTables) cuts the plane into tiles of at
+//     most 8*strip rows x 128 columns that never cross a band, a segment or
+//     an eye, so a tile has one set of taps (row `set` of kx/ky); zero
+//     tiles (set -1) write the leftover row or column of odd stereo dims;
+//   * a CTA of 8 warps stages its tile's uint8 source rows
+//     [r0 - RY, r0 + nrows + RY) x columns [xs, xs + pitch) in shared
+//     memory (16-byte cp.async inside the plane, byte by byte where a
+//     chunk is clamped), double-buffered across the frames it loops over;
+//   * each thread owns 4 adjacent columns of one warp's strip of rows and
+//     walks down it: per source row it reads its bytes as aligned words,
+//     funnel-shifts them into place, turns each byte into a float with two
+//     full-rate instructions (0x4B0000bb is 2^23 + b), runs the x pass
+//     (unrolled for rx <= 8, a sliding window beyond), and keeps the last
+//     2*RY + 1 results in a register ring; the y pass, the round and one
+//     4-byte store follow.  No float32 value touches device memory.
+// A plan's y radius is padded up to the ring's RY (1 or 3) with zero taps,
+// which changes no bit (0 * h = +0, and adding +0 leaves a sum as it is).
+// Plans with a larger y radius, or an x radius whose staged rows would not
+// fit in shared memory, take blur_direct_kernel: the same tiles, one thread
+// per pixel, every tap read through L1.  Either way it is one launch per
+// call, with no scratch and no chunking of the batch.
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kBlock = 256;
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kV = 4;  // adjacent output columns per thread: one 4-byte store
 
-__global__ void blur_h_kernel(const uint8_t* __restrict__ x,
-                              float* __restrict__ h, int H, int W, int S,
-                              const int* __restrict__ s_src,
-                              const int* __restrict__ s_band,
-                              const int* __restrict__ col_seg,
-                              const float* __restrict__ kx,
-                              const int* __restrict__ rx_of, int nseg,
-                              int lx) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  const int s = blockIdx.y;
-  const int f = blockIdx.z;
-  if (c >= W) return;
-  const int g = s_band[s];
-  int seg = col_seg[c];
-  if (seg < 0) seg = 0;  // zeroed leftover column: the value is unused
-  const int rx = rx_of[g];
-  const float* k =
-      kx + (static_cast<size_t>(g) * nseg + seg) * lx + ((lx - 1) / 2 - rx);
-  const uint8_t* row = x + (static_cast<size_t>(f) * H + s_src[s]) * W;
-  float acc = 0.0f;
-  for (int u = 0; u <= 2 * rx; ++u) {
-    const float p = static_cast<float>(row[t360::clamp_idx(c + u - rx, W)]);
-    const float term = __fmul_rn(k[u], p);
-    acc = (u == 0) ? term : __fadd_rn(acc, term);
-  }
-  h[(static_cast<size_t>(f) * S + s) * W + c] = acc;
+// The float value of byte k of w, exactly.
+__device__ __forceinline__ float byte_to_float(uint32_t w, int k) {
+  return __fsub_rn(__uint_as_float(__byte_perm(w, 0x4B000000u, 0x7440 | k)),
+                   8388608.0f);
 }
 
-__global__ void blur_v_kernel(const float* __restrict__ h,
-                              uint8_t* __restrict__ out, int H, int W, int S,
-                              const int* __restrict__ row_band,
-                              const int* __restrict__ row_s0,
-                              const int* __restrict__ col_seg,
-                              const float* __restrict__ ky,
-                              const int* __restrict__ ry_of, int nseg,
-                              int ly) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  const int r = blockIdx.y;
-  const int f = blockIdx.z;
-  if (c >= W) return;
-  const int g = row_band[r];
-  const int seg = col_seg[c];
-  uint8_t v = 0;
-  if (g >= 0 && seg >= 0) {
-    const int ry = ry_of[g];
-    const float* k =
-        ky + (static_cast<size_t>(g) * nseg + seg) * ly + ((ly - 1) / 2 - ry);
-    const float* col = h + (static_cast<size_t>(f) * S + row_s0[r]) * W + c;
-    float acc = 0.0f;
-    for (int t = 0; t <= 2 * ry; ++t) {
-      const float term = __fmul_rn(k[t], col[static_cast<size_t>(t) * W]);
-      acc = (t == 0) ? term : __fadd_rn(acc, term);
+// t360::round_u8 as an integer: floor(x + 0.5) saturated to [0, 255].
+__device__ __forceinline__ uint32_t round_to_byte(float x) {
+  return static_cast<uint32_t>(min(max(__float2int_rd(__fadd_rn(x, 0.5f)), 0), 255));
+}
+
+// Copy rows [y0, y0 + rows) x columns [xs, xs + pitch) of one frame into
+// buf (row i at buf + i * pitch), clamped to the plane.
+__device__ __forceinline__ void stage(const uint8_t* __restrict__ frame, uint8_t* buf,
+                                      int y0, int xs, int rows, int pitch, int H,
+                                      int W, bool vec) {
+  const int cpr = pitch >> 4;
+  const int n = rows * cpr;
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    const int r = i / cpr;
+    const int k = (i - r * cpr) << 4;
+    const int gx = xs + k;
+    const uint8_t* row = frame + static_cast<size_t>(t360::clamp_idx(y0 + r, H)) * W;
+    uint8_t* d = buf + r * pitch + k;
+    if (vec && gx >= 0 && gx + 16 <= W) {
+      t360::cp_async16(d, row + gx);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) d[j] = row[t360::clamp_idx(gx + j, W)];
     }
-    v = t360::round_u8(acc);
   }
-  out[(static_cast<size_t>(f) * H + r) * W + c] = v;
+}
+
+// The x pass of kV adjacent columns whose first tap is byte b of row:
+// h[c] = sum_u k[u] * row[b + c + u], u ascending.
+template <int RX>
+__device__ __forceinline__ void x_pass(const uint8_t* row, int b, const float* k,
+                                       float* h) {
+  constexpr int N = kV + 2 * RX;  // bytes read
+  constexpr int NQ = (N + 3) / 4;
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(row + (b & ~3));
+  const int s = (b & 3) * 8;
+  uint32_t a[NQ + 1];
+#pragma unroll
+  for (int i = 0; i <= NQ; ++i) a[i] = w[i];
+  float p[4 * NQ];
+#pragma unroll
+  for (int i = 0; i < NQ; ++i) {
+    const uint32_t v = __funnelshift_r(a[i], a[i + 1], s);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) p[4 * i + j] = byte_to_float(v, j);
+  }
+#pragma unroll
+  for (int c = 0; c < kV; ++c) {
+    float acc = __fmul_rn(k[0], p[c]);
+#pragma unroll
+    for (int u = 1; u <= 2 * RX; ++u) acc = __fadd_rn(acc, __fmul_rn(k[u], p[c + u]));
+    h[c] = acc;
+  }
+}
+
+// The same for any radius: a window of kV bytes slides over the taps.
+__device__ __forceinline__ void x_pass_any(const uint8_t* row, int b,
+                                           const float* __restrict__ k, int rx,
+                                           float* h) {
+  float p[kV];
+  const float k0 = k[0];
+#pragma unroll
+  for (int c = 0; c < kV; ++c) {
+    p[c] = byte_to_float(row[b + c], 0);
+    h[c] = __fmul_rn(k0, p[c]);
+  }
+  for (int u = 1; u <= 2 * rx; ++u) {
+#pragma unroll
+    for (int c = 0; c < kV - 1; ++c) p[c] = p[c + 1];
+    p[kV - 1] = byte_to_float(row[b + u + kV - 1], 0);
+    const float ku = k[u];
+#pragma unroll
+    for (int c = 0; c < kV; ++c) h[c] = __fadd_rn(h[c], __fmul_rn(ku, p[c]));
+  }
+}
+
+__device__ void zero_tile(uint8_t* __restrict__ out, int f0, int nf, size_t plane,
+                          int W, int r0, int c0, int nrows, int ncols) {
+  const int n = nrows * ncols;
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    const size_t o = static_cast<size_t>(r0 + i / ncols) * W + c0 + i % ncols;
+    for (int f = f0; f < f0 + nf; ++f) out[f * plane + o] = 0;
+  }
+}
+
+struct Tile {
+  int r0, c0, nrows, ncols, pitch, rx;
+};
+
+// One tile over frames f0 .. f0 + nf - 1.  RX < 0: any x radius (rx).
+// k: the tile's 2*rx+1 x taps; q: its 2*RY+1 y taps (zero-padded).
+template <int RX, int RY>
+__device__ __forceinline__ void ring_tile(const uint8_t* __restrict__ x,
+                                          uint8_t* __restrict__ out, int f0, int nf,
+                                          int H, int W, const Tile& t,
+                                          const float* __restrict__ k,
+                                          const float* __restrict__ q, uint8_t* bufs,
+                                          int buf_bytes, bool vec_in, bool vec_out) {
+  const size_t plane = static_cast<size_t>(H) * W;
+  const int xs = (t.c0 - t.rx) & ~15;  // 16-aligned first staged column
+  const int rows = t.nrows + 2 * RY;
+  const int warp = threadIdx.x >> 5;
+  const int col = (threadIdx.x & 31) * kV;
+  const int sh = (t.nrows + kWarps - 1) / kWarps;  // rows per warp strip
+  const int sr = warp * sh;
+  const int nr = min(sh, t.nrows - sr);
+  const bool active = nr > 0 && col < t.ncols;
+  const int b = t.c0 - t.rx - xs + col;  // first tap's byte in a staged row
+  const bool store4 = vec_out && (t.c0 & 3) == 0 && col + kV <= t.ncols;
+
+  float kr[RX >= 0 ? 2 * RX + 1 : 1];
+  if (RX >= 0) {
+#pragma unroll
+    for (int u = 0; u < (RX >= 0 ? 2 * RX + 1 : 1); ++u) kr[u] = k[u];
+  }
+  float qr[2 * RY + 1];
+#pragma unroll
+  for (int i = 0; i <= 2 * RY; ++i) qr[i] = q[i];
+
+  stage(x + f0 * plane, bufs, t.r0 - RY, xs, rows, t.pitch, H, W, vec_in);
+  t360::cp_async_commit();
+  for (int f = 0; f < nf; ++f) {
+    if (f + 1 < nf) {
+      stage(x + (f0 + f + 1) * plane, bufs + ((f + 1) & 1) * buf_bytes, t.r0 - RY, xs,
+            rows, t.pitch, H, W, vec_in);
+      t360::cp_async_commit();
+      t360::cp_async_wait<1>();
+    } else {
+      t360::cp_async_wait<0>();
+    }
+    __syncthreads();  // frame f's rows are staged
+    if (active) {
+      const uint8_t* src = bufs + (f & 1) * buf_bytes + sr * t.pitch;
+      uint8_t* dst = out + (f0 + f) * plane + static_cast<size_t>(t.r0 + sr) * W + t.c0 + col;
+      float ring[2 * RY + 1][kV] = {};
+      for (int i = 0; i < nr + 2 * RY; ++i) {
+#pragma unroll
+        for (int j = 0; j < 2 * RY; ++j) {
+#pragma unroll
+          for (int c = 0; c < kV; ++c) ring[j][c] = ring[j + 1][c];
+        }
+        if (RX >= 0) {
+          x_pass<(RX >= 0 ? RX : 0)>(src + i * t.pitch, b, kr, ring[2 * RY]);
+        } else {
+          x_pass_any(src + i * t.pitch, b, k, t.rx, ring[2 * RY]);
+        }
+        if (i < 2 * RY) continue;
+        uint32_t v[kV];
+#pragma unroll
+        for (int c = 0; c < kV; ++c) {
+          float acc = __fmul_rn(qr[0], ring[0][c]);
+#pragma unroll
+          for (int j = 1; j <= 2 * RY; ++j) acc = __fadd_rn(acc, __fmul_rn(qr[j], ring[j][c]));
+          v[c] = round_to_byte(acc);
+        }
+        uint8_t* d = dst + static_cast<size_t>(i - 2 * RY) * W;
+        if (store4) {
+          *reinterpret_cast<uint32_t*>(d) = v[0] | (v[1] << 8) | (v[2] << 16) | (v[3] << 24);
+        } else {
+#pragma unroll
+          for (int c = 0; c < kV; ++c) {
+            if (col + c < t.ncols) d[c] = static_cast<uint8_t>(v[c]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // buffer f & 1 is free for frame f + 2
+  }
+}
+
+// tiles: int32 [n, 6] = (r0, c0, nrows, ncols, set, pitch); blockIdx.x is
+// the tile, blockIdx.y the group of fpc frames.
+template <int RY>
+__global__ void __launch_bounds__(kThreads, 3)
+    blur_ring_kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ out, int B,
+                     int H, int W, const int* __restrict__ tiles,
+                     const float* __restrict__ kx, const int* __restrict__ rx_of, int lx,
+                     const float* __restrict__ ky, int ly, int fpc, int buf_bytes,
+                     bool vec_in, bool vec_out) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int* m = tiles + 6 * blockIdx.x;
+  const int f0 = blockIdx.y * fpc;
+  const int nf = min(fpc, B - f0);
+  const int set = m[4];
+  if (set < 0) {  // uniform over the CTA
+    zero_tile(out, f0, nf, static_cast<size_t>(H) * W, W, m[0], m[1], m[2], m[3]);
+    return;
+  }
+  const Tile t{m[0], m[1], m[2], m[3], m[5], rx_of[set]};
+  const float* k = kx + static_cast<size_t>(set) * lx + (lx - 1) / 2 - t.rx;
+  const float* q = ky + static_cast<size_t>(set) * ly + (ly - 1) / 2 - RY;
+  switch (t.rx) {
+#define T360_RX(R)                                                                   \
+  case R:                                                                            \
+    ring_tile<R, RY>(x, out, f0, nf, H, W, t, k, q, smem, buf_bytes, vec_in, vec_out); \
+    break;
+    T360_RX(0)
+    T360_RX(1)
+    T360_RX(2)
+    T360_RX(3)
+    T360_RX(4)
+    T360_RX(5)
+    T360_RX(6)
+    T360_RX(7)
+    T360_RX(8)
+#undef T360_RX
+    default:
+      ring_tile<-1, RY>(x, out, f0, nf, H, W, t, k, q, smem, buf_bytes, vec_in, vec_out);
+  }
+}
+
+// Any radius: one thread per output pixel of the tile, every tap read
+// through L1, in the same order.
+__global__ void __launch_bounds__(kThreads)
+    blur_direct_kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ out, int B,
+                       int H, int W, const int* __restrict__ tiles,
+                       const float* __restrict__ kx, const int* __restrict__ rx_of, int lx,
+                       const float* __restrict__ ky, const int* __restrict__ ry_of, int ly,
+                       int fpc) {
+  const int* m = tiles + 6 * blockIdx.x;
+  const int r0 = m[0], c0 = m[1], nrows = m[2], ncols = m[3], set = m[4];
+  const int f0 = blockIdx.y * fpc;
+  const int nf = min(fpc, B - f0);
+  const size_t plane = static_cast<size_t>(H) * W;
+  if (set < 0) {
+    zero_tile(out, f0, nf, plane, W, r0, c0, nrows, ncols);
+    return;
+  }
+  const int rx = rx_of[set], ry = ry_of[set];
+  const float* k = kx + static_cast<size_t>(set) * lx + (lx - 1) / 2 - rx;
+  const float* q = ky + static_cast<size_t>(set) * ly + (ly - 1) / 2 - ry;
+  const int n = nrows * ncols;
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    const int r = r0 + i / ncols;
+    const int c = c0 + i % ncols;
+    for (int f = f0; f < f0 + nf; ++f) {
+      const uint8_t* frame = x + f * plane;
+      float acc = 0.0f;
+      for (int j = 0; j <= 2 * ry; ++j) {
+        const uint8_t* row = frame + static_cast<size_t>(t360::clamp_idx(r - ry + j, H)) * W;
+        float h = 0.0f;
+        for (int u = 0; u <= 2 * rx; ++u) {
+          const float term =
+              __fmul_rn(k[u], static_cast<float>(row[t360::clamp_idx(c + u - rx, W)]));
+          h = (u == 0) ? term : __fadd_rn(h, term);
+        }
+        const float term = __fmul_rn(q[j], h);
+        acc = (j == 0) ? term : __fadd_rn(acc, term);
+      }
+      out[f * plane + static_cast<size_t>(r) * W + c] = t360::round_u8(acc);
+    }
+  }
+}
+
+template <int RY>
+int launch_ring(const uint8_t* x, uint8_t* out, int B, int H, int W, const int* tiles,
+                dim3 grid, const float* kx, const int* rx, int lx, const float* ky, int ly,
+                int fpc, int buf_bytes, bool vec_in, bool vec_out, cudaStream_t st) {
+  const int smem = 2 * buf_bytes;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        blur_ring_kernel<RY>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  blur_ring_kernel<RY><<<grid, kThreads, smem, st>>>(x, out, B, H, W, tiles, kx, rx, lx,
+                                                     ky, ly, fpc, buf_bytes, vec_in,
+                                                     vec_out);
+  T360_CHECK_LAUNCH();
+  return 0;
 }
 
 }  // namespace
 
-// x: uint8 [B, H, W]; scratch: float32 [B, S, W]; out: uint8 [B, H, W].
-// Tables as described above, all on the device.
-extern "C" int t360_blur(const uint8_t* x, float* scratch, uint8_t* out,
-                         int B, int H, int W, int S, const int* s_src,
-                         const int* s_band, const int* row_band,
-                         const int* row_s0, const int* col_seg,
-                         const float* kx, const int* rx_of, int lx,
-                         const float* ky, const int* ry_of, int ly, int nseg,
-                         void* stream) {
-  if (B <= 0 || B > 65535 || H <= 0 || H > 65535 || S <= 0 || S > 65535 ||
-      W <= 0)
+// x, out: uint8 [B, H, W]; tiles: int32 [n_tiles, 6]; kx float32
+// [sets, lx] and ky [sets, ly], each set's taps centred; rx/ry int32
+// [sets].  ring_ry: 1 or 3 for the register-ring kernel (ly = 2*ring_ry+1),
+// -1 for the direct kernel.  Each CTA loops over fpc frames and holds two
+// staged buffers of buf_bytes (ring kernel).  vec_in: W and x 16-aligned;
+// vec_out: W and out 4-aligned.
+extern "C" int t360_blur(const uint8_t* x, uint8_t* out, int B, int H, int W,
+                         const int* tiles, int n_tiles, const float* kx, const int* rx,
+                         int lx, const float* ky, const int* ry, int ly, int ring_ry,
+                         int fpc, int buf_bytes, int vec_in, int vec_out, void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || n_tiles <= 0 || fpc <= 0 ||
+      (B + fpc - 1) / fpc > 65535 || buf_bytes < 0 || (buf_bytes & 15) != 0 ||
+      2 * buf_bytes > 227 * 1024)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 block(kBlock);
-  const dim3 grid_h((W + kBlock - 1) / kBlock, S, B);
-  blur_h_kernel<<<grid_h, block, 0, st>>>(x, scratch, H, W, S, s_src, s_band,
-                                          col_seg, kx, rx_of, nseg, lx);
-  T360_CHECK_LAUNCH();
-  const dim3 grid_v((W + kBlock - 1) / kBlock, H, B);
-  blur_v_kernel<<<grid_v, block, 0, st>>>(scratch, out, H, W, S, row_band,
-                                          row_s0, col_seg, ky, ry_of, nseg, ly);
-  T360_CHECK_LAUNCH();
-  return 0;
+  const dim3 grid(n_tiles, (B + fpc - 1) / fpc);
+  const bool vi = vec_in != 0, vo = vec_out != 0;
+  switch (ring_ry) {
+    case -1:
+      blur_direct_kernel<<<grid, kThreads, 0, st>>>(x, out, B, H, W, tiles, kx, rx, lx, ky,
+                                                   ry, ly, fpc);
+      T360_CHECK_LAUNCH();
+      return 0;
+    case 1:
+      return launch_ring<1>(x, out, B, H, W, tiles, grid, kx, rx, lx, ky, ly, fpc,
+                            buf_bytes, vi, vo, st);
+    case 3:
+      return launch_ring<3>(x, out, B, H, W, tiles, grid, kx, rx, lx, ky, ly, fpc,
+                            buf_bytes, vi, vo, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

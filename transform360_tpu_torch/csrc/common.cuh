@@ -23,6 +23,19 @@ __device__ __forceinline__ int clamp_idx(int i, int n) {
   return min(max(i, 0), n - 1);
 }
 
+// 16-byte asynchronous copy from device to shared memory (both 16-aligned).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
 }  // namespace t360
 
 #define T360_CHECK_LAUNCH()                 \

@@ -1,24 +1,25 @@
-// K3: the uint8 remap on OpenCV's 1/32 grid for small batches, staged
-// through shared memory one output tile at a time, with the half-up round.
+// K3: the uint8 remap on OpenCV's 1/32 grid, staged through shared memory
+// one output tile at a time, with the half-up round, at every batch size.
 //
 // Replaces the Pallas kernel transform360_tpu/ops/remap_pallas.py:441
 // (_make_kernel, run by _run_class, entry remap_pallas) together with its
 // XLA gather for oversized subtiles (_run_fallback, remap_pallas.py:639),
 // its padded plane (pad_plane, :364) and the BORDER_TRANSPARENT fix-up the
-// JAX pipeline applies after it (sampling.fixup_values).  It computes the
-// function of K2 (remap.cu) and of the plain version
-// transform360_tpu_torch.sampling.remap_plain, bit for bit.
+// JAX pipeline applies after it (sampling.fixup_values).  It also computes
+// the function of the lane-batched kernels B2-B4 (remap_lane.py), and of
+// the plain version transform360_tpu_torch.sampling.remap_plain, bit for
+// bit.
 //
-// What bounds it on the H100 at batch 1..7: latency and instructions, not
-// bytes.  A 4K luma frame is 8.3 MB in and 1.6 MB out; K2 re-reads its
-// 10 B/px plan for every 8-frame chunk and gathers each tap through L1,
-// which at batch 1 amortizes nothing.  K3 instead gives each CTA one
-// output tile of TH x TW pixels (ops/window.py builds the plan on the
+// What bounds it on the H100: latency and instructions, not bytes.  A 4K
+// luma frame is 8.3 MB in and 1.6 MB out, but every output pixel gathers
+// T x T taps from anywhere in a window of the source.  K3 gives each CTA
+// one output tile of TH x TW pixels (ops/window.py builds the plan on the
 // CPU): the CTA copies the tile's source window -- wh rows of `pitch`
 // bytes from a 16-aligned column -- into shared memory with 16-byte
 // cp.async loads, frame by frame, double-buffered so that frame f+1's
 // window loads while frame f is computed (the counterpart of the TPU
-// kernel's double-buffered window DMA).  Border rules are resolved while
+// kernel's double-buffered window DMA), and reads its plan once for all
+// the frames of the batch.  Border rules are resolved while
 // loading (wrap modulo the plane, clamp, or REFLECT_101), so no padded
 // copy of the plane exists; chunks that straddle the seam or an edge, or
 // planes whose width is not a multiple of 16, are loaded byte by byte.
@@ -57,18 +58,6 @@ __device__ __forceinline__ int resolve(int i, int n) {
   return t360::clamp_idx(i, n);  // fill: clamp, weight zeroed below
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // Copy one frame's window (wh rows of `pitch` bytes from (y0, x0)) into
 // `buf`, resolving the border rule per row and per chunk.
 template <int MODE>
@@ -85,7 +74,7 @@ __device__ __forceinline__ void stage(const uint8_t* __restrict__ frame,
     // past the seam a wrapped window continues at column gx - W
     const int gv = (MODE == 0 && gx >= W) ? gx - W : gx;
     if (vec && gv >= 0 && gv + 16 <= W) {
-      cp_async16(d, row + gv);
+      t360::cp_async16(d, row + gv);
     } else {
 #pragma unroll
       for (int j = 0; j < 16; ++j) d[j] = row[resolve<MODE>(gx + j, W)];
@@ -116,7 +105,7 @@ __global__ void __launch_bounds__(kThreads)
 
   if (staged) {  // frame 0's window is in flight while the plan is read
     stage<MODE>(src, bufs, y0, x0, wh, pitch, H, W, vec);
-    cp_async_commit();
+    t360::cp_async_commit();
   }
   for (int i = threadIdx.x; i < kTab * T; i += kThreads) s_w[i] = w1[i];
 
@@ -161,10 +150,10 @@ __global__ void __launch_bounds__(kThreads)
       if (f + 1 < B) {
         stage<MODE>(src + (f + 1) * plane, bufs + ((f + 1) & 1) * win_bytes, y0,
                     x0, wh, pitch, H, W, vec);
-        cp_async_commit();
-        cp_async_wait<1>();
+        t360::cp_async_commit();
+        t360::cp_async_wait<1>();
       } else {
-        cp_async_wait<0>();
+        t360::cp_async_wait<0>();
       }
       __syncthreads();  // frame f's window is complete
     }

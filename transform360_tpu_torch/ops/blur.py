@@ -2,11 +2,15 @@
 tensor on the CPU, its plain version :func:`..filtering.blur_plain`
 followed by the half-up round.
 
-:class:`BlurTables` flattens a :class:`..filtering.BlurPlan`'s band raster
-into the per-row, per-column and per-(band, segment) tables the kernel
-reads; ``csrc/blur.cu`` documents their meaning.  For a CUDA tensor the
-wrapper launches the kernel or raises; it never falls back.  ``LAUNCHES``
-counts kernel launches (one per frame chunk).
+:class:`BlurTables` cuts a :class:`..filtering.BlurPlan`'s band raster
+into the kernel's tiles, vectorized in numpy: rectangles of at most
+``WARPS * strip`` rows by ``TW`` columns that never cross a latitude
+band, a blur segment or a stereo eye, so that each tile has one tap set.
+A tile names its tap set (-1: the zeroed leftover row or column of odd
+stereo dims) and the row pitch of its staged source rows;
+``csrc/blur.cu`` documents how the kernel walks them.  For a CUDA tensor
+the wrapper launches the kernel or raises; it never falls back.
+``LAUNCHES`` counts kernel launches (one per call on a CUDA tensor).
 """
 
 from __future__ import annotations
@@ -24,67 +28,121 @@ from . import _build
 
 LAUNCHES = 0
 
-# Bound on the float32 scratch of the two-pass kernel; the batch is
-# chunked to stay below it (128 4K luma frames would need 4.2 GB).
-SCRATCH_BYTES = 512 << 20
+WARPS = 8  # a CTA: 8 warps, each walking a strip of rows
+TW = 32 * 4  # tile width: 32 threads of 4 adjacent columns
+STRIP_MAX = 24  # rows of a warp's strip
+# y radii of the register-ring kernels; a plan's is padded up to the
+# first that holds it (zero taps change no bit), larger ones take the
+# direct kernel
+RING_RY = (1, 3)
+SMEM_TARGET = 64 * 1024  # two staged buffers per CTA: three CTAs share an SM
+SMEM_MAX = 227 * 1024  # the most one CTA may use on Hopper
+CTA_FRAMES = 8  # most frames one CTA loops over
+CTAS_TARGET = 4096  # below this many CTAs a CTA takes fewer frames
 
 _c_void_p = ctypes.c_void_p
 _c_int = ctypes.c_int
 
 
+def tile_pitch(ncols, rx):
+    """Staged bytes per row of a tile: its whole 4-column groups, the 2*rx
+    halo, up to 15 bytes of 16-alignment in front and the last thread's
+    word read past its taps (``x_pass`` in ``csrc/blur.cu``), in 16-byte
+    chunks."""
+    return (4 * (-(-ncols // 4)) + 2 * rx + 20 + 15) // 16 * 16
+
+
+def _runs(key: np.ndarray):
+    """[start, end) and key of each run of equal values."""
+    starts = np.flatnonzero(np.r_[True, key[1:] != key[:-1]])
+    return starts, np.r_[starts[1:], key.size], key[starts]
+
+
+def _split(starts, ends, keys, most: int, even: bool):
+    """Cut each run into pieces of at most ``most``: nearly equal ones
+    (``even``) or ``most`` from the start.  Returns (start, length, key)."""
+    n = -(-(ends - starts) // most)
+    run = np.repeat(np.arange(starts.size), n)
+    i = np.arange(run.size) - np.repeat(np.cumsum(n) - n, n)
+    length = ends[run] - starts[run]
+    if even:
+        lo = i * length // n[run]
+        hi = (i + 1) * length // n[run]
+    else:
+        lo = i * most
+        hi = np.minimum(lo + most, length)
+    return starts[run] + lo, hi - lo, keys[run]
+
+
 @dataclasses.dataclass(frozen=True)
 class BlurTables:
-    """A blur plan flattened for the kernel, on one device."""
+    """A blur plan cut into the kernel's tiles, on one device."""
 
     plan: BlurPlan
     H: int
     W: int
-    S: int  # scratch rows per frame
-    s_src: torch.Tensor  # int32 [S] source row of scratch row s
-    s_band: torch.Tensor  # int32 [S] band whose x taps filter it
-    row_band: torch.Tensor  # int32 [H] band of output row r (-1: zero row)
-    row_s0: torch.Tensor  # int32 [H] scratch row of its first y tap
-    col_seg: torch.Tensor  # int32 [W] blur segment of column c (-1: zero column)
-    kx: torch.Tensor  # float32 [G, nseg, 2*RX+1] centred x taps
-    rx: torch.Tensor  # int32 [G]
-    ky: torch.Tensor  # float32 [G, nseg, 2*RY+1] centred y taps
-    ry: torch.Tensor  # int32 [G]
+    tiles: torch.Tensor  # int32 [n, 6]: r0, c0, nrows, ncols, set (-1: zeros), pitch
+    kx: torch.Tensor  # float32 [sets, 2*RX+1] centred x taps (set = band * nseg + segment)
+    rx: torch.Tensor  # int32 [sets]
+    ky: torch.Tensor  # float32 [sets, 2*ring_ry+1] (direct: 2*RY+1) centred y taps
+    ry: torch.Tensor  # int32 [sets], the plan's own radii
+    ring_ry: int  # y radius of the ring kernel, or -1: the direct kernel
+    buf_bytes: int  # one staged buffer of the ring kernel
 
     @classmethod
     def from_plan(cls, plan: BlurPlan, H: int, W: int, device) -> "BlurTables":
-        # global bands: TB repeats the per-eye raster for the second eye's
-        # rows; LR eyes share the rows and split the columns
-        offs = (0, plan.eye_h) if plan.stereo == StereoFormat.TB else (0,)
-        gbands = [(off, b) for off in offs for b in plan.bands]
         RX, RY = plan_radii(plan)
         nseg = max(b.kx.shape[0] for b in plan.bands)
-        G = len(gbands)
-        kx = np.zeros((G, nseg, 2 * RX + 1), np.float32)
-        ky = np.zeros((G, nseg, 2 * RY + 1), np.float32)
-        rx = np.zeros(G, np.int32)
-        ry = np.zeros(G, np.int32)
-        row_band = np.full(H, -1, np.int32)
-        row_s0 = np.zeros(H, np.int32)
-        s_src, s_band = [], []
-        for g, (off, b) in enumerate(gbands):
+        ring = next((r for r in RING_RY if r >= RY), -1)
+        strip = 0
+        if ring >= 0:  # rows per warp strip that let two buffers fit
+            for budget in (SMEM_TARGET, SMEM_MAX):
+                rows = budget // (2 * tile_pitch(TW, RX)) - 2 * ring
+                if rows >= WARPS:
+                    strip = min(STRIP_MAX, rows // WARPS)
+                    break
+            else:
+                ring = -1
+        ly = ring if ring >= 0 else RY
+        sets = len(plan.bands) * nseg
+        kx = np.zeros((sets, 2 * RX + 1), np.float32)
+        ky = np.zeros((sets, 2 * ly + 1), np.float32)
+        rx = np.zeros(sets, np.int32)
+        ry = np.zeros(sets, np.int32)
+        for i, b in enumerate(plan.bands):
             brx, bry = band_radii(b)
-            rx[g], ry[g] = brx, bry
-            kx[g, : b.kx.shape[0], RX - brx : RX + brx + 1] = b.kx
-            ky[g, : b.ky.shape[0], RY - bry : RY + bry + 1] = b.ky
-            top = off + b.top
-            s0 = len(s_src)
-            s_src.extend(np.clip(np.arange(top - bry, top + b.height + bry), 0, H - 1))
-            s_band.extend([g] * (b.height + 2 * bry))
-            row_band[top : top + b.height] = g
-            row_s0[top : top + b.height] = s0 + np.arange(b.height)
+            s = slice(i * nseg, i * nseg + b.kx.shape[0])
+            kx[s, RX - brx : RX + brx + 1] = b.kx
+            ky[s, ly - bry : ly + bry + 1] = b.ky
+            rx[i * nseg : (i + 1) * nseg] = brx
+            ry[i * nseg : (i + 1) * nseg] = bry
+
+        # row runs keyed by band (-1: the leftover row of odd TB dims);
+        # column runs keyed by eye and segment (-1: odd LR's leftover column)
+        band_of = np.full(H, -1, np.int64)
+        for off in (0, plan.eye_h) if plan.stereo == StereoFormat.TB else (0,):
+            for i, b in enumerate(plan.bands):
+                band_of[off + b.top : off + b.top + b.height] = i
         c = np.arange(W)
-        if plan.stereo == StereoFormat.LR:
-            ec = np.where(c >= plan.eye_w, c - plan.eye_w, c)
-            covered = c < 2 * plan.eye_w
-        else:
-            ec = c
-            covered = c < plan.eye_w
-        col_seg = np.where(covered, np.minimum(ec // plan.tile_w, nseg - 1), -1)
+        eye = (c >= plan.eye_w) if plan.stereo == StereoFormat.LR else np.zeros(W, bool)
+        covered = c < (2 if plan.stereo == StereoFormat.LR else 1) * plan.eye_w
+        seg = np.minimum((c - eye * plan.eye_w) // plan.tile_w, nseg - 1)
+        col_key = np.where(covered, eye * nseg + seg, -1)
+        th = WARPS * (strip or STRIP_MAX)
+        r0, nr, band = _split(*_runs(band_of), th, even=True)
+        c0, nc, ck = _split(*_runs(col_key), TW, even=False)
+        cseg = np.where(ck >= 0, ck % nseg, -1)
+
+        R, C = np.meshgrid(np.arange(r0.size), np.arange(c0.size), indexing="ij")
+        R, C = R.reshape(-1), C.reshape(-1)
+        tset = np.where((band[R] >= 0) & (cseg[C] >= 0), band[R] * nseg + cseg[C], -1)
+        trx = np.where(tset >= 0, rx[tset], 0)
+        pitch = np.where(tset >= 0, tile_pitch(nc[C], trx), 0)
+        tiles = np.stack([r0[R], c0[C], nr[R], nc[C], tset, pitch], axis=1)
+        # the widest taps first (the longest CTAs start early), zeros last
+        tiles = tiles[np.argsort(np.where(tset >= 0, -trx, 1), kind="stable")]
+        staged = tiles[:, 4] >= 0
+        buf = int(((tiles[:, 2] + 2 * max(ring, 0)) * tiles[:, 5])[staged].max(initial=0))
 
         def put(a, dt):
             return torch.from_numpy(np.ascontiguousarray(a, dt)).to(device)
@@ -93,17 +151,21 @@ class BlurTables:
             plan=plan,
             H=H,
             W=W,
-            S=len(s_src),
-            s_src=put(s_src, np.int32),
-            s_band=put(s_band, np.int32),
-            row_band=put(row_band, np.int32),
-            row_s0=put(row_s0, np.int32),
-            col_seg=put(col_seg, np.int32),
+            tiles=put(tiles, np.int32),
             kx=put(kx, np.float32),
             rx=put(rx, np.int32),
             ky=put(ky, np.float32),
             ry=put(ry, np.int32),
+            ring_ry=ring,
+            buf_bytes=buf if ring >= 0 else 0,
         )
+
+
+def frames_per_cta(B: int, n_tiles: int) -> int:
+    """Frames one CTA loops over: up to ``CTA_FRAMES`` while the grid keeps
+    ``CTAS_TARGET`` CTAs, and never a grid of more than 65535 frame groups."""
+    f = max(1, min(CTA_FRAMES, B * n_tiles // CTAS_TARGET))
+    return max(f, -(-B // 65535))
 
 
 def _lib() -> ctypes.CDLL:
@@ -111,12 +173,13 @@ def _lib() -> ctypes.CDLL:
     fn = lib.t360_blur
     if fn.argtypes is None:
         fn.argtypes = [
-            _c_void_p, _c_void_p, _c_void_p,  # x, scratch, out
-            _c_int, _c_int, _c_int, _c_int,  # B, H, W, S
-            _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,  # row/col tables
+            _c_void_p, _c_void_p,  # x, out
+            _c_int, _c_int, _c_int,  # B, H, W
+            _c_void_p, _c_int,  # tiles, n_tiles
             _c_void_p, _c_void_p, _c_int,  # kx, rx, lx
             _c_void_p, _c_void_p, _c_int,  # ky, ry, ly
-            _c_int,  # nseg
+            _c_int, _c_int, _c_int,  # ring_ry, frames per CTA, buffer bytes
+            _c_int, _c_int,  # vec_in, vec_out
             _c_void_p,  # stream
         ]
         fn.restype = _c_int
@@ -150,28 +213,22 @@ def blur_u8(bt: BlurTables, x: torch.Tensor) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"blur runs on cpu or cuda tensors, not {x.device}")
     B = x.shape[0]
-    chunk = max(1, min(B, SCRATCH_BYTES // (bt.S * bt.W * 4)))
+    n = bt.tiles.shape[0]
     out = torch.empty_like(x)
-    scratch = torch.empty((chunk, bt.S, bt.W), dtype=torch.float32, device=x.device)
     lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        for f0 in range(0, B, chunk):
-            n = min(chunk, B - f0)
-            err = lib.t360_blur(
-                x[f0].data_ptr(), scratch.data_ptr(), out[f0].data_ptr(),
-                n, bt.H, bt.W, bt.S,
-                bt.s_src.data_ptr(), bt.s_band.data_ptr(),
-                bt.row_band.data_ptr(), bt.row_s0.data_ptr(),
-                bt.col_seg.data_ptr(),
-                bt.kx.data_ptr(), bt.rx.data_ptr(), bt.kx.shape[2],
-                bt.ky.data_ptr(), bt.ry.data_ptr(), bt.ky.shape[2],
-                bt.kx.shape[1],
-                stream,
-            )
-            if err:
-                raise RuntimeError(
-                    f"blur kernel launch failed: {lib.t360_error_string(err).decode()}"
-                )
-            LAUNCHES += 1
+        err = lib.t360_blur(
+            x.data_ptr(), out.data_ptr(), B, bt.H, bt.W,
+            bt.tiles.data_ptr(), n,
+            bt.kx.data_ptr(), bt.rx.data_ptr(), bt.kx.shape[1],
+            bt.ky.data_ptr(), bt.ry.data_ptr(), bt.ky.shape[1],
+            bt.ring_ry, frames_per_cta(B, n), bt.buf_bytes,
+            int(bt.W % 16 == 0 and x.data_ptr() % 16 == 0),
+            int(bt.W % 4 == 0 and out.data_ptr() % 4 == 0),
+            stream,
+        )
+    if err:
+        raise RuntimeError(f"blur kernel launch failed: {lib.t360_error_string(err).decode()}")
+    LAUNCHES += 1
     return out

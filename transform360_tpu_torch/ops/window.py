@@ -1,11 +1,10 @@
-"""Window-gather remap for small batches: the tile plan, the CUDA kernel K3
+"""Window-gather remap: the tile plan, the CUDA kernel K3
 (``csrc/window.cu``) and, for a tensor on the CPU, its plain version.
 
-K3 computes the function of K2 (:func:`..sampling.remap_plain`, the
-remap with its half-up round) with another schedule, for batches of a
-few frames: one CTA per output tile of ``TH x TW`` pixels stages the
-tile's source window into shared memory frame by frame and samples every
-tap from there.
+K3 computes the function of :func:`..sampling.remap_plain` (the remap
+with its half-up round) at every batch size: one CTA per output tile of
+``TH x TW`` pixels stages the tile's source window into shared memory
+frame by frame and samples every tap from there.
 
 Plan time (numpy, vectorized): :func:`build_window_plan` cuts the output
 into tiles and gives each its source window -- origin, height, row

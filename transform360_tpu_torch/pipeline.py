@@ -1,16 +1,15 @@
-"""Batched frame pipeline: prefilter → round → remap, routed by batch size.
+"""Batched frame pipeline: prefilter → round → remap.
 
 Planes are batch-major uint8 ``[B, H, W]`` tensors end to end.  Each plane
 runs K1 (the prefilter, with its half-up round to uint8, when the plan has
-one) at every batch size, and then the remap with its half-up round: K3,
-the window-gather kernel (:mod:`.ops.window`), for a plane batch of at
-most ``WINDOW_MAX_BATCH`` frames -- the live-stream path -- and K2
-(:mod:`.ops.remap`) above it.  Both remaps compute the same function
-exactly, so the route never changes a byte.  The wrappers in :mod:`.ops`
+one) and then K3, the window-gather remap with its half-up round
+(:mod:`.ops.window`), at every batch size.  The wrappers in :mod:`.ops`
 launch the CUDA kernels for CUDA tensors and run the plain versions for
-CPU tensors.  The JAX package routes between five TPU kernels
-(``pipeline.py:144-284`` there); its lane-occupancy variants B3/B4 have no
-Hopper meaning, and K2 serves their batch range.
+CPU tensors.  The JAX package routes between five TPU kernels by batch
+size (``pipeline.py:144-284`` there); its lane-batched variants B2-B4
+exist for TPU lane occupancy.  K3 computes their function too, and on
+the H100 a batch remap in their style lost to K3 at every batch size
+(PERF.md), so nothing here routes by batch size.
 
 Rounding parity: the reference filters into a uint8 plane and remaps it
 with fixed-point arithmetic; both stages round with ``floor(x + 0.5)`` and
@@ -25,27 +24,16 @@ from typing import Sequence, Tuple
 import torch
 
 from .ops.blur import blur_u8
-from .ops.remap import remap_u8
 from .ops.window import remap_window_u8
 from .plan import PlanePlan, TransformPlan
-
-# Largest plane batch that takes K3; larger batches take K2.  From the
-# chip_smoke.py ladder on one H100 (PERF.md): K3 times the flagship luma
-# remap at 0.066 ms against K2's 0.108 ms at batch 1, 0.966 against 1.942
-# at 64 and 1.924 against 3.912 at 128.  It wins at every rung; the
-# threshold stops at 64 so that the batch-128 path keeps K2 until a later
-# change moves it (ROADMAP B).  The JAX package's threshold is 7.
-WINDOW_MAX_BATCH = 64
 
 
 def _plane_program(pp: PlanePlan, x: torch.Tensor) -> torch.Tensor:
     """uint8 [B, in_h, in_w] → uint8 [B, out_h, out_w] on ``x``'s device."""
-    t = pp.tables(x.device)
-    if t.blur is not None:
-        x = blur_u8(t.blur, x)
-    if x.shape[0] <= WINDOW_MAX_BATCH:
-        return remap_window_u8(pp.window_tables(x.device), x)
-    return remap_u8(t.remap, x)
+    blur = pp.tables(x.device).blur
+    if blur is not None:
+        x = blur_u8(blur, x)
+    return remap_window_u8(pp.window_tables(x.device), x)
 
 
 def _check_plane(x, h: int, w: int, what: str) -> None:

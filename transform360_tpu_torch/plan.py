@@ -4,9 +4,9 @@ Per map plane (0 = luma, 1 = chroma; U and V share the chroma plane,
 ``vf_transform360.c:372``) a :class:`PlanePlan` holds the quantized sample
 spec and the prefilter plan.  Plans are built on the CPU once per
 (config, size) and memoized; :meth:`PlanePlan.tables` moves their arrays
-to a device once and caches them per device.  The small-batch route's
-tile plan (:mod:`.ops.window`) is built lazily, on the first batch that
-takes that route, by :meth:`PlanePlan.window_tables`.
+to a device once and caches them per device.  The remap's tile plan
+(:mod:`.ops.window`) is built lazily, on the first batch, by
+:meth:`PlanePlan.window_tables`.
 
 :func:`plan_from_jax` converts a ``transform360_tpu`` plan into this
 package's, reading its attributes only (no import of jax or of the JAX
@@ -102,7 +102,7 @@ class PlanePlan:
         return self._cache.get(self, torch.device(device))
 
     def window_tables(self, device) -> WindowTables:
-        """The small-batch tile plan on ``device`` (built on the CPU at
+        """The remap's tile plan on ``device`` (built on the CPU at
         the first call, moved once per device, then cached)."""
         return self._cache.window(self, torch.device(device))
 

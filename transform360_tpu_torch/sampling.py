@@ -5,10 +5,11 @@ float32 warp map is quantized to OpenCV's 1/32-pixel grid (``INTER_BITS ==
 5``; cv::convertMaps rounds ``map*32``), split into first-tap indices and
 fractions, and the border rule is resolved (:func:`make_sample_spec`).
 
-Run time: :class:`DeviceSpec` holds a spec on one device in the form the
-remap kernel takes (first-tap indices, 1/32 fraction indices, a combined
-``wy*wx`` weight table), and :func:`remap_plain` is the plain PyTorch
-version of that kernel, a transcription of ``remap_const``.  Summation
+Run time: :class:`DeviceSpec` holds a spec on one device (first-tap
+indices, 1/32 fraction indices, a combined ``wy*wx`` weight table), and
+:func:`remap_plain` is the plain PyTorch version of the remap, a
+transcription of ``remap_const``; the CUDA kernel K3
+(:mod:`.ops.window`) is held against it.  Summation
 order is ty-major, tx-minor with the float64 product ``wy*wx`` cast to
 float32, as ``tap_arrays`` builds it, so the result is byte-identical to
 the reference's XLA path run op by op.
