@@ -9,16 +9,21 @@ nvcc and CUDA PyTorch (no jax needed).  Phases:
 1. the device, and ``nvidia-smi``'s name and power limit;
 2. build the two kernels from ``transform360_tpu_torch/csrc`` with nvcc,
    one process per source, all at once, and print ptxas's registers,
-   spills and shared memory, and both kernels' tile plans;
+   spills and shared memory; for every instantiation of K3 its registers
+   and local (spill) bytes as the runtime reports them and the count of
+   int-to-float conversions (``I2F``, ``I2FP``) in its SASS
+   (``cuobjdump -sass``; K3 must have none); both kernels' tile plans,
+   and the resident CTAs per SM of each K3 class launch;
 3. each kernel against its plain version on the card, with the TF32
    switches on and off (nothing here may depend on them): K1 (prefilter)
    against ``blur_plain`` at the flagship's luma and chroma shapes and on
    small TB-odd, LR-odd, adaptive 32x15 and wide-y-radius planes (the
    last one K1's direct kernel); K3 (remap) against ``remap_plain`` at
    the flagship's shapes at batch 1, 2 and 7, on small barrel cases for
-   the clamp-with-fill (linear) and REFLECT_101 (lanczos4) rules, and on
-   the flagship luma at batch 8 ... 128 (the JAX package's B2-B4 range)
-   and the stacked chroma at 256;
+   the clamp-with-fill (linear) and REFLECT_101 (lanczos4) rules and a
+   cubemap whose width is a multiple of no tile width, and on the
+   flagship luma at batch 8 ... 128 (the JAX package's B2-B4 range) and
+   the stacked chroma at 256;
 4. the batch path: ``open_filter(<flagship>, 3840, 2160, device="cuda")
    .transform(y, u, v)`` on 128 video-like frames, with every launch
    counter set to 0 just before it and read just after (K1 once per
@@ -27,7 +32,9 @@ nvcc and CUDA PyTorch (no jax needed).  Phases:
    engine;
 5. times with CUDA events after warm-up (medians, with a tail percentile
    and the sample count): K1 and K3 beside their plain versions on 16
-   luma frames, in turns, the whole flagship step at batch 128, and its
+   luma frames, and K3 on the 256 stacked chroma planes of the batch
+   path, in turns, each with its bound; the whole flagship step at batch
+   128 (with the SM clock and power draw read while it runs), and its
    stages one by one;
 6. the latency path: ``transform(y, u, v)`` with ``[H, W]`` planes, the
    counters set to 0 just before it and read just after (K1 and K3),
@@ -52,6 +59,8 @@ from __future__ import annotations
 
 import json
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -195,6 +204,63 @@ def blur_bound(bt, B: int):
     return bound(2 * B * bt.H * bt.W + tables, flops)
 
 
+def cuobjdump_path() -> str:
+    """cuobjdump beside nvcc, on PATH, or the copy in Triton's package."""
+    from transform360_tpu_torch.ops import _build
+
+    cands = [os.path.join(os.path.dirname(os.path.realpath(_build.nvcc_path())), "cuobjdump"),
+             shutil.which("cuobjdump") or ""]
+    try:
+        import triton
+
+        cands.append(os.path.join(os.path.dirname(triton.__file__), "backends", "nvidia",
+                                  "bin", "cuobjdump"))
+    except ImportError:
+        pass
+    for c in cands:
+        if c and os.access(c, os.X_OK):
+            return c
+    raise SystemExit("FAIL cuobjdump not found: K3's SASS cannot be read")
+
+
+def k3_sass(lib_path) -> dict:
+    """{(T, MODE, PX): counts} for each K3 instantiation in the library's
+    SASS: instructions, int-to-float conversions (I2F, I2FP), LDS and
+    float-to-int conversions (F2I)."""
+    out = subprocess.run([cuobjdump_path(), "-sass", str(lib_path)], capture_output=True,
+                         text=True, check=True, timeout=600).stdout
+    res, cur = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            m = re.search(r"window_kernelILi(\d+)ELi(\d+)ELi(\d+)E", line)
+            cur = tuple(int(g) for g in m.groups()) if m else None
+            if cur:
+                res[cur] = {"instructions": 0, "I2F": 0, "LDS": 0, "F2I": 0}
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+        if cur and m:
+            op = m.group(1)
+            c = res[cur]
+            c["instructions"] += 1
+            if op in ("I2F", "I2FP"):
+                c["I2F"] += 1
+            elif op in ("LDS", "F2I"):
+                c[op] += 1
+    if not res:
+        raise SystemExit(f"FAIL no K3 function in the SASS of {lib_path}")
+    return res
+
+
+def redesign_record(row_id: str):
+    """The "redesigned PR n" entry of a kernel's row in PERF.md's kernel
+    table (the JSON line repeats the record kept there), or None."""
+    perf = os.path.join(os.path.dirname(os.path.abspath(__file__)), "PERF.md")
+    with open(perf) as f:
+        row = next((line for line in f if line.startswith(f"| {row_id} |")), "")
+    m = re.search(r"redesigned (PR \d+)", row)
+    return m.group(1) if m else None
+
+
 def main() -> int:
     import torch
 
@@ -243,8 +309,27 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 say(f"    ptxas {name}: {line.strip()}")
-    say(f"    K3 dynamic shared memory per CTA: {window.TABLE_BYTES} B weight table "
-        f"+ 2 x the class's window bytes (classes {window.CLASS_BYTES} B)")
+    say(f"    K3 dynamic shared memory per CTA: 2 x the class's window bytes + a 4-byte "
+        f"chunk-table entry per 16 of them (classes {window.CLASS_BYTES} B)")
+    sass = k3_sass(_build._build("window"))
+    modes = ("wrap", "fill", "reflect")
+    for taps in (1, 2, 4, 8):
+        for px in window.PX_CHOICES:
+            if taps * taps * px > window.WEIGHT_REGS:
+                continue
+            parts = []
+            for mode, mname in enumerate(modes):
+                at = window.kernel_attrs(taps, px, mode, 0)
+                c = sass[(taps, mode, px)]
+                parts.append(f"{mname} {at['registers']} registers, {at['local_bytes']} B "
+                             f"local, {c['instructions']} instructions, {c['LDS']} LDS, "
+                             f"{c['I2F']} I2F, {c['F2I']} F2I")
+            say(f"    K3 T={taps} PX={px}: " + "; ".join(parts))
+    n_i2f = sum(c["I2F"] for c in sass.values())
+    say(f"    K3 SASS: {n_i2f} int-to-float conversions (I2F, I2FP) in {len(sass)} "
+        f"instantiations")
+    if n_i2f:
+        raise SystemExit(f"FAIL K3's SASS holds {n_i2f} I2F/I2FP")
 
     # -- plan (CPU) ------------------------------------------------------
     t0 = time.perf_counter()
@@ -265,10 +350,16 @@ def main() -> int:
     for pname, wp in zip(("luma", "chroma"), wplans):
         staged = wp.meta[:, 5] > 0
         halo = float((wp.meta[:, 4] * wp.meta[:, 5])[staged].sum()) / (wp.in_h * wp.in_w)
-        say(f"    K3 tile plan {pname}: {wp.meta.shape[0]} tiles of {window.TH}x{window.TW}, "
-            f"per class {[int((wp.tile_class == c).sum()) for c in range(len(window.CLASS_BYTES))]}"
+        px = wp.th * wp.tw // window.THREADS
+        occ = [window.kernel_attrs(wp.taps, px, wp.mode, win) for _, _, win in wp.groups]
+        say(f"    K3 tile plan {pname}: {wp.meta.shape[0]} tiles of {wp.th}x{wp.tw} ({px} "
+            f"pixels per thread), per class "
+            f"{[int((wp.tile_class == c).sum()) for c in range(len(window.CLASS_BYTES))]}"
             f", {int((~staged).sum())} global-path tiles; launches (first, tiles, window "
-            f"bytes) {wp.groups}; windows stage {halo:.3f}x the plane's bytes per frame")
+            f"bytes) {wp.groups}, resident CTAs per SM "
+            f"{[a['ctas_per_sm'] for a in occ]} at {[a['smem_bytes'] for a in occ]} B of "
+            f"shared memory and {occ[0]['registers']} registers; windows stage "
+            f"{halo:.3f}x the plane's bytes per frame")
     say(f"    K3 tile plans built in {t_wplan:.3f} s (numpy, luma + chroma), "
         f"built again and moved by window_tables in {t_wmove:.3f} s")
     for pname, t in (("luma", luma_t), ("chroma", chroma_t)):
@@ -331,6 +422,7 @@ def main() -> int:
         ("barrel+lanczos4 (REFLECT_101)", TransformConfig(
             output_layout=Layout.BARREL_SPLIT, interpolation_alg=Interpolation.LANCZOS4,
             **mono), 1024, 512, 768, 256),
+        ("cubemap+cubic, ragged tiles (wrap)", TransformConfig(**mono), 1024, 512, 390, 260),
     )
     for what, cfg, iw, ih, ow, oh in small:
         sp = build_plan(cfg, iw, ih, ow, oh, "yuv420p")
@@ -416,14 +508,32 @@ def main() -> int:
             f"n={len(ks)}), plain median {pm:.4f} ms per call on {tb} luma frames "
             f"{IN_W}x{IN_H}; bound {bounds[name][0]:.4f} ms ({bounds[name][1]}), "
             f"{bounds[name][0] / km:.1%} of it reached  ({smi})")
+    cplan_bytes = tensor_bytes(chroma_w.meta, chroma_w.pos, chroma_w.fy, chroma_w.fx, chroma_w.w1)
+    cbound = remap_bound(chroma_t.remap, 2 * BATCH, cplan_bytes)
+    km, pm, ks = in_turns(lambda: window.remap_window_u8(chroma_w, cb),
+                          lambda: round_u8(remap_plain(chroma_t.remap, cb)), rounds=5, per_round=4)
+    chroma_k3 = {"shape": f"{2 * BATCH} chroma planes", "ms": km, "plain_ms": pm,
+                 "bound_ms": cbound[0], "bound_by": cbound[1]}
+    say(f"[5] window chroma: kernel median {km:.4f} ms (p75 {pct(ks, 0.75):.4f}, "
+        f"n={len(ks)}), plain median {pm:.4f} ms per call on {2 * BATCH} chroma planes "
+        f"{plan.chroma.in_w}x{plan.chroma.in_h}; bound {cbound[0]:.4f} ms ({cbound[1]}), "
+        f"{cbound[0] / km:.1%} of it reached  ({smi})")
     cuda_times(lambda: eng.transform(yb, ub, vb), 2)  # warm-up
     steps = cuda_times(lambda: eng.transform(yb, ub, vb), 100)
     step = statistics.median(steps)
+    for _ in range(20):  # keep the card busy while its clock and power are read
+        eng.transform(yb, ub, vb)
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    torch.cuda.synchronize()
     walls = host_walls(lambda: eng.transform(yb, ub, vb), 10)
     say(f"[5] flagship step, batch {BATCH}: device median {step:.4f} ms "
         f"(p90 {pct(steps, 0.9):.4f}, n={len(steps)}) = {BATCH / step * 1e3:.1f} frames/s; "
         f"host wall incl. sync median {statistics.median(walls):.4f} ms "
-        f"(p90 {pct(walls, 0.9):.4f}, n={len(walls)})  ({smi})")
+        f"(p90 {pct(walls, 0.9):.4f}, n={len(walls)}); SM clock, its maximum and power draw "
+        f"under the step: {clock}  ({smi})")
     yl = blur.blur_u8(luma_t.blur, yb)  # the remaps' inputs on the batch path
     cl = blur.blur_u8(chroma_t.blur, cb)
     parts = {}
@@ -547,10 +657,11 @@ def main() -> int:
     kernels = [
         entry("blur", "transform360_tpu_torch/csrc/blur.cu",
               "transform360_tpu/ops/blur_lane.py:269", serves="B1", batches="all",
-              shape="16 luma frames"),
+              shape="16 luma frames", redesigned=redesign_record("B1")),
         entry("window", "transform360_tpu_torch/csrc/window.cu",
               "transform360_tpu/ops/remap_pallas.py:441", serves="B5; B2, B3, B4 closed on it",
-              batches="all", shape="16 luma frames"),
+              batches="all", shape="16 luma frames", redesigned=redesign_record("B5"),
+              chroma=chroma_k3),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

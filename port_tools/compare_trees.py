@@ -13,8 +13,12 @@ the run.  Each argument runs in its own process, in the order given, so
 Each process builds its kernels, makes the flagship's video-like frames
 (``chip_smoke.py``'s generator), and prints one JSON line: the step's
 device median in ms by CUDA events at batch 128 and at batch 1 (one
-[H, W] frame), the sample count, the K1 launches per step, and the card's
-name and power limit.
+[H, W] frame), the sample count, the K1 launches per step, the remap
+kernel K3's medians alone at the paths' shapes (16, 1 and 128 luma
+frames, a chroma pair, 256 chroma planes) by CUDA events around one call
+(``k3_ms``: the wrapper's host time before the launch included) and per
+call over 20 calls back to back (``k3_ms_queued``: device time once the
+queue stays full), and the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ def child(label: str, settings: list) -> None:
     import torch
 
     import transform360_tpu_torch as P
-    from transform360_tpu_torch.ops import blur
+    from transform360_tpu_torch.ops import blur, window
 
     sys.path.append(ROOT)
     from chip_smoke import FLAGSHIP, batch_of, cuda_times, video_like_planes
@@ -59,6 +63,22 @@ def child(label: str, settings: list) -> None:
         ts = cuda_times(lambda: eng.transform(*planes), reps)
         res[f"batch{b}"] = {"step_ms": statistics.median(ts), "n": len(ts),
                             "k1_launches": (blur.LAUNCHES - n0) / len(ts)}
+    lw, cw = (pp.window_tables("cuda") for pp in (eng.plan.luma, eng.plan.chroma))
+    cb = torch.cat([ub, vb])
+    res["k3_ms"], res["k3_ms_queued"] = {}, {}
+    for shape, wt, x in (("16 luma", lw, yb[:16].contiguous()), ("1 luma", lw, yb[:1].contiguous()),
+                         ("2 chroma", cw, cb[:2].contiguous()), ("128 luma", lw, yb),
+                         ("256 chroma", cw, cb)):
+        cuda_times(lambda: window.remap_window_u8(wt, x), 3)
+        ts = cuda_times(lambda: window.remap_window_u8(wt, x), 10 if x.shape[0] >= 100 else 40)
+        res["k3_ms"][shape] = statistics.median(ts)
+
+        def twenty():
+            for _ in range(20):
+                window.remap_window_u8(wt, x)
+
+        ts = cuda_times(twenty, 3 if x.shape[0] >= 100 else 10)
+        res["k3_ms_queued"][shape] = statistics.median(ts) / 20
     print(json.dumps(res), flush=True)
 
 

@@ -55,11 +55,7 @@ constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kV = 4;  // adjacent output columns per thread: one 4-byte store
 
-// The float value of byte k of w, exactly.
-__device__ __forceinline__ float byte_to_float(uint32_t w, int k) {
-  return __fsub_rn(__uint_as_float(__byte_perm(w, 0x4B000000u, 0x7440 | k)),
-                   8388608.0f);
-}
+using t360::byte_to_float;
 
 // t360::round_u8 as an integer: floor(x + 0.5) saturated to [0, 255].
 __device__ __forceinline__ uint32_t round_to_byte(float x) {

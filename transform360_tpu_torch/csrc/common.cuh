@@ -23,6 +23,13 @@ __device__ __forceinline__ int clamp_idx(int i, int n) {
   return min(max(i, 0), n - 1);
 }
 
+// The float value of byte k of w, exactly, with two full-rate instructions
+// and not the conversion unit: 0x4B0000bb is the float 2^23 + b.
+__device__ __forceinline__ float byte_to_float(uint32_t w, int k) {
+  return __fsub_rn(__uint_as_float(__byte_perm(w, 0x4B000000u, 0x7440 | k)),
+                   8388608.0f);
+}
+
 // 16-byte asynchronous copy from device to shared memory (both 16-aligned).
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));

@@ -10,266 +10,485 @@
 // the plain version transform360_tpu_torch.sampling.remap_plain, bit for
 // bit.
 //
-// What bounds it on the H100: latency and instructions, not bytes.  A 4K
-// luma frame is 8.3 MB in and 1.6 MB out, but every output pixel gathers
-// T x T taps from anywhere in a window of the source.  K3 gives each CTA
-// one output tile of TH x TW pixels (ops/window.py builds the plan on the
-// CPU): the CTA copies the tile's source window -- wh rows of `pitch`
-// bytes from a 16-aligned column -- into shared memory with 16-byte
-// cp.async loads, frame by frame, double-buffered so that frame f+1's
-// window loads while frame f is computed (the counterpart of the TPU
-// kernel's double-buffered window DMA), and reads its plan once for all
-// the frames of the batch.  Border rules are resolved while
-// loading (wrap modulo the plane, clamp, or REFLECT_101), so no padded
-// copy of the plane exists; chunks that straddle the seam or an edge, or
-// planes whose width is not a multiple of 16, are loaded byte by byte.
-// Tiles whose window exceeds the largest class (cubemap pole tiles) have
-// pitch 0 and gather from device memory in this same kernel.
+// What bounds it on the H100: instruction issue, not bytes.  A 4K luma
+// frame is 8.3 MB in and 1.6 MB out, but every output pixel gathers T x T
+// taps from anywhere in a window of the source, and each tap costs a load,
+// a conversion, a product and a sum.  K3 gives each CTA of 256 threads one
+// output tile of th x tw = 256*PX pixels, PX per thread: ops/window.py
+// builds the plan on the CPU (16x16 tiles, one pixel per thread: wider
+// tiles cost registers and CTAs per SM and measured slower).  Per tile,
+// once for its frames:
+//   * the CTA resolves the border rule (wrap modulo the plane, clamp, or
+//     REFLECT_101) for every 16-byte chunk of the tile's source window --
+//     wh rows of `pitch` bytes from a 16-aligned column -- into a chunk
+//     table in shared memory: the chunk's offset in a frame, or a mark that
+//     it is copied byte by byte (across the seam or an edge, or a plane
+//     whose rows are not 16-aligned).  No division or modulo runs in K3;
+//   * each thread reads its pixels' plan entries and forms their weights
+//     float32(w1[fy][ty] * w1[fx][tx]) from the float64 table w1 [32, T]
+//     -- the very values of sampling.weight_table.
+// A CTA takes `frames` consecutive frames of the batch (blockIdx.y picks
+// which), so that a short batch of few tiles still fills the card.  Per
+// frame the CTA issues one 16-byte cp.async per chunk from the table,
+// double-buffered so that the next frames' windows load while these are
+// computed (the counterpart of the TPU kernel's double-buffered window
+// DMA; a deeper ring of up to 8 frames measured no faster).  Where four
+// windows fit, a pass takes two frames: their sums share the weights and
+// interleave, and the barriers and the copies' bookkeeping are paid once.
+// A thread reads each tap row as the aligned 32-bit words that hold it (2
+// for T = 4, never a word past the row's last tap), funnel-shifts them
+// into place and turns each byte into a float with two full-rate
+// instructions (no I2F); the sum runs ty-major, tx-minor, each product and
+// each sum rounded on its own (-fmad=false; __fmul_rn/__fadd_rn), the fill
+// term last; the round to a byte is full-rate too.  Tiles whose window
+// exceeds the largest class (cubemap pole tiles) have pitch 0 and gather
+// from device memory in this same kernel.
 //
 // Per pixel the plan holds ly | lx << 16 (window-relative first tap),
-// fy (bit 7: outside the valid mask) and fx: 6 B.  Tap weights are
-// float32(w1[fy][ty] * w1[fx][tx]) from the float64 table w1 [32, T] in
-// shared memory -- the very values of sampling.weight_table -- and the
-// sum runs ty-major, tx-minor, each product and each sum rounded on its
-// own (-fmad=false; __fmul_rn/__fadd_rn), the fill term last.
+// fy (bit 7: outside the valid mask) and fx: 6 B.
 
 #include "common.cuh"
 
+#ifndef K3_ADJACENT
+// 0: thread i takes pixels i, i + 256, ... of the tile (a warp reads one
+// row of 32 neighbouring pixels); 1: PX adjacent pixels of one row and one
+// PX-byte store (port_tools/k3_variants.py times both).
+#define K3_ADJACENT 0
+#endif
+
 namespace {
 
-constexpr int kTH = 16;
-constexpr int kTW = 16;
-constexpr int kThreads = kTH * kTW;  // one output pixel per thread
-constexpr int kTab = 32;             // INTER_TAB_SIZE
-constexpr int kTableBytes = kTab * 8 * 8;  // float64 [32, T <= 8]
+constexpr int kThreads = 256;    // per CTA; a tile is 256*PX pixels
+constexpr int kWeightRegs = 64;  // T * T * PX weights per thread at most
+constexpr uint32_t kBytewise = 0x80000000u;  // chunk-table mark: byte copies
 
+// A CTA's dynamic shared memory: two passes of one or two frames' windows
+// and the chunk table.
+constexpr int smem_bytes(int win_bytes, bool pairs) {
+  return (pairs ? 4 : 2) * win_bytes + win_bytes / 4;
+}
+
+struct Args {
+  const uint8_t* src;   // [B, H, W]
+  uint8_t* dst;         // [B, out_h, out_w]
+  const int* meta;      // [n, 6]: out row, out col, y0, x0, wh, pitch
+  const uint32_t* pos;  // [n * 256*PX]: ly | lx << 16, tile rows of 1 << tw_shift
+  const uint8_t* fy;    // fy | (not valid) << 7
+  const uint8_t* fx;
+  const double* w1;  // [32, T]
+  int B, H, W, out_h, out_w;
+  int first, win_bytes, tw_shift;
+  int frames;  // per CTA: frames [blockIdx.y * frames, ...) of the batch
+  float fill;
+  bool vec;    // W and src are 16-aligned
+  bool pairs;  // two frames per pass
+};
+
+// i mod n for 0 <= i < 2^31 by shift and subtract: the division unit's
+// reciprocal (an I2F and MUFU.RCP sequence) is never used.
+__device__ __noinline__ int rem(int i, int n) {
+  for (int d = n << (__clz(n) - 1); d >= n; d >>= 1)
+    if (i >= d) i -= d;
+  return i;
+}
+
+// The border rule on one index.  K3's indices lie within a period of the
+// plane unless the plane is narrower than the taps and the 16-byte chunks,
+// so one comparison settles them; rem() takes the rest.
 template <int MODE>
 __device__ __forceinline__ int resolve(int i, int n) {
   if (MODE == 0) {  // wrap
-    int r = i % n;
-    return r < 0 ? r + n : r;
+    if (i >= 0 && i < n) return i;
+    if (i >= n && i - n < n) return i - n;
+    return i >= 0 ? rem(i, n) : n - 1 - rem(-1 - i, n);
   }
-  if (MODE == 2) {  // BORDER_REFLECT_101, closed form (period 2n-2)
+  if (MODE == 2) {  // BORDER_REFLECT_101 (period 2n-2)
     if (n == 1) return 0;
     const int period = 2 * n - 2;
-    const int r = abs(i) % period;
+    int r = abs(i);
+    if (r >= period) r = r - period < period ? r - period : rem(r, period);
     return r >= n ? period - r : r;
   }
   return t360::clamp_idx(i, n);  // fill: clamp, weight zeroed below
 }
 
-// Copy one frame's window (wh rows of `pitch` bytes from (y0, x0)) into
-// `buf`, resolving the border rule per row and per chunk.
+// t360::round_u8 with full-rate instructions: x + 0.5 clamped to
+// [0, 255], floored by adding 2^23 rounded down; the low byte of that
+// float's bits is the result.
+__device__ __forceinline__ uint32_t round_byte(float x) {
+  const float c = fminf(fmaxf(__fadd_rn(x, 0.5f), 0.0f), 255.0f);
+  return __float_as_uint(__fadd_rd(c, 8388608.0f)) & 0xFFu;
+}
+
+// Copy one 16-byte chunk of a frame's window to d; e is its table entry.
 template <int MODE>
-__device__ __forceinline__ void stage(const uint8_t* __restrict__ frame,
-                                      uint8_t* buf, int y0, int x0, int wh,
-                                      int pitch, int H, int W, bool vec) {
-  const int cpr = pitch >> 4;
-  const int n = wh * cpr;
-  for (int i = threadIdx.x; i < n; i += kThreads) {
-    const int r = i / cpr;
-    const int gx = x0 + ((i - r * cpr) << 4);
-    const uint8_t* row = frame + static_cast<size_t>(resolve<MODE>(y0 + r, H)) * W;
-    uint8_t* d = buf + r * pitch + (gx - x0);
-    // past the seam a wrapped window continues at column gx - W
-    const int gv = (MODE == 0 && gx >= W) ? gx - W : gx;
-    if (vec && gv >= 0 && gv + 16 <= W) {
-      t360::cp_async16(d, row + gv);
-    } else {
+__device__ __forceinline__ void copy_chunk(const uint8_t* __restrict__ frame,
+                                           uint8_t* d, uint32_t e, int x0, int W) {
+  if (!(e & kBytewise)) {
+    t360::cp_async16(d, frame + e);
+  } else {
+    const uint8_t* row = frame + static_cast<size_t>(e & 0xFFFFu) * W;
+    const int gx = x0 + static_cast<int>((e >> 16) & 0x7FFFu) * 16;
 #pragma unroll
-      for (int j = 0; j < 16; ++j) d[j] = row[resolve<MODE>(gx + j, W)];
+    for (int j = 0; j < 16; ++j) d[j] = row[resolve<MODE>(gx + j, W)];
+  }
+}
+
+// Once per tile: the table entry of every chunk of the window (chunk
+// i = r * cpr + c lands at buf + 16 i), and frame 0's copy of it.
+template <int MODE>
+__device__ __forceinline__ void chunk_table(const uint8_t* __restrict__ frame0,
+                                            uint8_t* buf, uint32_t* tab, int y0,
+                                            int x0, int wh, int cpr, int H, int W,
+                                            bool vec) {
+  for (int r = threadIdx.x >> 4; r < wh; r += kThreads >> 4) {
+    const int rr = resolve<MODE>(y0 + r, H);
+    for (int c = threadIdx.x & 15; c < cpr; c += 16) {
+      const int gx = x0 + (c << 4);
+      // past the seam a wrapped window continues at column gx - W
+      const int gv = (MODE == 0 && gx >= W) ? gx - W : gx;
+      const uint32_t e = (vec && gv >= 0 && gv + 16 <= W)
+                             ? static_cast<uint32_t>(rr * W + gv)
+                             : kBytewise | static_cast<uint32_t>(c) << 16 |
+                                   static_cast<uint32_t>(rr);
+      const int i = r * cpr + c;
+      tab[i] = e;
+      copy_chunk<MODE>(frame0, buf + (i << 4), e, x0, W);
     }
   }
 }
 
-template <int T, int MODE>
-__global__ void __launch_bounds__(kThreads)
-    window_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
-                  int B, int H, int W, int out_h, int out_w,
-                  const int* __restrict__ meta, const uint32_t* __restrict__ pos,
-                  const uint8_t* __restrict__ fyv, const uint8_t* __restrict__ fxv,
-                  const double* __restrict__ w1, int first, int win_bytes,
-                  float fill, bool vec) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  double* s_w = reinterpret_cast<double*>(smem);
-  uint8_t* bufs = smem + kTableBytes;
+// One frame's window from the chunk table.
+template <int MODE>
+__device__ __forceinline__ void stage(const uint8_t* __restrict__ frame, uint8_t* buf,
+                                      const uint32_t* tab, int n, int x0, int W) {
+  for (int i = threadIdx.x; i < n; i += kThreads)
+    copy_chunk<MODE>(frame, buf + (i << 4), tab[i], x0, W);
+}
 
-  const int t = first + blockIdx.x;
-  const int* m = meta + 6 * t;
-  const int oy = m[0] + threadIdx.x / kTW;
-  const int ox = m[1] + threadIdx.x % kTW;
+// One pixel's sum over its T x T taps in the staged window, whose first
+// tap is byte o of buf.  Each tap row is read as the aligned words that
+// hold it: words o/4 + min(i, last) for i = 0 .. (T+3)/4, where `last` is
+// the word of the row's last tap, so no load reaches past that tap.
+template <int T>
+__device__ __forceinline__ float sum_staged(const uint8_t* buf, int o, int pitch,
+                                            const float* w) {
+  const uint32_t* base = reinterpret_cast<const uint32_t*>(buf + (o & ~3));
+  const int k = o & 3;
+  if (T == 1) return t360::byte_to_float(base[0], k);
+  constexpr int NQ = (T + 3) / 4;  // words of taps per row
+  const int last = (k + T - 1) >> 2;
+  const int s = k << 3;
+  const int pw = pitch >> 2;
+  float acc = 0.0f;
+#pragma unroll
+  for (int ty = 0; ty < T; ++ty) {
+    const uint32_t* row = base + ty * pw;
+    uint32_t a[NQ + 1];
+#pragma unroll
+    for (int i = 0; i <= NQ; ++i) a[i] = row[i == 0 ? 0 : min(i, last)];
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      const uint32_t v = __funnelshift_r(a[q], a[q + 1], s);
+#pragma unroll
+      for (int j = 0; j < 4 && 4 * q + j < T; ++j) {
+        const int tx = 4 * q + j;
+        const float term = __fmul_rn(w[ty * T + tx], t360::byte_to_float(v, j));
+        acc = (ty == 0 && tx == 0) ? term : __fadd_rn(acc, term);
+      }
+    }
+  }
+  return acc;
+}
+
+// The same from device memory (tiles on the global path), first tap at
+// source row y, column x before the border rule.  The empty asm keeps the
+// compiler from hoisting every pixel's loads ahead of the sums: those
+// registers would cost the staged tiles their occupancy.
+template <int T, int MODE>
+__device__ __forceinline__ float sum_global(const uint8_t* __restrict__ frame, int y,
+                                            int x, int H, int W, const float* w) {
+  float acc = 0.0f;
+#pragma unroll
+  for (int ty = 0; ty < T; ++ty) {
+    asm volatile("" ::: "memory");
+    const uint8_t* row = frame + static_cast<size_t>(resolve<MODE>(y + ty, H)) * W;
+#pragma unroll
+    for (int tx = 0; tx < T; ++tx) {
+      const float g = t360::byte_to_float(row[resolve<MODE>(x + tx, W)], 0);
+      if (T == 1) return g;
+      const float term = __fmul_rn(w[ty * T + tx], g);
+      acc = (ty == 0 && tx == 0) ? term : __fadd_rn(acc, term);
+    }
+  }
+  return acc;
+}
+
+// PX adjacent output bytes of one row (K3_ADJACENT): one store where the
+// row holds them all and they are PX-aligned.
+template <int PX>
+__device__ __forceinline__ void store_adjacent(uint8_t* out, const int* oo,
+                                               uint32_t packed, bool whole) {
+  if (whole && PX == 4) {
+    *reinterpret_cast<uint32_t*>(out + oo[0]) = packed;
+  } else if (whole && PX == 2) {
+    *reinterpret_cast<uint16_t*>(out + oo[0]) = static_cast<uint16_t>(packed);
+  } else {
+#pragma unroll
+    for (int k = 0; k < PX; ++k)
+      if (oo[k] >= 0) out[oo[k]] = static_cast<uint8_t>(packed >> (8 * k));
+  }
+}
+
+// Each pixel's weighted sums of one frame, from the staged window buf.
+template <int T, int PX>
+__device__ __forceinline__ void sums_staged(const uint8_t* buf, const int* o, int pitch,
+                                            const float (*w)[T * T], float* acc) {
+#pragma unroll
+  for (int k = 0; k < PX; ++k) acc[k] = sum_staged<T>(buf, o[k], pitch, w[k]);
+}
+
+// The same from device memory (global-path tiles).
+template <int T, int MODE, int PX>
+__device__ __forceinline__ void sums_global(const uint8_t* frame, const int* o, int y0,
+                                            int x0, int H, int W,
+                                            const float (*w)[T * T], float* acc) {
+#pragma unroll
+  for (int k = 0; k < PX; ++k)
+    acc[k] = sum_global<T, MODE>(frame, y0 + (o[k] & 0xFFFF), x0 + (o[k] >> 16), H, W, w[k]);
+}
+
+// The fill term, the valid mask, the round and the stores of one frame.
+template <int T, int MODE, int PX>
+__device__ __forceinline__ void put(uint8_t* out, const float* acc, const float* fill_term,
+                                    uint32_t invalid, uint32_t fill_byte, const int* oo,
+                                    bool whole) {
+  uint32_t packed = 0;
+#pragma unroll
+  for (int k = 0; k < PX; ++k) {
+    const float v = (MODE == 1 && T > 1) ? __fadd_rn(acc[k], fill_term[k]) : acc[k];
+    const uint32_t b = ((invalid >> k) & 1u) ? fill_byte : round_byte(v);
+    if (K3_ADJACENT)
+      packed |= b << (8 * k);
+    else if (oo[k] >= 0)
+      out[oo[k]] = static_cast<uint8_t>(b);
+  }
+  if (K3_ADJACENT) store_adjacent<PX>(out, oo, packed, whole);
+}
+
+// Four CTAs per SM where a thread's weights are 16 registers or fewer (at
+// most 64 registers), else two.
+template <int T, int MODE, int PX>
+__global__ void __launch_bounds__(kThreads, T * T * PX <= 16 ? 4 : 2)
+    window_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  // frames per pass: two where the launch's shared memory holds four
+  // windows (two passes in flight), else one
+  const int fp = a.pairs ? 2 : 1;
+  uint32_t* tab = reinterpret_cast<uint32_t*>(smem + 2 * fp * a.win_bytes);
+
+  const int t = a.first + blockIdx.x;
+  const int* m = a.meta + 6 * t;
   const int y0 = m[2], x0 = m[3], wh = m[4], pitch = m[5];
   const bool staged = pitch > 0;  // uniform over the CTA
-  const size_t plane = static_cast<size_t>(H) * W;
-  const int N = out_h * out_w;
+  const int nchunks = wh * (pitch >> 4);
+  const size_t plane = static_cast<size_t>(a.H) * a.W;
+  const size_t N = static_cast<size_t>(a.out_h) * a.out_w;
+  const int f0 = blockIdx.y * a.frames;
+  const int nf = min(a.frames, a.B - f0);
+  const uint8_t* src = a.src + f0 * plane;
+  uint8_t* dst = a.dst + f0 * N;
 
-  if (staged) {  // frame 0's window is in flight while the plan is read
-    stage<MODE>(src, bufs, y0, x0, wh, pitch, H, W, vec);
+  // frame f + j of a pass with parity `half` is staged at
+  // smem + (half * fp + j) * win_bytes
+  if (staged)  // frame 0's window is in flight while the pixels are set up
+    chunk_table<MODE>(src, smem, tab, y0, x0, wh, pitch >> 4, a.H, a.W, a.vec);
+
+  float w[PX][T * T];
+  float fill_term[PX];
+  int o[PX];   // staged: byte of the first tap in the window; else ly | lx << 16
+  int oo[PX];  // offset in the output frame, -1 outside it
+  uint32_t invalid = 0;
+#pragma unroll
+  for (int k = 0; k < PX; ++k) {
+    const int p = K3_ADJACENT ? threadIdx.x * PX + k : threadIdx.x + k * kThreads;
+    const int oy = m[0] + (p >> a.tw_shift);
+    const int ox = m[1] + (p & ((1 << a.tw_shift) - 1));
+    const size_t ip = static_cast<size_t>(t) * (kThreads * PX) + p;
+    const uint32_t ps = a.pos[ip];
+    const int ly = static_cast<int>(ps & 0xFFFFu);
+    const int lx = static_cast<int>(ps >> 16);
+    const int fyb = a.fy[ip];
+    const int fy = fyb & 0x7F;
+    const int fx = a.fx[ip];
+    invalid |= static_cast<uint32_t>(fyb >> 7) << k;
+    o[k] = staged ? ly * pitch + lx : static_cast<int>(ps);
+    oo[k] = (oy < a.out_h && ox < a.out_w) ? oy * a.out_w + ox : -1;
+    float fill_w = 0.0f;
+    if (T > 1) {
+#pragma unroll
+      for (int ty = 0; ty < T; ++ty) {
+        const double wy = __ldg(a.w1 + fy * T + ty);
+#pragma unroll
+        for (int tx = 0; tx < T; ++tx) {
+          float wv = __double2float_rn(__dmul_rn(wy, __ldg(a.w1 + fx * T + tx)));
+          if (MODE == 1) {  // absolute coordinates decide what lies outside
+            const int yy = y0 + ly + ty;
+            const int xx = x0 + lx + tx;
+            if (yy < 0 || yy >= a.H || xx < 0 || xx >= a.W) {
+              fill_w = __fadd_rn(fill_w, wv);
+              wv = 0.0f;
+            }
+          }
+          w[k][ty * T + tx] = wv;
+        }
+      }
+    }
+    fill_term[k] = __fmul_rn(fill_w, a.fill);
+  }
+  const uint32_t fill_byte = round_byte(a.fill);
+  const bool whole = K3_ADJACENT && a.out_w % PX == 0 && oo[PX - 1] >= 0 &&
+                     reinterpret_cast<uintptr_t>(dst) % PX == 0;
+  if (staged) {
+    __syncthreads();  // the chunk table is complete
+    if (fp == 2 && nf > 1) stage<MODE>(src + plane, smem + a.win_bytes, tab, nchunks, x0, a.W);
     t360::cp_async_commit();
   }
-  for (int i = threadIdx.x; i < kTab * T; i += kThreads) s_w[i] = w1[i];
 
-  const size_t px = static_cast<size_t>(t) * kThreads + threadIdx.x;
-  const uint32_t p = pos[px];
-  const int ly = static_cast<int>(p & 0xFFFFu);
-  const int lx = static_cast<int>(p >> 16);
-  const int fyb = fyv[px];
-  const int fy = fyb & 0x7F;
-  const int fx = fxv[px];
-  const bool active = oy < out_h && ox < out_w;
-  const bool invalid = (fyb & 0x80) != 0;
-  __syncthreads();  // the weight table
-
-  float w[T * T];
-  float fill_w = 0.0f;
-  if (T > 1) {
-#pragma unroll
-    for (int ty = 0; ty < T; ++ty) {
-      const double wy = s_w[fy * T + ty];
-#pragma unroll
-      for (int tx = 0; tx < T; ++tx) {
-        float wv = __double2float_rn(__dmul_rn(wy, s_w[fx * T + tx]));
-        if (MODE == 1) {  // absolute coordinates decide what lies outside
-          const int yy = y0 + ly + ty;
-          const int xx = x0 + lx + tx;
-          if (yy < 0 || yy >= H || xx < 0 || xx >= W) {
-            fill_w = __fadd_rn(fill_w, wv);
-            wv = 0.0f;
-          }
-        }
-        w[ty * T + tx] = wv;
-      }
-    }
-  }
-  const float fill_term = __fmul_rn(fill_w, fill);
-  const uint8_t fill_u8 = t360::round_u8(fill);
-
-  for (int f = 0; f < B; ++f) {
-    const uint8_t* buf = bufs + (f & 1) * win_bytes;
+  int half = 0;
+  for (int f = 0; f < nf; f += fp) {
+    const bool two = fp == 2 && f + 1 < nf;
     if (staged) {
-      if (f + 1 < B) {
-        stage<MODE>(src + (f + 1) * plane, bufs + ((f + 1) & 1) * win_bytes, y0,
-                    x0, wh, pitch, H, W, vec);
-        t360::cp_async_commit();
-        t360::cp_async_wait<1>();
-      } else {
-        t360::cp_async_wait<0>();
-      }
-      __syncthreads();  // frame f's window is complete
+      for (int j = 0; j < fp; ++j)  // the next pass's frames
+        if (f + fp + j < nf)
+          stage<MODE>(src + (f + fp + j) * plane, smem + ((half ^ 1) * fp + j) * a.win_bytes,
+                      tab, nchunks, x0, a.W);
+      t360::cp_async_commit();  // empty past the batch's end
+      t360::cp_async_wait<1>();
+      __syncthreads();  // this pass's windows are complete
     }
-    if (active) {
-      float acc = 0.0f;
-      if (staged) {
-        const uint8_t* s = buf + ly * pitch + lx;
-#pragma unroll
-        for (int ty = 0; ty < T; ++ty) {
-#pragma unroll
-          for (int tx = 0; tx < T; ++tx) {
-            const float g = static_cast<float>(s[ty * pitch + tx]);
-            if (T == 1) {
-              acc = g;
-            } else {
-              const float term = __fmul_rn(w[ty * T + tx], g);
-              acc = (ty == 0 && tx == 0) ? term : __fadd_rn(acc, term);
-            }
-          }
-        }
+    // the branches stay outside the pixel loops, so the independent sums
+    // (PX pixels, two frames) interleave
+    float acc0[PX], acc1[PX];
+    const uint8_t* buf = smem + half * fp * a.win_bytes;
+    if (staged) {
+      if (two) {
+        sums_staged<T, PX>(buf, o, pitch, w, acc0);
+        sums_staged<T, PX>(buf + a.win_bytes, o, pitch, w, acc1);
       } else {
-        const uint8_t* s = src + f * plane;
-#pragma unroll
-        for (int ty = 0; ty < T; ++ty) {
-          const uint8_t* row = s + static_cast<size_t>(resolve<MODE>(y0 + ly + ty, H)) * W;
-#pragma unroll
-          for (int tx = 0; tx < T; ++tx) {
-            const float g = static_cast<float>(row[resolve<MODE>(x0 + lx + tx, W)]);
-            if (T == 1) {
-              acc = g;
-            } else {
-              const float term = __fmul_rn(w[ty * T + tx], g);
-              acc = (ty == 0 && tx == 0) ? term : __fadd_rn(acc, term);
-            }
-          }
-        }
+        sums_staged<T, PX>(buf, o, pitch, w, acc0);
       }
-      if (MODE == 1 && T > 1) acc = __fadd_rn(acc, fill_term);
-      dst[static_cast<size_t>(f) * N + oy * out_w + ox] =
-          invalid ? fill_u8 : t360::round_u8(acc);
+    } else {
+      sums_global<T, MODE, PX>(src + f * plane, o, y0, x0, a.H, a.W, w, acc0);
+      if (two) sums_global<T, MODE, PX>(src + (f + 1) * plane, o, y0, x0, a.H, a.W, w, acc1);
     }
-    if (staged) __syncthreads();  // buffer f & 1 is free for frame f + 2
+    put<T, MODE, PX>(dst + f * N, acc0, fill_term, invalid, fill_byte, oo, whole);
+    if (two) put<T, MODE, PX>(dst + (f + 1) * N, acc1, fill_term, invalid, fill_byte, oo, whole);
+    if (staged) __syncthreads();  // this half is free for the pass after next
+    half ^= 1;
   }
 }
 
-template <int T, int MODE>
-int launch(const uint8_t* src, uint8_t* dst, int B, int H, int W, int out_h,
-           int out_w, const int* meta, const uint32_t* pos, const uint8_t* fy,
-           const uint8_t* fx, const double* w1, int first, int tiles,
-           int win_bytes, float fill, bool vec, cudaStream_t st) {
-  const int smem = kTableBytes + 2 * win_bytes;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        window_kernel<T, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
+using Kernel = void (*)(const Args);
+
+template <int T, int PX>
+Kernel with_mode(int mode) {
+  if constexpr (T * T * PX > kWeightRegs) {
+    return nullptr;
+  } else {
+    switch (mode) {
+      case 0: return window_kernel<T, 0, PX>;
+      case 1: return window_kernel<T, 1, PX>;
+      case 2: return window_kernel<T, 2, PX>;
+      default: return nullptr;
+    }
   }
-  window_kernel<T, MODE><<<tiles, kThreads, smem, st>>>(
-      src, dst, B, H, W, out_h, out_w, meta, pos, fy, fx, w1, first, win_bytes,
-      fill, vec);
-  T360_CHECK_LAUNCH();
-  return 0;
 }
 
 template <int T>
-int launch_t(const uint8_t* src, uint8_t* dst, int B, int H, int W, int out_h,
-             int out_w, const int* meta, const uint32_t* pos, const uint8_t* fy,
-             const uint8_t* fx, const double* w1, int first, int tiles,
-             int win_bytes, int mode, float fill, bool vec, cudaStream_t st) {
-  switch (mode) {
-    case 0:
-      return launch<T, 0>(src, dst, B, H, W, out_h, out_w, meta, pos, fy, fx, w1,
-                          first, tiles, win_bytes, fill, vec, st);
-    case 1:
-      return launch<T, 1>(src, dst, B, H, W, out_h, out_w, meta, pos, fy, fx, w1,
-                          first, tiles, win_bytes, fill, vec, st);
-    case 2:
-      return launch<T, 2>(src, dst, B, H, W, out_h, out_w, meta, pos, fy, fx, w1,
-                          first, tiles, win_bytes, fill, vec, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+Kernel with_px(int px, int mode) {
+  switch (px) {
+    case 1: return with_mode<T, 1>(mode);
+    case 2: return with_mode<T, 2>(mode);
+    case 4: return with_mode<T, 4>(mode);
+    default: return nullptr;
   }
+}
+
+// The instantiation for T taps, PX pixels per thread and a border mode.
+Kernel kernel_for(int taps, int px, int mode) {
+  switch (taps) {
+    case 1: return with_px<1>(px, mode);
+    case 2: return with_px<2>(px, mode);
+    case 4: return with_px<4>(px, mode);
+    case 8: return with_px<8>(px, mode);
+    default: return nullptr;
+  }
+}
+
+cudaError_t allow_smem(Kernel k, int smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(reinterpret_cast<const void*>(k),
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
 }  // namespace
 
 // src: uint8 [B, H, W]; dst: uint8 [B, out_h, out_w]; meta int32 [n, 6]
 // (out row, out col, y0, x0, wh, pitch; pitch 0: global path); pos uint32,
-// fy/fx uint8 [n * 256]; w1 float64 [32, taps].  Launches tiles
-// first .. first + tiles - 1, each CTA with 2 * win_bytes of window
-// buffers (win_bytes a multiple of 16).  vec: W and src are 16-aligned.
+// fy/fx uint8 [n * 256*px], tiles tw (a power of two) pixels wide; w1
+// float64 [32, taps].  Launches tiles first .. first + tiles - 1, each CTA
+// with 2 (pairs: 4) * win_bytes of window buffers and win_bytes / 4 of
+// chunk table (win_bytes a multiple of 16), and `frames` frames of the
+// batch, one (pairs: two) per pass.  vec: W and src are 16-aligned.
 extern "C" int t360_window(const uint8_t* src, uint8_t* dst, int B, int H,
                            int W, int out_h, int out_w, const int* meta,
                            const uint32_t* pos, const uint8_t* fy,
                            const uint8_t* fx, const double* w1, int first,
-                           int tiles, int win_bytes, int taps, int mode,
-                           float fill, int vec, void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || out_h <= 0 || out_w <= 0 || tiles <= 0 ||
-      first < 0 || win_bytes < 0 || (win_bytes & 15) != 0 ||
-      kTableBytes + 2 * win_bytes > 227 * 1024)
+                           int tiles, int win_bytes, int taps, int px, int tw,
+                           int mode, float fill, int vec, int frames, int pairs,
+                           void* stream) {
+  const Kernel k = kernel_for(taps, px, mode);
+  if (k == nullptr || tw <= 0 || (tw & (tw - 1)) != 0 || tw % px != 0 ||
+      tw > kThreads * px || B <= 0 || H <= 0 || W <= 0 || out_h <= 0 || out_w <= 0 ||
+      tiles <= 0 || first < 0 || win_bytes < 0 || frames <= 0 ||
+      (B + frames - 1) / frames > 65535 || (win_bytes & 15) != 0 ||
+      static_cast<long long>(H) * W >= (1LL << 31) || H >= (1 << 16) ||
+      smem_bytes(win_bytes, pairs) > 227 * 1024)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool v = vec != 0;
-  switch (taps) {
-    case 1:
-      return launch_t<1>(src, dst, B, H, W, out_h, out_w, meta, pos, fy, fx, w1,
-                         first, tiles, win_bytes, mode, fill, v, st);
-    case 2:
-      return launch_t<2>(src, dst, B, H, W, out_h, out_w, meta, pos, fy, fx, w1,
-                         first, tiles, win_bytes, mode, fill, v, st);
-    case 4:
-      return launch_t<4>(src, dst, B, H, W, out_h, out_w, meta, pos, fy, fx, w1,
-                         first, tiles, win_bytes, mode, fill, v, st);
-    case 8:
-      return launch_t<8>(src, dst, B, H, W, out_h, out_w, meta, pos, fy, fx, w1,
-                         first, tiles, win_bytes, mode, fill, v, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const int smem = smem_bytes(win_bytes, pairs);
+  cudaError_t e = allow_smem(k, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  Args a{src, dst, meta, pos, fy, fx, w1, B, H, W, out_h, out_w,
+         first, win_bytes, __builtin_ctz(tw), frames, fill, vec != 0, pairs != 0};
+  void* args[] = {&a};
+  const dim3 grid(tiles, (B + frames - 1) / frames);
+  e = cudaLaunchKernel(reinterpret_cast<const void*>(k), grid, dim3(kThreads),
+                       args, smem, static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  T360_CHECK_LAUNCH();
+  return 0;
+}
+
+// One instantiation's registers, local memory bytes (spills and stack),
+// resident CTAs per SM and dynamic shared memory for a launch with
+// win_bytes of window, with two frames per pass or one: out[0..3].
+extern "C" int t360_window_attrs(int taps, int px, int mode, int win_bytes, int pairs,
+                                 int* out) {
+  const Kernel k = kernel_for(taps, px, mode);
+  if (k == nullptr || win_bytes < 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaFuncAttributes fa;
+  cudaError_t e = cudaFuncGetAttributes(&fa, reinterpret_cast<const void*>(k));
+  const int smem = smem_bytes(win_bytes, pairs);
+  if (e == cudaSuccess) e = allow_smem(k, smem);
+  int blocks = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, reinterpret_cast<const void*>(k), kThreads, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  out[0] = fa.numRegs;
+  out[1] = static_cast<int>(fa.localSizeBytes);
+  out[2] = blocks;
+  out[3] = smem;
+  return 0;
 }

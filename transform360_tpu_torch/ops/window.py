@@ -2,9 +2,10 @@
 (``csrc/window.cu``) and, for a tensor on the CPU, its plain version.
 
 K3 computes the function of :func:`..sampling.remap_plain` (the remap
-with its half-up round) at every batch size: one CTA per output tile of
-``TH x TW`` pixels stages the tile's source window into shared memory
-frame by frame and samples every tap from there.
+with its half-up round) at every batch size: one CTA of 256 threads per
+output tile of ``th x tw = 256*PX`` pixels, ``PX`` per thread, stages
+the tile's source window into shared memory frame by frame and samples
+every tap from there.
 
 Plan time (numpy, vectorized): :func:`build_window_plan` cuts the output
 into tiles and gives each its source window -- origin, height, row
@@ -17,7 +18,10 @@ window-relative first tap ``ly``/``lx`` (packed in one int32) and the
 marks a pixel outside the transparent ``valid`` mask): 6 B per pixel.
 Weights come from the separable float64 table ``w1 [32, T]``:
 ``float32(w1[fy, ty] * w1[fx, tx])`` is exactly the entry of
-:func:`..sampling.weight_table`.
+:func:`..sampling.weight_table`.  ``PX`` is the most of ``PX_MAX`` whose
+weights (``T*T`` per pixel) fit in 64 registers, ``TILE_W[PX]`` the
+tile's width: the pipeline's plans take ``PX_MAX = 1``, 16x16 tiles;
+``port_tools/k3_variants.py`` times the others.
 
 For a CUDA tensor :func:`remap_window_u8` launches the kernel or
 raises; it never falls back.  ``LAUNCHES`` counts kernel launches (one
@@ -28,7 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,21 +53,67 @@ from . import _build
 
 LAUNCHES = 0
 
-TH, TW = 16, 16  # output tile (rows, columns): one CTA of 256 threads, a pixel each
+THREADS = 256  # one CTA per output tile of THREADS * PX pixels
+PX_CHOICES = (1, 2, 4)  # pixels per thread the kernel is built for
+# One pixel per thread in 16x16 tiles: 2 or 4 pixels per thread (more
+# weight registers, fewer CTAs per SM) measured slower at every batch size
+# (port_tools/k3_variants.py).
+PX_MAX = 1
+# Tile width (a power of two) for PX pixels per thread; the height is
+# THREADS * PX / width.
+TILE_W = {1: 16, 2: 32, 4: 32}
+WEIGHT_REGS = 64  # a thread's T*T*PX float32 weights stay within this
 VEC = 16  # window rows are staged in 16-byte chunks from a 16-aligned column
-# Window bytes (height x pitch) of each class, one frame; the CTA holds two
-# frames' windows (double buffer) plus the 2 KB weight table.  12 KB lets
-# eight CTAs share an SM's shared memory; 48 KB takes the pole tiles of a
-# 4K cubemap.
-CLASS_BYTES = (12 * 1024, 48 * 1024)
-TABLE_BYTES = INTER_TAB_SIZE * 8 * 8  # float64 [32, T <= 8]
-# A CTA's dynamic shared memory is TABLE_BYTES + 2 x its launch's window
-# bytes, at most SMEM_MAX, the most one CTA may use on Hopper.
+# Window bytes (height x pitch) of each class, one frame.  Class 0 (12 KB)
+# holds nearly every tile with four CTAs per SM; 64 KB takes the pole
+# tiles of a 4K cubemap off the global path.
+CLASS_BYTES = (12 * 1024, 64 * 1024)
+# A CTA computes two frames per pass where four windows fit in
+# PAIRS_SMEM_MAX bytes (0: one frame per pass).  A CTA's dynamic shared
+# memory (smem_bytes) is at most SMEM_MAX, the most one CTA may use on
+# Hopper.
+PAIRS_SMEM_MAX = 64 * 1024
 SMEM_MAX = 227 * 1024
+# A CTA takes at least CTA_FRAMES_MIN frames of the batch (its set-up, the
+# chunk table and the weights, costs about as much as a frame), and the
+# batch is split among CTAs only while the launch has fewer than
+# CTAS_TARGET of them.
+CTA_FRAMES_MIN = 16
+CTAS_TARGET = 2048
 MAX_LX = (1 << 15) - 1  # lx is packed in the high half of an int32
 
 _c_void_p = ctypes.c_void_p
 _c_int = ctypes.c_int
+
+
+def pixels_per_thread(taps: int, px_max: int = PX_MAX) -> int:
+    """Output pixels per thread for ``taps`` taps a side: at most
+    ``px_max`` (one of ``PX_CHOICES``), and no more than keep a thread's
+    weights within ``WEIGHT_REGS`` registers."""
+    if px_max not in PX_CHOICES:
+        raise ValueError(f"px_max must be one of {PX_CHOICES}, got {px_max}")
+    return max(1, min(px_max, WEIGHT_REGS // (taps * taps)))
+
+
+def frames_per_cta(B: int, n_tiles: int) -> int:
+    """Frames one CTA of a launch of ``n_tiles`` tiles loops over: the
+    batch split into the fewest groups that reach ``CTAS_TARGET`` CTAs,
+    none under ``CTA_FRAMES_MIN`` frames, and no more than 65535 groups."""
+    groups = max(1, min(B // CTA_FRAMES_MIN, -(-CTAS_TARGET // n_tiles)))
+    return max(-(-B // groups), -(-B // 65535))
+
+
+def pairs(win_bytes: int) -> bool:
+    """Whether a launch with windows of ``win_bytes`` takes two frames per
+    pass."""
+    return 4 * win_bytes + win_bytes // 4 <= PAIRS_SMEM_MAX
+
+
+def smem_bytes(win_bytes: int) -> int:
+    """A CTA's dynamic shared memory for windows of ``win_bytes``: two
+    passes' windows (double buffer) and a 4-byte chunk-table entry per 16
+    bytes of window."""
+    return (4 if pairs(win_bytes) else 2) * win_bytes + win_bytes // 4
 
 
 def _circular_origin_rows(vals: np.ndarray, n: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -91,11 +141,13 @@ class WindowPlan:
 
     meta: np.ndarray  # int32 [n, 6]: out row, out col, y0, x0, wh, pitch (0: global)
     tile_class: np.ndarray  # int8 [n]: class index, or -1 for a global-path tile
-    pos: np.ndarray  # int32 [n * TH * TW]: ly | lx << 16
-    fy: np.ndarray  # uint8 [n * TH * TW]: fy | (not valid) << 7
-    fx: np.ndarray  # uint8 [n * TH * TW]
+    pos: np.ndarray  # int32 [n * th * tw]: ly | lx << 16
+    fy: np.ndarray  # uint8 [n * th * tw]: fy | (not valid) << 7
+    fx: np.ndarray  # uint8 [n * th * tw]
     w1: np.ndarray  # float64 [32, T]
     groups: Tuple[Tuple[int, int, int], ...]  # launches: (first tile, tiles, window bytes)
+    th: int  # tile rows
+    tw: int  # tile columns; th * tw = THREADS * pixels per thread
     in_h: int
     in_w: int
     out_h: int
@@ -105,22 +157,32 @@ class WindowPlan:
     fill: float
 
 
-def build_window_plan(spec: SampleSpec, fill: float) -> WindowPlan:
+def build_window_plan(spec: SampleSpec, fill: float, px_max: int = PX_MAX,
+                      tile_w: Optional[int] = None,
+                      class_bytes: Tuple[int, ...] = CLASS_BYTES) -> WindowPlan:
     """The tile plan of a sample spec (the Hopper counterpart of the JAX
-    package's ``build_pallas_remap``, sized for shared memory)."""
+    package's ``build_pallas_remap``, sized for shared memory), with
+    ``PX = pixels_per_thread(T, px_max)`` pixels per thread, tiles
+    ``tile_w`` wide (``TILE_W[PX]`` by default; a power of two that PX
+    divides) and the window classes ``class_bytes``."""
     T = _TAPS[spec.interp]
     H, W = spec.in_h, spec.in_w
     mode = border_mode(spec)
     out_h, out_w = spec.base_y.shape
     if H + T >= 1 << 16 or W + T + VEC > MAX_LX:
         raise ValueError(f"input {W}x{H} is too large for the window plan's 16-bit offsets")
-    n_ty, n_tx = -(-out_h // TH), -(-out_w // TW)
+    px = pixels_per_thread(T, px_max)
+    tw = TILE_W[px] if tile_w is None else tile_w
+    if tw & (tw - 1) or tw % px or not px <= tw <= THREADS * px:
+        raise ValueError(f"tile width {tw} for {px} pixels per thread")
+    th = THREADS * px // tw
+    n_ty, n_tx = -(-out_h // th), -(-out_w // tw)
     n = n_ty * n_tx
 
     def tiles(a):
-        """[out_h, out_w] -> [n, TH*TW], ragged edge padded by replication."""
-        a = np.pad(a, ((0, n_ty * TH - out_h), (0, n_tx * TW - out_w)), mode="edge")
-        return a.reshape(n_ty, TH, n_tx, TW).transpose(0, 2, 1, 3).reshape(n, TH * TW)
+        """[out_h, out_w] -> [n, th*tw], ragged edge padded by replication."""
+        a = np.pad(a, ((0, n_ty * th - out_h), (0, n_tx * tw - out_w)), mode="edge")
+        return a.reshape(n_ty, th, n_tx, tw).transpose(0, 2, 1, 3).reshape(n, th * tw)
 
     by = tiles(spec.base_y.astype(np.int64))
     bx = tiles(spec.base_x.astype(np.int64))
@@ -151,27 +213,35 @@ def build_window_plan(spec: SampleSpec, fill: float) -> WindowPlan:
     pitch = -(-(x0 - x0a + ex + T - 1) // VEC) * VEC
     nbytes = wh * pitch
     cls = np.full(n, -1, np.int8)
-    for c in range(len(CLASS_BYTES) - 1, -1, -1):
-        cls[nbytes <= CLASS_BYTES[c]] = c
+    for c in range(len(class_bytes) - 1, -1, -1):
+        cls[nbytes <= class_bytes[c]] = c
     glob = cls < 0
+    # The kernel reads a tap row as the aligned 32-bit words from the one
+    # holding its first tap to the one holding its last: they end inside
+    # the window, so no load leaves the CTA's buffer.
+    end = (ly + T - 1) * pitch[:, None] + 4 * ((lx + T - 1) // 4) + 4
+    if not (end <= nbytes[:, None])[~glob].all():
+        raise AssertionError("a tap row's words reach past its window")
     pitch = np.where(glob, 0, pitch)
 
     # launch order: global-path tiles first (the longest CTAs start
     # early) within class 0's launch, then each class in raster order
     order, groups, start = [], [], 0
-    for c in range(len(CLASS_BYTES)):
+    for c in range(len(class_bytes)):
         ids = np.flatnonzero(cls == c)
         if c == 0:
             ids = np.concatenate([np.flatnonzero(glob), ids])
         if ids.size:
             win = int(nbytes[ids][cls[ids] == c].max(initial=0))
+            if smem_bytes(win) > SMEM_MAX:
+                raise ValueError(f"window class of {win} B exceeds a CTA's shared memory")
             groups.append((start, int(ids.size), win))
             order.append(ids)
             start += ids.size
     order = np.concatenate(order)
 
     ti, tj = np.divmod(np.arange(n), n_tx)
-    meta = np.stack([ti * TH, tj * TW, y0, x0a, wh, pitch], axis=1)[order]
+    meta = np.stack([ti * th, tj * tw, y0, x0a, wh, pitch], axis=1)[order]
     fy = frac_index(spec.frac_y)
     if spec.valid is not None:
         fy = fy | ((~spec.valid).astype(np.uint8) << 7)
@@ -186,6 +256,8 @@ def build_window_plan(spec: SampleSpec, fill: float) -> WindowPlan:
             axis=1,
         ).astype(np.float64),
         groups=tuple(groups),
+        th=th,
+        tw=tw,
         in_h=H,
         in_w=W,
         out_h=out_h,
@@ -201,11 +273,13 @@ class WindowTables:
     """A window plan's arrays on one device, in the kernel's form."""
 
     meta: torch.Tensor  # int32 [n, 6]
-    pos: torch.Tensor  # int32 [n * TH * TW]
-    fy: torch.Tensor  # uint8 [n * TH * TW]
-    fx: torch.Tensor  # uint8 [n * TH * TW]
+    pos: torch.Tensor  # int32 [n * th * tw]
+    fy: torch.Tensor  # uint8 [n * th * tw]
+    fx: torch.Tensor  # uint8 [n * th * tw]
     w1: torch.Tensor  # float64 [32, T]
     groups: Tuple[Tuple[int, int, int], ...]
+    th: int
+    tw: int
     in_h: int
     in_w: int
     out_h: int
@@ -221,7 +295,7 @@ class WindowTables:
 
         return cls(
             meta=put(wp.meta), pos=put(wp.pos), fy=put(wp.fy), fx=put(wp.fx),
-            w1=put(wp.w1), groups=wp.groups, in_h=wp.in_h, in_w=wp.in_w,
+            w1=put(wp.w1), groups=wp.groups, th=wp.th, tw=wp.tw, in_h=wp.in_h, in_w=wp.in_w,
             out_h=wp.out_h, out_w=wp.out_w, taps=wp.taps, mode=wp.mode, fill=wp.fill,
         )
 
@@ -238,7 +312,7 @@ def remap_window_plain(wt: WindowTables, x: torch.Tensor) -> torch.Tensor:
     H, W, T, mode = wt.in_h, wt.in_w, wt.taps, wt.mode
     flat = x.reshape(B, H * W)
     meta = wt.meta.long()
-    npx = TH * TW
+    npx = wt.th * wt.tw
     tile = torch.arange(meta.shape[0], device=x.device).repeat_interleave(npx)
     p = torch.arange(npx, device=x.device).repeat(meta.shape[0])
     pos = wt.pos.long()
@@ -270,8 +344,8 @@ def remap_window_plain(wt: WindowTables, x: torch.Tensor) -> torch.Tensor:
     if fill_w is not None:
         acc = acc + (fill_w * wt.fill)[None, :]
     acc = torch.where(invalid[None, :], wt.fill, acc)
-    oy = meta[tile, 0] + torch.div(p, TW, rounding_mode="floor")
-    ox = meta[tile, 1] + p % TW
+    oy = meta[tile, 0] + torch.div(p, wt.tw, rounding_mode="floor")
+    ox = meta[tile, 1] + p % wt.tw
     inside = (oy < wt.out_h) & (ox < wt.out_w)
     out = torch.empty((B, wt.out_h * wt.out_w), dtype=torch.float32, device=x.device)
     out[:, (oy * wt.out_w + ox)[inside]] = acc[:, inside]
@@ -287,10 +361,13 @@ def _lib() -> ctypes.CDLL:
             _c_int, _c_int, _c_int, _c_int, _c_int,  # B, H, W, out_h, out_w
             _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,  # meta, pos, fy, fx, w1
             _c_int, _c_int, _c_int,  # first tile, tiles, window bytes
-            _c_int, _c_int, ctypes.c_float, _c_int,  # taps, mode, fill, vec
-            _c_void_p,  # stream
+            _c_int, _c_int, _c_int, _c_int,  # taps, px, tile width, mode
+            ctypes.c_float, _c_int,  # fill, vec
+            _c_int, _c_int, _c_void_p,  # frames per CTA, pairs, stream
         ]
         fn.restype = _c_int
+        lib.t360_window_attrs.argtypes = [_c_int, _c_int, _c_int, _c_int, _c_int, _c_void_p]
+        lib.t360_window_attrs.restype = _c_int
         lib.t360_error_string.argtypes = [_c_int]
         lib.t360_error_string.restype = ctypes.c_char_p
     return lib
@@ -334,8 +411,8 @@ def remap_window_u8(wt: WindowTables, x: torch.Tensor) -> torch.Tensor:
                 wt.meta.data_ptr(), wt.pos.data_ptr(), wt.fy.data_ptr(),
                 wt.fx.data_ptr(), wt.w1.data_ptr(),
                 first, count, win,
-                wt.taps, wt.mode, wt.fill, vec,
-                stream,
+                wt.taps, wt.th * wt.tw // THREADS, wt.tw, wt.mode, wt.fill, vec,
+                frames_per_cta(B, count), int(pairs(win)), stream,
             )
             if err:
                 raise RuntimeError(
@@ -343,3 +420,15 @@ def remap_window_u8(wt: WindowTables, x: torch.Tensor) -> torch.Tensor:
                 )
             LAUNCHES += 1
     return out
+
+
+def kernel_attrs(taps: int, px: int, mode: int, win_bytes: int) -> dict:
+    """One instantiation of K3 on the current GPU: its registers, local
+    memory bytes (spills and stack), resident CTAs per SM for a launch with
+    ``win_bytes`` of window, and that launch's dynamic shared memory."""
+    lib = _lib()
+    out = (_c_int * 4)()
+    err = lib.t360_window_attrs(taps, px, mode, win_bytes, int(pairs(win_bytes)), out)
+    if err:
+        raise RuntimeError(f"window kernel attributes: {lib.t360_error_string(err).decode()}")
+    return dict(zip(("registers", "local_bytes", "ctas_per_sm", "smem_bytes"), out))
