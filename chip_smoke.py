@@ -21,7 +21,7 @@ nvcc and CUDA PyTorch (no jax needed).  Phases:
    last one K1's direct kernel); K3 (remap) against ``remap_plain`` at
    the flagship's shapes at batch 1, 2 and 7, on small barrel cases for
    the clamp-with-fill (linear) and REFLECT_101 (lanczos4) rules and a
-   cubemap whose width is a multiple of no tile width, and on the
+   cubemap whose width is not a multiple of the tile's, and on the
    flagship luma at batch 8 ... 128 (the JAX package's B2-B4 range) and
    the stacked chroma at 256;
 4. the batch path: ``open_filter(<flagship>, 3840, 2160, device="cuda")
@@ -224,7 +224,7 @@ def cuobjdump_path() -> str:
 
 
 def k3_sass(lib_path) -> dict:
-    """{(T, MODE, PX): counts} for each K3 instantiation in the library's
+    """{(T, MODE): counts} for each K3 instantiation in the library's
     SASS: instructions, int-to-float conversions (I2F, I2FP), LDS and
     float-to-int conversions (F2I)."""
     out = subprocess.run([cuobjdump_path(), "-sass", str(lib_path)], capture_output=True,
@@ -232,7 +232,7 @@ def k3_sass(lib_path) -> dict:
     res, cur = {}, None
     for line in out.splitlines():
         if "Function :" in line:
-            m = re.search(r"window_kernelILi(\d+)ELi(\d+)ELi(\d+)E", line)
+            m = re.search(r"window_kernelILi(\d+)ELi(\d+)E", line)
             cur = tuple(int(g) for g in m.groups()) if m else None
             if cur:
                 res[cur] = {"instructions": 0, "I2F": 0, "LDS": 0, "F2I": 0}
@@ -249,16 +249,6 @@ def k3_sass(lib_path) -> dict:
     if not res:
         raise SystemExit(f"FAIL no K3 function in the SASS of {lib_path}")
     return res
-
-
-def redesign_record(row_id: str):
-    """The "redesigned PR n" entry of a kernel's row in PERF.md's kernel
-    table (the JSON line repeats the record kept there), or None."""
-    perf = os.path.join(os.path.dirname(os.path.abspath(__file__)), "PERF.md")
-    with open(perf) as f:
-        row = next((line for line in f if line.startswith(f"| {row_id} |")), "")
-    m = re.search(r"redesigned (PR \d+)", row)
-    return m.group(1) if m else None
 
 
 def main() -> int:
@@ -309,22 +299,20 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 say(f"    ptxas {name}: {line.strip()}")
-    say(f"    K3 dynamic shared memory per CTA: 2 x the class's window bytes + a 4-byte "
-        f"chunk-table entry per 16 of them (classes {window.CLASS_BYTES} B)")
+    say(f"    K3 dynamic shared memory per CTA: 4 (class 0: two frames per pass) or 2 x the "
+        f"class's window bytes + a 4-byte chunk-table entry per 16 of them (classes "
+        f"{window.CLASS_BYTES} B)")
     sass = k3_sass(_build._build("window"))
     modes = ("wrap", "fill", "reflect")
     for taps in (1, 2, 4, 8):
-        for px in window.PX_CHOICES:
-            if taps * taps * px > window.WEIGHT_REGS:
-                continue
-            parts = []
-            for mode, mname in enumerate(modes):
-                at = window.kernel_attrs(taps, px, mode, 0)
-                c = sass[(taps, mode, px)]
-                parts.append(f"{mname} {at['registers']} registers, {at['local_bytes']} B "
-                             f"local, {c['instructions']} instructions, {c['LDS']} LDS, "
-                             f"{c['I2F']} I2F, {c['F2I']} F2I")
-            say(f"    K3 T={taps} PX={px}: " + "; ".join(parts))
+        parts = []
+        for mode, mname in enumerate(modes):
+            at = window.kernel_attrs(taps, mode, 0)
+            c = sass[(taps, mode)]
+            parts.append(f"{mname} {at['registers']} registers, {at['local_bytes']} B "
+                         f"local, {c['instructions']} instructions, {c['LDS']} LDS, "
+                         f"{c['I2F']} I2F, {c['F2I']} F2I")
+        say(f"    K3 T={taps}: " + "; ".join(parts))
     n_i2f = sum(c["I2F"] for c in sass.values())
     say(f"    K3 SASS: {n_i2f} int-to-float conversions (I2F, I2FP) in {len(sass)} "
         f"instantiations")
@@ -350,10 +338,9 @@ def main() -> int:
     for pname, wp in zip(("luma", "chroma"), wplans):
         staged = wp.meta[:, 5] > 0
         halo = float((wp.meta[:, 4] * wp.meta[:, 5])[staged].sum()) / (wp.in_h * wp.in_w)
-        px = wp.th * wp.tw // window.THREADS
-        occ = [window.kernel_attrs(wp.taps, px, wp.mode, win) for _, _, win in wp.groups]
-        say(f"    K3 tile plan {pname}: {wp.meta.shape[0]} tiles of {wp.th}x{wp.tw} ({px} "
-            f"pixels per thread), per class "
+        occ = [window.kernel_attrs(wp.taps, wp.mode, win) for _, _, win in wp.groups]
+        say(f"    K3 tile plan {pname}: {wp.meta.shape[0]} tiles of {window.TH}x{window.TW}, "
+            f"per class "
             f"{[int((wp.tile_class == c).sum()) for c in range(len(window.CLASS_BYTES))]}"
             f", {int((~staged).sum())} global-path tiles; launches (first, tiles, window "
             f"bytes) {wp.groups}, resident CTAs per SM "
@@ -657,11 +644,10 @@ def main() -> int:
     kernels = [
         entry("blur", "transform360_tpu_torch/csrc/blur.cu",
               "transform360_tpu/ops/blur_lane.py:269", serves="B1", batches="all",
-              shape="16 luma frames", redesigned=redesign_record("B1")),
+              shape="16 luma frames"),
         entry("window", "transform360_tpu_torch/csrc/window.cu",
               "transform360_tpu/ops/remap_pallas.py:441", serves="B5; B2, B3, B4 closed on it",
-              batches="all", shape="16 luma frames", redesigned=redesign_record("B5"),
-              chroma=chroma_k3),
+              batches="all", shape="16 luma frames", chroma=chroma_k3),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

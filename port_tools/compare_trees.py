@@ -14,11 +14,15 @@ Each process builds its kernels, makes the flagship's video-like frames
 (``chip_smoke.py``'s generator), and prints one JSON line: the step's
 device median in ms by CUDA events at batch 128 and at batch 1 (one
 [H, W] frame), the sample count, the K1 launches per step, the remap
-kernel K3's medians alone at the paths' shapes (16, 1 and 128 luma
-frames, a chroma pair, 256 chroma planes) by CUDA events around one call
-(``k3_ms``: the wrapper's host time before the launch included) and per
-call over 20 calls back to back (``k3_ms_queued``: device time once the
-queue stays full), and the card's name and power limit.
+kernel K3 alone at the paths' shapes (16, 1 and 128 luma frames, a
+chroma pair, 256 chroma planes): the median by CUDA events around one
+call (``k3_ms``: the wrapper's host time before the launch included),
+the device time per call (``k3_ms_graph``: 20 calls captured in a CUDA
+graph and replayed, so that no host time enters; 20 calls issued back to
+back still wait on the host at one frame), the same for each window
+class's launch alone at one and 128 luma frames (``k3_class_ms_graph``:
+tiles, ms), the host's time to issue one call (``k3_host_ms``: 200 calls
+issued, then one synchronize), and the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -32,8 +36,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def child(label: str, settings: list) -> None:
+    import dataclasses
     import importlib
     import statistics
+    import time
 
     import torch
 
@@ -65,20 +71,38 @@ def child(label: str, settings: list) -> None:
                             "k1_launches": (blur.LAUNCHES - n0) / len(ts)}
     lw, cw = (pp.window_tables("cuda") for pp in (eng.plan.luma, eng.plan.chroma))
     cb = torch.cat([ub, vb])
-    res["k3_ms"], res["k3_ms_queued"] = {}, {}
+    res["k3_ms"], res["k3_ms_graph"], res["k3_host_ms"], res["k3_class_ms_graph"] = {}, {}, {}, {}
+
+    def graph_ms(wt, x, reps):
+        """K3's device ms per call: 20 calls captured in a CUDA graph, the
+        median of reps replays."""
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(20):
+                window.remap_window_u8(wt, x)
+        graph.replay()
+        ms = statistics.median(cuda_times(graph.replay, reps)) / 20
+        del graph
+        return ms
+
     for shape, wt, x in (("16 luma", lw, yb[:16].contiguous()), ("1 luma", lw, yb[:1].contiguous()),
                          ("2 chroma", cw, cb[:2].contiguous()), ("128 luma", lw, yb),
                          ("256 chroma", cw, cb)):
         cuda_times(lambda: window.remap_window_u8(wt, x), 3)
         ts = cuda_times(lambda: window.remap_window_u8(wt, x), 10 if x.shape[0] >= 100 else 40)
         res["k3_ms"][shape] = statistics.median(ts)
-
-        def twenty():
-            for _ in range(20):
-                window.remap_window_u8(wt, x)
-
-        ts = cuda_times(twenty, 3 if x.shape[0] >= 100 else 10)
-        res["k3_ms_queued"][shape] = statistics.median(ts) / 20
+        reps = 3 if x.shape[0] >= 100 else 20
+        res["k3_ms_graph"][shape] = graph_ms(wt, x, reps)
+        if shape in ("1 luma", "128 luma"):
+            res["k3_class_ms_graph"][shape] = [
+                (g[1], graph_ms(dataclasses.replace(wt, groups=(g,)), x, reps))
+                for g in wt.groups]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            window.remap_window_u8(wt, x)
+        res["k3_host_ms"][shape] = (time.perf_counter() - t0) * 1e3 / 200
+        torch.cuda.synchronize()
     print(json.dumps(res), flush=True)
 
 

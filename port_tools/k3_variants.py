@@ -1,30 +1,35 @@
 """Time variants of K3 (``csrc/window.cu``) against each other, in turns.
 
-    python3 port_tools/k3_variants.py [--tiles 1:16 2:32 4:32]
-        [--classes 12:64 12:24:64] [--pairs 0 64] [--adjacent 0 1]
-        [--min-blocks 0 4] [--source other=path/to/window.cu]
+    python3 port_tools/k3_variants.py [--pairs on off] [--frames auto all 1]
+        [--source other=path/to/window.cu ...]
 
 Run from the root of a checkout on a machine with an NVIDIA Hopper GPU.
-Each ``--tiles`` value ``PX:W`` builds the flagship's window plans with
-``PX`` pixels per thread in tiles ``W`` pixels wide (``256 * PX / W``
-rows), each ``--classes`` value with those window classes (KB), each
-``--pairs`` value sets ``ops.window.PAIRS_SMEM_MAX`` (KB; 0: one frame per
-pass).  Each
-``--adjacent`` value rebuilds K3 with ``K3_ADJACENT`` (0: a thread's
-pixels lie 256 apart in the tile, 1: they are adjacent in a row and
-stored at once), each ``--min-blocks`` value with
-``__launch_bounds__(256, N)`` (0: the source's own), each ``--source``
-value ``label=path`` builds that copy of ``window.cu`` beside the
-shipping one (the same C interface; a trial edit timed against the
-source in one call), one nvcc per build, all at once.  Printed per variant: the registers, local bytes, resident
-CTAs per SM and shared memory of each class launch.  Every variant is
-first held against ``remap_plain`` on three luma frames and three chroma
-planes (same bytes), then all are timed by CUDA events in alternating
-order over four rounds, at the shapes of the flagship's paths: 16, 1 and
-128 luma frames, a chroma pair and 256 chroma planes; one JSON line of
-medians (ms) per shape.  Last, each class launch of every variant alone
-on 128 luma frames (one JSON line).  The builds go to
-``transform360_tpu_torch/build/`` (gitignored).
+A variant is a build of K3 and the way each class launch is issued:
+
+* ``--source label=path`` builds that copy of ``window.cu`` (the same C
+  interface; a trial edit, timed against the shipping source in one call)
+  beside the shipping one, one nvcc per copy, all at once;
+* ``--pairs``: ``on`` takes two frames per pass where the package does
+  (class 0's launches, ``ops.window.pairs``), ``off`` one frame per pass
+  in every launch;
+* ``--frames``: the frames of the batch one CTA loops over: ``auto`` is
+  the package's ``frames_per_cta`` (frame groups on the grid's y axis for
+  launches with few tiles), ``all`` the whole batch (no groups), an
+  integer that many (at most the batch).
+
+Every combination is a variant.  Printed per variant: the registers,
+local bytes, resident CTAs per SM and shared memory of each class launch
+at batch 128 and at batch 1.  Every variant is first held against
+``remap_plain`` on three luma frames and three chroma planes (same
+bytes), then all are timed by CUDA events in alternating order over four
+rounds, at the shapes of the flagship's paths: 16, 1 and 128 luma
+frames, a chroma pair and 256 chroma planes; one JSON line of medians
+(ms per call) per shape.  Under 100 frames a sample is a replay of 20
+calls captured in a CUDA graph (device time: one call, or calls issued
+back to back, wait there on the host).  Last, each class launch of
+every variant alone on one and 128 luma frames and 256 chroma planes
+(one JSON line each).
+The trial builds go to ``transform360_tpu_torch/build/`` (gitignored).
 """
 
 from __future__ import annotations
@@ -35,7 +40,6 @@ import dataclasses
 import itertools
 import json
 import os
-import re
 import shutil
 import statistics
 import subprocess
@@ -46,21 +50,15 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 
-def window_pairs_kb() -> int:
-    from transform360_tpu_torch.ops import window
-
-    return window.PAIRS_SMEM_MAX // 1024
-
-
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--tiles", nargs="+", default=["1:16", "2:32", "4:32"])
-    ap.add_argument("--classes", nargs="+", default=["12:64"])
-    ap.add_argument("--pairs", type=int, nargs="+", default=[window_pairs_kb()])
-    ap.add_argument("--adjacent", type=int, nargs="+", default=[0])
-    ap.add_argument("--min-blocks", type=int, nargs="+", default=[0])
+    ap.add_argument("--pairs", nargs="+", default=["on"], choices=["on", "off"])
+    ap.add_argument("--frames", nargs="+", default=["auto"])
     ap.add_argument("--source", nargs="*", default=[])
     args = ap.parse_args()
+    for fr in args.frames:
+        if fr not in ("auto", "all") and not (fr.isdigit() and int(fr) > 0):
+            raise SystemExit(f"--frames takes auto, all or a positive integer, not {fr}")
 
     import torch
 
@@ -74,90 +72,62 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     shipping = window._lib()
-    texts = {"window.cu": (_build.CSRC / "window.cu").read_text()}
-    for spec in args.source:
-        label, path = spec.split("=", 1)
-        texts[label] = open(path).read()
-    adj_line = "#define K3_ADJACENT 0"
-    bound_re = r"__launch_bounds__\([^)]*\)\s*window_kernel"
-    for label, text in texts.items():
-        assert text.count(adj_line) == 1 and re.search(bound_re, text), f"{label}: knobs moved"
 
-    def build(label, adj, mb):
-        src = texts[label]
-        bound = re.search(bound_re, src)
-        d = _build.BUILD_DIR / "variants" / f"k3_{label}_adjacent_{adj}_min_blocks_{mb}"
+    def build(label, path):
+        d = _build.BUILD_DIR / "variants" / f"k3_{label}"
         d.mkdir(parents=True, exist_ok=True)
         for h in _build.CSRC.glob("*.cuh"):
             shutil.copy(h, d / h.name)
-        text = src.replace(adj_line, f"#define K3_ADJACENT {adj}")
-        if mb:
-            text = text.replace(bound.group(0), f"__launch_bounds__(kThreads, {mb}) window_kernel")
-        (d / "window.cu").write_text(text)
+        shutil.copy(path, d / "window.cu")
         lib_path = d / "libwindow.so"
         cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(d), "-o", str(lib_path),
                str(d / "window.cu")]
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode:
-            raise SystemExit(f"nvcc failed for {label}, adjacent {adj}, min blocks {mb}:\n"
-                             f"{res.stderr}")
+            raise SystemExit(f"nvcc failed for {label}:\n{res.stderr}")
         lib = ctypes.CDLL(str(lib_path))
         for fn in ("t360_window", "t360_window_attrs", "t360_error_string"):
             getattr(lib, fn).argtypes = getattr(shipping, fn).argtypes
             getattr(lib, fn).restype = getattr(shipping, fn).restype
         return lib
 
-    sources = list(itertools.product(texts, args.adjacent, args.min_blocks))
-    with ThreadPoolExecutor(max_workers=len(sources)) as ex:
-        libs = dict(zip(sources, ex.map(lambda sam: build(*sam), sources)))
+    trials = [spec.split("=", 1) for spec in args.source]
+    libs = {"window.cu": shipping}
+    if trials:
+        with ThreadPoolExecutor(max_workers=len(trials)) as ex:
+            libs.update(zip((lb for lb, _ in trials), ex.map(lambda t: build(*t), trials)))
 
     plan = P.open_filter(FLAGSHIP, 3840, 2160, device="cuda").plan
-    tabs = {}
-    for spec, classes in itertools.product(args.tiles, args.classes):
-        px, tw = (int(v) for v in spec.split(":"))
-        cb = tuple(int(v) * 1024 for v in classes.split(":"))
-        tabs[spec, classes] = tuple(
-            window.WindowTables.from_plan(
-                window.build_window_plan(pp.spec, pp.fill, px_max=px, tile_w=tw,
-                                         class_bytes=cb), "cuda")
-            for pp in (plan.luma, plan.chroma))
-        for pname, wt in zip(("luma", "chroma"), tabs[spec, classes]):
-            print(f"tiles {spec}, classes {classes}: {pname} {wt.th}x{wt.tw}, "
-                  f"{wt.meta.shape[0]} tiles, launches {wt.groups}", flush=True)
+    tabs = (plan.luma.window_tables("cuda"), plan.chroma.window_tables("cuda"))
 
-    pairs0 = window.PAIRS_SMEM_MAX
+    def choices(var, B, group):
+        _, pair, frames = var
+        f = (window.frames_per_cta(B, group[1]) if frames == "auto"
+             else B if frames == "all" else min(B, int(frames)))
+        return f, pair == "on" and window.pairs(group[2])
 
-    def run(var, x, plane):
-        lib, tabs_, pairs_kb = var
-        window._lib, window.PAIRS_SMEM_MAX = (lambda: lib), pairs_kb * 1024
-        try:
-            return window.remap_window_u8(tabs_[plane], x)
-        finally:
-            window._lib, window.PAIRS_SMEM_MAX = (lambda: shipping), pairs0
+    def run(var, x, wt):
+        out = torch.empty((x.shape[0], wt.out_h, wt.out_w), dtype=torch.uint8, device=x.device)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        for g in wt.groups:
+            window.launch_class(libs[var[0]], wt, x, out, g, *choices(var, x.shape[0], g), stream)
+        return out
 
     variants = {}
-    for (label, adj, mb), (spec, classes), pairs_kb in itertools.product(sources, tabs,
-                                                                         args.pairs):
-        if adj and spec.startswith("1:"):
-            continue  # one pixel per thread: nothing to place side by side
-        name = (f"{label}: tiles {spec}, classes {classes}, pairs {pairs_kb}, adjacent {adj}, "
-                f"min_blocks {mb}")
-        lib = libs[(label, adj, mb)]
-        variants[name] = (lib, tabs[spec, classes], pairs_kb)
-        window.PAIRS_SMEM_MAX = pairs_kb * 1024
-        for pname, wt in zip(("luma", "chroma"), tabs[spec, classes]):
-            px = wt.th * wt.tw // window.THREADS
+    for var in itertools.product(libs, args.pairs, args.frames):
+        name = f"{var[0]}: pairs {var[1]}, frames {var[2]}"
+        variants[name] = var
+        for (pname, wt), B in itertools.product(zip(("luma", "chroma"), tabs), (128, 1)):
             occ = []
-            for _, _, win in wt.groups:
+            for g in wt.groups:
                 out = (ctypes.c_int * 4)()
-                err = lib.t360_window_attrs(wt.taps, px, wt.mode, win, int(window.pairs(win)),
-                                            out)
+                pair = choices(var, B, g)[1]
+                err = libs[var[0]].t360_window_attrs(wt.taps, wt.mode, g[2], int(pair), out)
                 if err:
-                    raise SystemExit(f"attrs {name}: {lib.t360_error_string(err).decode()}")
+                    raise SystemExit(f"attrs {name}: {shipping.t360_error_string(err).decode()}")
                 occ.append(tuple(out))
-            print(f"{name} {pname}: (registers, local bytes, CTAs per SM, smem) per "
-                  f"launch {occ}", flush=True)
-        window.PAIRS_SMEM_MAX = pairs0
+            print(f"{name} {pname} batch {B}: tiles per launch {[g[1] for g in wt.groups]}, "
+                  f"(registers, local bytes, CTAs per SM, smem) per launch {occ}", flush=True)
 
     y, u, v = video_like_planes(3840, 2160)
     yb, ub, vb = batch_of(y, 128), batch_of(u, 128), batch_of(v, 128)
@@ -165,8 +135,8 @@ def main() -> int:
     lt, ct = plan.luma.tables("cuda"), plan.chroma.tables("cuda")
     want = (round_u8(remap_plain(lt.remap, yb[:3])), round_u8(remap_plain(ct.remap, cb[:3])))
     for name, var in variants.items():
-        if not (torch.equal(run(var, yb[:3].contiguous(), 0), want[0])
-                and torch.equal(run(var, cb[:3].contiguous(), 1), want[1])):
+        if not (torch.equal(run(var, yb[:3].contiguous(), tabs[0]), want[0])
+                and torch.equal(run(var, cb[:3].contiguous(), tabs[1]), want[1])):
             raise SystemExit(f"FAIL variant {name} differs from remap_plain")
     print(f"all {len(variants)} variants equal remap_plain on 3 luma frames and 3 chroma "
           f"planes", flush=True)
@@ -174,26 +144,43 @@ def main() -> int:
               "2 chroma": (1, cb[:2].contiguous()), "128 luma": (0, yb),
               "256 chroma": (1, cb)}
     order = list(variants.items())
+
+    def sampler(var, x, wt, reps):
+        """A function returning reps samples of a variant's device ms per
+        call: under 100 frames each a replay of 20 calls captured in a CUDA
+        graph, else one call."""
+        run(var, x, wt)
+        if x.shape[0] >= 100:
+            return lambda: cuda_times(lambda: run(var, x, wt), reps)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(20):
+                run(var, x, wt)
+        graph.replay()
+        return lambda: [t / 20 for t in cuda_times(graph.replay, reps)]
+
     for shape, (plane, x) in shapes.items():
-        times = {k: [] for k in variants}
         reps = 3 if x.shape[0] >= 100 else 10
+        samplers = {name: sampler(var, x, tabs[plane], reps) for name, var in order}
+        times = {k: [] for k in variants}
         for rnd in range(4):
-            for name, var in (order if rnd % 2 == 0 else order[::-1]):
-                run(var, x, plane)
-                times[name] += cuda_times(lambda: run(var, x, plane), reps)
+            for name, _ in (order if rnd % 2 == 0 else order[::-1]):
+                times[name] += samplers[name]()
+        del samplers
         print(json.dumps({"shape": shape, "card": smi, "n": 4 * reps,
                           "median_ms": {k: statistics.median(v) for k, v in times.items()}}),
               flush=True)
-    per_launch = {}
-    for name, (lib, (lw, _), pairs_kb) in order:
-        per_launch[name] = []
-        for g in lw.groups:
-            one = (lib, (dataclasses.replace(lw, groups=(g,)), None), pairs_kb)
-            run(one, yb, 0)
-            ms = statistics.median(cuda_times(lambda: run(one, yb, 0), 5))
-            per_launch[name].append((g[1], ms))
-    print(json.dumps({"shape": "128 luma, each class launch alone: (tiles, median ms)",
-                      "card": smi, "n": 5, "launches": per_launch}), flush=True)
+    for shape in ("1 luma", "128 luma", "256 chroma"):
+        plane, x = shapes[shape]
+        per_launch = {}
+        for name, var in order:
+            per_launch[name] = []
+            for g in tabs[plane].groups:
+                one = dataclasses.replace(tabs[plane], groups=(g,))
+                ts = sampler(var, x, one, 5)()
+                per_launch[name].append((g[1], statistics.median(ts)))
+        print(json.dumps({"shape": f"{shape}, each class launch alone: (tiles, median ms)",
+                          "card": smi, "n": 5, "launches": per_launch}), flush=True)
     return 0
 
 

@@ -5,11 +5,12 @@ where ``blur_plain`` and ``remap_plain`` do, so the bound asserted here
 — at most 1 LSB on under 0.5% of pixels — is expected to hold with 0
 differences.  The cases cover every border rule and tap count of K3 at
 batch 1 to 256 (every instantiation: each tap count under each border
-rule, at every tile width), an output width that is a multiple of no
-tile width, tap rows starting at every byte of a word, an unaligned
-plane, K3's global-path tiles, and every stereo raster of K1 at small
-sizes, its ring kernels (y radius padded to 1 or 3) and its direct
-kernel (a wider y radius), its frame loops and an unaligned plane.
+rule, at batch 1 and 3), an output width that is not a
+multiple of the tile's, tap rows starting at every byte of a word, an
+unaligned plane, K3's global-path tiles, and every stereo raster of K1
+at small sizes, its ring kernels (y radius padded to 1 or 3) and its
+direct kernel (a wider y radius), its frame loops and an unaligned
+plane.
 Marked ``cuda``: they skip without a GPU.  On the GPU host, which has no
 jax, run them without the suite's conftest.py (which imports jax):
 
@@ -187,39 +188,37 @@ def test_window_kernel_unaligned_plane(name, gpu):
 INTERPS = {1: Interpolation.NEAREST, 2: Interpolation.LINEAR, 4: Interpolation.CUBIC,
            8: Interpolation.LANCZOS4}
 MODES = {"wrap": BORDER_WRAP, "fill": BORDER_FILL, "reflect": BORDER_REFLECT}
-TILES = [(1, None), (1, 32), (2, None), (4, None), (4, 64)]  # (px_max, tile_w)
 
 
 @pytest.mark.parametrize("mode", sorted(MODES))
 @pytest.mark.parametrize("taps", sorted(INTERPS))
 def test_window_kernel_every_instantiation(taps, mode, gpu):
-    # each tap count under each border rule, at every tile width, on a
-    # wrapping cubemap plan and a barrel plan with its valid mask; the
-    # rule is set on the tables, so the reference is K3's plain version
-    # (equal to remap_plain where the rule is the plan's own:
-    # tests/test_torch_window.py)
+    # each tap count under each border rule, at batch 3 (two frames per
+    # pass) and 1, on a wrapping cubemap plan and a barrel plan with
+    # its valid mask; the rule is set on the tables, so the reference is
+    # K3's plain version (equal to remap_plain where the rule is the plan's
+    # own: tests/test_torch_window.py)
     g = torch.Generator(device=gpu).manual_seed(taps)
     for layout, iw, ih, ow, oh in ((Layout.CUBEMAP_32, 512, 256, 150, 100),
                                    (Layout.BARREL, 256, 128, 160, 64)):
         cfg = TransformConfig(output_layout=layout, interpolation_alg=INTERPS[taps], **MONO)
         pp = P.build_plan(cfg, iw, ih, ow, oh, "gray").luma
-        for px, tile_w in TILES:
-            wp = window.build_window_plan(pp.spec, pp.fill, px_max=px, tile_w=tile_w)
-            wt = dataclasses.replace(window.WindowTables.from_plan(wp, gpu), mode=MODES[mode])
-            x = torch.randint(0, 256, (3, ih, iw), dtype=torch.uint8, device=gpu, generator=g)
-            got = window.remap_window_u8(wt, x)
-            want = round_u8(window.remap_window_plain(wt, x))
-            assert torch.equal(got, want), (layout, px, tile_w)
+        wp = window.build_window_plan(pp.spec, pp.fill)
+        wt = dataclasses.replace(window.WindowTables.from_plan(wp, gpu), mode=MODES[mode])
+        x = torch.randint(0, 256, (3, ih, iw), dtype=torch.uint8, device=gpu, generator=g)
+        for b in (3, 1):
+            got = window.remap_window_u8(wt, x[:b])
+            want = round_u8(window.remap_window_plain(wt, x[:b]))
+            assert torch.equal(got, want), (layout, b)
 
 
-@pytest.mark.parametrize("px, tile_w", TILES)
-def test_window_kernel_ragged_width_and_every_word_offset(px, tile_w, gpu):
-    # 390 output columns: a multiple of no tile width; the tap rows of the
+def test_window_kernel_ragged_width_and_every_word_offset(gpu):
+    # 390 output columns: not a multiple of the tile's; the tap rows of the
     # staged pixels start at every byte of a 32-bit word
     cfg = TransformConfig(**MONO)
     pp = P.build_plan(cfg, 1024, 512, 390, 260, "gray").luma
-    wp = window.build_window_plan(pp.spec, pp.fill, px_max=px, tile_w=tile_w)
-    assert wp.out_w % wp.tw != 0
+    wp = window.build_window_plan(pp.spec, pp.fill)
+    assert wp.out_w % window.TW != 0
     staged = np.repeat(wp.meta[:, 5] > 0, wp.pos.size // wp.meta.shape[0])
     lx = (wp.pos >> 16)[staged]
     assert set(np.unique(lx % 4).tolist()) == {0, 1, 2, 3}

@@ -1,16 +1,16 @@
 """The remap (K3's tile plan and plain version) against the port's plain
 remap and the JAX package's window-gather kernel B5.
 
-* The tile plan's invariants, at every tile width the kernel is built
-  for: tiles partition the output; every tap of a windowed tile lies in
-  its window, and so does every 32-bit word the kernel loads for a tap
-  row; each class fits its budget and each launch its shared memory;
-  tiles whose window exceeds the largest class are flagged for the global
-  path.
+* The tile plan's invariants: tiles partition the output; every tap of a
+  windowed tile lies in its window, and so does every 32-bit word the
+  kernel loads for a tap row; each class fits its budget and each launch
+  its shared memory; tiles whose window exceeds the largest class are
+  flagged for the global path.  How a launch splits the batch among CTAs
+  and which launches take two frames per pass.
 * ``remap_window_plain`` walks that plan and equals ``remap_plain`` byte
   for byte (the unrounded floats too): every interpolator on a wrapping
   cubemap, and the barrel's clamp-with-fill (linear) and REFLECT_101
-  (lanczos4) rules, at batch 1, 2, 4 and 7, and at every tile width.
+  (lanczos4) rules, at batch 1, 2, 4 and 7, and on ragged tiles.
 * The port against ``remap_pallas(interpret=True)`` with the pipeline's
   BORDER_TRANSPARENT fix-up: at most 1 LSB on under 0.5% of pixels (B5
   forms its y weights in float32 in-kernel and sums y first).  Each
@@ -42,11 +42,10 @@ from transform360_tpu_torch.ops import window
 from transform360_tpu_torch.ops.window import (
     CLASS_BYTES,
     SMEM_MAX,
-    THREADS,
-    TILE_W,
+    TH,
+    TW,
     WindowTables,
     build_window_plan,
-    pixels_per_thread,
     remap_window_plain,
     remap_window_u8,
     smem_bytes,
@@ -82,23 +81,24 @@ PLAN_CASES = {
     "short": (_cfg(), 512, 96, 192, 128),
     "barrel-linear": (_cfg(Layout.BARREL, Interpolation.LINEAR), 1024, 512, 640, 256),
     "barrel-lanczos4": (_cfg(Layout.BARREL_SPLIT, Interpolation.LANCZOS4), 512, 256, 384, 128),
+    # one tap (a window of the bases alone) and two taps, ragged tiles
+    "cubemap-nearest": (_cfg(interp=Interpolation.NEAREST), 1024, 512, 150, 100),
+    "eac-linear": (_cfg(Layout.EAC_32, Interpolation.LINEAR), 1024, 512, 390, 260),
+    # a flat view: windows of a small part of the plane, no seam
+    "flat-cubic": (_cfg(Layout.FLAT_FIXED), 1024, 512, 200, 120),
 }
 
 
-def _check_plan(wp, px_max, tile_w=None):
+def _check_plan(wp):
     T = wp.taps
-    th, tw = wp.th, wp.tw
-    px = pixels_per_thread(T, px_max)
-    assert th * tw == THREADS * px and T * T * px <= window.WEIGHT_REGS
-    assert tw == (TILE_W[px] if tile_w is None else tile_w) and tw & (tw - 1) == 0
     n = wp.meta.shape[0]
     oy0, ox0, y0, x0, wh, pitch = wp.meta.T.astype(np.int64)
     # tiles partition the output: every pixel exactly once
-    assert n == -(-wp.out_h // th) * -(-wp.out_w // tw)
-    assert wp.pos.size == n * th * tw
-    p = np.arange(th * tw)
-    oy = (oy0[:, None] + p // tw).reshape(-1)
-    ox = (ox0[:, None] + p % tw).reshape(-1)
+    assert n == -(-wp.out_h // TH) * -(-wp.out_w // TW)
+    assert wp.pos.size == n * TH * TW
+    p = np.arange(TH * TW)
+    oy = (oy0[:, None] + p // TW).reshape(-1)
+    ox = (ox0[:, None] + p % TW).reshape(-1)
     inside = (oy < wp.out_h) & (ox < wp.out_w)
     hits = np.bincount(oy[inside] * wp.out_w + ox[inside], minlength=wp.out_h * wp.out_w)
     assert (hits == 1).all()
@@ -145,22 +145,9 @@ def _check_plan(wp, px_max, tile_w=None):
 @pytest.mark.parametrize("name", sorted(PLAN_CASES))
 def test_tile_plan_invariants(name, plane):
     _, pp = _port_plane(*PLAN_CASES[name], plane=plane)
-    staged = _check_plan(build_window_plan(pp.spec, pp.fill), window.PX_MAX)
+    staged = _check_plan(build_window_plan(pp.spec, pp.fill))
     if name == "decimated" and plane == 0:
         assert (~staged).sum() > 0
-
-
-# (px_max, tile_w) of port_tools/k3_variants.py's other shapes
-OTHER_TILES = [(1, 32), (2, None), (2, 16), (4, None), (4, 64)]
-
-
-@pytest.mark.parametrize("px_max, tile_w", OTHER_TILES)
-@pytest.mark.parametrize("name", sorted(PLAN_CASES))
-def test_tile_plan_invariants_at_other_tile_widths(name, px_max, tile_w):
-    for plane in (0, 1):
-        _, pp = _port_plane(*PLAN_CASES[name], plane=plane)
-        wp = build_window_plan(pp.spec, pp.fill, px_max=px_max, tile_w=tile_w)
-        _check_plan(wp, px_max, tile_w)
 
 
 def test_frames_per_cta_and_pairs():
@@ -168,29 +155,30 @@ def test_frames_per_cta_and_pairs():
     # splits it below CTAS_TARGET CTAs, and never below CTA_FRAMES_MIN
     assert window.frames_per_cta(128, 6064) == 128
     assert window.frames_per_cta(1, 80) == 1
+    assert window.frames_per_cta(256, 1512) == 128  # two groups
     assert window.frames_per_cta(256, 384) == 43  # six groups
-    for B, n in ((128, 80), (256, 24), (7, 3), (1024, 1), (200000, 1)):
-        f = window.frames_per_cta(B, n)
-        groups = -(-B // f)
-        assert groups <= 65535 and (f >= window.CTA_FRAMES_MIN or groups == 1 or f * 65535 >= B)
-    # two frames per pass where four windows and the chunk table fit
-    assert window.pairs(12 * 1024) and not window.pairs(64 * 1024)
+    # class 0's launches take two frames per pass: four windows and the
+    # chunk table; the larger class's take one
+    assert window.pairs(0) and window.pairs(CLASS_BYTES[0])
+    assert not window.pairs(CLASS_BYTES[0] + window.VEC) and not window.pairs(CLASS_BYTES[1])
     assert smem_bytes(12 * 1024) == 4 * 12 * 1024 + 3 * 1024
     assert smem_bytes(64 * 1024) == 2 * 64 * 1024 + 16 * 1024
 
 
-def test_tile_width_follows_the_taps():
-    # a thread's weights stay within 64 registers: lanczos4 keeps one
-    # pixel per thread, the others take up to PX_MAX
-    assert [pixels_per_thread(T, 4) for T in (1, 2, 4, 8)] == [4, 4, 4, 1]
-    assert [pixels_per_thread(T, 2) for T in (1, 2, 4, 8)] == [2, 2, 2, 1]
-    assert [pixels_per_thread(T, 1) for T in (1, 2, 4, 8)] == [1, 1, 1, 1]
-    with pytest.raises(ValueError):
-        pixels_per_thread(4, 3)
-    _, pp = _port_plane(*PLAN_CASES["cubemap"])
-    for tile_w in (24, 2, 2048):  # not a power of two; fewer than PX; taller than 1 row
-        with pytest.raises(ValueError):
-            build_window_plan(pp.spec, pp.fill, px_max=4, tile_w=tile_w)
+@pytest.mark.parametrize("B, n_tiles", [
+    (1, 6144), (2, 1512), (7, 3), (16, 80), (128, 6064), (128, 80), (256, 1512),
+    (256, 24), (1024, 1), (200000, 1),
+])
+def test_frames_per_cta_splits_the_batch(B, n_tiles):
+    # the groups cover the batch; there are no more of them than reach
+    # CTAS_TARGET CTAs or than the grid's y axis holds, and each takes at
+    # least CTA_FRAMES_MIN frames unless the y axis forces smaller ones
+    f = window.frames_per_cta(B, n_tiles)
+    groups = -(-B // f)
+    assert 1 <= f <= B and groups <= 65535
+    if groups > 1:
+        assert (groups - 1) * n_tiles < window.CTAS_TARGET or f * 65535 >= B
+        assert f >= window.CTA_FRAMES_MIN or -(-B // 65535) == f
 
 
 WINDOW_CASES = [
@@ -224,22 +212,26 @@ def test_remap_window_plain_equals_remap_plain(layout, interp, batch):
         assert torch.equal(remap_window_u8(wt, x), round_u8(want))
 
 
-@pytest.mark.parametrize("px_max, tile_w", OTHER_TILES)
+RAGGED = {Layout.CUBEMAP_32: ((150, 100), (90, 60)), Layout.BARREL: ((170, 68), (100, 40)),
+          Layout.BARREL_SPLIT: ((210, 70), (102, 34))}
+
+
+@pytest.mark.parametrize("size", [0, 1])
 @pytest.mark.parametrize("layout, interp", WINDOW_CASES)
-def test_remap_window_plain_at_other_tile_widths(layout, interp, px_max, tile_w):
-    # an output width of 150 is a multiple of no tile width: ragged tiles
+def test_remap_window_plain_on_ragged_tiles(layout, interp, size):
+    # output sizes that are multiples of neither tile side: the last tile
+    # row and column are ragged
+    ow, oh = RAGGED[layout][size]
+    assert ow % TW and oh % TH
     cfg = P.TransformConfig(output_layout=P.Layout(int(layout)),
                             interpolation_alg=P.Interpolation(int(interp)),
                             input_stereo_format=P.StereoFormat.MONO,
                             output_stereo_format=P.StereoFormat.MONO)
-    ow, oh = (150, 100) if layout == Layout.CUBEMAP_32 else (
-        (160, 64) if layout == Layout.BARREL else (192, 64))
     plan = P.build_plan(cfg, 256, 128, ow, oh, "yuv420p")
-    rng = np.random.default_rng(px_max + (tile_w or 0))
+    rng = np.random.default_rng(ow)
     for pp in (plan.luma, plan.chroma):
         x = torch.from_numpy(rng.integers(0, 256, (3, pp.in_h, pp.in_w), dtype=np.uint8))
-        wp = build_window_plan(pp.spec, pp.fill, px_max=px_max, tile_w=tile_w)
-        wt = WindowTables.from_plan(wp, "cpu")
+        wt = WindowTables.from_plan(build_window_plan(pp.spec, pp.fill), "cpu")
         want = remap_plain(DeviceSpec.from_spec(pp.spec, pp.fill, "cpu"), x)
         assert torch.equal(remap_window_plain(wt, x), want)
 

@@ -14,17 +14,15 @@
 // frame is 8.3 MB in and 1.6 MB out, but every output pixel gathers T x T
 // taps from anywhere in a window of the source, and each tap costs a load,
 // a conversion, a product and a sum.  K3 gives each CTA of 256 threads one
-// output tile of th x tw = 256*PX pixels, PX per thread: ops/window.py
-// builds the plan on the CPU (16x16 tiles, one pixel per thread: wider
-// tiles cost registers and CTAs per SM and measured slower).  Per tile,
-// once for its frames:
+// 16x16 output tile, one pixel per thread: ops/window.py builds the plan on
+// the CPU.  Per tile, once for its frames:
 //   * the CTA resolves the border rule (wrap modulo the plane, clamp, or
 //     REFLECT_101) for every 16-byte chunk of the tile's source window --
 //     wh rows of `pitch` bytes from a 16-aligned column -- into a chunk
 //     table in shared memory: the chunk's offset in a frame, or a mark that
 //     it is copied byte by byte (across the seam or an edge, or a plane
 //     whose rows are not 16-aligned).  No division or modulo runs in K3;
-//   * each thread reads its pixels' plan entries and forms their weights
+//   * each thread reads its pixel's plan entry and forms its weights
 //     float32(w1[fy][ty] * w1[fx][tx]) from the float64 table w1 [32, T]
 //     -- the very values of sampling.weight_table.
 // A CTA takes `frames` consecutive frames of the batch (blockIdx.y picks
@@ -32,34 +30,27 @@
 // frame the CTA issues one 16-byte cp.async per chunk from the table,
 // double-buffered so that the next frames' windows load while these are
 // computed (the counterpart of the TPU kernel's double-buffered window
-// DMA; a deeper ring of up to 8 frames measured no faster).  Where four
-// windows fit, a pass takes two frames: their sums share the weights and
-// interleave, and the barriers and the copies' bookkeeping are paid once.
-// A thread reads each tap row as the aligned 32-bit words that hold it (2
-// for T = 4, never a word past the row's last tap), funnel-shifts them
-// into place and turns each byte into a float with two full-rate
-// instructions (no I2F); the sum runs ty-major, tx-minor, each product and
-// each sum rounded on its own (-fmad=false; __fmul_rn/__fadd_rn), the fill
-// term last; the round to a byte is full-rate too.  Tiles whose window
-// exceeds the largest class (cubemap pole tiles) have pitch 0 and gather
-// from device memory in this same kernel.
+// DMA).  Where the launch asks for it (windows of class 0), a pass takes
+// two frames: their sums share the weights and interleave, and the
+// barriers and the copies' bookkeeping are paid once.  A thread reads each
+// tap row as the aligned 32-bit words that hold it (2 for T = 4, never a
+// word past the row's last tap), funnel-shifts them into place and turns
+// each byte into a float with two full-rate instructions (no I2F); the sum
+// runs ty-major, tx-minor, each product and each sum rounded on its own
+// (-fmad=false; __fmul_rn/__fadd_rn), the fill term last; the round to a
+// byte is full-rate too.  Tiles whose window exceeds the largest class
+// (cubemap pole tiles) have pitch 0 and gather from device memory in this
+// same kernel.
 //
 // Per pixel the plan holds ly | lx << 16 (window-relative first tap),
 // fy (bit 7: outside the valid mask) and fx: 6 B.
 
 #include "common.cuh"
 
-#ifndef K3_ADJACENT
-// 0: thread i takes pixels i, i + 256, ... of the tile (a warp reads one
-// row of 32 neighbouring pixels); 1: PX adjacent pixels of one row and one
-// PX-byte store (port_tools/k3_variants.py times both).
-#define K3_ADJACENT 0
-#endif
-
 namespace {
 
-constexpr int kThreads = 256;    // per CTA; a tile is 256*PX pixels
-constexpr int kWeightRegs = 64;  // T * T * PX weights per thread at most
+constexpr int kTH = 16, kTW = 16;  // output tile rows, columns
+constexpr int kThreads = kTH * kTW;  // one output pixel per thread
 constexpr uint32_t kBytewise = 0x80000000u;  // chunk-table mark: byte copies
 
 // A CTA's dynamic shared memory: two passes of one or two frames' windows
@@ -72,12 +63,12 @@ struct Args {
   const uint8_t* src;   // [B, H, W]
   uint8_t* dst;         // [B, out_h, out_w]
   const int* meta;      // [n, 6]: out row, out col, y0, x0, wh, pitch
-  const uint32_t* pos;  // [n * 256*PX]: ly | lx << 16, tile rows of 1 << tw_shift
+  const uint32_t* pos;  // [n * 256]: ly | lx << 16, tile rows of 16
   const uint8_t* fy;    // fy | (not valid) << 7
   const uint8_t* fx;
   const double* w1;  // [32, T]
   int B, H, W, out_h, out_w;
-  int first, win_bytes, tw_shift;
+  int first, win_bytes;
   int frames;  // per CTA: frames [blockIdx.y * frames, ...) of the batch
   float fill;
   bool vec;    // W and src are 16-aligned
@@ -224,66 +215,23 @@ __device__ __forceinline__ float sum_global(const uint8_t* __restrict__ frame, i
   return acc;
 }
 
-// PX adjacent output bytes of one row (K3_ADJACENT): one store where the
-// row holds them all and they are PX-aligned.
-template <int PX>
-__device__ __forceinline__ void store_adjacent(uint8_t* out, const int* oo,
-                                               uint32_t packed, bool whole) {
-  if (whole && PX == 4) {
-    *reinterpret_cast<uint32_t*>(out + oo[0]) = packed;
-  } else if (whole && PX == 2) {
-    *reinterpret_cast<uint16_t*>(out + oo[0]) = static_cast<uint16_t>(packed);
-  } else {
-#pragma unroll
-    for (int k = 0; k < PX; ++k)
-      if (oo[k] >= 0) out[oo[k]] = static_cast<uint8_t>(packed >> (8 * k));
-  }
-}
-
-// Each pixel's weighted sums of one frame, from the staged window buf.
-template <int T, int PX>
-__device__ __forceinline__ void sums_staged(const uint8_t* buf, const int* o, int pitch,
-                                            const float (*w)[T * T], float* acc) {
-#pragma unroll
-  for (int k = 0; k < PX; ++k) acc[k] = sum_staged<T>(buf, o[k], pitch, w[k]);
-}
-
-// The same from device memory (global-path tiles).
-template <int T, int MODE, int PX>
-__device__ __forceinline__ void sums_global(const uint8_t* frame, const int* o, int y0,
-                                            int x0, int H, int W,
-                                            const float (*w)[T * T], float* acc) {
-#pragma unroll
-  for (int k = 0; k < PX; ++k)
-    acc[k] = sum_global<T, MODE>(frame, y0 + (o[k] & 0xFFFF), x0 + (o[k] >> 16), H, W, w[k]);
-}
-
-// The fill term, the valid mask, the round and the stores of one frame.
-template <int T, int MODE, int PX>
-__device__ __forceinline__ void put(uint8_t* out, const float* acc, const float* fill_term,
-                                    uint32_t invalid, uint32_t fill_byte, const int* oo,
-                                    bool whole) {
-  uint32_t packed = 0;
-#pragma unroll
-  for (int k = 0; k < PX; ++k) {
-    const float v = (MODE == 1 && T > 1) ? __fadd_rn(acc[k], fill_term[k]) : acc[k];
-    const uint32_t b = ((invalid >> k) & 1u) ? fill_byte : round_byte(v);
-    if (K3_ADJACENT)
-      packed |= b << (8 * k);
-    else if (oo[k] >= 0)
-      out[oo[k]] = static_cast<uint8_t>(b);
-  }
-  if (K3_ADJACENT) store_adjacent<PX>(out, oo, packed, whole);
+// The fill term, the valid mask, the round and the store of one frame.
+template <int T, int MODE>
+__device__ __forceinline__ void put(uint8_t* out, float acc, float fill_term, bool invalid,
+                                    uint32_t fill_byte, int oo) {
+  if (oo < 0) return;
+  const float v = (MODE == 1 && T > 1) ? __fadd_rn(acc, fill_term) : acc;
+  out[oo] = static_cast<uint8_t>(invalid ? fill_byte : round_byte(v));
 }
 
 // Four CTAs per SM where a thread's weights are 16 registers or fewer (at
 // most 64 registers), else two.
-template <int T, int MODE, int PX>
-__global__ void __launch_bounds__(kThreads, T * T * PX <= 16 ? 4 : 2)
+template <int T, int MODE>
+__global__ void __launch_bounds__(kThreads, T * T <= 16 ? 4 : 2)
     window_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  // frames per pass: two where the launch's shared memory holds four
-  // windows (two passes in flight), else one
+  // frames per pass: two where the launch holds four windows (two passes
+  // in flight), else one
   const int fp = a.pairs ? 2 : 1;
   uint32_t* tab = reinterpret_cast<uint32_t*>(smem + 2 * fp * a.win_bytes);
 
@@ -301,54 +249,45 @@ __global__ void __launch_bounds__(kThreads, T * T * PX <= 16 ? 4 : 2)
 
   // frame f + j of a pass with parity `half` is staged at
   // smem + (half * fp + j) * win_bytes
-  if (staged)  // frame 0's window is in flight while the pixels are set up
+  if (staged)  // frame 0's window is in flight while the pixel is set up
     chunk_table<MODE>(src, smem, tab, y0, x0, wh, pitch >> 4, a.H, a.W, a.vec);
 
-  float w[PX][T * T];
-  float fill_term[PX];
-  int o[PX];   // staged: byte of the first tap in the window; else ly | lx << 16
-  int oo[PX];  // offset in the output frame, -1 outside it
-  uint32_t invalid = 0;
+  const int oy = m[0] + threadIdx.x / kTW;
+  const int ox = m[1] + threadIdx.x % kTW;
+  const size_t ip = static_cast<size_t>(t) * kThreads + threadIdx.x;
+  const uint32_t ps = a.pos[ip];
+  const int ly = static_cast<int>(ps & 0xFFFFu);
+  const int lx = static_cast<int>(ps >> 16);
+  const int fyb = a.fy[ip];
+  const int fy = fyb & 0x7F;
+  const int fx = a.fx[ip];
+  const bool invalid = (fyb >> 7) != 0;
+  // staged: byte of the first tap in the window; else ly | lx << 16
+  const int o = staged ? ly * pitch + lx : static_cast<int>(ps);
+  const int oo = (oy < a.out_h && ox < a.out_w) ? oy * a.out_w + ox : -1;
+  float w[T * T];
+  float fill_w = 0.0f;
+  if (T > 1) {
 #pragma unroll
-  for (int k = 0; k < PX; ++k) {
-    const int p = K3_ADJACENT ? threadIdx.x * PX + k : threadIdx.x + k * kThreads;
-    const int oy = m[0] + (p >> a.tw_shift);
-    const int ox = m[1] + (p & ((1 << a.tw_shift) - 1));
-    const size_t ip = static_cast<size_t>(t) * (kThreads * PX) + p;
-    const uint32_t ps = a.pos[ip];
-    const int ly = static_cast<int>(ps & 0xFFFFu);
-    const int lx = static_cast<int>(ps >> 16);
-    const int fyb = a.fy[ip];
-    const int fy = fyb & 0x7F;
-    const int fx = a.fx[ip];
-    invalid |= static_cast<uint32_t>(fyb >> 7) << k;
-    o[k] = staged ? ly * pitch + lx : static_cast<int>(ps);
-    oo[k] = (oy < a.out_h && ox < a.out_w) ? oy * a.out_w + ox : -1;
-    float fill_w = 0.0f;
-    if (T > 1) {
+    for (int ty = 0; ty < T; ++ty) {
+      const double wy = __ldg(a.w1 + fy * T + ty);
 #pragma unroll
-      for (int ty = 0; ty < T; ++ty) {
-        const double wy = __ldg(a.w1 + fy * T + ty);
-#pragma unroll
-        for (int tx = 0; tx < T; ++tx) {
-          float wv = __double2float_rn(__dmul_rn(wy, __ldg(a.w1 + fx * T + tx)));
-          if (MODE == 1) {  // absolute coordinates decide what lies outside
-            const int yy = y0 + ly + ty;
-            const int xx = x0 + lx + tx;
-            if (yy < 0 || yy >= a.H || xx < 0 || xx >= a.W) {
-              fill_w = __fadd_rn(fill_w, wv);
-              wv = 0.0f;
-            }
+      for (int tx = 0; tx < T; ++tx) {
+        float wv = __double2float_rn(__dmul_rn(wy, __ldg(a.w1 + fx * T + tx)));
+        if (MODE == 1) {  // absolute coordinates decide what lies outside
+          const int yy = y0 + ly + ty;
+          const int xx = x0 + lx + tx;
+          if (yy < 0 || yy >= a.H || xx < 0 || xx >= a.W) {
+            fill_w = __fadd_rn(fill_w, wv);
+            wv = 0.0f;
           }
-          w[k][ty * T + tx] = wv;
         }
+        w[ty * T + tx] = wv;
       }
     }
-    fill_term[k] = __fmul_rn(fill_w, a.fill);
   }
+  const float fill_term = __fmul_rn(fill_w, a.fill);
   const uint32_t fill_byte = round_byte(a.fill);
-  const bool whole = K3_ADJACENT && a.out_w % PX == 0 && oo[PX - 1] >= 0 &&
-                     reinterpret_cast<uintptr_t>(dst) % PX == 0;
   if (staged) {
     __syncthreads();  // the chunk table is complete
     if (fp == 2 && nf > 1) stage<MODE>(src + plane, smem + a.win_bytes, tab, nchunks, x0, a.W);
@@ -367,23 +306,21 @@ __global__ void __launch_bounds__(kThreads, T * T * PX <= 16 ? 4 : 2)
       t360::cp_async_wait<1>();
       __syncthreads();  // this pass's windows are complete
     }
-    // the branches stay outside the pixel loops, so the independent sums
-    // (PX pixels, two frames) interleave
-    float acc0[PX], acc1[PX];
+    // the branches stay outside the sums, so the two frames' sums
+    // interleave
+    float acc0, acc1 = 0.0f;
     const uint8_t* buf = smem + half * fp * a.win_bytes;
     if (staged) {
-      if (two) {
-        sums_staged<T, PX>(buf, o, pitch, w, acc0);
-        sums_staged<T, PX>(buf + a.win_bytes, o, pitch, w, acc1);
-      } else {
-        sums_staged<T, PX>(buf, o, pitch, w, acc0);
-      }
+      acc0 = sum_staged<T>(buf, o, pitch, w);
+      if (two) acc1 = sum_staged<T>(buf + a.win_bytes, o, pitch, w);
     } else {
-      sums_global<T, MODE, PX>(src + f * plane, o, y0, x0, a.H, a.W, w, acc0);
-      if (two) sums_global<T, MODE, PX>(src + (f + 1) * plane, o, y0, x0, a.H, a.W, w, acc1);
+      acc0 = sum_global<T, MODE>(src + f * plane, y0 + (o & 0xFFFF), x0 + (o >> 16), a.H, a.W, w);
+      if (two)
+        acc1 = sum_global<T, MODE>(src + (f + 1) * plane, y0 + (o & 0xFFFF), x0 + (o >> 16),
+                                   a.H, a.W, w);
     }
-    put<T, MODE, PX>(dst + f * N, acc0, fill_term, invalid, fill_byte, oo, whole);
-    if (two) put<T, MODE, PX>(dst + (f + 1) * N, acc1, fill_term, invalid, fill_byte, oo, whole);
+    put<T, MODE>(dst + f * N, acc0, fill_term, invalid, fill_byte, oo);
+    if (two) put<T, MODE>(dst + (f + 1) * N, acc1, fill_term, invalid, fill_byte, oo);
     if (staged) __syncthreads();  // this half is free for the pass after next
     half ^= 1;
   }
@@ -391,37 +328,23 @@ __global__ void __launch_bounds__(kThreads, T * T * PX <= 16 ? 4 : 2)
 
 using Kernel = void (*)(const Args);
 
-template <int T, int PX>
-Kernel with_mode(int mode) {
-  if constexpr (T * T * PX > kWeightRegs) {
-    return nullptr;
-  } else {
-    switch (mode) {
-      case 0: return window_kernel<T, 0, PX>;
-      case 1: return window_kernel<T, 1, PX>;
-      case 2: return window_kernel<T, 2, PX>;
-      default: return nullptr;
-    }
-  }
-}
-
 template <int T>
-Kernel with_px(int px, int mode) {
-  switch (px) {
-    case 1: return with_mode<T, 1>(mode);
-    case 2: return with_mode<T, 2>(mode);
-    case 4: return with_mode<T, 4>(mode);
+Kernel with_mode(int mode) {
+  switch (mode) {
+    case 0: return window_kernel<T, 0>;
+    case 1: return window_kernel<T, 1>;
+    case 2: return window_kernel<T, 2>;
     default: return nullptr;
   }
 }
 
-// The instantiation for T taps, PX pixels per thread and a border mode.
-Kernel kernel_for(int taps, int px, int mode) {
+// The instantiation for T taps and a border mode.
+Kernel kernel_for(int taps, int mode) {
   switch (taps) {
-    case 1: return with_px<1>(px, mode);
-    case 2: return with_px<2>(px, mode);
-    case 4: return with_px<4>(px, mode);
-    case 8: return with_px<8>(px, mode);
+    case 1: return with_mode<1>(mode);
+    case 2: return with_mode<2>(mode);
+    case 4: return with_mode<4>(mode);
+    case 8: return with_mode<8>(mode);
     default: return nullptr;
   }
 }
@@ -436,21 +359,19 @@ cudaError_t allow_smem(Kernel k, int smem) {
 
 // src: uint8 [B, H, W]; dst: uint8 [B, out_h, out_w]; meta int32 [n, 6]
 // (out row, out col, y0, x0, wh, pitch; pitch 0: global path); pos uint32,
-// fy/fx uint8 [n * 256*px], tiles tw (a power of two) pixels wide; w1
-// float64 [32, taps].  Launches tiles first .. first + tiles - 1, each CTA
-// with 2 (pairs: 4) * win_bytes of window buffers and win_bytes / 4 of
-// chunk table (win_bytes a multiple of 16), and `frames` frames of the
-// batch, one (pairs: two) per pass.  vec: W and src are 16-aligned.
+// fy/fx uint8 [n * 256], tiles of 16x16; w1 float64 [32, taps].  Launches
+// tiles first .. first + tiles - 1, each CTA with 2 (pairs: 4) * win_bytes
+// of window buffers and win_bytes / 4 of chunk table (win_bytes a multiple
+// of 16), and `frames` frames of the batch, one (pairs: two) per pass.
+// vec: W and src are 16-aligned.
 extern "C" int t360_window(const uint8_t* src, uint8_t* dst, int B, int H,
                            int W, int out_h, int out_w, const int* meta,
                            const uint32_t* pos, const uint8_t* fy,
                            const uint8_t* fx, const double* w1, int first,
-                           int tiles, int win_bytes, int taps, int px, int tw,
-                           int mode, float fill, int vec, int frames, int pairs,
-                           void* stream) {
-  const Kernel k = kernel_for(taps, px, mode);
-  if (k == nullptr || tw <= 0 || (tw & (tw - 1)) != 0 || tw % px != 0 ||
-      tw > kThreads * px || B <= 0 || H <= 0 || W <= 0 || out_h <= 0 || out_w <= 0 ||
+                           int tiles, int win_bytes, int taps, int mode, float fill,
+                           int vec, int frames, int pairs, void* stream) {
+  const Kernel k = kernel_for(taps, mode);
+  if (k == nullptr || B <= 0 || H <= 0 || W <= 0 || out_h <= 0 || out_w <= 0 ||
       tiles <= 0 || first < 0 || win_bytes < 0 || frames <= 0 ||
       (B + frames - 1) / frames > 65535 || (win_bytes & 15) != 0 ||
       static_cast<long long>(H) * W >= (1LL << 31) || H >= (1 << 16) ||
@@ -460,7 +381,7 @@ extern "C" int t360_window(const uint8_t* src, uint8_t* dst, int B, int H,
   cudaError_t e = allow_smem(k, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   Args a{src, dst, meta, pos, fy, fx, w1, B, H, W, out_h, out_w,
-         first, win_bytes, __builtin_ctz(tw), frames, fill, vec != 0, pairs != 0};
+         first, win_bytes, frames, fill, vec != 0, pairs != 0};
   void* args[] = {&a};
   const dim3 grid(tiles, (B + frames - 1) / frames);
   e = cudaLaunchKernel(reinterpret_cast<const void*>(k), grid, dim3(kThreads),
@@ -473,9 +394,8 @@ extern "C" int t360_window(const uint8_t* src, uint8_t* dst, int B, int H,
 // One instantiation's registers, local memory bytes (spills and stack),
 // resident CTAs per SM and dynamic shared memory for a launch with
 // win_bytes of window, with two frames per pass or one: out[0..3].
-extern "C" int t360_window_attrs(int taps, int px, int mode, int win_bytes, int pairs,
-                                 int* out) {
-  const Kernel k = kernel_for(taps, px, mode);
+extern "C" int t360_window_attrs(int taps, int mode, int win_bytes, int pairs, int* out) {
+  const Kernel k = kernel_for(taps, mode);
   if (k == nullptr || win_bytes < 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaFuncAttributes fa;
   cudaError_t e = cudaFuncGetAttributes(&fa, reinterpret_cast<const void*>(k));

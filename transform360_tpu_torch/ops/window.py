@@ -3,9 +3,9 @@
 
 K3 computes the function of :func:`..sampling.remap_plain` (the remap
 with its half-up round) at every batch size: one CTA of 256 threads per
-output tile of ``th x tw = 256*PX`` pixels, ``PX`` per thread, stages
-the tile's source window into shared memory frame by frame and samples
-every tap from there.
+``TH x TW`` output tile, one pixel per thread, stages the tile's source
+window into shared memory frame by frame and samples every tap from
+there.
 
 Plan time (numpy, vectorized): :func:`build_window_plan` cuts the output
 into tiles and gives each its source window -- origin, height, row
@@ -18,10 +18,7 @@ window-relative first tap ``ly``/``lx`` (packed in one int32) and the
 marks a pixel outside the transparent ``valid`` mask): 6 B per pixel.
 Weights come from the separable float64 table ``w1 [32, T]``:
 ``float32(w1[fy, ty] * w1[fx, tx])`` is exactly the entry of
-:func:`..sampling.weight_table`.  ``PX`` is the most of ``PX_MAX`` whose
-weights (``T*T`` per pixel) fit in 64 registers, ``TILE_W[PX]`` the
-tile's width: the pipeline's plans take ``PX_MAX = 1``, 16x16 tiles;
-``port_tools/k3_variants.py`` times the others.
+:func:`..sampling.weight_table`.
 
 For a CUDA tensor :func:`remap_window_u8` launches the kernel or
 raises; it never falls back.  ``LAUNCHES`` counts kernel launches (one
@@ -32,7 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Optional, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -53,26 +50,17 @@ from . import _build
 
 LAUNCHES = 0
 
-THREADS = 256  # one CTA per output tile of THREADS * PX pixels
-PX_CHOICES = (1, 2, 4)  # pixels per thread the kernel is built for
-# One pixel per thread in 16x16 tiles: 2 or 4 pixels per thread (more
-# weight registers, fewer CTAs per SM) measured slower at every batch size
-# (port_tools/k3_variants.py).
-PX_MAX = 1
-# Tile width (a power of two) for PX pixels per thread; the height is
-# THREADS * PX / width.
-TILE_W = {1: 16, 2: 32, 4: 32}
-WEIGHT_REGS = 64  # a thread's T*T*PX float32 weights stay within this
+# Output tile (rows, columns): one CTA of 256 threads, a pixel each.  2 or
+# 4 pixels per thread (more weight registers, fewer CTAs per SM) measured
+# slower at every batch size.
+TH, TW = 16, 16
 VEC = 16  # window rows are staged in 16-byte chunks from a 16-aligned column
 # Window bytes (height x pitch) of each class, one frame.  Class 0 (12 KB)
 # holds nearly every tile with four CTAs per SM; 64 KB takes the pole
 # tiles of a 4K cubemap off the global path.
 CLASS_BYTES = (12 * 1024, 64 * 1024)
-# A CTA computes two frames per pass where four windows fit in
-# PAIRS_SMEM_MAX bytes (0: one frame per pass).  A CTA's dynamic shared
-# memory (smem_bytes) is at most SMEM_MAX, the most one CTA may use on
-# Hopper.
-PAIRS_SMEM_MAX = 64 * 1024
+# A CTA's dynamic shared memory (smem_bytes) is at most SMEM_MAX, the
+# most one CTA may use on Hopper.
 SMEM_MAX = 227 * 1024
 # A CTA takes at least CTA_FRAMES_MIN frames of the batch (its set-up, the
 # chunk table and the weights, costs about as much as a frame), and the
@@ -86,15 +74,6 @@ _c_void_p = ctypes.c_void_p
 _c_int = ctypes.c_int
 
 
-def pixels_per_thread(taps: int, px_max: int = PX_MAX) -> int:
-    """Output pixels per thread for ``taps`` taps a side: at most
-    ``px_max`` (one of ``PX_CHOICES``), and no more than keep a thread's
-    weights within ``WEIGHT_REGS`` registers."""
-    if px_max not in PX_CHOICES:
-        raise ValueError(f"px_max must be one of {PX_CHOICES}, got {px_max}")
-    return max(1, min(px_max, WEIGHT_REGS // (taps * taps)))
-
-
 def frames_per_cta(B: int, n_tiles: int) -> int:
     """Frames one CTA of a launch of ``n_tiles`` tiles loops over: the
     batch split into the fewest groups that reach ``CTAS_TARGET`` CTAs,
@@ -105,14 +84,15 @@ def frames_per_cta(B: int, n_tiles: int) -> int:
 
 def pairs(win_bytes: int) -> bool:
     """Whether a launch with windows of ``win_bytes`` takes two frames per
-    pass."""
-    return 4 * win_bytes + win_bytes // 4 <= PAIRS_SMEM_MAX
+    pass: class 0's launches do (four windows and the chunk table, 51 KB,
+    keep four CTAs on an SM); the larger class's do not."""
+    return win_bytes <= CLASS_BYTES[0]
 
 
 def smem_bytes(win_bytes: int) -> int:
     """A CTA's dynamic shared memory for windows of ``win_bytes``: two
-    passes' windows (double buffer) and a 4-byte chunk-table entry per 16
-    bytes of window."""
+    passes' windows (double buffer) of two frames (``pairs``) or one, and
+    a 4-byte chunk-table entry per 16 bytes of window."""
     return (4 if pairs(win_bytes) else 2) * win_bytes + win_bytes // 4
 
 
@@ -141,13 +121,11 @@ class WindowPlan:
 
     meta: np.ndarray  # int32 [n, 6]: out row, out col, y0, x0, wh, pitch (0: global)
     tile_class: np.ndarray  # int8 [n]: class index, or -1 for a global-path tile
-    pos: np.ndarray  # int32 [n * th * tw]: ly | lx << 16
-    fy: np.ndarray  # uint8 [n * th * tw]: fy | (not valid) << 7
-    fx: np.ndarray  # uint8 [n * th * tw]
+    pos: np.ndarray  # int32 [n * TH * TW]: ly | lx << 16
+    fy: np.ndarray  # uint8 [n * TH * TW]: fy | (not valid) << 7
+    fx: np.ndarray  # uint8 [n * TH * TW]
     w1: np.ndarray  # float64 [32, T]
     groups: Tuple[Tuple[int, int, int], ...]  # launches: (first tile, tiles, window bytes)
-    th: int  # tile rows
-    tw: int  # tile columns; th * tw = THREADS * pixels per thread
     in_h: int
     in_w: int
     out_h: int
@@ -157,32 +135,22 @@ class WindowPlan:
     fill: float
 
 
-def build_window_plan(spec: SampleSpec, fill: float, px_max: int = PX_MAX,
-                      tile_w: Optional[int] = None,
-                      class_bytes: Tuple[int, ...] = CLASS_BYTES) -> WindowPlan:
+def build_window_plan(spec: SampleSpec, fill: float) -> WindowPlan:
     """The tile plan of a sample spec (the Hopper counterpart of the JAX
-    package's ``build_pallas_remap``, sized for shared memory), with
-    ``PX = pixels_per_thread(T, px_max)`` pixels per thread, tiles
-    ``tile_w`` wide (``TILE_W[PX]`` by default; a power of two that PX
-    divides) and the window classes ``class_bytes``."""
+    package's ``build_pallas_remap``, sized for shared memory)."""
     T = _TAPS[spec.interp]
     H, W = spec.in_h, spec.in_w
     mode = border_mode(spec)
     out_h, out_w = spec.base_y.shape
     if H + T >= 1 << 16 or W + T + VEC > MAX_LX:
         raise ValueError(f"input {W}x{H} is too large for the window plan's 16-bit offsets")
-    px = pixels_per_thread(T, px_max)
-    tw = TILE_W[px] if tile_w is None else tile_w
-    if tw & (tw - 1) or tw % px or not px <= tw <= THREADS * px:
-        raise ValueError(f"tile width {tw} for {px} pixels per thread")
-    th = THREADS * px // tw
-    n_ty, n_tx = -(-out_h // th), -(-out_w // tw)
+    n_ty, n_tx = -(-out_h // TH), -(-out_w // TW)
     n = n_ty * n_tx
 
     def tiles(a):
-        """[out_h, out_w] -> [n, th*tw], ragged edge padded by replication."""
-        a = np.pad(a, ((0, n_ty * th - out_h), (0, n_tx * tw - out_w)), mode="edge")
-        return a.reshape(n_ty, th, n_tx, tw).transpose(0, 2, 1, 3).reshape(n, th * tw)
+        """[out_h, out_w] -> [n, TH*TW], ragged edge padded by replication."""
+        a = np.pad(a, ((0, n_ty * TH - out_h), (0, n_tx * TW - out_w)), mode="edge")
+        return a.reshape(n_ty, TH, n_tx, TW).transpose(0, 2, 1, 3).reshape(n, TH * TW)
 
     by = tiles(spec.base_y.astype(np.int64))
     bx = tiles(spec.base_x.astype(np.int64))
@@ -213,8 +181,8 @@ def build_window_plan(spec: SampleSpec, fill: float, px_max: int = PX_MAX,
     pitch = -(-(x0 - x0a + ex + T - 1) // VEC) * VEC
     nbytes = wh * pitch
     cls = np.full(n, -1, np.int8)
-    for c in range(len(class_bytes) - 1, -1, -1):
-        cls[nbytes <= class_bytes[c]] = c
+    for c in range(len(CLASS_BYTES) - 1, -1, -1):
+        cls[nbytes <= CLASS_BYTES[c]] = c
     glob = cls < 0
     # The kernel reads a tap row as the aligned 32-bit words from the one
     # holding its first tap to the one holding its last: they end inside
@@ -227,7 +195,7 @@ def build_window_plan(spec: SampleSpec, fill: float, px_max: int = PX_MAX,
     # launch order: global-path tiles first (the longest CTAs start
     # early) within class 0's launch, then each class in raster order
     order, groups, start = [], [], 0
-    for c in range(len(class_bytes)):
+    for c in range(len(CLASS_BYTES)):
         ids = np.flatnonzero(cls == c)
         if c == 0:
             ids = np.concatenate([np.flatnonzero(glob), ids])
@@ -241,7 +209,7 @@ def build_window_plan(spec: SampleSpec, fill: float, px_max: int = PX_MAX,
     order = np.concatenate(order)
 
     ti, tj = np.divmod(np.arange(n), n_tx)
-    meta = np.stack([ti * th, tj * tw, y0, x0a, wh, pitch], axis=1)[order]
+    meta = np.stack([ti * TH, tj * TW, y0, x0a, wh, pitch], axis=1)[order]
     fy = frac_index(spec.frac_y)
     if spec.valid is not None:
         fy = fy | ((~spec.valid).astype(np.uint8) << 7)
@@ -256,8 +224,6 @@ def build_window_plan(spec: SampleSpec, fill: float, px_max: int = PX_MAX,
             axis=1,
         ).astype(np.float64),
         groups=tuple(groups),
-        th=th,
-        tw=tw,
         in_h=H,
         in_w=W,
         out_h=out_h,
@@ -273,13 +239,11 @@ class WindowTables:
     """A window plan's arrays on one device, in the kernel's form."""
 
     meta: torch.Tensor  # int32 [n, 6]
-    pos: torch.Tensor  # int32 [n * th * tw]
-    fy: torch.Tensor  # uint8 [n * th * tw]
-    fx: torch.Tensor  # uint8 [n * th * tw]
+    pos: torch.Tensor  # int32 [n * TH * TW]
+    fy: torch.Tensor  # uint8 [n * TH * TW]
+    fx: torch.Tensor  # uint8 [n * TH * TW]
     w1: torch.Tensor  # float64 [32, T]
     groups: Tuple[Tuple[int, int, int], ...]
-    th: int
-    tw: int
     in_h: int
     in_w: int
     out_h: int
@@ -295,7 +259,7 @@ class WindowTables:
 
         return cls(
             meta=put(wp.meta), pos=put(wp.pos), fy=put(wp.fy), fx=put(wp.fx),
-            w1=put(wp.w1), groups=wp.groups, th=wp.th, tw=wp.tw, in_h=wp.in_h, in_w=wp.in_w,
+            w1=put(wp.w1), groups=wp.groups, in_h=wp.in_h, in_w=wp.in_w,
             out_h=wp.out_h, out_w=wp.out_w, taps=wp.taps, mode=wp.mode, fill=wp.fill,
         )
 
@@ -312,7 +276,7 @@ def remap_window_plain(wt: WindowTables, x: torch.Tensor) -> torch.Tensor:
     H, W, T, mode = wt.in_h, wt.in_w, wt.taps, wt.mode
     flat = x.reshape(B, H * W)
     meta = wt.meta.long()
-    npx = wt.th * wt.tw
+    npx = TH * TW
     tile = torch.arange(meta.shape[0], device=x.device).repeat_interleave(npx)
     p = torch.arange(npx, device=x.device).repeat(meta.shape[0])
     pos = wt.pos.long()
@@ -344,8 +308,8 @@ def remap_window_plain(wt: WindowTables, x: torch.Tensor) -> torch.Tensor:
     if fill_w is not None:
         acc = acc + (fill_w * wt.fill)[None, :]
     acc = torch.where(invalid[None, :], wt.fill, acc)
-    oy = meta[tile, 0] + torch.div(p, wt.tw, rounding_mode="floor")
-    ox = meta[tile, 1] + p % wt.tw
+    oy = meta[tile, 0] + torch.div(p, TW, rounding_mode="floor")
+    ox = meta[tile, 1] + p % TW
     inside = (oy < wt.out_h) & (ox < wt.out_w)
     out = torch.empty((B, wt.out_h * wt.out_w), dtype=torch.float32, device=x.device)
     out[:, (oy * wt.out_w + ox)[inside]] = acc[:, inside]
@@ -361,12 +325,12 @@ def _lib() -> ctypes.CDLL:
             _c_int, _c_int, _c_int, _c_int, _c_int,  # B, H, W, out_h, out_w
             _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,  # meta, pos, fy, fx, w1
             _c_int, _c_int, _c_int,  # first tile, tiles, window bytes
-            _c_int, _c_int, _c_int, _c_int,  # taps, px, tile width, mode
+            _c_int, _c_int,  # taps, mode
             ctypes.c_float, _c_int,  # fill, vec
             _c_int, _c_int, _c_void_p,  # frames per CTA, pairs, stream
         ]
         fn.restype = _c_int
-        lib.t360_window_attrs.argtypes = [_c_int, _c_int, _c_int, _c_int, _c_int, _c_void_p]
+        lib.t360_window_attrs.argtypes = [_c_int, _c_int, _c_int, _c_int, _c_void_p]
         lib.t360_window_attrs.restype = _c_int
         lib.t360_error_string.argtypes = [_c_int]
         lib.t360_error_string.restype = ctypes.c_char_p
@@ -388,6 +352,26 @@ def _check_input(wt: WindowTables, x: torch.Tensor) -> None:
         raise ValueError(f"plane on {x.device} but the window plan on {wt.meta.device}")
 
 
+def launch_class(lib: ctypes.CDLL, wt: WindowTables, x: torch.Tensor, out: torch.Tensor,
+                 group: Tuple[int, int, int], frames: int, pair: bool, stream: int) -> None:
+    """One launch of K3 from ``lib`` over the tiles of ``group`` (first
+    tile, tiles, window bytes) of ``wt``: ``frames`` frames of ``x`` per
+    CTA, two per pass if ``pair``, into ``out`` on the CUDA stream
+    ``stream``.  Raises if the launch fails."""
+    first, count, win = group
+    err = lib.t360_window(
+        x.data_ptr(), out.data_ptr(),
+        x.shape[0], wt.in_h, wt.in_w, wt.out_h, wt.out_w,
+        wt.meta.data_ptr(), wt.pos.data_ptr(), wt.fy.data_ptr(),
+        wt.fx.data_ptr(), wt.w1.data_ptr(),
+        first, count, win, wt.taps, wt.mode, wt.fill,
+        int(wt.in_w % VEC == 0 and x.data_ptr() % VEC == 0),
+        frames, int(pair), stream,
+    )
+    if err:
+        raise RuntimeError(f"window kernel launch failed: {lib.t360_error_string(err).decode()}")
+
+
 def remap_window_u8(wt: WindowTables, x: torch.Tensor) -> torch.Tensor:
     """Remap + half-up round through the tile plan: uint8
     ``[B, in_h, in_w]`` → uint8 ``[B, out_h, out_w]`` on ``x``'s device.
@@ -400,35 +384,23 @@ def remap_window_u8(wt: WindowTables, x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"remap runs on cpu or cuda tensors, not {x.device}")
     B = x.shape[0]
     out = torch.empty((B, wt.out_h, wt.out_w), dtype=torch.uint8, device=x.device)
-    vec = int(wt.in_w % VEC == 0 and x.data_ptr() % VEC == 0)
     lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        for first, count, win in wt.groups:
-            err = lib.t360_window(
-                x.data_ptr(), out.data_ptr(),
-                B, wt.in_h, wt.in_w, wt.out_h, wt.out_w,
-                wt.meta.data_ptr(), wt.pos.data_ptr(), wt.fy.data_ptr(),
-                wt.fx.data_ptr(), wt.w1.data_ptr(),
-                first, count, win,
-                wt.taps, wt.th * wt.tw // THREADS, wt.tw, wt.mode, wt.fill, vec,
-                frames_per_cta(B, count), int(pairs(win)), stream,
-            )
-            if err:
-                raise RuntimeError(
-                    f"window kernel launch failed: {lib.t360_error_string(err).decode()}"
-                )
+        for group in wt.groups:
+            launch_class(lib, wt, x, out, group, frames_per_cta(B, group[1]), pairs(group[2]),
+                         stream)
             LAUNCHES += 1
     return out
 
 
-def kernel_attrs(taps: int, px: int, mode: int, win_bytes: int) -> dict:
+def kernel_attrs(taps: int, mode: int, win_bytes: int) -> dict:
     """One instantiation of K3 on the current GPU: its registers, local
     memory bytes (spills and stack), resident CTAs per SM for a launch with
     ``win_bytes`` of window, and that launch's dynamic shared memory."""
     lib = _lib()
     out = (_c_int * 4)()
-    err = lib.t360_window_attrs(taps, px, mode, win_bytes, int(pairs(win_bytes)), out)
+    err = lib.t360_window_attrs(taps, mode, win_bytes, int(pairs(win_bytes)), out)
     if err:
         raise RuntimeError(f"window kernel attributes: {lib.t360_error_string(err).decode()}")
     return dict(zip(("registers", "local_bytes", "ctas_per_sm", "smem_bytes"), out))
