@@ -9,11 +9,14 @@ nvcc and CUDA PyTorch (no jax needed).  Phases:
 1. the device, and ``nvidia-smi``'s name and power limit;
 2. build the two kernels from ``transform360_tpu_torch/csrc`` with nvcc,
    one process per source, all at once, and print ptxas's registers,
-   spills and shared memory; for every instantiation of K3 its registers
-   and local (spill) bytes as the runtime reports them and the count of
-   int-to-float conversions (``I2F``, ``I2FP``) in its SASS
-   (``cuobjdump -sass``; K3 must have none); both kernels' tile plans,
-   and the resident CTAs per SM of each K3 class launch;
+   spills and shared memory; for every instantiation of K3 (uint8 and
+   uint16 samples) its registers and local (spill) bytes as the runtime
+   reports them and the count of int-to-float conversions (``I2F``,
+   ``I2FP``) in its SASS (``cuobjdump -sass``; K3 must have none), and
+   the same counts for K1's instantiations (its uint16 ones may hold no
+   more than its uint8 ones); both kernels' tile plans, at
+   8 bits and at the 10-bit flagship, and the resident CTAs per SM of
+   each K3 class launch;
 3. each kernel against its plain version on the card, with the TF32
    switches on and off (nothing here may depend on them): K1 (prefilter)
    against ``blur_plain`` at the flagship's luma and chroma shapes and on
@@ -23,7 +26,11 @@ nvcc and CUDA PyTorch (no jax needed).  Phases:
    the clamp-with-fill (linear) and REFLECT_101 (lanczos4) rules and a
    cubemap whose width is not a multiple of the tile's, and on the
    flagship luma at batch 8 ... 128 (the JAX package's B2-B4 range) and
-   the stacked chroma at 256;
+   the stacked chroma at 256; the uint16 instantiations of K1 and K3
+   against the same plain versions, TF32 on and off: the 10-bit
+   flagship's luma at batch 1, 7 and 128 and stacked chroma at 256, 16-bit
+   planes with samples at 65535, and a 10-bit barrel chroma plane whose
+   corners hold the neutral 512;
 4. the batch path: ``open_filter(<flagship>, 3840, 2160, device="cuda")
    .transform(y, u, v)`` on 128 video-like frames, with every launch
    counter set to 0 just before it and read just after (K1 once per
@@ -44,13 +51,31 @@ nvcc and CUDA PyTorch (no jax needed).  Phases:
    wall;
 8. the CLI (``transform360_tpu_torch.cli.main``) on a raw yuv420p file of
    8 frames at 3840x2160, ``--batch 1`` and ``--batch 8``: its output
-   bytes equal the API's; wall time per frame.
+   bytes equal the API's; wall time per frame;
+9. the deep path: ``open_filter(<flagship>, 3840, 2160,
+   pix_fmt="yuv420p10le", device="cuda")`` on 128 video-like 10-bit
+   frames and on one ``[H, W]`` frame, the counters set to 0 just before
+   each and read just after (only K1's and K3's uint16 instantiations
+   launch); its output against the plain functions; the step's device
+   median, frames/s and its stages;
+10. supersampling: the flagship with ``width_scale_factor=2:
+    height_scale_factor=2`` (K3 remaps to 3072x2048 luma, INTER_AREA
+    brings it to 1536x1024) at batch 128 and 1, counted the same way; its
+    output against the plain path; the stages K1, K3, the area resize and
+    its round;
+11. plan files: ``build_plan`` and the remap's tile plans against
+    ``save_plan`` + ``load_plan`` and the tile plans (a restarted
+    transcoder's cold start), the loaded plan's output bytes against the
+    built plan's on the card, and the CLI with ``--save-plan`` and then
+    ``--load-plan`` against the API's bytes.
 
 Bound for kernel vs plain: at most 1 LSB on under 0.5% of the pixels
 (the kernels are built to be bit-identical, so 0 is expected).  Every
 timing line carries ``nvidia-smi``'s name and power limit.  The
 second-to-last line is a JSON object with each kernel's numbers; the last
-is ``{"ok": true, "device": {...}}``.  Any failure raises and exits
+is ``{"ok": true, "device": {...}}``.  The kernels line lists each kernel's
+uint8 instantiation (``blur``, ``window``, launches from phase 4) and its
+uint16 one (``blur_u16``, ``window_u16``, launches from phase 9).  Any failure raises and exits
 non-zero; without a GPU the script exits non-zero before printing a
 result.
 """
@@ -109,6 +134,22 @@ def batch_of(plane, n: int):
 
     base = torch.from_numpy(plane).cuda()
     return torch.stack([torch.roll(base, 7 * k, dims=1) for k in range(n)]).contiguous()
+
+
+def to_depth(x, depth: int):
+    """uint8 samples scaled to a deeper format's range (x * max // 255), as
+    uint16 on x's device."""
+    import torch
+
+    return (x.int() * ((1 << depth) - 1) // 255).to(torch.uint16)
+
+
+def frames_of(x, idx):
+    """x[idx] for a list of frame indices, as slices joined by torch.cat
+    (CUDA has no indexing kernel for uint16)."""
+    import torch
+
+    return torch.cat([x[i:i + 1] for i in idx])
 
 
 def compare(got, want, what: str) -> int:
@@ -180,11 +221,11 @@ def bound(nbytes: float, flops: float):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def remap_bound(ds, B: int, plan_bytes: int):
+def remap_bound(ds, B: int, plan_bytes: int, sample_bytes: int = 1):
     """The remap's compulsory bytes (plane in, plane out, its plan once)
     and its multiply-adds (T*T taps per output pixel and frame)."""
     n = ds.out_shape[0] * ds.out_shape[1]
-    nbytes = B * ds.in_h * ds.in_w + B * n + plan_bytes
+    nbytes = sample_bytes * (B * ds.in_h * ds.in_w + B * n) + plan_bytes
     return bound(nbytes, 2.0 * ds.taps * ds.taps * n * B)
 
 
@@ -192,7 +233,7 @@ def blur_bound(bt, B: int):
     """The prefilter's compulsory bytes (plane in, plane out, its tables)
     and its multiply-adds: each output pixel of a tile takes its band's
     2*rx+1 x taps and 2*ry+1 y taps (the plan's own radii, not the ring
-    kernel's padding)."""
+    kernel's padding).  Samples are bt.sample_bytes each."""
     import numpy as np
 
     tl = bt.tiles.cpu().numpy().astype(np.int64)
@@ -201,7 +242,7 @@ def blur_bound(bt, B: int):
     taps = (2 * rx[t[:, 4]] + 1) + (2 * ry[t[:, 4]] + 1)
     flops = 2.0 * float(np.sum(taps * t[:, 2] * t[:, 3])) * B
     tables = tensor_bytes(bt.tiles, bt.kx, bt.rx, bt.ky, bt.ry)
-    return bound(2 * B * bt.H * bt.W + tables, flops)
+    return bound(2 * bt.sample_bytes * B * bt.H * bt.W + tables, flops)
 
 
 def cuobjdump_path() -> str:
@@ -223,17 +264,21 @@ def cuobjdump_path() -> str:
     raise SystemExit("FAIL cuobjdump not found: K3's SASS cannot be read")
 
 
-def k3_sass(lib_path) -> dict:
-    """{(T, MODE): counts} for each K3 instantiation in the library's
-    SASS: instructions, int-to-float conversions (I2F, I2FP), LDS and
+SAMPLE = {"h": "u8", "t": "u16"}  # the Itanium-ABI codes of uint8_t and uint16_t
+
+
+def sass_counts(lib_path, pattern: str) -> dict:
+    """{key: counts} for each kernel function of the library's SASS whose
+    mangled name matches ``pattern`` (its groups make the key):
+    instructions, int-to-float conversions (I2F, I2FP), LDS and
     float-to-int conversions (F2I)."""
     out = subprocess.run([cuobjdump_path(), "-sass", str(lib_path)], capture_output=True,
                          text=True, check=True, timeout=600).stdout
     res, cur = {}, None
     for line in out.splitlines():
         if "Function :" in line:
-            m = re.search(r"window_kernelILi(\d+)ELi(\d+)E", line)
-            cur = tuple(int(g) for g in m.groups()) if m else None
+            m = re.search(pattern, line)
+            cur = m.groups() if m else None
             if cur:
                 res[cur] = {"instructions": 0, "I2F": 0, "LDS": 0, "F2I": 0}
             continue
@@ -247,8 +292,22 @@ def k3_sass(lib_path) -> dict:
             elif op in ("LDS", "F2I"):
                 c[op] += 1
     if not res:
-        raise SystemExit(f"FAIL no K3 function in the SASS of {lib_path}")
+        raise SystemExit(f"FAIL no function matching {pattern} in the SASS of {lib_path}")
     return res
+
+
+def k3_sass(lib_path) -> dict:
+    """{(sample, T, MODE): counts} for each K3 instantiation."""
+    raw = sass_counts(lib_path, r"window_kernelI([ht])Li(\d+)ELi(\d+)E")
+    return {(SAMPLE[s], int(t), int(m)): c for (s, t, m), c in raw.items()}
+
+
+def k1_sass(lib_path) -> dict:
+    """{(sample, kernel): counts} for each K1 instantiation (ring kernels
+    by y radius, and the direct kernel)."""
+    raw = sass_counts(lib_path, r"blur_(ring|direct)_kernelI([ht])(?:Li(\d+)E)?E")
+    return {(SAMPLE[s], f"ring y radius {ry}" if k == "ring" else "direct"): c
+            for (k, s, ry), c in raw.items()}
 
 
 def main() -> int:
@@ -267,17 +326,21 @@ def main() -> int:
     )
     from transform360_tpu_torch.filtering import blur_plain
     from transform360_tpu_torch.ops import _build, blur, window
-    from transform360_tpu_torch.sampling import remap_plain, round_u8
+    from transform360_tpu_torch.sampling import area_resize, remap_plain, round_px, round_u8
     from transform360_tpu_torch.utils.yuv import write_yuv420_batch
 
-    counters = {"blur": blur, "window": window}
+    u16 = torch.uint16
+
+    # each kernel's uint8 and uint16 instantiations count their launches apart
+    counters = {"blur": (blur, "LAUNCHES"), "window": (window, "LAUNCHES"),
+                "blur_u16": (blur, "LAUNCHES_U16"), "window_u16": (window, "LAUNCHES_U16")}
 
     def reset_counts():
-        for m in counters.values():
-            m.LAUNCHES = 0
+        for m, attr in counters.values():
+            setattr(m, attr, 0)
 
     def read_counts():
-        return {k: m.LAUNCHES for k, m in counters.items()}
+        return {k: getattr(m, attr) for k, (m, attr) in counters.items()}
 
     # -- 1. device -------------------------------------------------------
     kind = torch.cuda.get_device_name(0)
@@ -304,20 +367,30 @@ def main() -> int:
         f"{window.CLASS_BYTES} B)")
     sass = k3_sass(_build._build("window"))
     modes = ("wrap", "fill", "reflect")
-    for taps in (1, 2, 4, 8):
-        parts = []
-        for mode, mname in enumerate(modes):
-            at = window.kernel_attrs(taps, mode, 0)
-            c = sass[(taps, mode)]
-            parts.append(f"{mname} {at['registers']} registers, {at['local_bytes']} B "
-                         f"local, {c['instructions']} instructions, {c['LDS']} LDS, "
-                         f"{c['I2F']} I2F, {c['F2I']} F2I")
-        say(f"    K3 T={taps}: " + "; ".join(parts))
+    for sb, sname in ((1, "u8"), (2, "u16")):
+        for taps in (1, 2, 4, 8):
+            parts = []
+            for mode, mname in enumerate(modes):
+                at = window.kernel_attrs(taps, mode, 0, sb)
+                c = sass[(sname, taps, mode)]
+                parts.append(f"{mname} {at['registers']} registers, {at['local_bytes']} B "
+                             f"local, {c['instructions']} instructions, {c['LDS']} LDS, "
+                             f"{c['I2F']} I2F, {c['F2I']} F2I")
+            say(f"    K3 {sname} T={taps}: " + "; ".join(parts))
     n_i2f = sum(c["I2F"] for c in sass.values())
     say(f"    K3 SASS: {n_i2f} int-to-float conversions (I2F, I2FP) in {len(sass)} "
-        f"instantiations")
-    if n_i2f:
-        raise SystemExit(f"FAIL K3's SASS holds {n_i2f} I2F/I2FP")
+        f"instantiations (uint8 and uint16)")
+    if n_i2f or len(sass) != 24:
+        raise SystemExit(f"FAIL K3's SASS holds {n_i2f} I2F/I2FP in {len(sass)} instantiations")
+    k1 = k1_sass(_build._build("blur"))
+    for (sname, kname), c in sorted(k1.items()):
+        say(f"    K1 {sname} {kname}: {c['instructions']} instructions, {c['I2F']} I2F, "
+            f"{c['F2I']} F2I")
+    # K1 converts its samples by PRMT at either size: the uint16
+    # instantiations add no int-to-float conversion to the uint8 ones'
+    if len(k1) != 6 or any(c["I2F"] > k1[("u8", kname)]["I2F"]
+                           for (sname, kname), c in k1.items() if sname == "u16"):
+        raise SystemExit(f"FAIL K1's uint16 SASS holds more I2F/I2FP than its uint8 SASS: {k1}")
 
     # -- plan (CPU) ------------------------------------------------------
     t0 = time.perf_counter()
@@ -349,7 +422,17 @@ def main() -> int:
             f"{halo:.3f}x the plane's bytes per frame")
     say(f"    K3 tile plans built in {t_wplan:.3f} s (numpy, luma + chroma), "
         f"built again and moved by window_tables in {t_wmove:.3f} s")
-    for pname, t in (("luma", luma_t), ("chroma", chroma_t)):
+    deep = open_filter(FLAGSHIP, IN_W, IN_H, pix_fmt="yuv420p10le", device="cuda")
+    for pname, pp in (("luma", deep.plan.luma), ("chroma", deep.plan.chroma)):
+        wp = window.build_window_plan(pp.spec, pp.fill, 2)
+        occ = [window.kernel_attrs(wp.taps, wp.mode, win, 2) for _, _, win in wp.groups]
+        say(f"    K3 uint16 tile plan, 10-bit {pname}: per class "
+            f"{[int((wp.tile_class == c).sum()) for c in range(len(window.CLASS_BYTES))]}, "
+            f"{int((wp.meta[:, 5] == 0).sum())} global-path tiles; launches {wp.groups}, "
+            f"resident CTAs per SM {[a['ctas_per_sm'] for a in occ]}")
+    for pname, t in (("luma", luma_t), ("chroma", chroma_t),
+                     ("10-bit luma", deep.plan.luma.tables("cuda")),
+                     ("10-bit chroma", deep.plan.chroma.tables("cuda"))):
         tl = t.blur.tiles.cpu().numpy()
         say(f"    K1 tile plan {pname}: {tl.shape[0]} tiles of {sorted(set(tl[:, 2].tolist()))} "
             f"rows x {sorted(set(tl[:, 3].tolist()))} columns, x radii "
@@ -358,7 +441,7 @@ def main() -> int:
             f"of staged rows per CTA")
 
     y, u, v = video_like_planes(IN_W, IN_H)
-    err = {"blur": 0, "window": 0}
+    err = {"blur": 0, "window": 0, "blur_u16": 0, "window_u16": 0}
 
     # -- 3. kernels vs plain on the card -----------------------------------
     rng = torch.Generator(device="cuda").manual_seed(0)
@@ -382,7 +465,7 @@ def main() -> int:
         for what, bt, n in blur_cases:
             x = torch.randint(0, 256, (n, bt.H, bt.W), dtype=torch.uint8, device="cuda",
                               generator=rng)
-            got = blur.blur_u8(bt, x)
+            got = blur.blur_px(bt, x)
             want = round_u8(blur_plain(bt.plan, x.float()))
             torch.cuda.synchronize()
             err["blur"] = max(err["blur"], compare(got, want, f"K1 {what}"))
@@ -390,7 +473,7 @@ def main() -> int:
             x = torch.randint(0, 256, (7, pp.in_h, pp.in_w), dtype=torch.uint8,
                               device="cuda", generator=rng)
             for b in (1, 2, 7):
-                got = window.remap_window_u8(pp.window_tables("cuda"), x[:b].contiguous())
+                got = window.remap_window_px(pp.window_tables("cuda"), x[:b].contiguous())
                 want = round_u8(remap_plain(t.remap, x[:b]))
                 torch.cuda.synchronize()
                 err["window"] = max(err["window"], compare(got, want, f"K3 {pname} b={b}"))
@@ -417,7 +500,7 @@ def main() -> int:
             for b in (1, 3):
                 x = torch.randint(0, 256, (b, pp.in_h, pp.in_w), dtype=torch.uint8,
                                   device="cuda", generator=rng)
-                got = window.remap_window_u8(pp.window_tables("cuda"), x)
+                got = window.remap_window_px(pp.window_tables("cuda"), x)
                 want = round_u8(remap_plain(pp.tables("cuda").remap, x))
                 torch.cuda.synchronize()
                 err["window"] = max(err["window"], compare(got, want, f"K3 {what}"))
@@ -428,7 +511,7 @@ def main() -> int:
     for pname, xs, t, wt, sizes in (("luma", yb, luma_t, luma_w, (8, 16, 32, 64, 128)),
                                     ("chroma", cb, chroma_t, chroma_w, (2 * BATCH,))):
         for b in sizes:
-            got = window.remap_window_u8(wt, xs[:b])
+            got = window.remap_window_px(wt, xs[:b])
             for f0 in range(0, b, 32):  # the plain version in slices of 32 frames
                 want = round_u8(remap_plain(t.remap, xs[f0:min(b, f0 + 32)]))
                 err["window"] = max(err["window"], compare(
@@ -438,15 +521,68 @@ def main() -> int:
         f"JAX package's B2-B4 range) and the stacked chroma at {2 * BATCH}: max |diff| "
         f"{err['window']} LSB")
 
+    def check_u16(pp, x, what, tf32s=(True, False)):
+        """K1 then K3, uint16, against their plain versions on the same
+        inputs (in slices of 32 frames); returns K3's output."""
+        t, wt = pp.tables("cuda"), pp.window_tables("cuda")
+        for tf32 in tf32s:
+            torch.backends.cudnn.allow_tf32 = tf32
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            b = x if t.blur is None else blur.blur_px(t.blur, x, pp.maxval)
+            got = window.remap_window_px(wt, b, pp.maxval)
+            for f0 in range(0, x.shape[0], 32):
+                sl = slice(f0, f0 + 32)
+                if t.blur is not None:
+                    want = round_px(blur_plain(t.blur.plan, x[sl].float()), pp.maxval, u16)
+                    err["blur_u16"] = max(err["blur_u16"], compare(b[sl], want, f"K1 u16 {what}"))
+                want = round_px(remap_plain(t.remap, b[sl]), pp.maxval, u16)
+                err["window_u16"] = max(err["window_u16"],
+                                        compare(got[sl], want, f"K3 u16 {what}"))
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        return got
+
+    ydb, udb, vdb = (to_depth(t, 10) for t in (yb, ub, vb))  # 10-bit video-like frames
+    cdb = torch.cat([udb, vdb])
+    if not torch.equal(cdb[BATCH:].int(), vdb.int()):
+        raise SystemExit("FAIL torch.cat of uint16 planes on the card")
+    for b in (1, 7, BATCH):
+        check_u16(deep.plan.luma, ydb[:b], f"10-bit luma b={b}")
+    check_u16(deep.plan.chroma, cdb, f"10-bit chroma b={2 * BATCH}")
+    say(f"[3] K1 and K3 uint16 vs blur_plain and remap_plain at the 10-bit flagship, luma "
+        f"batch 1, 7 and {BATCH}, stacked chroma {2 * BATCH}, TF32 on and off: max |diff| "
+        f"K1 {err['blur_u16']}, K3 {err['window_u16']} LSB")
+    sat = open_filter(FLAGSHIP, IN_W, IN_H, pix_fmt="yuv420p16le", device="cuda").plan
+    g16 = torch.Generator(device="cuda").manual_seed(16)
+    for pp in (sat.luma, sat.chroma):
+        x = torch.randint(0, 65536, (4, pp.in_h, pp.in_w), dtype=torch.int32, device="cuda",
+                          generator=g16)
+        x[0] = 65535
+        blocks = torch.arange(pp.in_w, device="cuda") // 64 % 2  # hard edges: the taps overshoot
+        x[2] = 65535 * blocks[None, :]
+        check_u16(pp, x.to(u16), f"16-bit saturated {pp.in_w}x{pp.in_h}")
+    barrel = build_plan(TransformConfig(output_layout=Layout.BARREL, **mono), 1024, 512, 640,
+                        256, "yuv420p10le").chroma
+    x = torch.randint(0, 1024, (3, barrel.in_h, barrel.in_w), dtype=torch.int32, device="cuda",
+                      generator=g16).to(u16)
+    bo = check_u16(barrel, x, "10-bit barrel chroma").int()
+    corners = bo[:, [0, -1], [-1, -1]]  # outside the pole discs on the right
+    if not (corners == 512).all():
+        raise SystemExit(f"FAIL 10-bit barrel chroma corners {corners.tolist()}, not 512")
+    say(f"[3] K1 and K3 uint16 on 16-bit planes with samples at 65535 (flagship luma and "
+        f"chroma) and a 10-bit barrel chroma plane (corners {sorted(set(corners.flatten().tolist()))}"
+        f"), TF32 on and off: max |diff| K1 {err['blur_u16']}, K3 {err['window_u16']} LSB")
+
     # -- 4. batch path -----------------------------------------------------
     torch.cuda.synchronize()
     reset_counts()
     oy, ou, ov = eng.transform(yb, ub, vb)
     torch.cuda.synchronize()
     launches = read_counts()
-    if launches["blur"] != 2 or launches["window"] <= 0:
-        raise SystemExit(f"FAIL batch path did not launch K1 once per plane batch and K3: "
-                         f"{launches}")
+    if (launches["blur"] != 2 or launches["window"] <= 0 or launches["blur_u16"]
+            or launches["window_u16"]):
+        raise SystemExit(f"FAIL batch path did not launch K1 once per plane batch and K3 "
+                         f"(uint8 only): {launches}")
     if "transform360_tpu_torch.ops.remap" in sys.modules or (_build.CSRC / "remap.cu").exists():
         raise SystemExit("FAIL the retired batch remap K2 is still present")
     want_shapes = [(BATCH, plan.out_h, plan.out_w)] + 2 * [
@@ -480,9 +616,9 @@ def main() -> int:
     bl = xl.clone()
     times = {}
     runs = {
-        "blur": (lambda: blur.blur_u8(luma_t.blur, xl),
+        "blur": (lambda: blur.blur_px(luma_t.blur, xl),
                  lambda: round_u8(blur_plain(luma_t.blur.plan, xlf))),
-        "window": (lambda: window.remap_window_u8(luma_w, bl),
+        "window": (lambda: window.remap_window_px(luma_w, bl),
                    lambda: round_u8(remap_plain(luma_t.remap, bl))),
     }
     wplan_bytes = tensor_bytes(luma_w.meta, luma_w.pos, luma_w.fy, luma_w.fx, luma_w.w1)
@@ -497,7 +633,7 @@ def main() -> int:
             f"{bounds[name][0] / km:.1%} of it reached  ({smi})")
     cplan_bytes = tensor_bytes(chroma_w.meta, chroma_w.pos, chroma_w.fy, chroma_w.fx, chroma_w.w1)
     cbound = remap_bound(chroma_t.remap, 2 * BATCH, cplan_bytes)
-    km, pm, ks = in_turns(lambda: window.remap_window_u8(chroma_w, cb),
+    km, pm, ks = in_turns(lambda: window.remap_window_px(chroma_w, cb),
                           lambda: round_u8(remap_plain(chroma_t.remap, cb)), rounds=5, per_round=4)
     chroma_k3 = {"shape": f"{2 * BATCH} chroma planes", "ms": km, "plain_ms": pm,
                  "bound_ms": cbound[0], "bound_by": cbound[1]}
@@ -521,14 +657,14 @@ def main() -> int:
         f"host wall incl. sync median {statistics.median(walls):.4f} ms "
         f"(p90 {pct(walls, 0.9):.4f}, n={len(walls)}); SM clock, its maximum and power draw "
         f"under the step: {clock}  ({smi})")
-    yl = blur.blur_u8(luma_t.blur, yb)  # the remaps' inputs on the batch path
-    cl = blur.blur_u8(chroma_t.blur, cb)
+    yl = blur.blur_px(luma_t.blur, yb)  # the remaps' inputs on the batch path
+    cl = blur.blur_px(chroma_t.blur, cb)
     parts = {}
     for name, fn in {
-        "K1 luma": lambda: blur.blur_u8(luma_t.blur, yb),
-        "K1 chroma (U+V)": lambda: blur.blur_u8(chroma_t.blur, cb),
-        "K3 luma": lambda: window.remap_window_u8(luma_w, yl),
-        "K3 chroma (U+V)": lambda: window.remap_window_u8(chroma_w, cl),
+        "K1 luma": lambda: blur.blur_px(luma_t.blur, yb),
+        "K1 chroma (U+V)": lambda: blur.blur_px(chroma_t.blur, cb),
+        "K3 luma": lambda: window.remap_window_px(luma_w, yl),
+        "K3 chroma (U+V)": lambda: window.remap_window_px(chroma_w, cl),
         "cat of U and V": lambda: torch.cat([ub, vb]),
     }.items():
         cuda_times(fn, 2)
@@ -574,10 +710,10 @@ def main() -> int:
     x1 = yb[:1].contiguous()
     c2 = torch.cat([ub[:1], vb[:1]])
     stages = {
-        "K1 luma": lambda: blur.blur_u8(luma_t.blur, x1),
-        "K1 chroma (U+V)": lambda: blur.blur_u8(chroma_t.blur, c2),
-        "K3 luma": lambda: window.remap_window_u8(luma_w, x1),
-        "K3 chroma (U+V)": lambda: window.remap_window_u8(chroma_w, c2),
+        "K1 luma": lambda: blur.blur_px(luma_t.blur, x1),
+        "K1 chroma (U+V)": lambda: blur.blur_px(chroma_t.blur, c2),
+        "K3 luma": lambda: window.remap_window_px(luma_w, x1),
+        "K3 chroma (U+V)": lambda: window.remap_window_px(chroma_w, c2),
         "cat of U and V": lambda: torch.cat([ub[0][None], vb[0][None]]),
     }
     parts = {}
@@ -588,9 +724,9 @@ def main() -> int:
         + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items())
         + f"; sum {sum(parts.values()):.4f} ms  ({smi})")
     for name, kern, plain_fn, bnd in (
-        ("blur", lambda: blur.blur_u8(luma_t.blur, x1),
+        ("blur", lambda: blur.blur_px(luma_t.blur, x1),
          lambda: round_u8(blur_plain(luma_t.blur.plan, x1.float())), blur_bound(luma_t.blur, 1)),
-        ("window", lambda: window.remap_window_u8(luma_w, x1),
+        ("window", lambda: window.remap_window_px(luma_w, x1),
          lambda: round_u8(remap_plain(luma_t.remap, x1)),
          remap_bound(luma_t.remap, 1, wplan_bytes)),
     ):
@@ -634,6 +770,204 @@ def main() -> int:
                 f"bytes equal the API's; wall {dt * 1e3 / n_cli:.2f} ms per frame "
                 f"(file IO included)  ({smi})")
 
+    # -- 9. deep path ----------------------------------------------------
+    dp = deep.plan
+    torch.cuda.synchronize()
+    reset_counts()
+    dy, du, dv = deep.transform(ydb, udb, vdb)
+    torch.cuda.synchronize()
+    deep_launches = read_counts()
+    if (deep_launches["blur"] or deep_launches["window"] or deep_launches["blur_u16"] != 2
+            or deep_launches["window_u16"] <= 0):
+        raise SystemExit(f"FAIL the 10-bit batch path did not launch only K1 and K3 uint16: "
+                         f"{deep_launches}")
+    for pname, xin, o, pp in (("Y", ydb, dy, dp.luma), ("U", udb, du, dp.chroma),
+                              ("V", vdb, dv, dp.chroma)):
+        if o.dtype != u16 or tuple(o.shape) != (BATCH, pp.out_h, pp.out_w):
+            raise SystemExit(f"FAIL 10-bit {pname}: {o.dtype} {tuple(o.shape)}")
+        t = pp.tables("cuda")
+        x = frames_of(xin, frames)
+        want = round_px(remap_plain(t.remap, round_px(blur_plain(t.blur.plan, x.float()), 1023,
+                                                      u16)), 1023, u16)
+        compare(frames_of(o, frames), want, f"10-bit batch path {pname} vs plain")
+    reset_counts()
+    one = deep.transform(ydb[0], udb[0], vdb[0])
+    torch.cuda.synchronize()
+    deep_one = read_counts()
+    if deep_one["blur"] or deep_one["window"] or deep_one["blur_u16"] != 2:
+        raise SystemExit(f"FAIL the 10-bit latency path's launches {deep_one}")
+    for o, ob, pname in zip(one, (dy, du, dv), "YUV"):
+        compare(o, ob[0], f"10-bit [H, W] frame {pname} vs frame 0 of the batch")
+    say(f"[9] 10-bit batch path {IN_W}x{IN_H} -> {dp.out_w}x{dp.out_h} yuv420p10le, batch "
+        f"{BATCH}: uint16 out, frames {frames} match the plain path; launches {deep_launches}; "
+        f"one [H, W] frame matches frame 0, launches {deep_one}")
+    cuda_times(lambda: deep.transform(ydb, udb, vdb), 2)
+    steps = cuda_times(lambda: deep.transform(ydb, udb, vdb), 30)
+    dstep = statistics.median(steps)
+    lat = cuda_times(lambda: deep.transform(ydb[0], udb[0], vdb[0]), 50)
+    say(f"[9] 10-bit flagship step, batch {BATCH}: device median {dstep:.4f} ms (p90 "
+        f"{pct(steps, 0.9):.4f}, n={len(steps)}) = {BATCH / dstep * 1e3:.1f} frames/s; one "
+        f"[H, W] frame {statistics.median(lat):.4f} ms (p90 {pct(lat, 0.9):.4f}, "
+        f"n={len(lat)})  ({smi})")
+    dlt, dct = dp.luma.tables("cuda"), dp.chroma.tables("cuda")
+    dlw, dcw = dp.luma.window_tables("cuda"), dp.chroma.window_tables("cuda")
+    yl = blur.blur_px(dlt.blur, ydb, 1023)
+    cl = blur.blur_px(dct.blur, cdb, 1023)
+    parts = {}
+    for name, fn in {
+        "K1 luma": lambda: blur.blur_px(dlt.blur, ydb, 1023),
+        "K1 chroma (U+V)": lambda: blur.blur_px(dct.blur, cdb, 1023),
+        "K3 luma": lambda: window.remap_window_px(dlw, yl, 1023),
+        "K3 chroma (U+V)": lambda: window.remap_window_px(dcw, cl, 1023),
+        "cat of U and V": lambda: torch.cat([udb, vdb]),
+    }.items():
+        cuda_times(fn, 2)
+        parts[name] = statistics.median(cuda_times(fn, 10))
+    say(f"[9] 10-bit batch-{BATCH} stages, device medians of 10: "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items())
+        + f"; sum {sum(parts.values()):.4f} ms against the step's {dstep:.4f}  ({smi})")
+    del yl, cl
+    xd = ydb[:tb].contiguous()
+    xdf = xd.float()
+    dplan_bytes = tensor_bytes(dlw.meta, dlw.pos, dlw.fy, dlw.fx, dlw.w1)
+    for name, kern, plain_fn, bnd in (
+        ("blur_u16", lambda: blur.blur_px(dlt.blur, xd, 1023),
+         lambda: round_px(blur_plain(dlt.blur.plan, xdf), 1023, u16), blur_bound(dlt.blur, tb)),
+        ("window_u16", lambda: window.remap_window_px(dlw, xd, 1023),
+         lambda: round_px(remap_plain(dlt.remap, xd), 1023, u16),
+         remap_bound(dlt.remap, tb, dplan_bytes, 2)),
+    ):
+        km, pm, ks = in_turns(kern, plain_fn, rounds=5)
+        times[name] = (km, pm)
+        bounds[name] = bnd
+        say(f"[9] {name}: kernel median {km:.4f} ms (p75 {pct(ks, 0.75):.4f}, n={len(ks)}), "
+            f"plain median {pm:.4f} ms per call on {tb} 10-bit luma frames {IN_W}x{IN_H}; "
+            f"bound {bnd[0]:.4f} ms ({bnd[1]}), {bnd[0] / km:.1%} of it reached  ({smi})")
+    del xd, xdf, dy, du, dv
+
+    # -- 10. supersampling + INTER_AREA -------------------------------------
+    ss = open_filter(FLAGSHIP + ":width_scale_factor=2:height_scale_factor=2", IN_W, IN_H,
+                     device="cuda")
+    sp = ss.plan
+    if ((sp.luma.scaled_w, sp.luma.scaled_h, sp.out_w, sp.out_h) != (3072, 2048, 1536, 1024)
+            or sp.luma.area is None):
+        raise SystemExit(f"FAIL supersampled plan {sp.luma.scaled_w}x{sp.luma.scaled_h} -> "
+                         f"{sp.out_w}x{sp.out_h}")
+    torch.cuda.synchronize()
+    reset_counts()
+    sy, su, sv = ss.transform(yb, ub, vb)
+    torch.cuda.synchronize()
+    ss_launches = read_counts()
+    if (ss_launches["blur"] != 2 or ss_launches["window"] <= 0 or ss_launches["blur_u16"]
+            or ss_launches["window_u16"]):
+        raise SystemExit(f"FAIL the supersampled batch path's launches {ss_launches}")
+    for pname, xin, o, pp in (("Y", yb, sy, sp.luma), ("U", ub, su, sp.chroma),
+                              ("V", vb, sv, sp.chroma)):
+        if tuple(o.shape) != (BATCH, pp.out_h, pp.out_w):
+            raise SystemExit(f"FAIL supersampled {pname} shape {tuple(o.shape)}")
+        t = pp.tables("cuda")
+        x = xin[frames]
+        k3 = round_u8(remap_plain(t.remap, round_u8(blur_plain(t.blur.plan, x.float()))))
+        compare(o[frames], round_u8(area_resize(t.area, k3)), f"supersampled {pname} vs plain")
+    reset_counts()
+    one = ss.transform(yb[0], ub[0], vb[0])
+    torch.cuda.synchronize()
+    ss_one = read_counts()
+    for o, ob, pname in zip(one, (sy, su, sv), "YUV"):
+        compare(o, ob[0], f"supersampled [H, W] frame {pname} vs frame 0 of the batch")
+    say(f"[10] supersampled 2x2 {IN_W}x{IN_H} -> K3 at {sp.luma.scaled_w}x{sp.luma.scaled_h} "
+        f"-> INTER_AREA {sp.out_w}x{sp.out_h}, batch {BATCH}: frames {frames} match the plain "
+        f"path; launches {ss_launches}; one [H, W] frame matches frame 0, launches {ss_one}")
+    cuda_times(lambda: ss.transform(yb, ub, vb), 2)
+    steps = cuda_times(lambda: ss.transform(yb, ub, vb), 20)
+    sstep = statistics.median(steps)
+    lat = cuda_times(lambda: ss.transform(yb[0], ub[0], vb[0]), 50)
+    say(f"[10] supersampled step, batch {BATCH}: device median {sstep:.4f} ms (p90 "
+        f"{pct(steps, 0.9):.4f}, n={len(steps)}) = {BATCH / sstep * 1e3:.1f} frames/s; one "
+        f"[H, W] frame {statistics.median(lat):.4f} ms (p90 {pct(lat, 0.9):.4f}, "
+        f"n={len(lat)})  ({smi})")
+    slt, sct = sp.luma.tables("cuda"), sp.chroma.tables("cuda")
+    slw, scw = sp.luma.window_tables("cuda"), sp.chroma.window_tables("cuda")
+    del sy, su, sv, one
+    for b in (BATCH, 1):
+        ys, cs = yb[:b], torch.cat([ub[:b], vb[:b]])
+        yl, cl = blur.blur_px(slt.blur, ys), blur.blur_px(sct.blur, cs)
+        yr, cr = window.remap_window_px(slw, yl), window.remap_window_px(scw, cl)
+        ya, ca = area_resize(slt.area, yr), area_resize(sct.area, cr)
+        parts = {}
+        for name, fn in {
+            "K1 luma": lambda: blur.blur_px(slt.blur, ys),
+            "K1 chroma (U+V)": lambda: blur.blur_px(sct.blur, cs),
+            "K3 luma (to the scaled size)": lambda: window.remap_window_px(slw, yl),
+            "K3 chroma (U+V)": lambda: window.remap_window_px(scw, cl),
+            "area luma": lambda: area_resize(slt.area, yr),
+            "area chroma (U+V)": lambda: area_resize(sct.area, cr),
+            "round luma + chroma": lambda: (round_u8(ya), round_u8(ca)),
+            "cat of U and V": lambda: torch.cat([ub[:b], vb[:b]]),
+        }.items():
+            cuda_times(fn, 2)
+            parts[name] = statistics.median(cuda_times(fn, 10 if b > 1 else 50))
+        say(f"[10] supersampled batch-{b} stages, device medians: "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items())
+            + f"; sum {sum(parts.values()):.4f} ms  ({smi})")
+        del yl, cl, yr, cr, ya, ca
+
+    # -- 11. plan files ----------------------------------------------------
+    from transform360_tpu_torch import plan as tplan
+    from transform360_tpu_torch.pipeline import transform_batch
+
+    def cold_plan(make):
+        """(plan, seconds): ``make()`` and the remap's tile plans and
+        tables on the card, from a cleared plan cache."""
+        tplan.clear_plan_cache()
+        t0 = time.perf_counter()
+        p = make()
+        for pp in (p.luma, p.chroma):
+            pp.tables("cuda")
+            pp.window_tables("cuda")
+        torch.cuda.synchronize()
+        return p, time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "flagship.npz")
+        built, t_build = cold_plan(lambda: build_plan(plan.cfg, IN_W, IN_H, plan.out_w,
+                                                      plan.out_h, "yuv420p"))
+        t0 = time.perf_counter()
+        tplan.save_plan(built, path)
+        t_save = time.perf_counter() - t0
+        loaded, t_load = cold_plan(lambda: tplan.load_plan(path))
+        a = transform_batch(built, yb[:8], ub[:8], vb[:8])
+        b = transform_batch(loaded, yb[:8], ub[:8], vb[:8])
+        if not all(torch.equal(x, z) for x, z in zip(a, b)):
+            raise SystemExit("FAIL the loaded plan's output differs from the built plan's")
+        say(f"[11] plan files, flagship: build_plan + tile plans + tables on the card "
+            f"{t_build:.3f} s; save_plan {t_save:.3f} s ({os.path.getsize(path)} B); load_plan "
+            f"+ tile plans + tables {t_load:.3f} s; the loaded plan's output equals the built "
+            f"plan's on 8 frames  ({smi})")
+        src = os.path.join(tmp, "in.yuv")
+        n_pf = 4
+        write_yuv420_batch(src, *(t[:n_pf].cpu().numpy() for t in (yb, ub, vb)))
+        api = [o.cpu().numpy() for o in eng.transform(yb[:n_pf], ub[:n_pf], vb[:n_pf])]
+        want = b"".join(api[p][k].tobytes() for k in range(n_pf) for p in range(3))
+        common = ["--vf", FLAGSHIP, "--input-size", f"{IN_W}x{IN_H}", "-i", src,
+                  "--batch", "4", "--device", "cuda"]
+        walls = {}
+        for flag in ("--save-plan", "--load-plan"):
+            out = os.path.join(tmp, f"out{flag}.yuv")
+            t0 = time.perf_counter()
+            rc = cli.main(common + ["-o", out, flag, path])
+            walls[flag] = time.perf_counter() - t0
+            with open(out, "rb") as f:
+                got = f.read()
+            if rc != 0 or got != want:
+                raise SystemExit(f"FAIL CLI {flag}: rc {rc}, output "
+                                 f"{'equals' if got == want else 'differs from'} the API's")
+        say(f"[11] CLI {n_pf} frames with --save-plan, then --load-plan: output bytes equal "
+            f"the API's; wall {walls['--save-plan']:.3f} s and {walls['--load-plan']:.3f} s "
+            f"(plan, kernels' first calls and file IO included)  ({smi})")
+
+    launches.update({k: deep_launches[k] for k in ("blur_u16", "window_u16")})
+
     def entry(name, src, replaces, **extra):
         return {"name": name, "route": "cuda", "source": src, "replaces": replaces,
                 "launches": launches[name],
@@ -648,6 +982,12 @@ def main() -> int:
         entry("window", "transform360_tpu_torch/csrc/window.cu",
               "transform360_tpu/ops/remap_pallas.py:441", serves="B5; B2, B3, B4 closed on it",
               batches="all", shape="16 luma frames", chroma=chroma_k3),
+        entry("blur_u16", "transform360_tpu_torch/csrc/blur.cu",
+              "transform360_tpu/ops/blur_lane.py:269", serves="B1 at 10-16 bits",
+              batches="all", shape="16 10-bit luma frames"),
+        entry("window_u16", "transform360_tpu_torch/csrc/window.cu",
+              "transform360_tpu/ops/remap_pallas.py:441", serves="B5 at 10-16 bits",
+              batches="all", shape="16 10-bit luma frames"),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

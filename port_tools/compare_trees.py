@@ -49,6 +49,9 @@ def child(label: str, settings: list) -> None:
     sys.path.append(ROOT)
     from chip_smoke import FLAGSHIP, batch_of, cuda_times, video_like_planes
 
+    # the remap wrapper's name in this tree (remap_window_u8 before it took
+    # uint16 planes too)
+    remap = getattr(window, "remap_window_px", None) or window.remap_window_u8
     for s in settings:
         name, value = s.split("=", 1)
         mod, attr = name.rsplit(".", 1)
@@ -79,7 +82,7 @@ def child(label: str, settings: list) -> None:
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             for _ in range(20):
-                window.remap_window_u8(wt, x)
+                remap(wt, x)
         graph.replay()
         ms = statistics.median(cuda_times(graph.replay, reps)) / 20
         del graph
@@ -88,8 +91,8 @@ def child(label: str, settings: list) -> None:
     for shape, wt, x in (("16 luma", lw, yb[:16].contiguous()), ("1 luma", lw, yb[:1].contiguous()),
                          ("2 chroma", cw, cb[:2].contiguous()), ("128 luma", lw, yb),
                          ("256 chroma", cw, cb)):
-        cuda_times(lambda: window.remap_window_u8(wt, x), 3)
-        ts = cuda_times(lambda: window.remap_window_u8(wt, x), 10 if x.shape[0] >= 100 else 40)
+        cuda_times(lambda: remap(wt, x), 3)
+        ts = cuda_times(lambda: remap(wt, x), 10 if x.shape[0] >= 100 else 40)
         res["k3_ms"][shape] = statistics.median(ts)
         reps = 3 if x.shape[0] >= 100 else 20
         res["k3_ms_graph"][shape] = graph_ms(wt, x, reps)
@@ -100,7 +103,7 @@ def child(label: str, settings: list) -> None:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(200):
-            window.remap_window_u8(wt, x)
+            remap(wt, x)
         res["k3_host_ms"][shape] = (time.perf_counter() - t0) * 1e3 / 200
         torch.cuda.synchronize()
     print(json.dumps(res), flush=True)

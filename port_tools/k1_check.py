@@ -57,7 +57,7 @@ for name, (cfg, iw, ih, ow, oh) in CASES.items():
         t = pp.tables("cuda")
         x = torch.randint(0, 256, (5, pp.in_h, pp.in_w), dtype=torch.uint8, device="cuda", generator=g)
         if t.blur is not None:
-            got = blur.blur_u8(t.blur, x)
+            got = blur.blur_px(t.blur, x)
             want = round_u8(blur_plain(t.blur.plan, x.float()))
             torch.cuda.synchronize()
             d = int((got.int() - want.int()).abs().max())
@@ -66,7 +66,7 @@ for name, (cfg, iw, ih, ow, oh) in CASES.items():
             print(f"K1 {name} {pp.in_w}x{pp.in_h} ring_ry {t.blur.ring_ry}: max {d} LSB, {n} px differ", flush=True)
         wt = pp.window_tables("cuda")
         for B in (1, 5):
-            got = window.remap_window_u8(wt, x[:B].contiguous())
+            got = window.remap_window_px(wt, x[:B].contiguous())
             want = round_u8(remap_plain(t.remap, x[:B]))
             torch.cuda.synchronize()
             n = int((got != want).sum())
@@ -77,10 +77,10 @@ for name, (cfg, iw, ih, ow, oh) in CASES.items():
 cfg, iw, ih, ow, oh = CASES["cubic-cubemap"]
 t = P.build_plan(cfg, iw, ih, ow, oh, "gray").luma.tables("cuda")
 x = torch.randint(0, 256, (19, ih, iw), dtype=torch.uint8, device="cuda", generator=g)
-one = torch.cat([blur.blur_u8(t.blur, x[i:i + 1].contiguous()) for i in range(19)])
+one = torch.cat([blur.blur_px(t.blur, x[i:i + 1].contiguous()) for i in range(19)])
 blur.CTAS_TARGET = 1
 print("fpc", blur.frames_per_cta(19, t.blur.tiles.shape[0]))
-many = blur.blur_u8(t.blur, x)
+many = blur.blur_px(t.blur, x)
 blur.CTAS_TARGET = 4096
 torch.cuda.synchronize()
 print("frame loops equal:", torch.equal(one, many), flush=True)
@@ -96,7 +96,7 @@ for tf32 in (True, False):
     for pp, B in ((plan.luma, 4), (plan.chroma, 8)):
         t = pp.tables("cuda")
         x = torch.randint(0, 256, (B, pp.in_h, pp.in_w), dtype=torch.uint8, device="cuda", generator=g)
-        got = blur.blur_u8(t.blur, x)
+        got = blur.blur_px(t.blur, x)
         want = round_u8(blur_plain(t.blur.plan, x.float()))
         torch.cuda.synchronize()
         n = int((got != want).sum())
@@ -105,7 +105,7 @@ for tf32 in (True, False):
 for pp, B in ((plan.luma, 128), (plan.chroma, 256)):
     t = pp.tables("cuda")
     x = torch.randint(0, 256, (B, pp.in_h, pp.in_w), dtype=torch.uint8, device="cuda", generator=g)
-    got = window.remap_window_u8(pp.window_tables("cuda"), x)
+    got = window.remap_window_px(pp.window_tables("cuda"), x)
     for i in range(0, B, 32):
         want = round_u8(remap_plain(t.remap, x[i:i + 32]))
         n = int((got[i:i + 32] != want).sum())
@@ -117,17 +117,17 @@ for pp, B in ((plan.luma, 128), (plan.chroma, 256)):
 t = plan.luma.tables("cuda")
 x = torch.randint(0, 256, (16, 2160, 3840), dtype=torch.uint8, device="cuda", generator=g)
 for _ in range(3):
-    blur.blur_u8(t.blur, x)
+    blur.blur_px(t.blur, x)
 ts = []
 for _ in range(30):
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    a.record(); blur.blur_u8(t.blur, x); b.record(); b.synchronize()
+    a.record(); blur.blur_px(t.blur, x); b.record(); b.synchronize()
     ts.append(a.elapsed_time(b))
 print(f"K1 16 luma frames: median {statistics.median(ts):.4f} ms min {min(ts):.4f}  ({smi})")
 c = plan.chroma.tables("cuda")
 x1 = x[:1].contiguous()
 xc = torch.randint(0, 256, (2, 1080, 1920), dtype=torch.uint8, device="cuda", generator=g)
-for nm, fn in (("luma b1", lambda: blur.blur_u8(t.blur, x1)), ("chroma b2", lambda: blur.blur_u8(c.blur, xc))):
+for nm, fn in (("luma b1", lambda: blur.blur_px(t.blur, x1)), ("chroma b2", lambda: blur.blur_px(c.blur, xc))):
     for _ in range(3):
         fn()
     ts = []

@@ -90,7 +90,7 @@ def main() -> int:
     def run(lib, bt, x):
         blur._lib = lambda: lib
         try:
-            return blur.blur_u8(bt, x)
+            return blur.blur_px(bt, x)
         finally:
             blur._lib = lambda: shipping
 

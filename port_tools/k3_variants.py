@@ -122,7 +122,8 @@ def main() -> int:
             for g in wt.groups:
                 out = (ctypes.c_int * 4)()
                 pair = choices(var, B, g)[1]
-                err = libs[var[0]].t360_window_attrs(wt.taps, wt.mode, g[2], int(pair), out)
+                err = libs[var[0]].t360_window_attrs(wt.sample_bytes, wt.taps, wt.mode, g[2],
+                                                     int(pair), out)
                 if err:
                     raise SystemExit(f"attrs {name}: {shipping.t360_error_string(err).decode()}")
                 occ.append(tuple(out))

@@ -34,7 +34,7 @@ from transform360_tpu_torch.ops.blur import (
     TW,
     WARPS,
     BlurTables,
-    blur_u8,
+    blur_px,
     tile_pitch,
 )
 from transform360_tpu_torch.plan import plan_from_jax
@@ -72,7 +72,7 @@ def test_blur_plain_exact_vs_apply_blur(name, rng):
     assert np.array_equal(got, want), f"{(got != want).sum()} pixels differ"
     # the CPU path of the wrapper is exactly the plain version
     t = BlurTables.from_plan(tb, h, w, "cpu")
-    assert np.array_equal(blur_u8(t, torch.from_numpy(x)).numpy(), got)
+    assert np.array_equal(blur_px(t, torch.from_numpy(x)).numpy(), got)
 
 
 LANE_CASES = {

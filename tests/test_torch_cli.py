@@ -7,6 +7,10 @@
   bound of tests/test_torch_pipeline.py for the port's own plan (at least
   99.5% identical pixels and 50 dB per plane).
 * ``-i - -o -`` streams through stdin/stdout and equals the file run.
+* ``--save-plan`` then ``--load-plan`` give the same bytes as the API,
+  and the saved file loads in the JAX package; a 10-bit raw stream
+  (``--pix-fmt yuv420p10le``, 16-bit little-endian samples) equals the
+  API's bytes.
 * Flags whose modules are not ported raise ``NotImplementedError`` naming
   their ROADMAP item.
 """
@@ -21,10 +25,15 @@ import pytest
 
 from transform360_tpu.cli import main as jax_cli_main
 from transform360_tpu.fidelity import _video_like_planes
+from transform360_tpu.plan import load_plan as jax_load_plan
+import transform360_tpu_torch as P
 from transform360_tpu_torch.cli import main as cli_main
-from transform360_tpu_torch.utils.yuv import read_yuv420_batch, write_yuv420_batch
+from transform360_tpu_torch.utils.yuv import (
+    read_yuv420_batch, write_yuv420_batch, write_yuv420_frames,
+)
 
 from conftest import psnr
+from test_torch_deep import deep_planes
 
 GATE_VF = ("cube_edge_length=160:interpolation_alg=cubic:enable_low_pass_filter=1:"
            "input_stereo_format=mono")
@@ -83,8 +92,6 @@ def test_cli_stdin_stdout_pipe(tmp_path, monkeypatch):
         (["--latency-bands", "2"], "A13"),
         (["--distributed", "env"], "A13"),
         (["--backend", "native"], "A14"),
-        (["--save-plan", "p.npz"], "A11"),
-        (["--load-plan", "p.npz"], "A11"),
     ],
 )
 def test_unported_flags_raise_naming_the_roadmap_item(tmp_path, flags, item):
@@ -94,3 +101,38 @@ def test_unported_flags_raise_naming_the_roadmap_item(tmp_path, flags, item):
     with pytest.raises(NotImplementedError, match=item):
         cli_main(args + flags)
     assert not (tmp_path / "o.yuv").exists()
+
+
+def _api_bytes(vf, w, h, planes, pix_fmt):
+    out = P.open_filter(vf, w, h, pix_fmt=pix_fmt, device="cpu").transform(*planes)
+    out = [o.numpy() for o in (out if isinstance(out, tuple) else (out,))]
+    le = [o.astype("<u2") if o.dtype == np.uint16 else o for o in out]
+    return b"".join(p[k].tobytes() for k in range(out[0].shape[0]) for p in le)
+
+
+def test_cli_save_plan_then_load_plan(tmp_path):
+    src = _stream(tmp_path / "in.yuv", 256, 128, 3)
+    vf = ("cube_edge_length=32:interpolation_alg=cubic:input_stereo_format=mono:"
+          "width_scale_factor=2:height_scale_factor=2")
+    args = ["--vf", vf, "--input-size", "256x128", "-i", str(src), "--device", "cpu",
+            "--batch", "2"]
+    plan = tmp_path / "plan.npz"
+    assert cli_main(args + ["-o", str(tmp_path / "a.yuv"), "--save-plan", str(plan)]) == 0
+    assert plan.is_file()
+    assert cli_main(args + ["-o", str(tmp_path / "b.yuv"), "--load-plan", str(plan)]) == 0
+    a, b = (tmp_path / "a.yuv").read_bytes(), (tmp_path / "b.yuv").read_bytes()
+    planes = read_yuv420_batch(str(src), 256, 128)
+    assert a == b == _api_bytes(vf, 256, 128, planes, "yuv420p")
+    jp = jax_load_plan(str(plan))  # the file is the JAX package's format
+    assert (jp.out_w, jp.out_h, jp.luma.scaled_w, jp.luma.scaled_h) == (96, 64, 192, 128)
+
+
+def test_cli_deep_raw_stream(tmp_path):
+    y, u, v = deep_planes(256, 128, "yuv420p10le", frames=3)
+    src = tmp_path / "in10.yuv"
+    write_yuv420_frames(str(src), zip(y, u, v))
+    vf = "cube_edge_length=32:interpolation_alg=cubic:input_stereo_format=mono"
+    out = tmp_path / "out10.yuv"
+    assert cli_main(["--vf", vf, "--input-size", "256x128", "-i", str(src), "-o", str(out),
+                     "--pix-fmt", "yuv420p10le", "--device", "cpu", "--batch", "2"]) == 0
+    assert out.read_bytes() == _api_bytes(vf, 256, 128, (y, u, v), "yuv420p10le")

@@ -10,7 +10,10 @@ multiple of the tile's, tap rows starting at every byte of a word, an
 unaligned plane, K3's global-path tiles, and every stereo raster of K1
 at small sizes, its ring kernels (y radius padded to 1 or 3) and its
 direct kernel (a wider y radius), its frame loops and an unaligned
-plane.
+plane.  The uint16 instantiations of both (10- to 16-bit planes, samples
+saturated at 65535 included) on the same cases, every K3 instantiation
+at uint16, an unaligned uint16 plane, and the deep, supersampled and
+plan-file engines against the CPU engine.
 Marked ``cuda``: they skip without a GPU.  On the GPU host, which has no
 jax, run them without the suite's conftest.py (which imports jax):
 
@@ -28,7 +31,7 @@ from transform360_tpu_torch.config import Interpolation, Layout, StereoFormat, T
 from transform360_tpu_torch.filtering import blur_plain
 from transform360_tpu_torch.ops import blur, window
 from transform360_tpu_torch.sampling import (
-    BORDER_FILL, BORDER_REFLECT, BORDER_WRAP, remap_plain, round_u8,
+    BORDER_FILL, BORDER_REFLECT, BORDER_WRAP, remap_plain, round_px, round_u8,
 )
 
 pytestmark = pytest.mark.cuda
@@ -85,13 +88,13 @@ def test_kernels_match_plain(name, gpu):
                           device=gpu, generator=g)
         if t.blur is not None:
             n = blur.LAUNCHES
-            got = blur.blur_u8(t.blur, x)
+            got = blur.blur_px(t.blur, x)
             torch.cuda.synchronize()
             assert blur.LAUNCHES == n + 1
             _assert_close(got, round_u8(blur_plain(t.blur.plan, x.float())), f"K1 {name}")
         wt = pp.window_tables(gpu)
         n = window.LAUNCHES
-        got = window.remap_window_u8(wt, x)
+        got = window.remap_window_px(wt, x)
         torch.cuda.synchronize()
         assert window.LAUNCHES == n + len(wt.groups)
         _assert_close(got, round_u8(remap_plain(t.remap, x)), f"K3 {name}")
@@ -101,12 +104,12 @@ def test_blur_frame_loops_match_one_frame_at_a_time(gpu, monkeypatch):
     cfg, iw, ih, ow, oh = CASES["cubic-cubemap"]
     t = P.build_plan(cfg, iw, ih, ow, oh, "gray").luma.tables(gpu)
     x = torch.randint(0, 256, (19, ih, iw), dtype=torch.uint8, device=gpu)
-    want = torch.cat([blur.blur_u8(t.blur, x[i : i + 1].contiguous()) for i in range(19)])
+    want = torch.cat([blur.blur_px(t.blur, x[i : i + 1].contiguous()) for i in range(19)])
     # every CTA loops over 8 frames: groups of 8, 8 and an odd 3
     monkeypatch.setattr(blur, "CTAS_TARGET", 1)
     assert blur.frames_per_cta(19, t.blur.tiles.shape[0]) == blur.CTA_FRAMES == 8
     n = blur.LAUNCHES
-    got = blur.blur_u8(t.blur, x)
+    got = blur.blur_px(t.blur, x)
     torch.cuda.synchronize()
     assert blur.LAUNCHES == n + 1 and torch.equal(got, want)
 
@@ -118,9 +121,9 @@ def test_kernels_take_a_batch_of_1024(gpu):
     pp = P.build_plan(cfg, iw, ih, ow, oh, "yuv420p").chroma
     t = pp.tables(gpu)
     x = torch.randint(0, 256, (1024, pp.in_h, pp.in_w), dtype=torch.uint8, device=gpu)
-    b = blur.blur_u8(t.blur, x)
+    b = blur.blur_px(t.blur, x)
     assert torch.equal(b, round_u8(blur_plain(t.blur.plan, x.float())))
-    got = window.remap_window_u8(pp.window_tables(gpu), b)
+    got = window.remap_window_px(pp.window_tables(gpu), b)
     assert torch.equal(got, round_u8(remap_plain(t.remap, b)))
 
 
@@ -130,7 +133,7 @@ def test_blur_kernel_unaligned_plane(gpu):
     t = P.build_plan(cfg, iw, ih, ow, oh, "gray").luma.tables(gpu)
     buf = torch.randint(0, 256, (2 * ih * iw + 1,), dtype=torch.uint8, device=gpu)
     x = buf[1:].view(2, ih, iw)
-    assert torch.equal(blur.blur_u8(t.blur, x), round_u8(blur_plain(t.blur.plan, x.float())))
+    assert torch.equal(blur.blur_px(t.blur, x), round_u8(blur_plain(t.blur.plan, x.float())))
 
 
 @pytest.mark.parametrize("pix_fmt", ["yuv420p", "gray"])
@@ -163,7 +166,7 @@ def test_window_kernel_matches_plain(name, gpu):
             x = torch.randint(0, 256, (B, pp.in_h, pp.in_w), dtype=torch.uint8,
                               device=gpu, generator=g)
             n = window.LAUNCHES
-            got = window.remap_window_u8(wt, x)
+            got = window.remap_window_px(wt, x)
             torch.cuda.synchronize()
             assert window.LAUNCHES == n + len(wt.groups)
             want = round_u8(remap_plain(pp.tables(gpu).remap, x))
@@ -181,7 +184,7 @@ def test_window_kernel_unaligned_plane(name, gpu):
     wt = pp.window_tables(gpu)
     buf = torch.randint(0, 256, (2 * ih * iw + 1,), dtype=torch.uint8, device=gpu)
     x = buf[1:].view(2, ih, iw)
-    got = window.remap_window_u8(wt, x)
+    got = window.remap_window_px(wt, x)
     assert torch.equal(got, round_u8(remap_plain(pp.tables(gpu).remap, x)))
 
 
@@ -207,7 +210,7 @@ def test_window_kernel_every_instantiation(taps, mode, gpu):
         wt = dataclasses.replace(window.WindowTables.from_plan(wp, gpu), mode=MODES[mode])
         x = torch.randint(0, 256, (3, ih, iw), dtype=torch.uint8, device=gpu, generator=g)
         for b in (3, 1):
-            got = window.remap_window_u8(wt, x[:b])
+            got = window.remap_window_px(wt, x[:b])
             want = round_u8(window.remap_window_plain(wt, x[:b]))
             assert torch.equal(got, want), (layout, b)
 
@@ -224,7 +227,7 @@ def test_window_kernel_ragged_width_and_every_word_offset(gpu):
     assert set(np.unique(lx % 4).tolist()) == {0, 1, 2, 3}
     wt = window.WindowTables.from_plan(wp, gpu)
     x = torch.randint(0, 256, (5, 512, 1024), dtype=torch.uint8, device=gpu)
-    got = window.remap_window_u8(wt, x)
+    got = window.remap_window_px(wt, x)
     assert torch.equal(got, round_u8(remap_plain(pp.tables(gpu).remap, x)))
 
 
@@ -248,3 +251,115 @@ def test_engine_routes_by_batch_on_the_card(gpu):
         assert window.LAUNCHES - n3 == len(wt[0].groups) + len(wt[1].groups)
         for a, c in zip(got, cpu.transform(*planes)):
             assert torch.equal(a.cpu(), c)
+
+
+def _rand_u16(shape, maxval, gpu, g):
+    """uint16 samples in [0, maxval] on the card (drawn as int32: uint16
+    has no random kernel)."""
+    x = torch.randint(0, maxval + 1, shape, dtype=torch.int32, device=gpu, generator=g)
+    return x.to(torch.uint16)
+
+
+def _same(a, b):
+    return torch.equal(a.int(), b.int())
+
+
+@pytest.mark.parametrize("depth", [10, 16])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_uint16_kernels_match_plain(name, depth, gpu):
+    cfg, iw, ih, ow, oh = CASES[name]
+    pix_fmt = f"yuv420p{depth}le"
+    plan = P.build_plan(cfg, iw, ih, ow, oh, pix_fmt)
+    mx = (1 << depth) - 1
+    g = torch.Generator(device=gpu).manual_seed(depth)
+    for pp in (plan.luma, plan.chroma):
+        t = pp.tables(gpu)
+        x = _rand_u16((5, pp.in_h, pp.in_w), mx, gpu, g)
+        x[2] = mx  # a saturated frame
+        n8 = (blur.LAUNCHES, window.LAUNCHES)
+        if t.blur is not None:
+            n = blur.LAUNCHES_U16
+            got = blur.blur_px(t.blur, x, mx)
+            torch.cuda.synchronize()
+            assert blur.LAUNCHES_U16 == n + 1 and got.dtype == torch.uint16
+            want = round_px(blur_plain(t.blur.plan, x.float()), mx, torch.uint16)
+            _assert_close(got, want, f"K1 u16 {name}")
+        wt = pp.window_tables(gpu)
+        assert wt.sample_bytes == 2
+        n = window.LAUNCHES_U16
+        got = window.remap_window_px(wt, x, mx)
+        torch.cuda.synchronize()
+        assert window.LAUNCHES_U16 == n + len(wt.groups) and got.dtype == torch.uint16
+        assert (blur.LAUNCHES, window.LAUNCHES) == n8  # no uint8 launch
+        want = round_px(remap_plain(t.remap, x), mx, torch.uint16)
+        _assert_close(got, want, f"K3 u16 {name}")
+        assert int(got.int().max()) <= mx
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+@pytest.mark.parametrize("taps", sorted(INTERPS))
+def test_uint16_window_kernel_every_instantiation(taps, mode, gpu):
+    # as test_window_kernel_every_instantiation, on uint16 planes
+    g = torch.Generator(device=gpu).manual_seed(taps)
+    for layout, iw, ih, ow, oh in ((Layout.CUBEMAP_32, 512, 256, 150, 100),
+                                   (Layout.BARREL, 256, 128, 160, 64)):
+        cfg = TransformConfig(output_layout=layout, interpolation_alg=INTERPS[taps], **MONO)
+        pp = P.build_plan(cfg, iw, ih, ow, oh, "gray16le").luma
+        wp = window.build_window_plan(pp.spec, pp.fill, 2)
+        wt = dataclasses.replace(window.WindowTables.from_plan(wp, gpu), mode=MODES[mode])
+        x = _rand_u16((3, ih, iw), 65535, gpu, g)
+        for b in (3, 1):
+            got = window.remap_window_px(wt, x[:b], 65535)
+            want = round_px(window.remap_window_plain(wt, x[:b]), 65535, torch.uint16)
+            assert _same(got, want), (layout, b)
+
+
+@pytest.mark.parametrize("name", ["cubic-cubemap", "linear-barrel", "lanczos4-barrel"])
+def test_uint16_kernels_unaligned_plane(name, gpu):
+    # a plane one sample past a 16-byte boundary: sample-wise loads, 2-byte stores
+    cfg, iw, ih, ow, oh = CASES[name]
+    pp = P.build_plan(cfg, iw, ih, ow, oh, "gray12le").luma
+    g = torch.Generator(device=gpu).manual_seed(5)
+    x = _rand_u16((2 * ih * iw + 1,), 4095, gpu, g)[1:].view(2, ih, iw)
+    t = pp.tables(gpu)
+    if t.blur is not None:
+        want = round_px(blur_plain(t.blur.plan, x.float()), 4095, torch.uint16)
+        assert _same(blur.blur_px(t.blur, x, 4095), want)
+    got = window.remap_window_px(pp.window_tables(gpu), x, 4095)
+    assert _same(got, round_px(remap_plain(t.remap, x), 4095, torch.uint16))
+
+
+@pytest.mark.parametrize("opts, pix_fmt", [
+    ("", "yuv420p10le"),
+    ("", "gray16le"),
+    (":width_scale_factor=2:height_scale_factor=2", "yuv420p"),
+    (":width_scale_factor=1.5:height_scale_factor=2", "yuv444p12le"),
+])
+def test_deep_and_supersampled_engines_match_the_cpu_engine(opts, pix_fmt, gpu, tmp_path):
+    base = "cube_edge_length=64:interpolation_alg=cubic:input_stereo_format=mono" + opts
+    pf = P.config.get_pixel_format(pix_fmt)
+    rng = np.random.default_rng(6)
+    dt = np.uint8 if pf.depth == 8 else np.uint16
+    cw, ch = P.chroma_dims(512, 256, pf)
+    planes = [rng.integers(0, pf.maxval + 1, (9, 256, 512)).astype(dt)]
+    planes += [rng.integers(0, pf.maxval + 1, (9, ch, cw)).astype(dt)
+               for _ in range(pf.n_planes - 1)]
+    eng = P.open_filter(base, 512, 256, pix_fmt=pix_fmt, device=gpu)
+    cpu = P.open_filter(base, 512, 256, pix_fmt=pix_fmt, device="cpu")
+    eng.save_plan(str(tmp_path / "p.npz"))
+    loaded = P.Transform360(eng.config, pix_fmt=pix_fmt, device=gpu)
+    loaded.load_plan(str(tmp_path / "p.npz"))
+    n8 = (blur.LAUNCHES, window.LAUNCHES)
+    n16 = (blur.LAUNCHES_U16, window.LAUNCHES_U16)
+    got = eng.transform(*planes)
+    again = loaded.transform(*planes)
+    want = cpu.transform(*planes)
+    torch.cuda.synchronize()
+    if pf.depth > 8:
+        assert (blur.LAUNCHES, window.LAUNCHES) == n8
+        assert blur.LAUNCHES_U16 > n16[0] and window.LAUNCHES_U16 > n16[1]
+    got, again, want = ((o,) if isinstance(o, torch.Tensor) else o for o in (got, again, want))
+    for a, b, c in zip(got, again, want):
+        assert a.device.type == "cuda" and a.dtype == c.dtype
+        assert _same(a, b)
+        _assert_close(a.cpu(), c, f"engine {pix_fmt}{opts}")

@@ -84,11 +84,15 @@ def test_wrappers_refuse_other_devices_and_bad_inputs(monkeypatch):
     t = eng.plan.luma.tables("cpu")
     wt = eng.plan.luma.window_tables("cpu")
     meta = torch.empty((1, 128, 256), dtype=torch.uint8, device="meta")
-    for fn, tab in ((blur.blur_u8, t.blur), (window.remap_window_u8, wt)):
+    for fn, tab in ((blur.blur_px, t.blur), (window.remap_window_px, wt)):
         with pytest.raises(ValueError):
             fn(tab, meta)  # neither cpu nor cuda: no silent fallback
         with pytest.raises(TypeError):
             fn(tab, torch.zeros((1, 128, 256), dtype=torch.float32))
+        with pytest.raises(TypeError):  # tables cut for uint8 planes
+            fn(tab, torch.zeros((1, 128, 256), dtype=torch.uint16))
+        with pytest.raises(ValueError):  # uint8 samples saturate at 255
+            fn(tab, torch.zeros((1, 128, 256), dtype=torch.uint8), 1023)
         with pytest.raises(ValueError):
             fn(tab, torch.zeros((1, 64, 256), dtype=torch.uint8))
         with pytest.raises(ValueError):
@@ -96,9 +100,9 @@ def test_wrappers_refuse_other_devices_and_bad_inputs(monkeypatch):
     # CPU tensors run the plain versions and never count as kernel launches
     before = (blur.LAUNCHES, window.LAUNCHES)
     calls = []
-    real = pipeline.remap_window_u8
-    monkeypatch.setattr(pipeline, "remap_window_u8",
-                        lambda wt, x: calls.append(x.shape[0]) or real(wt, x))
+    real = pipeline.remap_window_px
+    monkeypatch.setattr(pipeline, "remap_window_px",
+                        lambda wt, x, *a: calls.append(x.shape[0]) or real(wt, x, *a))
     x = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (9, 128, 256), np.uint8))
     assert eng.transform_frame_plane(x[:2], 0, 256, 128).shape == (2, 64, 96)
     assert eng.transform_frame_plane(x, 0, 256, 128).shape == (9, 64, 96)
@@ -111,27 +115,62 @@ def test_wrappers_refuse_other_devices_and_bad_inputs(monkeypatch):
     [
         (dict(backend="native"), "A14"),
         (dict(mesh=object()), "A13"),
-        (dict(pix_fmt="yuv420p10le"), "A10"),
-        (dict(width_scale_factor=2.0), "A6b"),
     ],
 )
 def test_unported_options_raise_naming_the_roadmap_item(kwargs, item):
-    cfg_kw = {k: v for k, v in kwargs.items() if k == "width_scale_factor"}
-    eng_kw = {k: v for k, v in kwargs.items() if k != "width_scale_factor"}
     cfg = t3.TransformConfig(
         input_stereo_format=t3.StereoFormat.MONO,
         output_stereo_format=t3.StereoFormat.MONO,
-        **cfg_kw,
     )
     with pytest.raises(NotImplementedError, match=item):
-        t3.Transform360(cfg, 96, 64, device="cpu", **eng_kw)
+        t3.Transform360(cfg, 96, 64, device="cpu", **kwargs)
 
 
-def test_plan_files_raise_naming_the_roadmap_item(tmp_path):
-    eng = t3.open_filter(
-        "cube_edge_length=32:input_stereo_format=mono", 256, 128, device="cpu"
+@pytest.mark.parametrize(
+    "opts, pix_fmt",
+    [
+        ("", "yuv420p10le"),
+        ("", "gray16le"),
+        (":width_scale_factor=2:height_scale_factor=1.5", "yuv420p"),
+        (":width_scale_factor=0.75", "gbrp12le"),
+    ],
+)
+def test_deep_formats_and_scale_factors_are_served(opts, pix_fmt, tmp_path):
+    # the options that raised before the port served them: the engine
+    # builds, transforms and saves and loads its plan
+    eng = t3.open_filter("cube_edge_length=32:input_stereo_format=mono" + opts, 256, 128,
+                         pix_fmt=pix_fmt, device="cpu")
+    pf = t3.config.get_pixel_format(pix_fmt)
+    dt = np.uint8 if pf.depth == 8 else np.uint16
+    cw, ch = t3.chroma_dims(256, 128, pf)
+    planes = [np.full((128, 256), pf.maxval // 3, dt)] + [np.full((ch, cw), pf.neutral, dt)] * (
+        pf.n_planes - 1)
+    out = eng.transform(*planes)
+    out = out if isinstance(out, tuple) else (out,)
+    assert out[0].dtype == (torch.uint8 if pf.depth == 8 else torch.uint16)
+    assert tuple(out[0].shape) == (eng.output_dims()[1], eng.output_dims()[0])
+    eng.save_plan(str(tmp_path / "p.npz"))
+    eng.load_plan(str(tmp_path / "p.npz"))
+
+
+def test_plan_files_import_no_jax(tmp_path):
+    # saving and loading a plan file pulls in neither jax nor the JAX package
+    code = (
+        "import sys\n"
+        "import transform360_tpu_torch as t3\n"
+        "e = t3.open_filter('cube_edge_length=32:input_stereo_format=mono:"
+        "width_scale_factor=2', 256, 128, pix_fmt='yuv420p10le', device='cpu')\n"
+        f"e.save_plan({str(tmp_path / 'p.npz')!r})\n"
+        f"p = t3.load_plan({str(tmp_path / 'p.npz')!r})\n"
+        "assert p.luma.depth == 10 and p.luma.area is not None\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'transform360_tpu' or m.startswith('transform360_tpu.'))\n"
+        "print(repr(bad))\n"
     )
-    with pytest.raises(NotImplementedError, match="A11"):
-        eng.save_plan(str(tmp_path / "p.npz"))
-    with pytest.raises(NotImplementedError, match="A11"):
-        eng.load_plan(str(tmp_path / "p.npz"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, env=env,
+        cwd=str(ROOT), timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"

@@ -10,7 +10,7 @@
 * ``remap_plain`` against the pack-K (B3, ``build_lane_pack``) and
   merged-window (B4, ``build_lane_merged``) lane kernels at K = 2, the
   JAX pipeline's batch 8-64 route, in interpret mode at batch 8 and 20:
-  the same bound, and the CPU path of ``remap_window_u8`` (K3's plain
+  the same bound, and the CPU path of ``remap_window_px`` (K3's plain
   version, which serves every batch size in the port) equals
   ``remap_plain`` there.  So these hold K3's function against B3 and B4.
 The CUDA kernel K3 itself runs only on a GPU (tests/test_torch_cuda.py,
@@ -34,7 +34,7 @@ from transform360_tpu.ops.remap_lane import (
 )
 from transform360_tpu.pipeline import _round_u8
 from transform360_tpu.sampling import fixup_values, partial_fixup, remap_const
-from transform360_tpu_torch.ops.window import WindowTables, build_window_plan, remap_window_u8
+from transform360_tpu_torch.ops.window import WindowTables, build_window_plan, remap_window_px
 from transform360_tpu_torch.plan import plan_from_jax
 from transform360_tpu_torch.sampling import DeviceSpec, remap_plain, round_u8
 
@@ -65,7 +65,7 @@ def test_remap_plain_exact_vs_remap_const(interp, layout, plane, rng):
     assert got.shape == want.shape
     assert np.array_equal(got, want), f"{(got != want).sum()} pixels differ"
     # K3's wrapper on a CPU tensor (its plain version) gives the same bytes
-    assert np.array_equal(remap_window_u8(wt, torch.from_numpy(x)).numpy(), got)
+    assert np.array_equal(remap_window_px(wt, torch.from_numpy(x)).numpy(), got)
 
 
 @pytest.mark.parametrize(
@@ -128,6 +128,6 @@ def test_remap_plain_vs_lane_pack_and_merged_interpret(kernel, interp, layout):
             want[:, fix[0]] = vals
             want = want.reshape(B, jpp.out_h, jpp.out_w)
         got = round_u8(remap_plain(ds, torch.from_numpy(x))).numpy()
-        assert np.array_equal(remap_window_u8(wt, torch.from_numpy(x)).numpy(), got)
+        assert np.array_equal(remap_window_px(wt, torch.from_numpy(x)).numpy(), got)
         assert got.shape == want.shape
         _assert_within_a_tie(got, want)

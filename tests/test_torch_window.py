@@ -47,7 +47,7 @@ from transform360_tpu_torch.ops.window import (
     WindowTables,
     build_window_plan,
     remap_window_plain,
-    remap_window_u8,
+    remap_window_px,
     smem_bytes,
 )
 from transform360_tpu_torch.plan import plan_from_jax
@@ -209,7 +209,7 @@ def test_remap_window_plain_equals_remap_plain(layout, interp, batch):
         want = remap_plain(DeviceSpec.from_spec(pp.spec, pp.fill, "cpu"), x)
         assert torch.equal(got, want)
         # the CPU path of the wrapper is the plain version, rounded
-        assert torch.equal(remap_window_u8(wt, x), round_u8(want))
+        assert torch.equal(remap_window_px(wt, x), round_u8(want))
 
 
 RAGGED = {Layout.CUBEMAP_32: ((150, 100), (90, 60)), Layout.BARREL: ((170, 68), (100, 40)),
@@ -259,7 +259,7 @@ def test_port_vs_remap_pallas_interpret(name):
         want[:, fix[0]] = vals
         want = want.reshape(batch, jpp.out_h, jpp.out_w)
     wt = WindowTables.from_plan(build_window_plan(tpp.spec, tpp.fill), "cpu")
-    got = remap_window_u8(wt, torch.from_numpy(x)).numpy()
+    got = remap_window_px(wt, torch.from_numpy(x)).numpy()
     assert got.shape == want.shape
     diff = np.abs(got.astype(int) - want.astype(int))
     assert diff.max() <= 1, f"max diff {diff.max()}"
@@ -270,13 +270,13 @@ def _count_routes(monkeypatch):
     """Plane batches that reach K3's wrapper; the pipeline has no other remap."""
     assert not hasattr(pipeline, "remap_u8") and not hasattr(pipeline, "WINDOW_MAX_BATCH")
     calls = []
-    real = pipeline.remap_window_u8
+    real = pipeline.remap_window_px
 
-    def spy(wt, x):
+    def spy(wt, x, *rest):
         calls.append(x.shape[0])
-        return real(wt, x)
+        return real(wt, x, *rest)
 
-    monkeypatch.setattr(pipeline, "remap_window_u8", spy)
+    monkeypatch.setattr(pipeline, "remap_window_px", spy)
     return calls
 
 

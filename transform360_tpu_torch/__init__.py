@@ -4,8 +4,11 @@
 GPU: plan-time warp maps and prefilter plans built on the CPU, and two
 hand-written CUDA kernels on the frame path — the adaptive prefilter
 (``csrc/blur.cu``) and the window-gather remap (``csrc/window.cu``) —
-each with a plain PyTorch version that serves CPU tensors.  ``python -m transform360_tpu_torch.cli``
-is the command-line front end.  The JAX package
+each with a plain PyTorch version that serves CPU tensors, for 8-bit
+and deep (10-, 12-, 16-bit) pixel formats; supersampled configs resize
+with INTER_AREA in torch, and plans save to and load from the JAX
+package's plan files.  ``python -m transform360_tpu_torch.cli`` is the
+command-line front end.  The JAX package
 ``transform360_tpu`` is the reference; this package imports neither it
 nor jax.
 """
@@ -23,7 +26,7 @@ from .config import (
     resolve_stereo_formats,
 )
 from .api import Transform360, open_filter
-from .plan import TransformPlan, build_plan, plan_from_jax
+from .plan import TransformPlan, build_plan, load_plan, plan_from_jax, save_plan
 from .pipeline import transform_batch
 
 __version__ = "0.1.0"
@@ -39,11 +42,13 @@ __all__ = [
     "TransformPlan",
     "build_plan",
     "chroma_dims",
+    "load_plan",
     "negotiate_output_geometry",
     "open_filter",
     "parse_options",
     "plan_from_jax",
     "resolve_stereo_formats",
+    "save_plan",
     "transform_batch",
     "__version__",
 ]

@@ -9,8 +9,9 @@
   geometry (``vf_transform360.c:167-304``) and returns a ready engine.
 
 The engine's device (default ``"cuda"``) is where planes are transformed:
-inputs are moved there, outputs are uint8 tensors there.  Options the
-port does not serve yet raise ``NotImplementedError`` naming the ROADMAP
+inputs are moved there, outputs are tensors there, uint8 or, for the deep
+pixel formats, uint16.  Options the port does not serve yet (the C++
+engine, several GPUs) raise ``NotImplementedError`` naming the ROADMAP
 item; nothing degrades silently.
 """
 
@@ -30,7 +31,7 @@ from .config import (
     resolve_stereo_formats,
 )
 from .pipeline import transform_batch, transform_plane
-from .plan import TransformPlan, build_plan
+from .plan import TransformPlan, build_plan, load_plan, save_plan
 
 
 def _as_plane(p, device: torch.device) -> Optional[torch.Tensor]:
@@ -70,15 +71,6 @@ class Transform360:
                 "mesh= (multi-GPU batch sharding) is not ported yet: ROADMAP A13"
             )
         self._pix_fmt = get_pixel_format(pix_fmt)
-        if self._pix_fmt.depth > 8:
-            raise NotImplementedError(
-                f"{self._pix_fmt.name}: deep formats are not ported yet: ROADMAP A10"
-            )
-        if config.width_scale_factor != 1.0 or config.height_scale_factor != 1.0:
-            raise NotImplementedError(
-                "scale factors other than 1 (supersampling + INTER_AREA) are "
-                "not ported yet: ROADMAP A6b"
-            )
         self._device = torch.device(device)
         if self._device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -136,11 +128,12 @@ class Transform360:
     def transform(self, y, u=None, v=None):
         """Transform one frame or a batch of planar frames.
 
-        ``y``: uint8 [H, W] or [B, H, W] (numpy array or tensor);
-        ``u``/``v`` the chroma planes (omit for single-plane formats).
-        Maps are generated lazily on the first frame, like the reference
-        filter.  Returns uint8 tensors on the engine's device (a bare
-        tensor for single-plane formats).  CUDA work is queued on the
+        ``y``: [H, W] or [B, H, W] (numpy array or tensor), uint8 or, for
+        the deep pixel formats, uint16; ``u``/``v`` the chroma planes (omit
+        for single-plane formats).  Maps are generated lazily on the first
+        frame, like the reference filter.  Returns tensors of the same
+        dtype on the engine's device (a bare tensor for single-plane
+        formats).  CUDA work is queued on the
         current stream; reading the result waits for it.  Every batch
         size runs the same kernels (K1, then the window-gather remap K3).
         """
@@ -173,10 +166,16 @@ class Transform360:
         return self._out_w, self._out_h
 
     def save_plan(self, path: str) -> None:
-        raise NotImplementedError("plan files are not ported yet: ROADMAP A11")
+        """Write the engine's plan to a plan file (see :func:`..plan.save_plan`;
+        the JAX package reads it too)."""
+        if self._plan is None:
+            raise RuntimeError("no plan to save; call generate_map first")
+        save_plan(self._plan, path)
 
     def load_plan(self, path: str) -> None:
-        raise NotImplementedError("plan files are not ported yet: ROADMAP A11")
+        """Adopt a plan from a file written by either package, in place of
+        generating the maps, and move its arrays to the engine's device."""
+        self.use_plan(load_plan(path))
 
 
 def open_filter(

@@ -22,9 +22,13 @@ stdin/stdout (the ffmpeg rawvideo idiom)::
           --input-size 3840x2160 -i - -o out.yuv
 
 ``--batch 1`` is the live-stream setting (one frame per step); larger
-batches trade latency for frames/s.
-Options that need modules not ported yet raise ``NotImplementedError``
-naming their ROADMAP item.
+batches trade latency for frames/s.  ``--pix-fmt`` takes the deep formats
+(``yuv420p10le`` ...) for raw streams, read and written as 16-bit
+little-endian samples.  ``--save-plan`` writes the plan after the run and
+``--load-plan`` reuses one instead of generating the maps (plan files of
+this package or of the JAX package).
+Options that need modules not ported yet (several GPUs, the C++ engine)
+raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -171,7 +175,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--pix-fmt", default="yuv420p",
         help="planar pixel format of raw streams (yuv420p/yuv422p/"
-             "yuv444p/yuv411p/yuv410p/gray); video containers are yuv420p",
+             "yuv444p/yuv411p/yuv410p/gray, and the deep formats such as "
+             "yuv420p10le/gray16le); video containers are yuv420p",
     )
     p.add_argument("--batch", type=int, default=8, help="frames per device step")
     p.add_argument(
@@ -196,12 +201,10 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--frames", type=int, default=0, help="max frames (0 = all)")
     p.add_argument(
-        "--save-plan", default=None,
-        help="serialize the built plan (not ported yet: ROADMAP A11)",
+        "--save-plan", default=None, help="serialize the built plan to this path"
     )
     p.add_argument(
-        "--load-plan", default=None,
-        help="reuse a previously saved plan (not ported yet: ROADMAP A11)",
+        "--load-plan", default=None, help="reuse a previously saved plan"
     )
     p.add_argument("--stats", action="store_true", help="print a JSON stats line")
     p.add_argument(
@@ -226,8 +229,6 @@ def _refuse_unported(args) -> None:
         raise NotImplementedError("--distributed (multi-host runs) is not ported yet: ROADMAP A13")
     if args.backend == "native":
         raise NotImplementedError("--backend native (the C++ engine) is not ported yet: ROADMAP A14")
-    if args.save_plan or args.load_plan:
-        raise NotImplementedError("plan files (--save-plan/--load-plan) are not ported yet: ROADMAP A11")
 
 
 def main(argv=None) -> int:
@@ -264,7 +265,10 @@ def main(argv=None) -> int:
         print("error: video-container output requires yuv420p", file=sys.stderr)
         return 2
 
-    t = open_filter(args.vf, in_w, in_h, pix_fmt=pf, device=args.device)
+    t = open_filter(args.vf, in_w, in_h, eager=args.load_plan is None, pix_fmt=pf,
+                    device=args.device)
+    if args.load_plan:
+        t.load_plan(args.load_plan)
 
     # with stdout as the output stream, diagnostics must not corrupt it
     stats = StageStats(stream=sys.stderr if args.output == "-" else sys.stdout)
@@ -284,6 +288,8 @@ def main(argv=None) -> int:
     finally:
         stop.set()  # release a reader blocked on the full queue
     dt = time.perf_counter() - t0
+    if args.save_plan:
+        t.save_plan(args.save_plan)
 
     out_w, out_h = t.output_dims()
     if args.stats:

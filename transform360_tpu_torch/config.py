@@ -442,9 +442,8 @@ class PixelFormat:
     bit depth.  The reference wraps every plane as CV_8U bytes
     (``VideoFrameTransform.cpp:1331-1335``) and would CORRUPT >8-bit
     planes; the deep formats here are an intentional capability beyond
-    it: samples are little-endian 16-bit containers (ffmpeg ``*le``).
-    The port's kernels are uint8-only so far; its engine refuses the deep
-    formats (ROADMAP A10)."""
+    it: samples are little-endian 16-bit containers (ffmpeg ``*le``), which
+    the port's kernels take as uint16 planes."""
 
     name: str
     n_planes: int
@@ -491,8 +490,8 @@ PIXEL_FORMATS = {
         PixelFormat("gbrp", 3, 0, 0),
         PixelFormat("gray", 1, 0, 0),
         # High-bit-depth planar formats (beyond the reference — see the
-        # class docstring).  Parsed here; the port's uint8 kernels do not
-        # serve them yet (ROADMAP A10).
+        # class docstring): uint16 planes through the kernels' uint16
+        # instantiations.
         PixelFormat("yuv420p10le", 3, 1, 1, depth=10),
         PixelFormat("yuv422p10le", 3, 1, 0, depth=10),
         PixelFormat("yuv444p10le", 3, 0, 0, depth=10),

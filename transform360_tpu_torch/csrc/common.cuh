@@ -30,6 +30,21 @@ __device__ __forceinline__ float byte_to_float(uint32_t w, int k) {
                    8388608.0f);
 }
 
+// The float value of 16-bit half k of w, the same way: 0x4B00hhll is the
+// float 2^23 + v, exact for every v < 2^16.
+__device__ __forceinline__ float half_to_float(uint32_t w, int k) {
+  return __fsub_rn(__uint_as_float(__byte_perm(w, 0x4B000000u, 0x7410 | (k * 0x22))),
+                   8388608.0f);
+}
+
+// Sample j of word w as a float: a byte (uint8 planes) or a 16-bit half
+// (uint16 planes).
+template <typename S>
+__device__ __forceinline__ float sample_to_float(uint32_t w, int j) {
+  if (sizeof(S) == 1) return byte_to_float(w, j);
+  return half_to_float(w, j);
+}
+
 // 16-byte asynchronous copy from device to shared memory (both 16-aligned).
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));

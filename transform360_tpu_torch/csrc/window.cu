@@ -1,5 +1,6 @@
-// K3: the uint8 remap on OpenCV's 1/32 grid, staged through shared memory
-// one output tile at a time, with the half-up round, at every batch size.
+// K3: the remap on OpenCV's 1/32 grid, staged through shared memory one
+// output tile at a time, with the half-up round, at every batch size, for
+// uint8 planes and for uint16 planes (the 10-, 12- and 16-bit formats).
 //
 // Replaces the Pallas kernel transform360_tpu/ops/remap_pallas.py:441
 // (_make_kernel, run by _run_class, entry remap_pallas) together with its
@@ -8,20 +9,22 @@
 // JAX pipeline applies after it (sampling.fixup_values).  It also computes
 // the function of the lane-batched kernels B2-B4 (remap_lane.py), and of
 // the plain version transform360_tpu_torch.sampling.remap_plain, bit for
-// bit.
+// bit.  Its uint16 instantiation takes the place of the JAX package's XLA
+// remap for the deep formats (sampling.remap_const / remap_traced followed
+// by pipeline._round_px), which ran because B5 is uint8-only.
 //
 // What bounds it on the H100: instruction issue, not bytes.  A 4K luma
-// frame is 8.3 MB in and 1.6 MB out, but every output pixel gathers T x T
+// frame is 8.3 MB in and 1.6 MB out (twice that at uint16), but every output pixel gathers T x T
 // taps from anywhere in a window of the source, and each tap costs a load,
 // a conversion, a product and a sum.  K3 gives each CTA of 256 threads one
 // 16x16 output tile, one pixel per thread: ops/window.py builds the plan on
 // the CPU.  Per tile, once for its frames:
 //   * the CTA resolves the border rule (wrap modulo the plane, clamp, or
 //     REFLECT_101) for every 16-byte chunk of the tile's source window --
-//     wh rows of `pitch` bytes from a 16-aligned column -- into a chunk
-//     table in shared memory: the chunk's offset in a frame, or a mark that
-//     it is copied byte by byte (across the seam or an edge, or a plane
-//     whose rows are not 16-aligned).  No division or modulo runs in K3;
+//     wh rows of `pitch` samples from a 16-byte-aligned column -- into a
+//     chunk table in shared memory: the chunk's offset in a frame, or a
+//     mark that it is copied sample by sample (across the seam or an edge,
+//     or a plane whose rows are not 16-byte aligned).  No division or modulo runs in K3;
 //   * each thread reads its pixel's plan entry and forms its weights
 //     float32(w1[fy][ty] * w1[fx][tx]) from the float64 table w1 [32, T]
 //     -- the very values of sampling.weight_table.
@@ -30,20 +33,23 @@
 // frame the CTA issues one 16-byte cp.async per chunk from the table,
 // double-buffered so that the next frames' windows load while these are
 // computed (the counterpart of the TPU kernel's double-buffered window
-// DMA).  Where the launch asks for it (windows of class 0), a pass takes
+// DMA).  The plan's window budgets are in bytes, so a uint16 window holds
+// half the samples of a uint8 one.  Where the launch asks for it (windows of class 0), a pass takes
 // two frames: their sums share the weights and interleave, and the
 // barriers and the copies' bookkeeping are paid once.  A thread reads each
-// tap row as the aligned 32-bit words that hold it (2 for T = 4, never a
-// word past the row's last tap), funnel-shifts them into place and turns
-// each byte into a float with two full-rate instructions (no I2F); the sum
-// runs ty-major, tx-minor, each product and each sum rounded on its own
-// (-fmad=false; __fmul_rn/__fadd_rn), the fill term last; the round to a
-// byte is full-rate too.  Tiles whose window exceeds the largest class
-// (cubemap pole tiles) have pitch 0 and gather from device memory in this
-// same kernel.
+// tap row as the aligned 32-bit words that hold it (4 samples a word at
+// uint8, 2 at uint16; 2 words for T = 4 at uint8, never a word past the
+// row's last tap), funnel-shifts them into place and turns each sample
+// into a float with two full-rate instructions (PRMT to 0x4B0000bb or
+// 0x4B00hhll, then one subtract; no I2F); the sum runs ty-major,
+// tx-minor, each product and each sum rounded on its own (-fmad=false;
+// __fmul_rn/__fadd_rn), the fill term last; the round, saturated at 255 or
+// at the depth's maximum, is full-rate too.  Tiles whose window exceeds
+// the largest class (cubemap pole tiles) have pitch 0 and gather from
+// device memory in this same kernel.
 //
-// Per pixel the plan holds ly | lx << 16 (window-relative first tap),
-// fy (bit 7: outside the valid mask) and fx: 6 B.
+// Per pixel the plan holds ly | lx << 16 (window-relative first tap, in
+// samples), fy (bit 7: outside the valid mask) and fx: 6 B.
 
 #include "common.cuh"
 
@@ -51,7 +57,14 @@ namespace {
 
 constexpr int kTH = 16, kTW = 16;  // output tile rows, columns
 constexpr int kThreads = kTH * kTW;  // one output pixel per thread
-constexpr uint32_t kBytewise = 0x80000000u;  // chunk-table mark: byte copies
+constexpr uint32_t kBytewise = 0x80000000u;  // chunk-table mark: sample copies
+
+// log2 of the samples in a 32-bit word and in a 16-byte chunk: 2 and 4
+// for uint8 samples, 1 and 3 for uint16.
+template <typename S>
+constexpr int kLogWord = sizeof(S) == 1 ? 2 : 1;
+template <typename S>
+constexpr int kLogChunk = kLogWord<S> + 2;
 
 // A CTA's dynamic shared memory: two passes of one or two frames' windows
 // and the chunk table.
@@ -59,10 +72,11 @@ constexpr int smem_bytes(int win_bytes, bool pairs) {
   return (pairs ? 4 : 2) * win_bytes + win_bytes / 4;
 }
 
+template <typename S>
 struct Args {
-  const uint8_t* src;   // [B, H, W]
-  uint8_t* dst;         // [B, out_h, out_w]
-  const int* meta;      // [n, 6]: out row, out col, y0, x0, wh, pitch
+  const S* src;         // [B, H, W]
+  S* dst;               // [B, out_h, out_w]
+  const int* meta;      // [n, 6]: out row, out col, y0, x0, wh, pitch (samples)
   const uint32_t* pos;  // [n * 256]: ly | lx << 16, tile rows of 16
   const uint8_t* fy;    // fy | (not valid) << 7
   const uint8_t* fx;
@@ -71,7 +85,8 @@ struct Args {
   int first, win_bytes;
   int frames;  // per CTA: frames [blockIdx.y * frames, ...) of the batch
   float fill;
-  bool vec;    // W and src are 16-aligned
+  float maxval;  // uint16: the depth's largest sample (uint8: 255)
+  bool vec;    // W and src are 16-byte aligned
   bool pairs;  // two frames per pass
 };
 
@@ -103,74 +118,80 @@ __device__ __forceinline__ int resolve(int i, int n) {
   return t360::clamp_idx(i, n);  // fill: clamp, weight zeroed below
 }
 
-// t360::round_u8 with full-rate instructions: x + 0.5 clamped to
-// [0, 255], floored by adding 2^23 rounded down; the low byte of that
-// float's bits is the result.
-__device__ __forceinline__ uint32_t round_byte(float x) {
-  const float c = fminf(fmaxf(__fadd_rn(x, 0.5f), 0.0f), 255.0f);
-  return __float_as_uint(__fadd_rd(c, 8388608.0f)) & 0xFFu;
+// The half-up round saturated to the sample's maximum (255, or maxval for
+// uint16), with full-rate instructions: x + 0.5 clamped to [0, max],
+// floored by adding 2^23 rounded down; the low bits of that float's bits
+// are the result.
+template <typename S>
+__device__ __forceinline__ uint32_t round_sample(float x, float maxval) {
+  const float mx = sizeof(S) == 1 ? 255.0f : maxval;
+  const float c = fminf(fmaxf(__fadd_rn(x, 0.5f), 0.0f), mx);
+  return __float_as_uint(__fadd_rd(c, 8388608.0f)) & (sizeof(S) == 1 ? 0xFFu : 0xFFFFu);
 }
 
 // Copy one 16-byte chunk of a frame's window to d; e is its table entry.
-template <int MODE>
-__device__ __forceinline__ void copy_chunk(const uint8_t* __restrict__ frame,
-                                           uint8_t* d, uint32_t e, int x0, int W) {
+template <typename S, int MODE>
+__device__ __forceinline__ void copy_chunk(const S* __restrict__ frame, S* d, uint32_t e,
+                                           int x0, int W) {
   if (!(e & kBytewise)) {
     t360::cp_async16(d, frame + e);
   } else {
-    const uint8_t* row = frame + static_cast<size_t>(e & 0xFFFFu) * W;
-    const int gx = x0 + static_cast<int>((e >> 16) & 0x7FFFu) * 16;
+    constexpr int n = 1 << kLogChunk<S>;
+    const S* row = frame + static_cast<size_t>(e & 0xFFFFu) * W;
+    const int gx = x0 + (static_cast<int>((e >> 16) & 0x7FFFu) << kLogChunk<S>);
 #pragma unroll
-    for (int j = 0; j < 16; ++j) d[j] = row[resolve<MODE>(gx + j, W)];
+    for (int j = 0; j < n; ++j) d[j] = row[resolve<MODE>(gx + j, W)];
   }
 }
 
 // Once per tile: the table entry of every chunk of the window (chunk
-// i = r * cpr + c lands at buf + 16 i), and frame 0's copy of it.
-template <int MODE>
-__device__ __forceinline__ void chunk_table(const uint8_t* __restrict__ frame0,
-                                            uint8_t* buf, uint32_t* tab, int y0,
-                                            int x0, int wh, int cpr, int H, int W,
-                                            bool vec) {
+// i = r * cpr + c lands at 16 i bytes into buf), and frame 0's copy of it.
+template <typename S, int MODE>
+__device__ __forceinline__ void chunk_table(const S* __restrict__ frame0, S* buf,
+                                            uint32_t* tab, int y0, int x0, int wh,
+                                            int cpr, int H, int W, bool vec) {
+  constexpr int lc = kLogChunk<S>;
   for (int r = threadIdx.x >> 4; r < wh; r += kThreads >> 4) {
     const int rr = resolve<MODE>(y0 + r, H);
     for (int c = threadIdx.x & 15; c < cpr; c += 16) {
-      const int gx = x0 + (c << 4);
+      const int gx = x0 + (c << lc);
       // past the seam a wrapped window continues at column gx - W
       const int gv = (MODE == 0 && gx >= W) ? gx - W : gx;
-      const uint32_t e = (vec && gv >= 0 && gv + 16 <= W)
+      const uint32_t e = (vec && gv >= 0 && gv + (1 << lc) <= W)
                              ? static_cast<uint32_t>(rr * W + gv)
                              : kBytewise | static_cast<uint32_t>(c) << 16 |
                                    static_cast<uint32_t>(rr);
       const int i = r * cpr + c;
       tab[i] = e;
-      copy_chunk<MODE>(frame0, buf + (i << 4), e, x0, W);
+      copy_chunk<S, MODE>(frame0, buf + (i << lc), e, x0, W);
     }
   }
 }
 
 // One frame's window from the chunk table.
-template <int MODE>
-__device__ __forceinline__ void stage(const uint8_t* __restrict__ frame, uint8_t* buf,
+template <typename S, int MODE>
+__device__ __forceinline__ void stage(const S* __restrict__ frame, S* buf,
                                       const uint32_t* tab, int n, int x0, int W) {
   for (int i = threadIdx.x; i < n; i += kThreads)
-    copy_chunk<MODE>(frame, buf + (i << 4), tab[i], x0, W);
+    copy_chunk<S, MODE>(frame, buf + (i << kLogChunk<S>), tab[i], x0, W);
 }
 
 // One pixel's sum over its T x T taps in the staged window, whose first
-// tap is byte o of buf.  Each tap row is read as the aligned words that
-// hold it: words o/4 + min(i, last) for i = 0 .. (T+3)/4, where `last` is
-// the word of the row's last tap, so no load reaches past that tap.
-template <int T>
-__device__ __forceinline__ float sum_staged(const uint8_t* buf, int o, int pitch,
-                                            const float* w) {
-  const uint32_t* base = reinterpret_cast<const uint32_t*>(buf + (o & ~3));
-  const int k = o & 3;
-  if (T == 1) return t360::byte_to_float(base[0], k);
-  constexpr int NQ = (T + 3) / 4;  // words of taps per row
-  const int last = (k + T - 1) >> 2;
-  const int s = k << 3;
-  const int pw = pitch >> 2;
+// tap is sample o of buf.  Each tap row is read as the aligned words that
+// hold it: words o/P + min(i, last) for i = 0 .. (T+P-1)/P, where P is the
+// samples per word and `last` the word of the row's last tap, so no load
+// reaches past that tap.
+template <typename S, int T>
+__device__ __forceinline__ float sum_staged(const S* buf, int o, int pitch, const float* w) {
+  constexpr int lw = kLogWord<S>;
+  constexpr int P = 1 << lw;  // samples per word
+  const uint32_t* base = reinterpret_cast<const uint32_t*>(buf + (o & ~(P - 1)));
+  const int k = o & (P - 1);
+  if (T == 1) return t360::sample_to_float<S>(base[0], k);
+  constexpr int NQ = (T + P - 1) / P;  // words of taps per row
+  const int last = (k + T - 1) >> lw;
+  const int s = k << (sizeof(S) == 1 ? 3 : 4);
+  const int pw = pitch >> lw;
   float acc = 0.0f;
 #pragma unroll
   for (int ty = 0; ty < T; ++ty) {
@@ -182,9 +203,9 @@ __device__ __forceinline__ float sum_staged(const uint8_t* buf, int o, int pitch
     for (int q = 0; q < NQ; ++q) {
       const uint32_t v = __funnelshift_r(a[q], a[q + 1], s);
 #pragma unroll
-      for (int j = 0; j < 4 && 4 * q + j < T; ++j) {
-        const int tx = 4 * q + j;
-        const float term = __fmul_rn(w[ty * T + tx], t360::byte_to_float(v, j));
+      for (int j = 0; j < P && P * q + j < T; ++j) {
+        const int tx = P * q + j;
+        const float term = __fmul_rn(w[ty * T + tx], t360::sample_to_float<S>(v, j));
         acc = (ty == 0 && tx == 0) ? term : __fadd_rn(acc, term);
       }
     }
@@ -196,17 +217,17 @@ __device__ __forceinline__ float sum_staged(const uint8_t* buf, int o, int pitch
 // source row y, column x before the border rule.  The empty asm keeps the
 // compiler from hoisting every pixel's loads ahead of the sums: those
 // registers would cost the staged tiles their occupancy.
-template <int T, int MODE>
-__device__ __forceinline__ float sum_global(const uint8_t* __restrict__ frame, int y,
-                                            int x, int H, int W, const float* w) {
+template <typename S, int T, int MODE>
+__device__ __forceinline__ float sum_global(const S* __restrict__ frame, int y, int x,
+                                            int H, int W, const float* w) {
   float acc = 0.0f;
 #pragma unroll
   for (int ty = 0; ty < T; ++ty) {
     asm volatile("" ::: "memory");
-    const uint8_t* row = frame + static_cast<size_t>(resolve<MODE>(y + ty, H)) * W;
+    const S* row = frame + static_cast<size_t>(resolve<MODE>(y + ty, H)) * W;
 #pragma unroll
     for (int tx = 0; tx < T; ++tx) {
-      const float g = t360::byte_to_float(row[resolve<MODE>(x + tx, W)], 0);
+      const float g = t360::sample_to_float<S>(row[resolve<MODE>(x + tx, W)], 0);
       if (T == 1) return g;
       const float term = __fmul_rn(w[ty * T + tx], g);
       acc = (ty == 0 && tx == 0) ? term : __fadd_rn(acc, term);
@@ -216,41 +237,44 @@ __device__ __forceinline__ float sum_global(const uint8_t* __restrict__ frame, i
 }
 
 // The fill term, the valid mask, the round and the store of one frame.
-template <int T, int MODE>
-__device__ __forceinline__ void put(uint8_t* out, float acc, float fill_term, bool invalid,
-                                    uint32_t fill_byte, int oo) {
+template <typename S, int T, int MODE>
+__device__ __forceinline__ void put(S* out, float acc, float fill_term, bool invalid,
+                                    uint32_t fill_px, float maxval, int oo) {
   if (oo < 0) return;
   const float v = (MODE == 1 && T > 1) ? __fadd_rn(acc, fill_term) : acc;
-  out[oo] = static_cast<uint8_t>(invalid ? fill_byte : round_byte(v));
+  out[oo] = static_cast<S>(invalid ? fill_px : round_sample<S>(v, maxval));
 }
 
 // Four CTAs per SM where a thread's weights are 16 registers or fewer (at
 // most 64 registers), else two.
-template <int T, int MODE>
+template <typename S, int T, int MODE>
 __global__ void __launch_bounds__(kThreads, T * T <= 16 ? 4 : 2)
-    window_kernel(const Args a) {
+    window_kernel(const Args<S> a) {
   extern __shared__ __align__(16) unsigned char smem[];
   // frames per pass: two where the launch holds four windows (two passes
   // in flight), else one
   const int fp = a.pairs ? 2 : 1;
   uint32_t* tab = reinterpret_cast<uint32_t*>(smem + 2 * fp * a.win_bytes);
+  S* const bufs = reinterpret_cast<S*>(smem);
+  const int win = a.win_bytes / static_cast<int>(sizeof(S));  // samples per window
 
   const int t = a.first + blockIdx.x;
   const int* m = a.meta + 6 * t;
   const int y0 = m[2], x0 = m[3], wh = m[4], pitch = m[5];
   const bool staged = pitch > 0;  // uniform over the CTA
-  const int nchunks = wh * (pitch >> 4);
+  const int nchunks = wh * (pitch >> kLogChunk<S>);
   const size_t plane = static_cast<size_t>(a.H) * a.W;
   const size_t N = static_cast<size_t>(a.out_h) * a.out_w;
   const int f0 = blockIdx.y * a.frames;
   const int nf = min(a.frames, a.B - f0);
-  const uint8_t* src = a.src + f0 * plane;
-  uint8_t* dst = a.dst + f0 * N;
+  const S* src = a.src + f0 * plane;
+  S* dst = a.dst + f0 * N;
 
   // frame f + j of a pass with parity `half` is staged at
-  // smem + (half * fp + j) * win_bytes
+  // bufs + (half * fp + j) * win
   if (staged)  // frame 0's window is in flight while the pixel is set up
-    chunk_table<MODE>(src, smem, tab, y0, x0, wh, pitch >> 4, a.H, a.W, a.vec);
+    chunk_table<S, MODE>(src, bufs, tab, y0, x0, wh, pitch >> kLogChunk<S>, a.H, a.W,
+                         a.vec);
 
   const int oy = m[0] + threadIdx.x / kTW;
   const int ox = m[1] + threadIdx.x % kTW;
@@ -262,7 +286,7 @@ __global__ void __launch_bounds__(kThreads, T * T <= 16 ? 4 : 2)
   const int fy = fyb & 0x7F;
   const int fx = a.fx[ip];
   const bool invalid = (fyb >> 7) != 0;
-  // staged: byte of the first tap in the window; else ly | lx << 16
+  // staged: sample of the first tap in the window; else ly | lx << 16
   const int o = staged ? ly * pitch + lx : static_cast<int>(ps);
   const int oo = (oy < a.out_h && ox < a.out_w) ? oy * a.out_w + ox : -1;
   float w[T * T];
@@ -287,10 +311,10 @@ __global__ void __launch_bounds__(kThreads, T * T <= 16 ? 4 : 2)
     }
   }
   const float fill_term = __fmul_rn(fill_w, a.fill);
-  const uint32_t fill_byte = round_byte(a.fill);
+  const uint32_t fill_px = round_sample<S>(a.fill, a.maxval);
   if (staged) {
     __syncthreads();  // the chunk table is complete
-    if (fp == 2 && nf > 1) stage<MODE>(src + plane, smem + a.win_bytes, tab, nchunks, x0, a.W);
+    if (fp == 2 && nf > 1) stage<S, MODE>(src + plane, bufs + win, tab, nchunks, x0, a.W);
     t360::cp_async_commit();
   }
 
@@ -300,8 +324,8 @@ __global__ void __launch_bounds__(kThreads, T * T <= 16 ? 4 : 2)
     if (staged) {
       for (int j = 0; j < fp; ++j)  // the next pass's frames
         if (f + fp + j < nf)
-          stage<MODE>(src + (f + fp + j) * plane, smem + ((half ^ 1) * fp + j) * a.win_bytes,
-                      tab, nchunks, x0, a.W);
+          stage<S, MODE>(src + (f + fp + j) * plane, bufs + ((half ^ 1) * fp + j) * win, tab,
+                         nchunks, x0, a.W);
       t360::cp_async_commit();  // empty past the batch's end
       t360::cp_async_wait<1>();
       __syncthreads();  // this pass's windows are complete
@@ -309,83 +333,108 @@ __global__ void __launch_bounds__(kThreads, T * T <= 16 ? 4 : 2)
     // the branches stay outside the sums, so the two frames' sums
     // interleave
     float acc0, acc1 = 0.0f;
-    const uint8_t* buf = smem + half * fp * a.win_bytes;
+    const S* buf = bufs + half * fp * win;
     if (staged) {
-      acc0 = sum_staged<T>(buf, o, pitch, w);
-      if (two) acc1 = sum_staged<T>(buf + a.win_bytes, o, pitch, w);
+      acc0 = sum_staged<S, T>(buf, o, pitch, w);
+      if (two) acc1 = sum_staged<S, T>(buf + win, o, pitch, w);
     } else {
-      acc0 = sum_global<T, MODE>(src + f * plane, y0 + (o & 0xFFFF), x0 + (o >> 16), a.H, a.W, w);
+      acc0 = sum_global<S, T, MODE>(src + f * plane, y0 + (o & 0xFFFF), x0 + (o >> 16), a.H,
+                                    a.W, w);
       if (two)
-        acc1 = sum_global<T, MODE>(src + (f + 1) * plane, y0 + (o & 0xFFFF), x0 + (o >> 16),
-                                   a.H, a.W, w);
+        acc1 = sum_global<S, T, MODE>(src + (f + 1) * plane, y0 + (o & 0xFFFF), x0 + (o >> 16),
+                                      a.H, a.W, w);
     }
-    put<T, MODE>(dst + f * N, acc0, fill_term, invalid, fill_byte, oo);
-    if (two) put<T, MODE>(dst + (f + 1) * N, acc1, fill_term, invalid, fill_byte, oo);
+    put<S, T, MODE>(dst + f * N, acc0, fill_term, invalid, fill_px, a.maxval, oo);
+    if (two) put<S, T, MODE>(dst + (f + 1) * N, acc1, fill_term, invalid, fill_px, a.maxval, oo);
     if (staged) __syncthreads();  // this half is free for the pass after next
     half ^= 1;
   }
 }
 
-using Kernel = void (*)(const Args);
-
-template <int T>
-Kernel with_mode(int mode) {
+template <typename S, int T>
+const void* with_mode(int mode) {
   switch (mode) {
-    case 0: return window_kernel<T, 0>;
-    case 1: return window_kernel<T, 1>;
-    case 2: return window_kernel<T, 2>;
+    case 0: return reinterpret_cast<const void*>(window_kernel<S, T, 0>);
+    case 1: return reinterpret_cast<const void*>(window_kernel<S, T, 1>);
+    case 2: return reinterpret_cast<const void*>(window_kernel<S, T, 2>);
     default: return nullptr;
   }
 }
 
-// The instantiation for T taps and a border mode.
-Kernel kernel_for(int taps, int mode) {
+template <typename S>
+const void* with_taps(int taps, int mode) {
   switch (taps) {
-    case 1: return with_mode<1>(mode);
-    case 2: return with_mode<2>(mode);
-    case 4: return with_mode<4>(mode);
-    case 8: return with_mode<8>(mode);
+    case 1: return with_mode<S, 1>(mode);
+    case 2: return with_mode<S, 2>(mode);
+    case 4: return with_mode<S, 4>(mode);
+    case 8: return with_mode<S, 8>(mode);
     default: return nullptr;
   }
 }
 
-cudaError_t allow_smem(Kernel k, int smem) {
+// The instantiation for a sample size (1: uint8, 2: uint16), T taps and a
+// border mode.
+const void* kernel_for(int sample_bytes, int taps, int mode) {
+  switch (sample_bytes) {
+    case 1: return with_taps<uint8_t>(taps, mode);
+    case 2: return with_taps<uint16_t>(taps, mode);
+    default: return nullptr;
+  }
+}
+
+cudaError_t allow_smem(const void* k, int smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(reinterpret_cast<const void*>(k),
-                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  return cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
+template <typename S>
+cudaError_t launch(const void* k, const void* src, void* dst, int B, int H, int W, int out_h,
+                   int out_w, const int* meta, const uint32_t* pos, const uint8_t* fy,
+                   const uint8_t* fx, const double* w1, int first, int tiles, int win_bytes,
+                   float fill, float maxval, int vec, int frames, int pairs, int smem,
+                   cudaStream_t stream) {
+  Args<S> a{static_cast<const S*>(src), static_cast<S*>(dst), meta, pos, fy, fx, w1,
+            B, H, W, out_h, out_w, first, win_bytes, frames, fill, maxval, vec != 0,
+            pairs != 0};
+  void* args[] = {&a};
+  const dim3 grid(tiles, (B + frames - 1) / frames);
+  return cudaLaunchKernel(k, grid, dim3(kThreads), args, smem, stream);
 }
 
 }  // namespace
 
-// src: uint8 [B, H, W]; dst: uint8 [B, out_h, out_w]; meta int32 [n, 6]
-// (out row, out col, y0, x0, wh, pitch; pitch 0: global path); pos uint32,
-// fy/fx uint8 [n * 256], tiles of 16x16; w1 float64 [32, taps].  Launches
-// tiles first .. first + tiles - 1, each CTA with 2 (pairs: 4) * win_bytes
-// of window buffers and win_bytes / 4 of chunk table (win_bytes a multiple
-// of 16), and `frames` frames of the batch, one (pairs: two) per pass.
-// vec: W and src are 16-aligned.
-extern "C" int t360_window(const uint8_t* src, uint8_t* dst, int B, int H,
-                           int W, int out_h, int out_w, const int* meta,
-                           const uint32_t* pos, const uint8_t* fy,
-                           const uint8_t* fx, const double* w1, int first,
-                           int tiles, int win_bytes, int taps, int mode, float fill,
-                           int vec, int frames, int pairs, void* stream) {
-  const Kernel k = kernel_for(taps, mode);
+// src: [B, H, W] and dst: [B, out_h, out_w] samples of sample_bytes each
+// (1: uint8; 2: uint16, rounded and saturated to maxval, the depth's
+// largest sample); meta int32 [n, 6] (out row, out col, y0, x0, wh, pitch
+// in samples; pitch 0: global path); pos uint32, fy/fx uint8 [n * 256],
+// tiles of 16x16; w1 float64 [32, taps].  Launches tiles first .. first +
+// tiles - 1, each CTA with 2 (pairs: 4) * win_bytes of window buffers and
+// win_bytes / 4 of chunk table (win_bytes a multiple of 16), and `frames`
+// frames of the batch, one (pairs: two) per pass.  vec: W and src are
+// 16-byte aligned.
+extern "C" int t360_window(const void* src, void* dst, int sample_bytes, float maxval, int B,
+                           int H, int W, int out_h, int out_w, const int* meta,
+                           const uint32_t* pos, const uint8_t* fy, const uint8_t* fx,
+                           const double* w1, int first, int tiles, int win_bytes, int taps,
+                           int mode, float fill, int vec, int frames, int pairs,
+                           void* stream) {
+  const void* k = kernel_for(sample_bytes, taps, mode);
   if (k == nullptr || B <= 0 || H <= 0 || W <= 0 || out_h <= 0 || out_w <= 0 ||
       tiles <= 0 || first < 0 || win_bytes < 0 || frames <= 0 ||
       (B + frames - 1) / frames > 65535 || (win_bytes & 15) != 0 ||
       static_cast<long long>(H) * W >= (1LL << 31) || H >= (1 << 16) ||
-      smem_bytes(win_bytes, pairs) > 227 * 1024)
+      smem_bytes(win_bytes, pairs) > 227 * 1024 ||
+      (sample_bytes == 1 ? maxval != 255.0f : !(maxval >= 255.0f && maxval <= 65535.0f)))
     return static_cast<int>(cudaErrorInvalidValue);
   const int smem = smem_bytes(win_bytes, pairs);
   cudaError_t e = allow_smem(k, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  Args a{src, dst, meta, pos, fy, fx, w1, B, H, W, out_h, out_w,
-         first, win_bytes, frames, fill, vec != 0, pairs != 0};
-  void* args[] = {&a};
-  const dim3 grid(tiles, (B + frames - 1) / frames);
-  e = cudaLaunchKernel(reinterpret_cast<const void*>(k), grid, dim3(kThreads),
-                       args, smem, static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  e = sample_bytes == 1
+          ? launch<uint8_t>(k, src, dst, B, H, W, out_h, out_w, meta, pos, fy, fx, w1, first,
+                            tiles, win_bytes, fill, maxval, vec, frames, pairs, smem, st)
+          : launch<uint16_t>(k, src, dst, B, H, W, out_h, out_w, meta, pos, fy, fx, w1, first,
+                             tiles, win_bytes, fill, maxval, vec, frames, pairs, smem, st);
   if (e != cudaSuccess) return static_cast<int>(e);
   T360_CHECK_LAUNCH();
   return 0;
@@ -394,17 +443,17 @@ extern "C" int t360_window(const uint8_t* src, uint8_t* dst, int B, int H,
 // One instantiation's registers, local memory bytes (spills and stack),
 // resident CTAs per SM and dynamic shared memory for a launch with
 // win_bytes of window, with two frames per pass or one: out[0..3].
-extern "C" int t360_window_attrs(int taps, int mode, int win_bytes, int pairs, int* out) {
-  const Kernel k = kernel_for(taps, mode);
+extern "C" int t360_window_attrs(int sample_bytes, int taps, int mode, int win_bytes,
+                                 int pairs, int* out) {
+  const void* k = kernel_for(sample_bytes, taps, mode);
   if (k == nullptr || win_bytes < 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaFuncAttributes fa;
-  cudaError_t e = cudaFuncGetAttributes(&fa, reinterpret_cast<const void*>(k));
+  cudaError_t e = cudaFuncGetAttributes(&fa, k);
   const int smem = smem_bytes(win_bytes, pairs);
   if (e == cudaSuccess) e = allow_smem(k, smem);
   int blocks = 0;
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, reinterpret_cast<const void*>(k), kThreads, smem);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, kThreads, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   out[0] = fa.numRegs;
   out[1] = static_cast<int>(fa.localSizeBytes);

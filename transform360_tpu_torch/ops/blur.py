@@ -1,16 +1,20 @@
 """Prefilter wrapper: the CUDA kernel K1 (``csrc/blur.cu``) or, for a
 tensor on the CPU, its plain version :func:`..filtering.blur_plain`
-followed by the half-up round.
+followed by the half-up round, on uint8 planes or on uint16 planes (the
+deep formats, saturated at the depth's maximum).
 
 :class:`BlurTables` cuts a :class:`..filtering.BlurPlan`'s band raster
 into the kernel's tiles, vectorized in numpy: rectangles of at most
 ``WARPS * strip`` rows by ``TW`` columns that never cross a latitude
 band, a blur segment or a stereo eye, so that each tile has one tap set.
 A tile names its tap set (-1: the zeroed leftover row or column of odd
-stereo dims) and the row pitch of its staged source rows;
-``csrc/blur.cu`` documents how the kernel walks them.  For a CUDA tensor
+stereo dims) and the row pitch, in samples, of its staged source rows;
+``csrc/blur.cu`` documents how the kernel walks them.  The tables are cut
+for one sample size: two staged buffers of a tile must fit the shared
+memory budget, so uint16 tiles are about half as tall.  For a CUDA tensor
 the wrapper launches the kernel or raises; it never falls back.
-``LAUNCHES`` counts kernel launches (one per call on a CUDA tensor).
+``LAUNCHES`` counts the uint8 instantiation's launches and
+``LAUNCHES_U16`` the uint16 one's (one per call on a CUDA tensor).
 """
 
 from __future__ import annotations
@@ -23,10 +27,11 @@ import torch
 
 from ..config import StereoFormat
 from ..filtering import BlurPlan, band_radii, blur_plain, plan_radii
-from ..sampling import round_u8
+from ..sampling import round_px
 from . import _build
 
-LAUNCHES = 0
+LAUNCHES = 0  # uint8 planes
+LAUNCHES_U16 = 0  # uint16 planes
 
 WARPS = 8  # a CTA: 8 warps, each walking a strip of rows
 TW = 32 * 4  # tile width: 32 threads of 4 adjacent columns
@@ -44,12 +49,13 @@ _c_void_p = ctypes.c_void_p
 _c_int = ctypes.c_int
 
 
-def tile_pitch(ncols, rx):
-    """Staged bytes per row of a tile: its whole 4-column groups, the 2*rx
-    halo, up to 15 bytes of 16-alignment in front and the last thread's
-    word read past its taps (``x_pass`` in ``csrc/blur.cu``), in 16-byte
-    chunks."""
-    return (4 * (-(-ncols // 4)) + 2 * rx + 20 + 15) // 16 * 16
+def tile_pitch(ncols, rx, sample_bytes: int = 1):
+    """Staged samples per row of a tile: its whole 4-column groups, the
+    2*rx halo, up to one 16-byte chunk less a sample of alignment in front
+    and the last thread's word read past its taps (``x_pass`` in
+    ``csrc/blur.cu``), in 16-byte chunks."""
+    cs = 16 // sample_bytes  # samples per 16-byte chunk
+    return (4 * (-(-ncols // 4)) + 2 * rx + cs + 4 // sample_bytes + cs - 1) // cs * cs
 
 
 def _runs(key: np.ndarray):
@@ -88,16 +94,24 @@ class BlurTables:
     ry: torch.Tensor  # int32 [sets], the plan's own radii
     ring_ry: int  # y radius of the ring kernel, or -1: the direct kernel
     buf_bytes: int  # one staged buffer of the ring kernel
+    sample_bytes: int  # 1: uint8 planes, 2: uint16
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return torch.uint8 if self.sample_bytes == 1 else torch.uint16
 
     @classmethod
-    def from_plan(cls, plan: BlurPlan, H: int, W: int, device) -> "BlurTables":
+    def from_plan(cls, plan: BlurPlan, H: int, W: int, device,
+                  sample_bytes: int = 1) -> "BlurTables":
+        if sample_bytes not in (1, 2):
+            raise ValueError(f"samples of {sample_bytes} bytes: 1 (uint8) or 2 (uint16)")
         RX, RY = plan_radii(plan)
         nseg = max(b.kx.shape[0] for b in plan.bands)
         ring = next((r for r in RING_RY if r >= RY), -1)
         strip = 0
         if ring >= 0:  # rows per warp strip that let two buffers fit
             for budget in (SMEM_TARGET, SMEM_MAX):
-                rows = budget // (2 * tile_pitch(TW, RX)) - 2 * ring
+                rows = budget // (2 * sample_bytes * tile_pitch(TW, RX, sample_bytes)) - 2 * ring
                 if rows >= WARPS:
                     strip = min(STRIP_MAX, rows // WARPS)
                     break
@@ -137,12 +151,13 @@ class BlurTables:
         R, C = R.reshape(-1), C.reshape(-1)
         tset = np.where((band[R] >= 0) & (cseg[C] >= 0), band[R] * nseg + cseg[C], -1)
         trx = np.where(tset >= 0, rx[tset], 0)
-        pitch = np.where(tset >= 0, tile_pitch(nc[C], trx), 0)
+        pitch = np.where(tset >= 0, tile_pitch(nc[C], trx, sample_bytes), 0)
         tiles = np.stack([r0[R], c0[C], nr[R], nc[C], tset, pitch], axis=1)
         # the widest taps first (the longest CTAs start early), zeros last
         tiles = tiles[np.argsort(np.where(tset >= 0, -trx, 1), kind="stable")]
         staged = tiles[:, 4] >= 0
-        buf = int(((tiles[:, 2] + 2 * max(ring, 0)) * tiles[:, 5])[staged].max(initial=0))
+        buf = sample_bytes * int(
+            ((tiles[:, 2] + 2 * max(ring, 0)) * tiles[:, 5])[staged].max(initial=0))
 
         def put(a, dt):
             return torch.from_numpy(np.ascontiguousarray(a, dt)).to(device)
@@ -158,6 +173,7 @@ class BlurTables:
             ry=put(ry, np.int32),
             ring_ry=ring,
             buf_bytes=buf if ring >= 0 else 0,
+            sample_bytes=sample_bytes,
         )
 
 
@@ -174,6 +190,7 @@ def _lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         fn.argtypes = [
             _c_void_p, _c_void_p,  # x, out
+            _c_int, _c_int,  # sample bytes, largest sample
             _c_int, _c_int, _c_int,  # B, H, W
             _c_void_p, _c_int,  # tiles, n_tiles
             _c_void_p, _c_void_p, _c_int,  # kx, rx, lx
@@ -191,8 +208,8 @@ def _lib() -> ctypes.CDLL:
 def _check_input(bt: BlurTables, x: torch.Tensor) -> None:
     if not isinstance(x, torch.Tensor):
         raise TypeError(f"expected a torch.Tensor, got {type(x).__name__}")
-    if x.dtype != torch.uint8:
-        raise TypeError(f"blur takes uint8 planes, got {x.dtype}")
+    if x.dtype != bt.dtype:
+        raise TypeError(f"these blur tables take {bt.dtype} planes, got {x.dtype}")
     if x.dim() != 3 or tuple(x.shape[1:]) != (bt.H, bt.W):
         raise ValueError(f"blur expects [B, {bt.H}, {bt.W}], got {tuple(x.shape)}")
     if x.shape[0] == 0:
@@ -203,13 +220,18 @@ def _check_input(bt: BlurTables, x: torch.Tensor) -> None:
         raise ValueError(f"plane on {x.device} but the blur tables on {bt.kx.device}")
 
 
-def blur_u8(bt: BlurTables, x: torch.Tensor) -> torch.Tensor:
-    """Prefilter + half-up round: uint8 ``[B, H, W]`` → same shape, on
-    ``x``'s device."""
-    global LAUNCHES
+def blur_px(bt: BlurTables, x: torch.Tensor, maxval: int = 255) -> torch.Tensor:
+    """Prefilter + half-up round: ``[B, H, W]`` samples → same shape and
+    dtype, on ``x``'s device: uint8 (saturated at 255), or uint16
+    saturated at ``maxval`` (the depth's largest sample)."""
+    global LAUNCHES, LAUNCHES_U16
     _check_input(bt, x)
+    if bt.sample_bytes == 1 and maxval != 255:
+        raise ValueError(f"uint8 samples saturate at 255, not {maxval}")
+    if not 255 <= maxval <= 65535:
+        raise ValueError(f"largest sample {maxval} is not a depth of 8 to 16 bits")
     if x.device.type == "cpu":
-        return round_u8(blur_plain(bt.plan, x.float()))
+        return round_px(blur_plain(bt.plan, x.float()), maxval, x.dtype)
     if x.device.type != "cuda":
         raise ValueError(f"blur runs on cpu or cuda tensors, not {x.device}")
     B = x.shape[0]
@@ -219,16 +241,19 @@ def blur_u8(bt: BlurTables, x: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.t360_blur(
-            x.data_ptr(), out.data_ptr(), B, bt.H, bt.W,
+            x.data_ptr(), out.data_ptr(), bt.sample_bytes, maxval, B, bt.H, bt.W,
             bt.tiles.data_ptr(), n,
             bt.kx.data_ptr(), bt.rx.data_ptr(), bt.kx.shape[1],
             bt.ky.data_ptr(), bt.ry.data_ptr(), bt.ky.shape[1],
             bt.ring_ry, frames_per_cta(B, n), bt.buf_bytes,
-            int(bt.W % 16 == 0 and x.data_ptr() % 16 == 0),
-            int(bt.W % 4 == 0 and out.data_ptr() % 4 == 0),
+            int(bt.W * bt.sample_bytes % 16 == 0 and x.data_ptr() % 16 == 0),
+            int(bt.W % 4 == 0 and out.data_ptr() % (4 * bt.sample_bytes) == 0),
             stream,
         )
     if err:
         raise RuntimeError(f"blur kernel launch failed: {lib.t360_error_string(err).decode()}")
-    LAUNCHES += 1
+    if bt.sample_bytes == 1:
+        LAUNCHES += 1
+    else:
+        LAUNCHES_U16 += 1
     return out

@@ -2,15 +2,17 @@
 (``csrc/window.cu``) and, for a tensor on the CPU, its plain version.
 
 K3 computes the function of :func:`..sampling.remap_plain` (the remap
-with its half-up round) at every batch size: one CTA of 256 threads per
-``TH x TW`` output tile, one pixel per thread, stages the tile's source
-window into shared memory frame by frame and samples every tap from
-there.
+with its half-up round) at every batch size, on uint8 planes and on
+uint16 planes (deep formats, rounded and saturated to the depth's
+maximum): one CTA of 256 threads per ``TH x TW`` output tile, one pixel
+per thread, stages the tile's source window into shared memory frame by
+frame and samples every tap from there.
 
 Plan time (numpy, vectorized): :func:`build_window_plan` cuts the output
 into tiles and gives each its source window -- origin, height, row
-pitch -- and a class by the window's bytes (``CLASS_BYTES``: one kernel
-launch per class, with that class's shared memory).  Tiles whose window
+pitch, in samples -- and a class by the window's bytes (``CLASS_BYTES``:
+one kernel launch per class, with that class's shared memory; a uint16
+window takes twice the bytes of a uint8 one).  Tiles whose window
 exceeds the largest class are flagged (pitch 0) and gather straight
 from device memory inside the same kernel.  Per pixel the plan keeps the
 window-relative first tap ``ly``/``lx`` (packed in one int32) and the
@@ -20,9 +22,10 @@ Weights come from the separable float64 table ``w1 [32, T]``:
 ``float32(w1[fy, ty] * w1[fx, tx])`` is exactly the entry of
 :func:`..sampling.weight_table`.
 
-For a CUDA tensor :func:`remap_window_u8` launches the kernel or
-raises; it never falls back.  ``LAUNCHES`` counts kernel launches (one
-per class present in the plan).
+For a CUDA tensor :func:`remap_window_px` launches the kernel or
+raises; it never falls back.  ``LAUNCHES`` counts the uint8
+instantiation's launches and ``LAUNCHES_U16`` the uint16 one's (one per
+class present in the plan).
 """
 
 from __future__ import annotations
@@ -42,19 +45,21 @@ from ..sampling import (
     _TAPS,
     _resolve,
     _tap_weights,
+    as_gatherable,
     border_mode,
     frac_index,
-    round_u8,
+    round_px,
 )
 from . import _build
 
-LAUNCHES = 0
+LAUNCHES = 0  # uint8 planes
+LAUNCHES_U16 = 0  # uint16 planes
 
 # Output tile (rows, columns): one CTA of 256 threads, a pixel each.  2 or
 # 4 pixels per thread (more weight registers, fewer CTAs per SM) measured
 # slower at every batch size.
 TH, TW = 16, 16
-VEC = 16  # window rows are staged in 16-byte chunks from a 16-aligned column
+VEC = 16  # window rows are staged in 16-byte chunks from a 16-byte-aligned column
 # Window bytes (height x pitch) of each class, one frame.  Class 0 (12 KB)
 # holds nearly every tile with four CTAs per SM; 64 KB takes the pole
 # tiles of a 4K cubemap off the global path.
@@ -119,7 +124,7 @@ class WindowPlan:
     """Host (numpy) tile plan of one plane class; tiles are stored in
     launch order (see ``groups``)."""
 
-    meta: np.ndarray  # int32 [n, 6]: out row, out col, y0, x0, wh, pitch (0: global)
+    meta: np.ndarray  # int32 [n, 6]: out row, out col, y0, x0, wh, pitch (0: global); samples
     tile_class: np.ndarray  # int8 [n]: class index, or -1 for a global-path tile
     pos: np.ndarray  # int32 [n * TH * TW]: ly | lx << 16
     fy: np.ndarray  # uint8 [n * TH * TW]: fy | (not valid) << 7
@@ -133,16 +138,23 @@ class WindowPlan:
     taps: int
     mode: int
     fill: float
+    sample_bytes: int  # 1: uint8 planes, 2: uint16
 
 
-def build_window_plan(spec: SampleSpec, fill: float) -> WindowPlan:
-    """The tile plan of a sample spec (the Hopper counterpart of the JAX
-    package's ``build_pallas_remap``, sized for shared memory)."""
+def build_window_plan(spec: SampleSpec, fill: float, sample_bytes: int = 1) -> WindowPlan:
+    """The tile plan of a sample spec for samples of ``sample_bytes`` (the
+    Hopper counterpart of the JAX package's ``build_pallas_remap``, sized
+    for shared memory).  Offsets and pitches are in samples; a window's
+    size, which picks its class, is in bytes."""
+    if sample_bytes not in (1, 2):
+        raise ValueError(f"samples of {sample_bytes} bytes: 1 (uint8) or 2 (uint16)")
     T = _TAPS[spec.interp]
     H, W = spec.in_h, spec.in_w
     mode = border_mode(spec)
     out_h, out_w = spec.base_y.shape
-    if H + T >= 1 << 16 or W + T + VEC > MAX_LX:
+    cs = VEC // sample_bytes  # samples per 16-byte chunk
+    spw = 4 // sample_bytes  # samples per 32-bit word
+    if H + T >= 1 << 16 or W + T + cs > MAX_LX:
         raise ValueError(f"input {W}x{H} is too large for the window plan's 16-bit offsets")
     n_ty, n_tx = -(-out_h // TH), -(-out_w // TW)
     n = n_ty * n_tx
@@ -176,10 +188,10 @@ def build_window_plan(spec: SampleSpec, fill: float) -> WindowPlan:
         y0, ey, ly = span(by)
         x0, ex, lxs = span(bx)
     wh = ey + T - 1
-    x0a = np.floor_divide(x0, VEC) * VEC  # 16-aligned origin: vector loads
+    x0a = np.floor_divide(x0, cs) * cs  # 16-byte-aligned origin: vector loads
     lx = lxs + (x0 - x0a)[:, None]
-    pitch = -(-(x0 - x0a + ex + T - 1) // VEC) * VEC
-    nbytes = wh * pitch
+    pitch = -(-(x0 - x0a + ex + T - 1) // cs) * cs
+    nbytes = wh * pitch * sample_bytes
     cls = np.full(n, -1, np.int8)
     for c in range(len(CLASS_BYTES) - 1, -1, -1):
         cls[nbytes <= CLASS_BYTES[c]] = c
@@ -187,8 +199,8 @@ def build_window_plan(spec: SampleSpec, fill: float) -> WindowPlan:
     # The kernel reads a tap row as the aligned 32-bit words from the one
     # holding its first tap to the one holding its last: they end inside
     # the window, so no load leaves the CTA's buffer.
-    end = (ly + T - 1) * pitch[:, None] + 4 * ((lx + T - 1) // 4) + 4
-    if not (end <= nbytes[:, None])[~glob].all():
+    end = (ly + T - 1) * pitch[:, None] + spw * ((lx + T - 1) // spw) + spw
+    if not (end <= (wh * pitch)[:, None])[~glob].all():
         raise AssertionError("a tap row's words reach past its window")
     pitch = np.where(glob, 0, pitch)
 
@@ -231,6 +243,7 @@ def build_window_plan(spec: SampleSpec, fill: float) -> WindowPlan:
         taps=T,
         mode=mode,
         fill=float(fill),
+        sample_bytes=sample_bytes,
     )
 
 
@@ -251,6 +264,11 @@ class WindowTables:
     taps: int
     mode: int
     fill: float
+    sample_bytes: int
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return torch.uint8 if self.sample_bytes == 1 else torch.uint16
 
     @classmethod
     def from_plan(cls, wp: WindowPlan, device) -> "WindowTables":
@@ -261,11 +279,12 @@ class WindowTables:
             meta=put(wp.meta), pos=put(wp.pos), fy=put(wp.fy), fx=put(wp.fx),
             w1=put(wp.w1), groups=wp.groups, in_h=wp.in_h, in_w=wp.in_w,
             out_h=wp.out_h, out_w=wp.out_w, taps=wp.taps, mode=wp.mode, fill=wp.fill,
+            sample_bytes=wp.sample_bytes,
         )
 
 
 def remap_window_plain(wt: WindowTables, x: torch.Tensor) -> torch.Tensor:
-    """Plain version of K3: uint8 ``[B, in_h, in_w]`` → float32
+    """Plain version of K3: uint8 or uint16 ``[B, in_h, in_w]`` → float32
     ``[B, out_h, out_w]`` (before rounding), walking the tile plan as the
     kernel does.  A tap at window offset (i, j) of a tile reads source
     pixel (y0 + i, x0 + j) under the loader's border rule; its weight is
@@ -274,7 +293,7 @@ def remap_window_plain(wt: WindowTables, x: torch.Tensor) -> torch.Tensor:
     the order of :func:`..sampling.remap_plain`, which it equals exactly."""
     B = x.shape[0]
     H, W, T, mode = wt.in_h, wt.in_w, wt.taps, wt.mode
-    flat = x.reshape(B, H * W)
+    flat = as_gatherable(x).reshape(B, H * W)
     meta = wt.meta.long()
     npx = TH * TW
     tile = torch.arange(meta.shape[0], device=x.device).repeat_interleave(npx)
@@ -322,6 +341,7 @@ def _lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         fn.argtypes = [
             _c_void_p, _c_void_p,  # src, dst
+            _c_int, ctypes.c_float,  # sample bytes, largest sample
             _c_int, _c_int, _c_int, _c_int, _c_int,  # B, H, W, out_h, out_w
             _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,  # meta, pos, fy, fx, w1
             _c_int, _c_int, _c_int,  # first tile, tiles, window bytes
@@ -330,7 +350,7 @@ def _lib() -> ctypes.CDLL:
             _c_int, _c_int, _c_void_p,  # frames per CTA, pairs, stream
         ]
         fn.restype = _c_int
-        lib.t360_window_attrs.argtypes = [_c_int, _c_int, _c_int, _c_int, _c_void_p]
+        lib.t360_window_attrs.argtypes = [_c_int, _c_int, _c_int, _c_int, _c_int, _c_void_p]
         lib.t360_window_attrs.restype = _c_int
         lib.t360_error_string.argtypes = [_c_int]
         lib.t360_error_string.restype = ctypes.c_char_p
@@ -340,8 +360,8 @@ def _lib() -> ctypes.CDLL:
 def _check_input(wt: WindowTables, x: torch.Tensor) -> None:
     if not isinstance(x, torch.Tensor):
         raise TypeError(f"expected a torch.Tensor, got {type(x).__name__}")
-    if x.dtype != torch.uint8:
-        raise TypeError(f"remap takes uint8 planes, got {x.dtype}")
+    if x.dtype != wt.dtype:
+        raise TypeError(f"this window plan takes {wt.dtype} planes, got {x.dtype}")
     if x.dim() != 3 or tuple(x.shape[1:]) != (wt.in_h, wt.in_w):
         raise ValueError(f"remap expects [B, {wt.in_h}, {wt.in_w}], got {tuple(x.shape)}")
     if x.shape[0] == 0:
@@ -353,54 +373,65 @@ def _check_input(wt: WindowTables, x: torch.Tensor) -> None:
 
 
 def launch_class(lib: ctypes.CDLL, wt: WindowTables, x: torch.Tensor, out: torch.Tensor,
-                 group: Tuple[int, int, int], frames: int, pair: bool, stream: int) -> None:
+                 group: Tuple[int, int, int], frames: int, pair: bool, stream: int,
+                 maxval: int = 255) -> None:
     """One launch of K3 from ``lib`` over the tiles of ``group`` (first
     tile, tiles, window bytes) of ``wt``: ``frames`` frames of ``x`` per
     CTA, two per pass if ``pair``, into ``out`` on the CUDA stream
-    ``stream``.  Raises if the launch fails."""
+    ``stream``; uint16 samples round and saturate to ``maxval``.  Raises
+    if the launch fails."""
     first, count, win = group
     err = lib.t360_window(
-        x.data_ptr(), out.data_ptr(),
+        x.data_ptr(), out.data_ptr(), wt.sample_bytes, float(maxval),
         x.shape[0], wt.in_h, wt.in_w, wt.out_h, wt.out_w,
         wt.meta.data_ptr(), wt.pos.data_ptr(), wt.fy.data_ptr(),
         wt.fx.data_ptr(), wt.w1.data_ptr(),
         first, count, win, wt.taps, wt.mode, wt.fill,
-        int(wt.in_w % VEC == 0 and x.data_ptr() % VEC == 0),
+        int(wt.in_w * wt.sample_bytes % VEC == 0 and x.data_ptr() % VEC == 0),
         frames, int(pair), stream,
     )
     if err:
         raise RuntimeError(f"window kernel launch failed: {lib.t360_error_string(err).decode()}")
 
 
-def remap_window_u8(wt: WindowTables, x: torch.Tensor) -> torch.Tensor:
-    """Remap + half-up round through the tile plan: uint8
-    ``[B, in_h, in_w]`` → uint8 ``[B, out_h, out_w]`` on ``x``'s device.
-    Any batch size is accepted."""
-    global LAUNCHES
+def remap_window_px(wt: WindowTables, x: torch.Tensor, maxval: int = 255) -> torch.Tensor:
+    """Remap + half-up round through the tile plan: ``[B, in_h, in_w]``
+    samples → ``[B, out_h, out_w]`` of the same dtype on ``x``'s device:
+    uint8 (saturated at 255), or uint16 saturated at ``maxval`` (the
+    depth's largest sample, 1023 at 10 bits).  Any batch size is
+    accepted."""
+    global LAUNCHES, LAUNCHES_U16
     _check_input(wt, x)
+    if wt.sample_bytes == 1 and maxval != 255:
+        raise ValueError(f"uint8 samples saturate at 255, not {maxval}")
+    if not 255 <= maxval <= 65535:
+        raise ValueError(f"largest sample {maxval} is not a depth of 8 to 16 bits")
     if x.device.type == "cpu":
-        return round_u8(remap_window_plain(wt, x))
+        return round_px(remap_window_plain(wt, x), maxval, x.dtype)
     if x.device.type != "cuda":
         raise ValueError(f"remap runs on cpu or cuda tensors, not {x.device}")
     B = x.shape[0]
-    out = torch.empty((B, wt.out_h, wt.out_w), dtype=torch.uint8, device=x.device)
+    out = torch.empty((B, wt.out_h, wt.out_w), dtype=x.dtype, device=x.device)
     lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         for group in wt.groups:
             launch_class(lib, wt, x, out, group, frames_per_cta(B, group[1]), pairs(group[2]),
-                         stream)
-            LAUNCHES += 1
+                         stream, maxval)
+            if wt.sample_bytes == 1:
+                LAUNCHES += 1
+            else:
+                LAUNCHES_U16 += 1
     return out
 
 
-def kernel_attrs(taps: int, mode: int, win_bytes: int) -> dict:
+def kernel_attrs(taps: int, mode: int, win_bytes: int, sample_bytes: int = 1) -> dict:
     """One instantiation of K3 on the current GPU: its registers, local
     memory bytes (spills and stack), resident CTAs per SM for a launch with
     ``win_bytes`` of window, and that launch's dynamic shared memory."""
     lib = _lib()
     out = (_c_int * 4)()
-    err = lib.t360_window_attrs(taps, mode, win_bytes, int(pairs(win_bytes)), out)
+    err = lib.t360_window_attrs(sample_bytes, taps, mode, win_bytes, int(pairs(win_bytes)), out)
     if err:
         raise RuntimeError(f"window kernel attributes: {lib.t360_error_string(err).decode()}")
     return dict(zip(("registers", "local_bytes", "ctas_per_sm", "smem_bytes"), out))

@@ -12,7 +12,13 @@ transcription of ``remap_const``; the CUDA kernel K3
 (:mod:`.ops.window`) is held against it.  Summation
 order is ty-major, tx-minor with the float64 product ``wy*wx`` cast to
 float32, as ``tap_arrays`` builds it, so the result is byte-identical to
-the reference's XLA path run op by op.
+the reference's XLA path run op by op.  Planes are uint8, or uint16 for
+the deep formats; :func:`round_px` rounds half up and saturates at the
+depth's largest sample.
+
+Supersampling: :func:`area_matrix` (a copy of the reference's) gives
+INTER_AREA as a matrix per axis; :class:`AreaTables` keeps each row's
+nonzero band, and :func:`area_resize` sums it in torch.
 """
 
 from __future__ import annotations
@@ -286,10 +292,29 @@ class DeviceSpec:
         )
 
 
+def sample_dtype(depth: int) -> torch.dtype:
+    """The plane dtype of a bit depth: uint8 up to 8 bits, else uint16."""
+    return torch.uint8 if depth <= 8 else torch.uint16
+
+
+def round_px(x: torch.Tensor, maxval: float, dtype: torch.dtype) -> torch.Tensor:
+    """OpenCV-style half-up rounding saturated to the sample maximum (255
+    at 8 bit; 1023/4095/65535 for the deep formats), as the JAX package's
+    ``pipeline._round_px``.  (torch.round rounds half to even, so it is
+    not used.)"""
+    return torch.clamp(torch.floor(x + 0.5), 0.0, float(maxval)).to(dtype)
+
+
 def round_u8(x: torch.Tensor) -> torch.Tensor:
-    """OpenCV-style half-up rounding with uint8 saturation.  (torch.round
-    rounds half to even, so it is not used.)"""
-    return torch.clamp(torch.floor(x + 0.5), 0.0, 255.0).to(torch.uint8)
+    """:func:`round_px` at 8 bits."""
+    return round_px(x, 255.0, torch.uint8)
+
+
+def as_gatherable(x: torch.Tensor) -> torch.Tensor:
+    """``x`` itself for uint8 samples, else int32: torch's uint16 lacks
+    some gathers (``torch.take`` on the CPU), so the plain versions gather
+    deep samples from int32 copies."""
+    return x if x.dtype == torch.uint8 else x.to(torch.int32)
 
 
 def _resolve(idx: torch.Tensor, n: int, mode: int) -> torch.Tensor:
@@ -301,13 +326,14 @@ def _resolve(idx: torch.Tensor, n: int, mode: int) -> torch.Tensor:
 
 
 def remap_plain(ds: DeviceSpec, x: torch.Tensor) -> torch.Tensor:
-    """Plain remap: uint8 ``[B, in_h, in_w]`` → float32 ``[B, out_h, out_w]``
-    (before rounding), on ``x``'s device.  Transcribes ``remap_const``
-    over ``tap_arrays``: one gather per tap, ty-major and tx-minor, the
-    transparent-fill term added last, then the ``valid`` mask."""
+    """Plain remap: uint8 or uint16 ``[B, in_h, in_w]`` → float32
+    ``[B, out_h, out_w]`` (before rounding), on ``x``'s device.
+    Transcribes ``remap_const`` over ``tap_arrays``: one gather per tap,
+    ty-major and tx-minor, the transparent-fill term added last, then the
+    ``valid`` mask."""
     B = x.shape[0]
     H, W, T = ds.in_h, ds.in_w, ds.taps
-    flat = x.reshape(B, H * W)
+    flat = as_gatherable(x).reshape(B, H * W)
     by = ds.base_y.reshape(-1).long()
     bx = ds.base_x.reshape(-1).long()
     w2 = ds.wtab[ds.fy.reshape(-1).long() * INTER_TAB_SIZE + ds.fx.reshape(-1).long()]
@@ -335,3 +361,145 @@ def remap_plain(ds: DeviceSpec, x: torch.Tensor) -> torch.Tensor:
     if ds.valid is not None:
         acc = torch.where(ds.valid.reshape(1, -1).bool(), acc, ds.fill)
     return acc.reshape((B,) + ds.out_shape)
+
+
+# ---------------------------------------------------------------------------
+# INTER_AREA resize: the supersampling epilogue
+# (VideoFrameTransform.cpp:735-777)
+# ---------------------------------------------------------------------------
+
+
+def area_matrix(n_in: int, n_out: int) -> np.ndarray:
+    """Row matrix M [n_out, n_in] such that ``out = M @ in`` equals
+    cv::resize INTER_AREA along one axis (a copy of the JAX package's
+    ``sampling.area_matrix``).
+
+    Downscale (n_in >= n_out): box integral with fractional edge weights.
+    Upscale: OpenCV falls back to bilinear for INTER_AREA enlargement; we
+    build the matching bilinear matrix.
+    """
+    M = np.zeros((n_out, n_in), np.float32)
+    if n_in >= n_out:
+        scale = n_in / n_out
+        for i in range(n_out):
+            lo = i * scale
+            hi = (i + 1) * scale
+            j0 = int(math.floor(lo))
+            j1 = int(math.ceil(hi))
+            for j in range(j0, min(j1, n_in)):
+                w = min(hi, j + 1) - max(lo, j)
+                M[i, j] = w / scale
+    else:
+        # Enlargement: OpenCV's INTER_AREA upscale branch computes its own
+        # (non-centered) linear coefficients:
+        #   sx = floor(dx*scale); fx = (dx+1) - (sx+1)*inv_scale;
+        #   fx = fx <= 0 ? 0 : fx - floor(fx)
+        scale = n_in / n_out
+        inv_scale = n_out / n_in
+        for i in range(n_out):
+            j0 = int(math.floor(i * scale))
+            f = (i + 1) - (j0 + 1) * inv_scale
+            f = 0.0 if f <= 0 else f - math.floor(f)
+            if j0 >= n_in - 1:
+                M[i, n_in - 1] = 1.0
+            else:
+                M[i, j0] = 1.0 - f
+                M[i, j0 + 1] = f
+    return M
+
+
+@dataclasses.dataclass(frozen=True)
+class AreaAxis:
+    """One axis of an INTER_AREA resize as a band: output ``i`` sums
+    ``weights[i, k] * in[first[i] + k]`` for ascending ``k``.  The band of
+    each output spans its matrix row's nonzeros; shorter bands are padded
+    with zero weights (their index clamped into the input)."""
+
+    first: np.ndarray  # int32 [n_out]
+    weights: np.ndarray  # float32 [n_out, K]
+    n_in: int
+
+    @classmethod
+    def from_matrix(cls, m: np.ndarray) -> "AreaAxis":
+        m = np.asarray(m, np.float32)
+        nz = m != 0
+        if not nz.any(axis=1).all():
+            raise ValueError("an INTER_AREA matrix row has no weight")
+        n_out, n_in = m.shape
+        first = nz.argmax(axis=1)
+        last = n_in - 1 - nz[:, ::-1].argmax(axis=1)
+        k = np.arange(int((last - first).max()) + 1)
+        idx = first[:, None] + k[None, :]
+        inside = idx <= last[:, None]
+        w = np.where(inside, m[np.arange(n_out)[:, None], np.minimum(idx, n_in - 1)], 0.0)
+        return cls(first=first.astype(np.int32), weights=w.astype(np.float32), n_in=n_in)
+
+    def indices(self) -> np.ndarray:
+        """int64 [n_out, K]: each weight's input index (padding clamped)."""
+        k = np.arange(self.weights.shape[1])
+        return np.minimum(self.first[:, None].astype(np.int64) + k, self.n_in - 1)
+
+    def matrix(self) -> np.ndarray:
+        """The dense matrix this band came from, exactly."""
+        m = np.zeros((self.weights.shape[0], self.n_in), np.float32)
+        rows, ks = np.nonzero(self.weights)
+        m[rows, self.first[rows] + ks] = self.weights[rows, ks]
+        return m
+
+
+@dataclasses.dataclass(frozen=True)
+class AreaTables:
+    """The two axes of a plane's INTER_AREA resize, from the scaled
+    (supersampled) size to the output size."""
+
+    row: AreaAxis  # [out_h] over scaled_h
+    col: AreaAxis  # [out_w] over scaled_w
+
+    @classmethod
+    def from_matrices(cls, row_m: np.ndarray, col_m: np.ndarray) -> "AreaTables":
+        return cls(row=AreaAxis.from_matrix(row_m), col=AreaAxis.from_matrix(col_m))
+
+    @classmethod
+    def build(cls, scaled_w: int, scaled_h: int, out_w: int, out_h: int) -> "AreaTables":
+        return cls.from_matrices(area_matrix(scaled_h, out_h), area_matrix(scaled_w, out_w))
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceArea:
+    """:class:`AreaTables` on one device."""
+
+    row_idx: torch.Tensor  # int64 [out_h, Kr]
+    row_w: torch.Tensor  # float32 [out_h, Kr]
+    col_idx: torch.Tensor  # int64 [out_w, Kc]
+    col_w: torch.Tensor  # float32 [out_w, Kc]
+
+    @classmethod
+    def from_tables(cls, at: AreaTables, device) -> "DeviceArea":
+        def put(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+        return cls(
+            row_idx=put(at.row.indices()), row_w=put(at.row.weights),
+            col_idx=put(at.col.indices()), col_w=put(at.col.weights),
+        )
+
+
+def area_resize(da: DeviceArea, x: torch.Tensor) -> torch.Tensor:
+    """INTER_AREA as two banded weighted sums: samples ``[B, H', W']``
+    (uint8 or uint16) → float32 ``[B, out_h, out_w]`` (before rounding), on
+    ``x``'s device.  Rows first, then columns, each sum in ascending input
+    index with every product and every sum rounded on its own in float32,
+    so the CPU and the GPU give the same bytes.  The JAX package runs the
+    same resize as two dense matrix products (``apply_area_resize``); the
+    band does the nonzero part of their arithmetic, and no matrix product
+    runs, so no TF32 switch can change the result."""
+    x = as_gatherable(x)
+    h = None
+    for k in range(da.row_idx.shape[1]):
+        term = x.index_select(1, da.row_idx[:, k]).float() * da.row_w[:, k, None]
+        h = term if h is None else h + term
+    out = None
+    for k in range(da.col_idx.shape[1]):
+        term = h.index_select(2, da.col_idx[:, k]) * da.col_w[:, k]
+        out = term if out is None else out + term
+    return out
