@@ -67,7 +67,22 @@ nvcc and CUDA PyTorch (no jax needed).  Phases:
     ``save_plan`` + ``load_plan`` and the tile plans (a restarted
     transcoder's cold start), the loaded plan's output bytes against the
     built plan's on the card, and the CLI with ``--save-plan`` and then
-    ``--load-plan`` against the API's bytes.
+    ``--load-plan`` against the API's bytes;
+12. the fidelity gate: ``fidelity.bench_fidelity(device="cuda")`` at its
+    size (1920x960 -> 480x320, the flagship and its seven parity cases)
+    at batch 12 and 1, the counters set to 0 just before each and read
+    just after (K1 and K3 uint8 only); each case's bytes on the card
+    against the plain path on the host's CPU on the same plan, every
+    frame of the batch equal to frame 0, and each case's PSNR against the
+    committed oracle fixture beside the JAX package's from the fixture
+    (fails under 50 dB, or more than 0.1 dB under the JAX value);
+13. the drop-in wrapper: ``transform360_tpu_torch.ffmpeg.main`` with the
+    reference's own argv (``-y -i in.mp4 -vf transform360="<flagship>"
+    out.mp4``) on 8 raw 4K frames at ``--t360-batch 1`` and ``8``, and on
+    8 yuv420p10le frames, through ``ffmpeg``/``ffprobe`` stub scripts put
+    first on ``PATH`` (they serve only the wrapper's probe, rawvideo
+    decode and encode); the output bytes equal the API's, and only K1
+    and K3 (uint16 for the 10-bit stream) launch.
 
 Bound for kernel vs plain: at most 1 LSB on under 0.5% of the pixels
 (the kernels are built to be bit-identical, so 0 is expected).  Every
@@ -308,6 +323,37 @@ def k1_sass(lib_path) -> dict:
     raw = sass_counts(lib_path, r"blur_(ring|direct)_kernelI([ht])(?:Li(\d+)E)?E")
     return {(SAMPLE[s], f"ring y radius {ry}" if k == "ring" else "direct"): c
             for (k, s, ry), c in raw.items()}
+
+
+STUB_FFPROBE = """import os, sys
+print(f"3840,2160,30/1,{os.environ.get('T360_STUB_PIX_FMT', 'yuv420p')}")
+"""
+
+STUB_FFMPEG = """import shutil, sys
+a = sys.argv[1:]
+ins = [a[i + 1] for i, x in enumerate(a[:-1]) if x == "-i"]
+if a[-1] == "-" and "rawvideo" in a and "-" not in ins:  # decode: the raw file to stdout
+    with open(ins[0], "rb") as f:
+        shutil.copyfileobj(f, sys.stdout.buffer, 1 << 22)
+elif "-" in ins:  # encode: stdin to the output file
+    with open(a[-1], "wb") as f:
+        shutil.copyfileobj(sys.stdin.buffer, f, 1 << 22)
+else:
+    sys.exit("ffmpeg stub: only the wrapper's rawvideo decode and encode are served: " + " ".join(a))
+"""
+
+
+def write_stubs(bindir: str) -> None:
+    """``ffmpeg`` and ``ffprobe`` scripts for phase 13: the probe prints a
+    3840x2160 stream in ``$T360_STUB_PIX_FMT`` (default yuv420p); the
+    decode copies its raw input file to stdout, the encode its stdin to
+    its last argument."""
+    os.makedirs(bindir)
+    for name, body in (("ffmpeg", STUB_FFMPEG), ("ffprobe", STUB_FFPROBE)):
+        path = os.path.join(bindir, name)
+        with open(path, "w") as f:
+            f.write(f"#!{sys.executable}\n{body}")
+        os.chmod(path, 0o755)
 
 
 def main() -> int:
@@ -965,6 +1011,107 @@ def main() -> int:
         say(f"[11] CLI {n_pf} frames with --save-plan, then --load-plan: output bytes equal "
             f"the API's; wall {walls['--save-plan']:.3f} s and {walls['--load-plan']:.3f} s "
             f"(plan, kernels' first calls and file IO included)  ({smi})")
+
+    # -- 12. fidelity gate ---------------------------------------------------
+    from transform360_tpu_torch import fidelity
+
+    fx = fidelity.load_fixture()
+    gplans = fidelity.case_plans()
+    gplanes = fidelity._video_like_planes(*fidelity.GATE_IN)
+    t0 = time.perf_counter()
+    plain_gate = fidelity.run_gate(gplans, gplanes, 1, "cpu")
+    t_plain = time.perf_counter() - t0
+    plain_res = fidelity.score(plain_gate, fx.want)
+    for b in (12, 1):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = fidelity.bench_fidelity(device="cuda", batch=b)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        gate_launches = read_counts()
+        if (gate_launches["blur"] <= 0 or gate_launches["window"] <= 0
+                or gate_launches["blur_u16"] or gate_launches["window_u16"]):
+            raise SystemExit(f"FAIL the fidelity gate at batch {b} did not launch only K1 and "
+                             f"K3 uint8: {gate_launches}")
+        card = fidelity.run_gate(gplans, gplanes, b, "cuda")  # every frame == frame 0
+        gate_err = 0
+        for name, runs in card.items():
+            for run in runs:
+                for pname, g, w in zip("YUV", run, plain_gate[name][0]):
+                    gate_err = max(gate_err, compare(torch.from_numpy(g), torch.from_numpy(w),
+                                                     f"gate {name} {pname} batch {b}"))
+        if res != plain_res:
+            raise SystemExit(f"FAIL the gate on the card {res} differs from the plain path's "
+                             f"{plain_res}")
+        dbs = dict(res["configs"], flagship=min(res[p] for p in "YUV"))
+        low = {n: (db, fx.jax_db[n]) for n, db in dbs.items() if db < fx.jax_db[n] - 0.1}
+        say(f"[12] fidelity gate {fidelity.GATE_IN[0]}x{fidelity.GATE_IN[1]} -> "
+            f"{fidelity.GATE_OUT[0]}x{fidelity.GATE_OUT[1]}, batch {b}: worst {res['worst_db']:.4f}"
+            f" dB (Y {res['Y']:.4f}, U {res['U']:.4f}, V {res['V']:.4f}); per case, port / JAX "
+            f"package (fixture) dB: "
+            + ", ".join(f"{n} {db:.4f} / {fx.jax_db[n]:.4f}" for n, db in dbs.items())
+            + f"; card vs plain path max |diff| {gate_err} LSB, every frame equals frame 0; "
+            f"launches {gate_launches}; wall {wall:.3f} s (plain path on the CPU at batch 1: "
+            f"{t_plain:.3f} s)  ({smi})")
+        if res["worst_db"] < 50.0 or low:
+            raise SystemExit(f"FAIL fidelity gate at batch {b}: worst {res['worst_db']:.4f} dB; "
+                             f"more than 0.1 dB under the JAX package: {low}")
+
+    # -- 13. the drop-in ffmpeg wrapper --------------------------------------
+    from transform360_tpu_torch import ffmpeg as wrapper
+    from transform360_tpu_torch.ops._build import BUILD_DIR
+
+    n_ff = 8
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    old_path = os.environ.get("PATH", "")
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        write_stubs(os.path.join(tmp, "bin"))
+        os.environ["PATH"] = os.path.join(tmp, "bin") + os.pathsep + old_path
+        try:
+            say(f"[13] ffmpeg on PATH: {shutil.which('ffmpeg')} (a stub: probe, rawvideo "
+                f"decode and encode only); ffprobe: {shutil.which('ffprobe')}")
+            runs = []
+            src = os.path.join(tmp, "in.mp4")  # raw yuv420p bytes under the user's file name
+            write_yuv420_batch(src, *(t[:n_ff].cpu().numpy() for t in (yb, ub, vb)))
+            api = [o.cpu().numpy() for o in eng.transform(yb[:n_ff], ub[:n_ff], vb[:n_ff])]
+            want8 = b"".join(api[p][k].tobytes() for k in range(n_ff) for p in range(3))
+            runs += [(f"yuv420p, --t360-batch {b}", "yuv420p", src, b, want8) for b in (1, 8)]
+            src10 = os.path.join(tmp, "in10.mkv")
+            write_yuv420_batch(src10, *(t[:n_ff].cpu().numpy() for t in (ydb, udb, vdb)))
+            api = [o.cpu().numpy().astype("<u2")
+                   for o in deep.transform(ydb[:n_ff], udb[:n_ff], vdb[:n_ff])]
+            want10 = b"".join(api[p][k].tobytes() for k in range(n_ff) for p in range(3))
+            runs.append(("yuv420p10le, --t360-batch 8", "yuv420p10le", src10, 8, want10))
+            for what, fmt, path, b, want in runs:
+                os.environ["T360_STUB_PIX_FMT"] = fmt
+                out = os.path.join(tmp, "out.mp4")
+                torch.cuda.synchronize()
+                reset_counts()
+                t0 = time.perf_counter()
+                rc = wrapper.main(["--t360-batch", str(b), "-y", "-i", path, "-vf",
+                                   f"transform360={FLAGSHIP}", out])
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                ff_launches = read_counts()
+                with open(out, "rb") as f:
+                    got = f.read()
+                if rc != 0 or got != want:
+                    raise SystemExit(f"FAIL ffmpeg wrapper {what}: rc {rc}, output "
+                                     f"{'equals' if got == want else 'differs from'} the API's")
+                k8 = ff_launches["blur"] > 0 and ff_launches["window"] > 0
+                k16 = ff_launches["blur_u16"] > 0 and ff_launches["window_u16"] > 0
+                ok = (k16 and not ff_launches["blur"] and not ff_launches["window"]
+                      if fmt != "yuv420p" else
+                      k8 and not ff_launches["blur_u16"] and not ff_launches["window_u16"])
+                if not ok:
+                    raise SystemExit(f"FAIL ffmpeg wrapper {what} launches {ff_launches}")
+                say(f"[13] ffmpeg wrapper, {what}: {n_ff} frames {IN_W}x{IN_H}, output bytes "
+                    f"equal the API's; launches {ff_launches}; wall {dt * 1e3 / n_ff:.2f} ms "
+                    f"per frame (plan, pipes and file IO included)  ({smi})")
+        finally:
+            os.environ["PATH"] = old_path
+            os.environ.pop("T360_STUB_PIX_FMT", None)
 
     launches.update({k: deep_launches[k] for k in ("blur_u16", "window_u16")})
 

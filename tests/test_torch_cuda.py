@@ -13,7 +13,9 @@ direct kernel (a wider y radius), its frame loops and an unaligned
 plane.  The uint16 instantiations of both (10- to 16-bit planes, samples
 saturated at 65535 included) on the same cases, every K3 instantiation
 at uint16, an unaligned uint16 plane, and the deep, supersampled and
-plan-file engines against the CPU engine.
+plan-file engines against the CPU engine.  The fidelity gate at its size
+against the committed oracle fixture, and the drop-in ffmpeg wrapper on
+in-memory pipes, at 8 and 10 bits.
 Marked ``cuda``: they skip without a GPU.  On the GPU host, which has no
 jax, run them without the suite's conftest.py (which imports jax):
 
@@ -21,6 +23,7 @@ jax, run them without the suite's conftest.py (which imports jax):
 """
 
 import dataclasses
+import io
 
 import numpy as np
 import pytest
@@ -363,3 +366,68 @@ def test_deep_and_supersampled_engines_match_the_cpu_engine(opts, pix_fmt, gpu, 
         assert a.device.type == "cuda" and a.dtype == c.dtype
         assert _same(a, b)
         _assert_close(a.cpu(), c, f"engine {pix_fmt}{opts}")
+
+
+def test_fidelity_gate_on_the_card(gpu):
+    # the gate size against the committed oracle fixture, at batch 12 and
+    # batch 1: K1 and K3 (uint8) only, every case at 50 dB and no more
+    # than 0.1 dB under the JAX package's PSNR, and the CPU's result
+    from transform360_tpu_torch import fidelity
+
+    fx = fidelity.load_fixture()
+    cpu = fidelity.bench_fidelity(device="cpu", batch=1)
+    for batch in (12, 1):
+        n = (blur.LAUNCHES, window.LAUNCHES, blur.LAUNCHES_U16, window.LAUNCHES_U16)
+        res = fidelity.bench_fidelity(device=gpu, batch=batch)
+        torch.cuda.synchronize()
+        assert blur.LAUNCHES > n[0] and window.LAUNCHES > n[1]
+        assert (blur.LAUNCHES_U16, window.LAUNCHES_U16) == n[2:]
+        assert res == cpu and res["worst_db"] >= 50.0
+        dbs = dict(res["configs"], flagship=min(res[p] for p in "YUV"))
+        for name, db in dbs.items():
+            assert db >= fx.jax_db[name] - 0.1, (name, db, fx.jax_db[name])
+
+
+class _FakeProc:
+    def __init__(self, stdout=None, stdin=None):
+        self.stdout, self.stdin = stdout, stdin
+
+    def wait(self):
+        return 0
+
+
+class _Sink(io.BytesIO):
+    def close(self):  # keep the payload readable after the wrapper closes
+        pass
+
+
+@pytest.mark.parametrize("pix_fmt", ["yuv420p", "yuv420p10le"])
+def test_ffmpeg_wrapper_fake_pipes_on_the_card(pix_fmt, gpu, monkeypatch):
+    # the drop-in wrapper with its decode and encode processes on
+    # in-memory pipes: the encoded bytes equal the API's on the card
+    from transform360_tpu_torch import ffmpeg as wrap
+    from transform360_tpu_torch.utils import video
+
+    vf = "cube_edge_length=64:interpolation_alg=cubic:input_stereo_format=mono"
+    w, h, n = 512, 256, 5
+    pf = P.config.get_pixel_format(pix_fmt)
+    dt = np.uint8 if pf.depth == 8 else np.dtype("<u2")
+    rng = np.random.default_rng(7)
+    planes = [rng.integers(0, pf.maxval + 1, (n, h, w)).astype(dt)]
+    planes += [rng.integers(0, pf.maxval + 1, (n, h // 2, w // 2)).astype(dt) for _ in range(2)]
+    sink = _Sink()
+    raw = b"".join(p[k].tobytes() for k in range(n) for p in planes)
+    monkeypatch.setattr(wrap.subprocess, "Popen", lambda cmd, stdout=None, stdin=None: (
+        _FakeProc(stdout=io.BytesIO(raw)) if stdout is not None else _FakeProc(stdin=sink)))
+    monkeypatch.setattr(video, "have_ffmpeg", lambda: True)
+    monkeypatch.setattr(video, "_probe_ffmpeg", lambda path: (w, h, 30.0, pix_fmt))
+    n8 = (blur.LAUNCHES, window.LAUNCHES, blur.LAUNCHES_U16, window.LAUNCHES_U16)
+    assert wrap.main(["--t360-batch", "2", "-y", "-i", "in.mp4", "-vf", f"transform360={vf}",
+                      "out.mp4"]) == 0
+    launched = [a > b for a, b in zip(
+        (blur.LAUNCHES, window.LAUNCHES, blur.LAUNCHES_U16, window.LAUNCHES_U16), n8)]
+    assert launched == ([True, True, False, False] if pf.depth == 8 else
+                        [False, False, True, True])
+    out = P.open_filter(vf, w, h, pix_fmt=pix_fmt, device=gpu).transform(*planes)
+    out = [o.cpu().numpy().astype(dt) for o in out]
+    assert sink.getvalue() == b"".join(p[k].tobytes() for k in range(n) for p in out)

@@ -14,7 +14,7 @@ import pytest
 import torch
 
 import transform360_tpu_torch as t3
-from transform360_tpu_torch import pipeline
+from transform360_tpu_torch import fidelity, pipeline
 from transform360_tpu_torch.ops import _build, blur, window
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -28,7 +28,8 @@ MODULES = ["transform360_tpu_torch"] + sorted(
 def test_every_module_is_walked():
     for m in ("transform360_tpu_torch.ops.window", "transform360_tpu_torch.cli",
               "transform360_tpu_torch.utils.yuv", "transform360_tpu_torch.utils.video",
-              "transform360_tpu_torch.utils.profiling", "transform360_tpu_torch.ops.blur"):
+              "transform360_tpu_torch.utils.profiling", "transform360_tpu_torch.ops.blur",
+              "transform360_tpu_torch.fidelity", "transform360_tpu_torch.ffmpeg"):
         assert m in MODULES
     assert "transform360_tpu_torch.ops.remap" not in MODULES  # K2 is retired
 
@@ -56,7 +57,8 @@ def test_cuda_sources_exist_and_are_packaged():
     assert not (_build.CSRC / "remap.cu").exists()
     with open(ROOT / "pyproject.toml", "rb") as f:
         data = tomllib.load(f)["tool"]["setuptools"]["package-data"]
-    assert data["transform360_tpu_torch"] == ["csrc/*.cu", "csrc/*.cuh"]
+    assert data["transform360_tpu_torch"] == ["csrc/*.cu", "csrc/*.cuh", "data/*.npz"]
+    assert (ROOT / "transform360_tpu_torch" / "data" / "fidelity_oracle.npz").is_file()
     # sm_90a target (wgmma/TMA-capable Hopper) and no silent FMA contraction
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert "-fmad=false" in _build.NVCC_FLAGS
@@ -67,6 +69,18 @@ def test_cuda_engine_refused_without_a_card():
         pytest.skip("a GPU is present: the refusal path is not reachable")
     with pytest.raises(RuntimeError, match="cuda"):
         t3.open_filter("cube_edge_length=32:input_stereo_format=mono", 256, 128)
+    # the pipeline's entries, the gate and the wrapper refuse it too
+    plan = t3.open_filter("cube_edge_length=32:input_stereo_format=mono", 256, 128,
+                          device="cpu").plan
+    y = np.zeros((128, 256), np.uint8)
+    for call in (lambda: t3.transform_batch(plan, y[None]),
+                 lambda: t3.transform_frame(plan, y, y[:64, :128], y[:64, :128]),
+                 lambda: pipeline.transform_plane(plan, y, 0),
+                 lambda: t3.device_put_plan(plan),
+                 lambda: fidelity.bench_fidelity(in_wh=(256, 128), out_wh=(96, 64), batch=1,
+                                                 parity_sweep=False, want={})):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):

@@ -23,6 +23,9 @@ import torch
 import transform360_tpu as J
 from transform360_tpu.fidelity import _video_like_planes
 import transform360_tpu_torch as P
+from transform360_tpu_torch import pipeline
+from transform360_tpu_torch import plan as plan_mod
+from transform360_tpu_torch.ops import window
 from transform360_tpu_torch.plan import plan_from_jax
 
 from conftest import psnr
@@ -106,3 +109,46 @@ def test_single_frame_and_single_plane_entries(rng):
         eng.transform(y, u)  # a chroma plane missing
     with pytest.raises(TypeError):
         eng.transform(y.astype(np.float32), u, v)
+
+
+def test_numpy_planes_through_the_pipeline_entries():
+    # numpy planes are copied to device= (here the CPU), as the JAX
+    # package takes them through jnp.asarray; tensors stay on their device
+    eng = P.open_filter(f"cube_edge_length=64:{FLAGSHIP}", 512, 256, device="cpu")
+    plan = eng.plan
+    y, u, v = _frames(512, 256)
+    want = P.transform_batch(plan, *(torch.from_numpy(p) for p in (y, u, v)))
+    got = P.transform_batch(plan, y, u, v, device="cpu")
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    one = P.transform_frame(plan, y[1], u[1], v[1], device="cpu")
+    assert all(torch.equal(a, b[1]) for a, b in zip(one, want))
+    assert torch.equal(pipeline.transform_plane(plan, u, 1, device="cpu"), want[1])
+    assert torch.equal(pipeline.transform_plane(plan, y[0], 0, device="cpu"), want[0][0])
+    bcast = np.broadcast_to(y[0], (2,) + y[0].shape)  # read-only, strided
+    assert torch.equal(pipeline.transform_plane(plan, bcast, 0, device="cpu")[1], want[0][0])
+    with pytest.raises(TypeError):
+        P.transform_batch(plan, y.astype(np.float32), u, v, device="cpu")
+
+
+def test_device_put_plan_builds_the_tables_once(monkeypatch):
+    plan_mod.clear_plan_cache()  # a fresh plan: no tile plan built yet
+    plan = P.build_plan(P.TransformConfig(input_stereo_format=P.StereoFormat.MONO,
+                                          output_stereo_format=P.StereoFormat.MONO),
+                        256, 128, 96, 64)
+    built = []
+    real = window.build_window_plan
+    monkeypatch.setattr(plan_mod, "build_window_plan",
+                        lambda *a: built.append(a) or real(*a))
+    assert P.device_put_plan(plan, "cpu") is plan
+    tables = [(pp.tables("cpu"), pp.window_tables("cpu")) for pp in (plan.luma, plan.chroma)]
+    assert len(built) == 2  # luma and chroma, each once
+    assert P.device_put_plan(plan, torch.device("cpu")) is plan
+    again = [(pp.tables("cpu"), pp.window_tables("cpu")) for pp in (plan.luma, plan.chroma)]
+    assert len(built) == 2
+    assert all(a is b for x, y in zip(tables, again) for a, b in zip(x, y))
+
+
+def test_the_port_exports_every_name_of_the_jax_package():
+    assert set(J.__all__) <= set(P.__all__)
+    for name in P.__all__:
+        assert hasattr(P, name), name

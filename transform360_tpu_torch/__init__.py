@@ -27,7 +27,7 @@ from .config import (
 )
 from .api import Transform360, open_filter
 from .plan import TransformPlan, build_plan, load_plan, plan_from_jax, save_plan
-from .pipeline import transform_batch
+from .pipeline import device_put_plan, transform_batch, transform_frame
 
 __version__ = "0.1.0"
 
@@ -42,6 +42,7 @@ __all__ = [
     "TransformPlan",
     "build_plan",
     "chroma_dims",
+    "device_put_plan",
     "load_plan",
     "negotiate_output_geometry",
     "open_filter",
@@ -50,5 +51,6 @@ __all__ = [
     "resolve_stereo_formats",
     "save_plan",
     "transform_batch",
+    "transform_frame",
     "__version__",
 ]

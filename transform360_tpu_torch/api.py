@@ -19,7 +19,6 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
-import numpy as np
 import torch
 
 from .config import (
@@ -30,15 +29,8 @@ from .config import (
     parse_options,
     resolve_stereo_formats,
 )
-from .pipeline import transform_batch, transform_plane
+from .pipeline import as_plane, device_of, transform_batch, transform_plane
 from .plan import TransformPlan, build_plan, load_plan, save_plan
-
-
-def _as_plane(p, device: torch.device) -> Optional[torch.Tensor]:
-    if p is None:
-        return None
-    t = p if isinstance(p, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(p))
-    return t.to(device).contiguous()
 
 
 class Transform360:
@@ -71,12 +63,7 @@ class Transform360:
                 "mesh= (multi-GPU batch sharding) is not ported yet: ROADMAP A13"
             )
         self._pix_fmt = get_pixel_format(pix_fmt)
-        self._device = torch.device(device)
-        if self._device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "device='cuda' but torch.cuda.is_available() is False "
-                "(pass device='cpu' to run the plain PyTorch path)"
-            )
+        self._device = device_of(device)
         self._cfg = config
         self._out_w = out_w
         self._out_h = out_h
@@ -145,7 +132,8 @@ class Transform360:
         .transform_async``).  Returns device tensors whose work is queued
         on the current stream; ``.cpu()`` waits for it.  Batches retire
         in submission order because one stream runs them in order."""
-        planes = [_as_plane(p, self._device) for p in (y, u, v)]
+        planes = [None if p is None else as_plane(p, self._device).to(self._device)
+                  for p in (y, u, v)]
         in_h, in_w = planes[0].shape[-2:]
         plan = self._ensure_plan(int(in_w), int(in_h))
         return transform_batch(plan, *planes)
@@ -160,7 +148,9 @@ class Transform360:
             self._ensure_plan(in_w, in_h)
         elif self._plan is None:
             raise RuntimeError("generate luma map before transforming chroma planes")
-        return transform_plane(self._plan, _as_plane(plane, self._device), map_plane_index)
+        return transform_plane(
+            self._plan, as_plane(plane, self._device).to(self._device), map_plane_index
+        )
 
     def output_dims(self) -> Tuple[int, int]:
         return self._out_w, self._out_h

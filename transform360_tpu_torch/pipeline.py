@@ -28,12 +28,45 @@ from __future__ import annotations
 
 from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 
 from .ops.blur import blur_px
 from .ops.window import remap_window_px
 from .plan import PlanePlan, TransformPlan
 from .sampling import area_resize, round_px
+
+
+def device_of(device) -> torch.device:
+    """``device`` as a :class:`torch.device`; a CUDA device without a card
+    raises (nothing falls back to the CPU)."""
+    d = torch.device(device)
+    if d.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device='cuda' but torch.cuda.is_available() is False "
+            "(pass device='cpu' to run the plain PyTorch path)"
+        )
+    return d
+
+
+def as_plane(p, device) -> torch.Tensor:
+    """A tensor stays on its own device; anything else (a numpy array) is
+    copied to ``device``."""
+    if isinstance(p, torch.Tensor):
+        return p
+    return torch.from_numpy(np.require(p, requirements=("C", "W"))).to(device_of(device))
+
+
+def device_put_plan(plan: TransformPlan, device="cuda") -> TransformPlan:
+    """Build the plan's tables and the remap's tile plans on ``device``
+    now, not on the first frame; returns the plan (as the JAX package's
+    ``device_put_plan``)."""
+    d = device_of(device)
+    for pp in (plan.luma, plan.chroma):
+        if pp is not None:
+            pp.tables(d)
+            pp.window_tables(d)
+    return plan
 
 
 def _plane_program(pp: PlanePlan, x: torch.Tensor) -> torch.Tensor:
@@ -83,15 +116,17 @@ def transform_frame_planes(
     return tuple(outs)
 
 
-def transform_batch(plan: TransformPlan, y, u=None, v=None):
+def transform_batch(plan: TransformPlan, y, u=None, v=None, device="cuda"):
     """Transform a batch of planar frames.
 
     ``y``: [B, H, W] (or [H, W] for one frame), uint8 or, for deep
     formats, uint16; ``u``/``v``: the chroma planes (omit for single-plane
-    formats).  Returns planes of the same dtype at the negotiated output
-    size on the inputs' device (a bare tensor for single-plane formats).
+    formats).  Tensors are transformed on their own device; numpy planes
+    are copied to ``device`` first.  Returns planes of the same dtype at
+    the negotiated output size on the planes' device (a bare tensor for
+    single-plane formats).
     """
-    planes = [p for p in (y, u, v) if p is not None]
+    planes = [as_plane(p, device) for p in (y, u, v) if p is not None]
     squeeze = planes[0].dim() == 2
     if squeeze:
         planes = [p[None] for p in planes]
@@ -101,14 +136,22 @@ def transform_batch(plan: TransformPlan, y, u=None, v=None):
     return outs if len(outs) > 1 else outs[0]
 
 
-def transform_plane(plan: TransformPlan, plane: torch.Tensor, map_plane_index: int):
+def transform_frame(plan: TransformPlan, y, u, v, device="cuda"):
+    """One frame's planes ([H, W]); :func:`transform_batch` under the JAX
+    package's name."""
+    return transform_batch(plan, y, u, v, device=device)
+
+
+def transform_plane(plan: TransformPlan, plane, map_plane_index: int, device="cuda"):
     """Single-plane entry, mirroring the C ABI's
     ``VideoFrameTransform_transformFramePlane``
     (``VideoFrameTransformHandler.h:36-47``): the caller picks the map
-    plane (0 = luma, 1 = chroma) for the given image plane."""
+    plane (0 = luma, 1 = chroma) for the given image plane (a tensor, or
+    a numpy array copied to ``device``)."""
     pp = plan.luma if map_plane_index == 0 else plan.chroma
     if pp is None:
         raise ValueError(f"plan has no map plane {map_plane_index} ({plan.pix_fmt})")
+    plane = as_plane(plane, device)
     squeeze = plane.dim() == 2
     if squeeze:
         plane = plane[None]
