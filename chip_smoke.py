@@ -75,14 +75,33 @@ nvcc and CUDA PyTorch (no jax needed).  Phases:
     against the plain path on the host's CPU on the same plan, every
     frame of the batch equal to frame 0, and each case's PSNR against the
     committed oracle fixture beside the JAX package's from the fixture
-    (fails under 50 dB, or more than 0.1 dB under the JAX value);
+    (fails under 50 dB, or more than 0.1 dB under the JAX value); the
+    flagship also runs in two latency bands with cost-model edges;
 13. the drop-in wrapper: ``transform360_tpu_torch.ffmpeg.main`` with the
     reference's own argv (``-y -i in.mp4 -vf transform360="<flagship>"
     out.mp4``) on 8 raw 4K frames at ``--t360-batch 1`` and ``8``, and on
     8 yuv420p10le frames, through ``ffmpeg``/``ffprobe`` stub scripts put
     first on ``PATH`` (they serve only the wrapper's probe, rawvideo
     decode and encode); the output bytes equal the API's, and only K1
-    and K3 (uint16 for the 10-bit stream) launch.
+    and K3 (uint16 for the 10-bit stream) launch;
+14. batch sharding: ``transform_batch_sharded`` over ``make_mesh()`` (every
+    visible card) and over ``["cuda:0"] * 2`` at batch 128, and
+    ``open_filter(mesh=...)``: every shard equals its frames of phase 4's
+    unsharded batch, K1 launches 2 and K3 once per class per shard; the
+    step's device time beside phase 5's;
+15. latency bands: ``parallel.latency.transform_frame_banded`` on phase
+    6's [H, W] frame at n = 2, 4 and 8 with uniform and cost-model edges:
+    bytes equal the unbanded frame, K1 2n launches and K3 one per class
+    of each band; each band's device time, K3 alone per band, max(band),
+    the whole banded frame and the first call's wall (band plans built);
+    the pinned host-to-device rate of one 4K frame (the host term of
+    ``broadcast_ms``) and the one-card projection of N-card banded
+    latency; the supersampled 2x2 flagship in 3 bands and the 10-bit one
+    in 2 equal their unbanded frames;
+16. two processes on the one card: the CLI with ``--distributed
+    127.0.0.1:PORT,2,PID`` (gloo; both ranks on cuda:0) in batch mode and
+    with ``--latency-bands 2``, 8 frames 1920x960: the ranks' outputs
+    stitched equal one process's bytes.
 
 Bound for kernel vs plain: at most 1 LSB on under 0.5% of the pixels
 (the kernels are built to be bit-identical, so 0 is expected).  Every
@@ -101,6 +120,7 @@ import json
 import os
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -207,6 +227,39 @@ def host_walls(fn, reps: int) -> list:
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     return walls
+
+
+def graph_ms(fn, calls: int = 10, reps: int = 20) -> float:
+    """Device milliseconds of one fn() call: ``calls`` calls captured in a
+    CUDA graph, the median of ``reps`` replays over ``calls``, so that no
+    host time enters (at one frame, calls issued back to back wait on the
+    host)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    ms = statistics.median(cuda_times(graph.replay, reps)) / calls
+    del graph
+    return ms
+
+
+def issue_ms(fn, calls: int = 100) -> float:
+    """Host milliseconds per fn() call issued back to back, then one
+    synchronize: the host's issue time where it exceeds the device's."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / calls
 
 
 def pct(xs, q: float) -> float:
@@ -357,6 +410,7 @@ def write_stubs(bindir: str) -> None:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -741,6 +795,7 @@ def main() -> int:
         f"path and frame 0 of the batch; launches {lat_launches}")
     lat = cuda_times(lambda: eng.transform(y1, u1, v1), 5)
     lat = cuda_times(lambda: eng.transform(y1, u1, v1), 200)
+    frame_ms = statistics.median(lat)  # phase 15 sets its bands beside it
     lat_walls = host_walls(lambda: eng.transform(y1, u1, v1), 200)
     yn, un, vn = y, u, v  # numpy planes: host to device and back included
 
@@ -1113,6 +1168,214 @@ def main() -> int:
             os.environ["PATH"] = old_path
             os.environ.pop("T360_STUB_PIX_FMT", None)
 
+    # -- 14. batch sharding over a mesh -------------------------------------
+    from transform360_tpu_torch import pipeline
+    from transform360_tpu_torch.parallel import latency, make_mesh, transform_batch_sharded
+
+    k3_per_frame = len(luma_w.groups) + len(chroma_w.groups)
+    for mname, mesh in (("make_mesh()", make_mesh()), ('["cuda:0"] * 2', make_mesh(["cuda:0"] * 2))):
+        d = len(mesh.devices)
+        torch.cuda.synchronize()
+        reset_counts()
+        outs = transform_batch_sharded(mesh, plan, yb, ub, vb)
+        torch.cuda.synchronize()
+        mesh_launches = read_counts()
+        if (mesh_launches["blur"] != 2 * d or mesh_launches["window"] != k3_per_frame * d
+                or mesh_launches["blur_u16"] or mesh_launches["window_u16"]):
+            raise SystemExit(f"FAIL mesh {mname} launches {mesh_launches}, not K1 2 and K3 "
+                             f"{k3_per_frame} per shard")
+        for pname, o, w in zip("YUV", outs, (oy, ou, ov)):
+            for off, s in zip(o.offsets, o.shards):
+                if not torch.equal(s, w[off:off + s.shape[0]]):
+                    raise SystemExit(f"FAIL mesh {mname} {pname} shard at {off} differs from "
+                                     f"the unsharded batch")
+        api = open_filter(FLAGSHIP, IN_W, IN_H, mesh=mesh, device="cuda").transform(yb, ub, vb)
+        if not all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(api, outs)):
+            raise SystemExit(f"FAIL open_filter(mesh={mname}) differs from transform_batch_sharded")
+        del outs, api
+        msteps, usteps = [], []
+        cuda_times(lambda: transform_batch_sharded(mesh, plan, yb, ub, vb), 2)
+        for _ in range(10):  # the unsharded step in turns with the sharded one
+            usteps += cuda_times(lambda: eng.transform(yb, ub, vb), 3)
+            msteps += cuda_times(lambda: transform_batch_sharded(mesh, plan, yb, ub, vb), 3)
+        mgraph = graph_ms(lambda: transform_batch_sharded(mesh, plan, yb, ub, vb), 2, 5)
+        ugraph = graph_ms(lambda: eng.transform(yb, ub, vb), 2, 5)
+        say(f"[14] mesh {mname} ({d} shard(s) of {BATCH // d} on "
+            f"{sorted(set(str(x) for x in mesh.devices))}), batch {BATCH}: every shard equals its "
+            f"frames of the unsharded batch, open_filter(mesh=) equals it; launches "
+            f"{mesh_launches} (K1 2 and K3 {k3_per_frame} per shard); step by CUDA events "
+            f"median {statistics.median(msteps):.4f} ms (p90 {pct(msteps, 0.9):.4f}, "
+            f"n={len(msteps)}), the unsharded step in turns {statistics.median(usteps):.4f} (p90 "
+            f"{pct(usteps, 0.9):.4f}, n={len(usteps)}; phase 5: {step:.4f}); as a replayed CUDA "
+            f"graph (device only) {mgraph:.4f} against unsharded {ugraph:.4f}  ({smi})")
+
+    # -- 15. latency bands on the card ---------------------------------------
+    one_frame = (y1, u1, v1)  # phase 6's [H, W] planes on the card
+    unbanded = [t.cpu().numpy() for t in (ly, lu, lv)]  # phase 6's unbanded frame
+    x1s = [p[None] for p in one_frame]
+    frame_graph = graph_ms(lambda: pipeline.transform_frame_planes(plan, x1s))
+    frame_issue = issue_ms(lambda: pipeline.transform_frame_planes(plan, x1s))
+    lb1 = blur.blur_px(luma_t.blur, x1s[0])
+    cb1 = blur.blur_px(chroma_t.blur, torch.cat(x1s[1:]))
+    k3_graph = graph_ms(lambda: (window.remap_window_px(luma_w, lb1),
+                                 window.remap_window_px(chroma_w, cb1)))
+    band_rows = {}
+    for n in (2, 4, 8):
+        for costs in (None, "auto"):
+            edges = "uniform" if costs is None else "cost model"
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = latency.transform_frame_banded(plan, one_frame, n=n, row_costs=costs)
+            first_wall = time.perf_counter() - t0
+            bands = latency.band_plans(plan, n, costs)
+            if len(bands) != n or any(not np.array_equal(g, w) for g, w in zip(got, unbanded)):
+                raise SystemExit(f"FAIL {n} bands ({edges}) differ from the unbanded frame")
+            want_k3 = sum(len(b.luma.window_plan().groups) + len(b.chroma.window_plan().groups)
+                          for b in bands)
+            torch.cuda.synchronize()
+            reset_counts()
+            latency.transform_frame_banded_async(plan, one_frame, n=n, row_costs=costs)
+            torch.cuda.synchronize()
+            bl = read_counts()
+            if bl["blur"] != 2 * n or bl["window"] != want_k3 or bl["blur_u16"] or bl["window_u16"]:
+                raise SystemExit(f"FAIL {n} bands ({edges}) launches {bl}, not K1 {2 * n} and "
+                                 f"K3 {want_k3}")
+            xs = [p[None] for p in one_frame]
+            dev = xs[0].device  # the device key the banded path built the tables under
+            per_band, k3_band, issue = [], [], []
+            for b in bands:
+                per_band.append(graph_ms(lambda: pipeline.transform_frame_planes(b, xs)))
+                issue.append(issue_ms(lambda: pipeline.transform_frame_planes(b, xs)))
+                lb = blur.blur_px(b.luma.tables(dev).blur, xs[0])
+                cbl = blur.blur_px(b.chroma.tables(dev).blur, torch.cat(xs[1:]))
+                lwt, cwt = b.luma.window_tables(dev), b.chroma.window_tables(dev)
+                k3_band.append(graph_ms(lambda: (window.remap_window_px(lwt, lb),
+                                                 window.remap_window_px(cwt, cbl))))
+            whole_graph = graph_ms(lambda: [pipeline.transform_frame_planes(b, xs) for b in bands],
+                                   calls=3)
+            cuda_times(lambda: latency.transform_frame_banded_async(plan, one_frame, n=n,
+                                                                    row_costs=costs), 3)
+            whole = cuda_times(lambda: latency.transform_frame_banded_async(
+                plan, one_frame, n=n, row_costs=costs), 50)
+            walls = host_walls(lambda: latency.transform_frame_banded(
+                plan, one_frame, n=n, row_costs=costs), 20)
+            band_rows[(n, edges)] = (max(per_band), sum(issue))
+            say(f"[15] {n} bands, {edges} edges (luma rows "
+                f"{[b.luma.out_h for b in bands]}): bytes equal the unbanded frame; launches "
+                f"{bl}; per band, device ms as a replayed CUDA graph "
+                f"{[round(t, 4) for t in per_band]}, max(band) {max(per_band):.4f}, sum "
+                f"{sum(per_band):.4f} (the unbanded frame {frame_graph:.4f}); K3 alone per band "
+                f"(luma + chroma, graph) {[round(t, 4) for t in k3_band]}, max {max(k3_band):.4f}, "
+                f"sum {sum(k3_band):.4f} (unbanded {k3_graph:.4f}); host issue per band, calls "
+                f"back to back {[round(t, 4) for t in issue]}, sum {sum(issue):.4f} (unbanded "
+                f"{frame_issue:.4f}); whole banded frame as a graph {whole_graph:.4f}, by CUDA "
+                f"events around the dispatch median {statistics.median(whole):.4f} (p90 "
+                f"{pct(whole, 0.9):.4f}, n={len(whole)}; phase 6's unbanded {frame_ms:.4f}); host "
+                f"wall to numpy planes {statistics.median(walls):.4f} ms; first call "
+                f"{first_wall:.3f} s (band plans, tile plans and tables built)  ({smi})")
+    # the pinned host-to-device rate of one frame's planes: the host term of broadcast_ms
+    pinned = [torch.from_numpy(p).pin_memory() for p in (y, u, v)]
+    pageable = [torch.from_numpy(p) for p in (y, u, v)]
+    nbytes = tensor_bytes(*pinned)
+    rates = {}
+    for kind_, src in (("pinned", pinned), ("pageable", pageable)):
+        fn = (lambda s=src: [p.to("cuda", non_blocking=True) for p in s])
+        cuda_times(fn, 3)
+        rates[kind_] = nbytes / statistics.median(cuda_times(fn, 30)) / 1e6
+    bc = latency.broadcast_ms(plan, IN_W, IN_H, 1, host_gbps=rates["pinned"])
+    say(f"[15] host to device, one 4K yuv420p frame ({nbytes} B): pinned {rates['pinned']:.2f} "
+        f"GB/s, pageable {rates['pageable']:.2f} GB/s; broadcast_ms to one card at the pinned "
+        f"rate {bc:.4f} ms; one-card projection of N-card banded latency, uniform edges, "
+        f"max(band) + broadcast_ms (the card-to-card term not measured), beside the host's "
+        f"issue of all N bands from one thread + broadcast_ms: "
+        + ", ".join(f"N={n} {band_rows[(n, 'uniform')][0] + bc:.4f} / "
+                    f"{band_rows[(n, 'uniform')][1] + bc:.4f} ms" for n in (2, 4, 8))
+        + f" (unbanded on one card {frame_graph + bc:.4f} / {frame_issue + bc:.4f})  ({smi})")
+    del pinned, pageable
+    for what, p, planes, n, eng_ in (
+            ("supersampled 2x2", sp, (yb[0], ub[0], vb[0]), 3, ss),
+            ("10-bit", dp, (ydb[0], udb[0], vdb[0]), 2, deep)):
+        want = [t.cpu().numpy() for t in eng_.transform(*planes)]
+        torch.cuda.synchronize()
+        reset_counts()
+        got = latency.transform_frame_banded(p, planes, n=n, row_costs="auto")
+        torch.cuda.synchronize()
+        bl = read_counts()
+        if any(not np.array_equal(g, w) for g, w in zip(got, want)):
+            raise SystemExit(f"FAIL {what} flagship in {n} bands differs from its unbanded frame")
+        k1 = bl["blur_u16"] if p.luma.depth > 8 else bl["blur"]
+        if k1 != 2 * n:
+            raise SystemExit(f"FAIL {what} flagship in {n} bands launches {bl}")
+        say(f"[15] {what} flagship in {n} bands, cost-model edges (luma rows "
+            f"{[b.luma.out_h for b in latency.band_plans(p, n, 'auto')]}): bytes equal its "
+            f"unbanded frame; launches {bl}  ({smi})")
+
+    # -- 16. two processes on the one card ----------------------------------
+    from transform360_tpu_torch.utils.yuv import read_yuv420_batch
+
+    mp_vf = FLAGSHIP.replace("=512", "=160")
+    mp_w, mp_h, n_mp = 1920, 960, 8
+    mp_plan = open_filter(mp_vf, mp_w, mp_h, device="cuda").plan
+    ow, oh = mp_plan.out_w, mp_plan.out_h
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        src = os.path.join(tmp, "in.yuv")
+        gy, gu, gv = video_like_planes(mp_w, mp_h)
+        write_yuv420_batch(src, *(np.stack([np.roll(p, 7 * k, axis=1) for k in range(n_mp)])
+                                  for p in (gy, gu, gv)))
+        common = ["--vf", mp_vf, "--input-size", f"{mp_w}x{mp_h}", "-i", src, "--device", "cuda"]
+        if cli.main(common + ["-o", os.path.join(tmp, "one.yuv"), "--batch", "4"]) != 0:
+            raise SystemExit("FAIL the one-process CLI run")
+        want = read_yuv420_batch(os.path.join(tmp, "one.yuv"), ow, oh)
+        env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        for mode, flags in (("batch", ["--batch", "4"]), ("banded", ["--latency-bands", "2"])):
+            with socket.socket() as s_:
+                s_.bind(("127.0.0.1", 0))
+                port = s_.getsockname()[1]
+            t0 = time.perf_counter()
+            procs = [subprocess.Popen(
+                [sys.executable, "-m", "transform360_tpu_torch.cli", *common, *flags,
+                 "-o", os.path.join(tmp, f"{mode}{pid}.yuv"),
+                 "--distributed", f"127.0.0.1:{port},2,{pid}"],
+                cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for pid in range(2)]
+            try:
+                logs = [p.communicate(timeout=240)[0] for p in procs]
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+            mp_wall = time.perf_counter() - t0
+            for pid, (p, log) in enumerate(zip(procs, logs)):
+                if p.returncode != 0:
+                    raise SystemExit(f"FAIL {mode} rank {pid} rc {p.returncode}:\n{log[-3000:]}")
+            if mode == "batch":  # rank p holds frames [2p, 2p + 2) of every batch of 4
+                parts = [read_yuv420_batch(os.path.join(tmp, f"batch{pid}.yuv"), ow, oh)
+                         for pid in range(2)]
+                got = [np.concatenate([parts[k % 2][j][2 * (k // 2):2 * (k // 2) + 2]
+                                       for k in range(n_mp // 2)]) for j in range(3)]
+            else:  # rank p holds band p's rows of every frame
+                bands = latency.band_plans(mp_plan, 2)
+                got = [[], [], []]
+                for pid, b in enumerate(bands):
+                    raw = np.fromfile(os.path.join(tmp, f"banded{pid}.yuv"), np.uint8)
+                    shapes = [(b.luma.out_h, ow)] + 2 * [(b.chroma.out_h, ow // 2)]
+                    frames_ = raw.reshape(n_mp, -1)
+                    off = 0
+                    for j, (h_, w_) in enumerate(shapes):
+                        got[j].append(frames_[:, off:off + h_ * w_].reshape(n_mp, h_, w_))
+                        off += h_ * w_
+                got = [np.concatenate(g, axis=1) for g in got]
+            if any(not np.array_equal(g, w) for g, w in zip(got, want)):
+                raise SystemExit(f"FAIL two processes ({mode}) stitched differ from one process")
+            say(f"[16] two processes on {kind} (gloo rendezvous, both ranks on cuda:0), CLI "
+                f"{mode} mode {' '.join(flags)}, {n_mp} frames {mp_w}x{mp_h} -> {ow}x{oh}: the "
+                f"ranks' outputs stitched equal one process's bytes; wall {mp_wall:.2f} s for "
+                f"both processes (start, kernel load, plan and file IO included)  ({smi})")
+
+    say(f"[16] every phase passed in {time.perf_counter() - t_start:.1f} s, the kernels' build "
+        f"included")
     launches.update({k: deep_launches[k] for k in ("blur_u16", "window_u16")})
 
     def entry(name, src, replaces, **extra):

@@ -11,8 +11,10 @@
   and the saved file loads in the JAX package; a 10-bit raw stream
   (``--pix-fmt yuv420p10le``, 16-bit little-endian samples) equals the
   API's bytes.
-* Flags whose modules are not ported raise ``NotImplementedError`` naming
-  their ROADMAP item.
+* ``--backend native`` (the C++ engine, not ported) raises
+  ``NotImplementedError`` naming its ROADMAP item, alone and beside the
+  served ``--devices``, ``--latency-bands`` and ``--distributed``
+  (tests/test_torch_parallel.py and test_torch_multiproc.py run those).
 """
 
 import io
@@ -88,9 +90,9 @@ def test_cli_stdin_stdout_pipe(tmp_path, monkeypatch):
 @pytest.mark.parametrize(
     "flags, item",
     [
-        (["--devices", "2"], "A13"),
-        (["--latency-bands", "2"], "A13"),
-        (["--distributed", "env"], "A13"),
+        (["--devices", "2", "--backend", "native"], "A14"),
+        (["--latency-bands", "2", "--backend", "native"], "A14"),
+        (["--distributed", "env", "--backend", "native"], "A14"),
         (["--backend", "native"], "A14"),
     ],
 )

@@ -318,6 +318,27 @@ def test_stream_input_with_two_outputs_is_refused(src, monkeypatch, capsys):
     assert "read only once" in err and "write the stream to a file first" in err
 
 
+@pytest.mark.parametrize("src", ["-", "pipe:0", "/dev/stdin"])
+@pytest.mark.parametrize("pre", ["", "scale=1920:960,"], ids=["no-pre-filter", "pre-filter"])
+def test_probed_stream_input_is_refused(src, pre, monkeypatch, capsys):
+    # a single-output command probes its input before the decode reads it
+    # (ffprobe, or ffmpeg through the pre-transform filters), so the decode
+    # would miss the head of the stream (transform360_tpu/ffmpeg.py:989-996)
+    monkeypatch.setattr(wrap.subprocess, "Popen", lambda *a, **k: pytest.fail("spawned"))
+    monkeypatch.setattr(wrap.subprocess, "run", lambda *a, **k: pytest.fail("probed"))
+    monkeypatch.setattr(video, "have_ffmpeg", lambda: True)
+    monkeypatch.setattr(video, "_probe_ffmpeg", lambda path: pytest.fail("probed"))
+    rc = wrap.main(["-y", "-i", src, "-vf", f"{pre}transform360={VF}", "t.mp4"])
+    assert rc == 2
+    err = capsys.readouterr().err
+    assert "read only once" in err and "write the stream to a file first" in err
+    # a graph whose decode side probes the stream is refused too
+    rc = wrap.main(["-y", "-i", src, "-i", "logo.png", "-filter_complex",
+                    f"[0:v]{pre}transform360={VF}[t];[t][1:v]overlay=0:0[v]", "-map", "[v]",
+                    "out.mp4"])
+    assert rc == 2 and "read only once" in capsys.readouterr().err
+
+
 def test_nondeterministic_filter_before_a_teed_split_is_refused(capsys):
     # the reference wrapper would run the noise filter twice, once per
     # branch (transform360_tpu/ffmpeg.py:430-436), and the branches differ

@@ -29,7 +29,10 @@ def test_every_module_is_walked():
     for m in ("transform360_tpu_torch.ops.window", "transform360_tpu_torch.cli",
               "transform360_tpu_torch.utils.yuv", "transform360_tpu_torch.utils.video",
               "transform360_tpu_torch.utils.profiling", "transform360_tpu_torch.ops.blur",
-              "transform360_tpu_torch.fidelity", "transform360_tpu_torch.ffmpeg"):
+              "transform360_tpu_torch.fidelity", "transform360_tpu_torch.ffmpeg",
+              "transform360_tpu_torch.parallel", "transform360_tpu_torch.parallel.mesh",
+              "transform360_tpu_torch.parallel.latency",
+              "transform360_tpu_torch.parallel.distributed"):
         assert m in MODULES
     assert "transform360_tpu_torch.ops.remap" not in MODULES  # K2 is retired
 
@@ -128,7 +131,7 @@ def test_wrappers_refuse_other_devices_and_bad_inputs(monkeypatch):
     "kwargs, item",
     [
         (dict(backend="native"), "A14"),
-        (dict(mesh=object()), "A13"),
+        (dict(backend="native", mesh=["cpu"] * 2), "A14"),  # mesh= is served (A13)
     ],
 )
 def test_unported_options_raise_naming_the_roadmap_item(kwargs, item):

@@ -10,9 +10,13 @@
 
 The engine's device (default ``"cuda"``) is where planes are transformed:
 inputs are moved there, outputs are tensors there, uint8 or, for the deep
-pixel formats, uint16.  Options the port does not serve yet (the C++
-engine, several GPUs) raise ``NotImplementedError`` naming the ROADMAP
-item; nothing degrades silently.
+pixel formats, uint16.  With ``mesh=`` (:func:`.parallel.make_mesh`, or a
+sequence of devices) a ``[B, H, W]`` batch is sharded over the mesh's
+devices instead, and each output plane is a
+:class:`.parallel.mesh.ShardedBatch`.  The C++ engine
+(``backend="native"``) is not ported yet and raises
+``NotImplementedError`` naming its ROADMAP item; nothing degrades
+silently.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from .config import (
     parse_options,
     resolve_stereo_formats,
 )
+from .parallel.mesh import as_mesh, transform_batch_sharded
 from .pipeline import as_plane, device_of, transform_batch, transform_plane
 from .plan import TransformPlan, build_plan, load_plan, save_plan
 
@@ -47,10 +52,12 @@ class Transform360:
         device="cuda",
     ):
         """``backend``: "auto" only; the dependency-free C++ engine
-        ("native") is not ported yet.  ``mesh``: batch sharding over several
-        devices is not ported yet.  ``device``: where frames are
-        transformed ("cuda" launches the hand-written kernels; "cpu" runs
-        their plain PyTorch versions)."""
+        ("native") is not ported yet.  ``mesh``: shard ``[B, H, W]``
+        batches over these devices (a :class:`.parallel.mesh.Mesh` or a
+        sequence of devices; B must be a multiple of its size).
+        ``device``: where frames are transformed otherwise ("cuda"
+        launches the hand-written kernels; "cpu" runs their plain PyTorch
+        versions)."""
         config.validate()
         if backend == "native":
             raise NotImplementedError(
@@ -58,10 +65,7 @@ class Transform360:
             )
         if backend != "auto":
             raise ValueError(f"unknown backend {backend!r}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (multi-GPU batch sharding) is not ported yet: ROADMAP A13"
-            )
+        self._mesh = None if mesh is None else as_mesh(mesh)
         self._pix_fmt = get_pixel_format(pix_fmt)
         self._device = device_of(device)
         self._cfg = config
@@ -101,9 +105,11 @@ class Transform360:
                 f"plan was built for pix_fmt {plan.pix_fmt!r} but this engine "
                 f"is {self._pix_fmt.name!r}"
             )
+        devices = {self._device} | set(() if self._mesh is None else self._mesh.devices)
         for pp in (plan.luma, plan.chroma):
             if pp is not None:
-                pp.tables(self._device)
+                for d in devices:
+                    pp.tables(d)
         self._plan = plan
         self._out_w, self._out_h = plan.out_w, plan.out_h
 
@@ -120,9 +126,12 @@ class Transform360:
         for single-plane formats).  Maps are generated lazily on the first
         frame, like the reference filter.  Returns tensors of the same
         dtype on the engine's device (a bare tensor for single-plane
-        formats).  CUDA work is queued on the
-        current stream; reading the result waits for it.  Every batch
-        size runs the same kernels (K1, then the window-gather remap K3).
+        formats); with a mesh, a ``[B, H, W]`` batch returns a
+        :class:`.parallel.mesh.ShardedBatch` per plane instead, each shard
+        on its device until ``.cpu()``/``.numpy()`` joins them in batch
+        order.  CUDA work is queued on the current stream; reading the
+        result waits for it.  Every batch size runs the same kernels (K1,
+        then the window-gather remap K3).
         """
         return self.transform_async(y, u, v)
 
@@ -132,6 +141,15 @@ class Transform360:
         .transform_async``).  Returns device tensors whose work is queued
         on the current stream; ``.cpu()`` waits for it.  Batches retire
         in submission order because one stream runs them in order."""
+        if self._mesh is not None and getattr(y, "ndim", None) == 3:
+            n = self._mesh.size
+            if y.shape[0] % n:
+                raise ValueError(
+                    f"batch {y.shape[0]} is not divisible by the mesh size {n}"
+                )
+            in_h, in_w = y.shape[-2:]
+            plan = self._ensure_plan(int(in_w), int(in_h))
+            return transform_batch_sharded(self._mesh, plan, y, u, v)
         planes = [None if p is None else as_plane(p, self._device).to(self._device)
                   for p in (y, u, v)]
         in_h, in_w = planes[0].shape[-2:]

@@ -27,8 +27,14 @@ batches trade latency for frames/s.  ``--pix-fmt`` takes the deep formats
 little-endian samples.  ``--save-plan`` writes the plan after the run and
 ``--load-plan`` reuses one instead of generating the maps (plan files of
 this package or of the JAX package).
-Options that need modules not ported yet (several GPUs, the C++ engine)
-raise ``NotImplementedError`` naming their ROADMAP item.
+
+Several devices: ``--devices N`` shards each batch over N GPUs;
+``--latency-bands N`` bands each frame's output rows over devices instead
+of batching frames (for a live stream); ``--distributed HOST:PORT,P,p``
+(or ``env``) runs P processes that each take their own run of every batch
+or their own group of bands (``parallel/``).  ``--backend native`` (the
+C++ engine) is not ported yet and raises ``NotImplementedError`` naming
+its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -41,9 +47,11 @@ import time
 from collections import deque
 
 import numpy as np
+import torch
 
 from .api import open_filter
 from .config import get_pixel_format
+from .pipeline import device_of
 from .utils.profiling import StageStats
 from .utils.video import VideoReader, VideoWriter, is_raw_path
 from .utils.yuv import read_planar_frames, write_yuv420_frames
@@ -186,13 +194,20 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--devices", type=int, default=None,
-        help="shard each batch over this many GPUs (not ported yet: "
-             "ROADMAP A13; only 1 is accepted)",
+        help="batch mode: shard each batch over this many GPUs (0 = all "
+             "visible; --batch must be a multiple; default 1). With "
+             "--latency-bands N: the local devices of the bands x frames "
+             "grid: every N of them serve one frame's bands, so D devices "
+             "keep D//N frames in flight (default: all visible). With "
+             "--device cpu the CPU is named that many times",
     )
     p.add_argument(
         "--latency-bands", type=int, default=0, metavar="N",
-        help="band each frame's output rows over N devices (not ported "
-             "yet: ROADMAP A13)",
+        help="single-frame latency mode: band each frame's output rows "
+             "over N devices (0 = off; -1 = one band per device) instead "
+             "of batching frames. With --distributed, N is the global "
+             "band count: each process runs a contiguous band group and "
+             "writes its row slice of every frame",
     )
     p.add_argument(
         "--prefetch", type=int, default=1,
@@ -214,21 +229,107 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--distributed", default=None, metavar="SPEC",
-        help="join a multi-host run (not ported yet: ROADMAP A13)",
+        help="join a multi-process run on torch.distributed's gloo backend "
+             "(a rendezvous only): 'env' (MASTER_ADDR, MASTER_PORT, "
+             "WORLD_SIZE, RANK) or 'HOST:PORT,NPROC,PID'. Every process "
+             "reads the whole input; in batch mode process p of P "
+             "transforms and writes frames [p*B/P, (p+1)*B/P) of every "
+             "batch of B (--batch), so stitch the outputs batch by batch "
+             "in process order",
     )
     return p
 
 
 def _refuse_unported(args) -> None:
     """Raise for flags whose modules are not ported yet."""
-    if args.devices not in (None, 1):
-        raise NotImplementedError("--devices (multi-GPU batch sharding) is not ported yet: ROADMAP A13")
-    if args.latency_bands:
-        raise NotImplementedError("--latency-bands (row-band latency sharding) is not ported yet: ROADMAP A13")
-    if args.distributed:
-        raise NotImplementedError("--distributed (multi-host runs) is not ported yet: ROADMAP A13")
     if args.backend == "native":
         raise NotImplementedError("--backend native (the C++ engine) is not ported yet: ROADMAP A14")
+
+
+class _Usage(Exception):
+    """A command-line error: printed, exit code 2."""
+
+
+def _device_list(device, n, cpu_default: int = 1):
+    """``n`` devices of the kind ``device`` names: CUDA devices 0 .. n-1
+    (``None``: every visible one), or the CPU named ``n`` times
+    (``None``: ``cpu_default`` times)."""
+    d = device_of(device)
+    if d.type != "cuda":
+        return [d] * (n or cpu_default)
+    avail = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    if n is None:
+        return avail
+    if n > len(avail):
+        raise _Usage(f"--devices {n} but only {len(avail)} available")
+    return avail[:n]
+
+
+def _own_frames(frames_in, batch: int, rank: int, world: int):
+    """This process's frames of a multi-process batch run: frames
+    ``[rank * k, (rank + 1) * k)`` of every ``batch`` frames, k = batch /
+    world (of a short final batch, those that exist)."""
+    k = batch // world
+    try:
+        for i, planes in enumerate(frames_in):
+            if rank * k <= i % batch < (rank + 1) * k:
+                yield planes
+    finally:
+        close = getattr(frames_in, "close", None)
+        if close is not None:
+            close()
+
+
+def _padded(transform_async, size: int):
+    """``transform_async`` with a short batch padded to a multiple of
+    ``size`` (the mesh's) by repeating its last frame; the caller reads
+    only the real frames."""
+    def run(*planes):
+        n = planes[0].shape[0]
+        m = -(-n // size) * size
+        if m != n:
+            planes = [np.concatenate([p, np.repeat(p[-1:], m - n, 0)]) for p in planes]
+        return transform_async(*planes)
+
+    return run
+
+
+def banded_outputs(plan, inq, devices, n_bands: int, bands_slice, stats):
+    """Yield per-frame output plane tuples (numpy) in latency mode: each
+    frame's output rows banded over ``devices`` (:mod:`.parallel.latency`,
+    uniform band edges).  With more devices than bands, device group g
+    serves frame k % G, up to G frames in flight, each at banded
+    latency.  With ``bands_slice`` (a multi-process run) only that group
+    of the ``n_bands`` global bands runs and each frame's row slice is
+    yielded."""
+    from .parallel.latency import transform_frame_banded_async
+
+    nb = n_bands if bands_slice is None else bands_slice[1] - bands_slice[0]
+    n_use = min(max(nb, 1), len(devices))
+    n_groups = max(1, len(devices) // n_use)
+    pending: deque = deque()
+
+    def retire():
+        tb0, bf = pending.popleft()
+        outs = bf.gather()
+        stats.record(1, time.perf_counter() - tb0)
+        return outs
+
+    g = 0
+    while True:
+        item = inq.get()
+        if item is None:
+            break
+        if isinstance(item, BaseException):
+            raise item
+        group = devices[(g % n_groups) * n_use:][:n_use]
+        g += 1
+        pending.append((time.perf_counter(), transform_frame_banded_async(
+            plan, item, devices=group, n=n_bands, bands_slice=bands_slice)))
+        if len(pending) >= n_groups:
+            yield retire()
+    while pending:
+        yield retire()
 
 
 def main(argv=None) -> int:
@@ -265,18 +366,84 @@ def main(argv=None) -> int:
         print("error: video-container output requires yuv420p", file=sys.stderr)
         return 2
 
+    if args.latency_bands and args.distributed and not is_raw_path(args.output):
+        # each process emits its ROW SLICE of every frame; only raw
+        # streams can carry partial frames (stitch slices by vertical
+        # concatenation in process order)
+        print("error: --latency-bands with --distributed writes per-"
+              "process row slices; use raw output (.yuv/.raw/-)", file=sys.stderr)
+        return 2
+
+    rank, world = 0, 1
+    if args.distributed:
+        from .parallel import distributed as dist
+
+        if args.distributed == "env":
+            dist.initialize()
+        else:
+            try:
+                coord, nproc, pid = args.distributed.split(",")
+                nproc, pid = int(nproc), int(pid)
+            except ValueError:
+                print("error: --distributed expects 'env' or "
+                      "'HOST:PORT,NPROC,PID'", file=sys.stderr)
+                return 2
+            dist.initialize(coord, nproc, pid)
+        rank, world = dist.process_index(), dist.process_count()
+
+    mesh = None
+    batch = args.batch
+    bands_slice = None
+    try:
+        if args.latency_bands:
+            devices = _device_list(args.device, args.devices or None,
+                                   cpu_default=max(args.latency_bands, 1))
+            n_bands = len(devices) * world if args.latency_bands < 0 else args.latency_bands
+            if args.distributed:
+                from .parallel.latency import local_band_range
+
+                bands_slice = local_band_range(n_bands, rank, world)
+                if bands_slice[0] == bands_slice[1]:
+                    raise _Usage(f"--latency-bands {n_bands} leaves process {rank} of "
+                                 f"{world} no band")
+            else:
+                n_bands = min(n_bands, len(devices))
+        else:
+            devices = None
+            if args.devices not in (None, 1):
+                devices = _device_list(args.device, args.devices or None)
+            n_dev = 1 if devices is None else len(devices)
+            if args.batch % (world * n_dev):
+                raise _Usage(
+                    f"--batch {args.batch} is not a multiple of --devices {n_dev}"
+                    + (f" x {world} processes" if world > 1 else "")
+                )
+            batch = args.batch // world
+            if devices is not None:
+                from .parallel import make_mesh
+
+                mesh = make_mesh(devices)
+            if world > 1:
+                frames_in = _own_frames(frames_in, args.batch, rank, world)
+    except _Usage as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+
     t = open_filter(args.vf, in_w, in_h, eager=args.load_plan is None, pix_fmt=pf,
-                    device=args.device)
+                    mesh=mesh, device=args.device)
     if args.load_plan:
         t.load_plan(args.load_plan)
 
     # with stdout as the output stream, diagnostics must not corrupt it
     stats = StageStats(stream=sys.stderr if args.output == "-" else sys.stdout)
     t0 = time.perf_counter()
-    inq, stop = start_reader(frames_in, args.batch)
-    out_iter = batched_outputs(
-        t.transform_async, inq, pf.n_planes, args.batch, args.prefetch, stats
-    )
+    inq, stop = start_reader(frames_in, batch)
+    if args.latency_bands:
+        out_iter = banded_outputs(t.plan, inq, devices, n_bands, bands_slice, stats)
+    else:
+        transform = t.transform_async if mesh is None else _padded(t.transform_async,
+                                                                    mesh.size)
+        out_iter = batched_outputs(transform, inq, pf.n_planes, batch, args.prefetch, stats)
     try:
         if is_raw_path(args.output):
             write_yuv420_frames(args.output, out_iter)

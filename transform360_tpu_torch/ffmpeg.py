@@ -888,6 +888,16 @@ def _is_stream_input(path: str) -> bool:
     return path == "-" or path.startswith("pipe:") or path == "/dev/stdin"
 
 
+def _probed_inputs(inputs, cs) -> List[str]:
+    """The input paths that :func:`probe_decoded` or
+    :func:`probe_decoded_complex` read before the decode process starts."""
+    if cs is None:
+        return [inputs[0][1]]
+    if cs.dec_fc is None and not cs.dec_map.startswith("["):
+        return [inputs[int(cs.dec_map.partition(":")[0])][1]]
+    return [p for _, p in inputs]
+
+
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
 
@@ -973,6 +983,18 @@ def main(argv=None) -> int:
         print(
             f"error: the transform360 wrapper supports exactly one input "
             f"(got {len(inputs)}) outside -filter_complex", file=sys.stderr,
+        )
+        return 2
+
+    piped = [p for p in _probed_inputs(inputs, cs) if _is_stream_input(p)]
+    if piped:
+        # the probe would read the head of the stream, which the decode
+        # process then misses (the reference wrapper's fault)
+        print(
+            f"error: input {piped[0]!r} is a stream that can be read only once, but "
+            "the wrapper probes its size and pixel format before the decode process "
+            "reads it, so the decode would miss the frames the probe consumed; write "
+            "the stream to a file first", file=sys.stderr,
         )
         return 2
 

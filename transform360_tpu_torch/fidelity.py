@@ -20,10 +20,11 @@ holds the JAX package's worst-plane PSNR per case and the SHA-256 of the
 input planes, which are checked against this module's own.  Other sizes
 need ``want=`` (the oracle's planes per case).
 
-The JAX gate folds two more runs: its lane-packing loop (``:105-117``),
-which exists for TPU lane kernels (K3 serves every batch size), and the
-latency-banded run (``:130-134``), which waits for the port of
-``parallel/`` (ROADMAP A13).
+The flagship also runs latency-banded, as the JAX gate's ``:130-134``:
+two output row-bands with cost-model edges (:mod:`.parallel.latency`),
+each band on the gate's device.  The JAX gate's lane-packing loop
+(``:105-117``) has no counterpart: it exists for TPU lane kernels, and
+K3 serves every batch size.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 
 from .config import Interpolation, StereoFormat, TransformConfig, chroma_dims
+from .parallel.latency import transform_frame_banded
 from .pipeline import transform_batch
 from .plan import TransformPlan, build_plan
 
@@ -152,13 +154,16 @@ def run_case(plan: TransformPlan, planes, batch: int, device) -> Tuple[np.ndarra
 
 
 def run_gate(plans: Dict[str, TransformPlan], planes, batch: int, device) -> Dict[str, List]:
-    """``{case: [frame-0 planes per run]}``: the flagship at ``batch`` and
-    at batch 1, every other case at ``batch``."""
+    """``{case: [frame-0 planes per run]}``: the flagship at ``batch``, at
+    batch 1 and in two latency bands with ``row_costs="auto"``, every
+    other case at ``batch``."""
     got = {}
     for name, plan in plans.items():
         runs = [run_case(plan, planes, batch, device)]
         if name == "flagship":
             runs.append(run_case(plan, planes, 1, device))
+            runs.append(transform_frame_banded(plan, planes, devices=[device], n=2,
+                                               row_costs="auto"))
         got[name] = runs
     return got
 

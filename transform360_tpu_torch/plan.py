@@ -85,14 +85,21 @@ class _DeviceCache:
                 self._by_device[key] = hit
             return hit
 
+    def _host_window_plan(self, pp: "PlanePlan") -> WindowPlan:
+        if self._window_plan is None:  # the caller holds the lock
+            self._window_plan = build_window_plan(pp.spec, pp.fill, pp.sample_bytes)
+        return self._window_plan
+
+    def window_plan(self, pp: "PlanePlan") -> WindowPlan:
+        with self._lock:
+            return self._host_window_plan(pp)
+
     def window(self, pp: "PlanePlan", device: torch.device) -> WindowTables:
         key = str(device)
         with self._lock:
             hit = self._window_by_device.get(key)
             if hit is None:
-                if self._window_plan is None:
-                    self._window_plan = build_window_plan(pp.spec, pp.fill, pp.sample_bytes)
-                hit = WindowTables.from_plan(self._window_plan, device)
+                hit = WindowTables.from_plan(self._host_window_plan(pp), device)
                 self._window_by_device[key] = hit
             return hit
 
@@ -138,6 +145,11 @@ class PlanePlan:
         (built on the CPU at the first call, moved once per device, then
         cached)."""
         return self._cache.window(self, torch.device(device))
+
+    def window_plan(self) -> WindowPlan:
+        """The remap's host (numpy) tile plan for this plan's samples,
+        built once and shared with :meth:`window_tables`."""
+        return self._cache.window_plan(self)
 
 
 @dataclasses.dataclass(frozen=True)
