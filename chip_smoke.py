@@ -101,7 +101,24 @@ nvcc and CUDA PyTorch (no jax needed).  Phases:
 16. two processes on the one card: the CLI with ``--distributed
     127.0.0.1:PORT,2,PID`` (gloo; both ranks on cuda:0) in batch mode and
     with ``--latency-bands 2``, 8 frames 1920x960: the ranks' outputs
-    stitched equal one process's bytes.
+    stitched equal one process's bytes;
+17. the native C++ engine on the host's CPU: the CPU's model name and
+    core count, ``native/t360.cpp`` built with the host's C++ compiler
+    (its seconds), phase 4's first 8 frames copied to the host through
+    ``open_filter(<flagship>, 3840, 2160, backend="native")`` as a batch
+    (the frame pool) and as one ``[H, W]`` frame, against the card's
+    bytes from phase 4 (fails under 50 dB on the worst plane or with more
+    than 1% of pixels differing; prints each plane's PSNR, the share
+    that differs and the largest difference), its luma warp map against
+    the port's (under 1/32 + 1e-3 px), its wall per frame, and a 10-bit
+    native engine refused with ``ValueError``;
+18. profiling the card: ``utils.profiling.device_trace`` (torch.profiler,
+    CPU and CUDA activity) around one batch-128 flagship step, whose
+    trace must hold K1's kernels exactly 2 times and K3's exactly 4, as
+    ``LAUNCHES`` reads them, with their summed device times beside phase
+    5's stages; ``time_frame_step`` (the chain-difference timer) at batch
+    128 and 1 beside phase 5's step median, phase 6's events time and
+    the frame's replayed CUDA graph (phase 15).
 
 Bound for kernel vs plain: at most 1 LSB on under 0.5% of the pixels
 (the kernels are built to be bit-identical, so 0 is expected).  Every
@@ -407,6 +424,26 @@ def write_stubs(bindir: str) -> None:
         with open(path, "w") as f:
             f.write(f"#!{sys.executable}\n{body}")
         os.chmod(path, 0o755)
+
+
+def cpu_model() -> str:
+    """The host CPU's model name from ``/proc/cpuinfo``, with its vendor,
+    family and model numbers (a virtualized kernel may report the name as
+    ``unknown``), or ``platform.machine()`` where there is no cpuinfo."""
+    info = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                k, _, v = line.partition(":")
+                info.setdefault(k.strip(), v.strip())
+    except OSError:
+        pass
+    if "model name" not in info:
+        import platform
+
+        return platform.machine()
+    return (f"{info['model name']} ({info.get('vendor_id', '?')} family "
+            f"{info.get('cpu family', '?')} model {info.get('model', '?')})")
 
 
 def main() -> int:
@@ -772,6 +809,7 @@ def main() -> int:
     say(f"[5] batch-{BATCH} stages, device medians of 20 by CUDA events: "
         + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items())
         + f"; sum {sum(parts.values()):.4f} ms against the step's {step:.4f}  ({smi})")
+    stages_b128 = parts  # phase 18 sets the trace's kernel times beside them
     del yl, cl
 
     # -- 6. latency path ---------------------------------------------------
@@ -1374,7 +1412,105 @@ def main() -> int:
                 f"ranks' outputs stitched equal one process's bytes; wall {mp_wall:.2f} s for "
                 f"both processes (start, kernel load, plan and file IO included)  ({smi})")
 
-    say(f"[16] every phase passed in {time.perf_counter() - t_start:.1f} s, the kernels' build "
+    # -- 17. the native engine on the host's CPU ----------------------------
+    from transform360_tpu_torch import native
+    from transform360_tpu_torch.geometry import build_warp_map
+
+    cpu = cpu_model()
+    t0 = time.perf_counter()
+    if not native.available():
+        raise SystemExit(f"FAIL the native engine did not build: {native.build_error()}")
+    t_nat = time.perf_counter() - t0
+    built = _build.BUILD_SECONDS.get("t360")
+    say(f"[17] host CPU: {cpu}, os.cpu_count() {os.cpu_count()}; native engine "
+        f"native/t360.cpp {'built in ' + format(built, '.2f') + ' s' if built else 'found built'} "
+        f"({' '.join(_build.cxx_command() + list(_build.CXX_FLAGS))}; loaded in {t_nat:.2f} s)")
+    n_nat = 8
+    host = [t[:n_nat].cpu() for t in (yb, ub, vb)]  # phase 4's first frames, on the host
+    card = [t[:n_nat].cpu() for t in (oy, ou, ov)]  # the card's bytes for them (phase 4)
+    nat = open_filter(FLAGSHIP, IN_W, IN_H, backend="native")
+    t0 = time.perf_counter()
+    pooled = nat.transform(*host)  # the frame pool; maps generated on this first call
+    t_first = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pooled = nat.transform(*host)
+    t_pool = time.perf_counter() - t0
+    nat.transform(*(h[0] for h in host))
+    t0 = time.perf_counter()
+    single = nat.transform(*(h[0] for h in host))
+    t_single = time.perf_counter() - t0
+    if any(o.dtype != torch.uint8 or o.device.type != "cpu" for o in pooled + single):
+        raise SystemExit("FAIL the native engine's outputs are not CPU uint8 tensors")
+    stats = []
+    for pname, a, b, one in zip("YUV", pooled, card, single):
+        if tuple(a.shape) != tuple(b.shape) or not torch.equal(one, a[0]):
+            raise SystemExit(f"FAIL native {pname}: shape {tuple(a.shape)} against the card's "
+                             f"{tuple(b.shape)}, or one [H, W] frame differs from frame 0 of "
+                             f"the pool")
+        d = (a.int() - b.int()).abs()
+        mse = float((d.double() ** 2).mean())
+        db = float("inf") if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
+        stats.append((pname, db, float((d > 0).double().mean()), int(d.max())))
+    worst_db = min(db for _, db, _, _ in stats)
+    worst_diff = max(fr for _, _, fr, _ in stats)
+    nm = native.NativeTransform(plan.cfg)
+    nm.generate_map_for_plane(IN_W, IN_H, plan.out_w, plan.out_h, 0)
+    map_err = float(np.abs(nm.export_warp_map(0) - build_warp_map(
+        plan.cfg, IN_W, IN_H, plan.out_w, plan.out_h).numpy()).max())
+    try:
+        open_filter(FLAGSHIP, IN_W, IN_H, backend="native",
+                    pix_fmt="yuv420p10le").transform(*(t[0] for t in (ydb, udb, vdb)))
+        refused = False
+    except ValueError:
+        refused = True
+    say(f"[17] native engine vs the card, {n_nat} video-like frames {IN_W}x{IN_H} -> "
+        f"{plan.out_w}x{plan.out_h} (flagship): "
+        + ", ".join(f"{pn} {db:.2f} dB, {fr:.6f} of pixels differ, max |diff| {mx}"
+                    for pn, db, fr, mx in stats)
+        + f"; one [H, W] frame equals frame 0 of the pool; luma warp map vs the port's: max "
+        f"|diff| {map_err:.6f} px (bound {1 / 32 + 1e-3:.6f}); 10-bit refused: {refused}")
+    say(f"[17] native wall on {cpu} ({os.cpu_count()} cores): first call (maps + {n_nat} "
+        f"frames) {t_first:.3f} s; frame pool {t_pool * 1e3 / n_nat:.1f} ms per frame "
+        f"({n_nat} frames, {t_pool:.3f} s); one [H, W] frame {t_single * 1e3:.1f} ms")
+    if worst_db < 50.0 or worst_diff > 0.01 or map_err >= 1 / 32 + 1e-3 or not refused:
+        raise SystemExit(f"FAIL native engine vs the card: worst {worst_db:.2f} dB (bound 50), "
+                         f"{worst_diff:.6f} of pixels differ (bound 0.01), warp map "
+                         f"{map_err:.6f} px, 10-bit refused {refused}")
+    del host, card, pooled, single, nm
+
+    # -- 18. profiling the card ---------------------------------------------
+    from transform360_tpu_torch.utils.profiling import device_trace, time_frame_step, trace_kernels
+
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        eng.transform(yb, ub, vb)
+        torch.cuda.synchronize()
+        reset_counts()
+        with device_trace(tmp) as trace:
+            eng.transform(yb, ub, vb)
+        traced = read_counts()
+        found = trace_kernels(trace)
+        size = os.path.getsize(trace)
+    k1 = [v for n, v in found.items() if "blur_ring_kernel" in n or "blur_direct_kernel" in n]
+    k3 = [v for n, v in found.items() if "window_kernel" in n]
+    n1, ms1 = sum(c for c, _ in k1), sum(m for _, m in k1)
+    n3, ms3 = sum(c for c, _ in k3), sum(m for _, m in k3)
+    say(f"[18] torch.profiler trace of one batch-{BATCH} flagship step ({size} B): K1 {n1} "
+        f"launches, {ms1:.4f} ms; K3 {n3} launches, {ms3:.4f} ms; LAUNCHES read {traced}; "
+        f"every kernel in it: "
+        + ", ".join(f"{n[:90]} x{c} {m:.4f} ms" for n, (c, m) in sorted(found.items()))
+        + f"; phase 5's stages by CUDA events: K1 {stages_b128['K1 luma'] + stages_b128['K1 chroma (U+V)']:.4f}"
+        f" ms, K3 {stages_b128['K3 luma'] + stages_b128['K3 chroma (U+V)']:.4f} ms  ({smi})")
+    if n1 != 2 or n3 != 4 or (traced["blur"], traced["window"]) != (n1, n3):
+        raise SystemExit(f"FAIL the trace holds K1 {n1} and K3 {n3} launches (want 2 and 4, "
+                         f"as LAUNCHES reads: {traced})")
+    chain128 = time_frame_step(plan, yb, ub, vb) * 1e3
+    chain1 = time_frame_step(plan, y1, u1, v1) * 1e3
+    say(f"[18] time_frame_step (chain difference, 2 and 26 steps, best of 3): batch {BATCH} "
+        f"{chain128:.4f} ms per step (phase 5's device median {step:.4f}); batch 1 "
+        f"{chain1:.4f} ms (phase 6 by CUDA events {frame_ms:.4f}, phase 15 as a replayed CUDA "
+        f"graph {frame_graph:.4f})  ({smi})")
+
+    say(f"[18] every phase passed in {time.perf_counter() - t_start:.1f} s, the kernels' build "
         f"included")
     launches.update({k: deep_launches[k] for k in ("blur_u16", "window_u16")})
 

@@ -11,10 +11,12 @@
   and the saved file loads in the JAX package; a 10-bit raw stream
   (``--pix-fmt yuv420p10le``, 16-bit little-endian samples) equals the
   API's bytes.
-* ``--backend native`` (the C++ engine, not ported) raises
-  ``NotImplementedError`` naming its ROADMAP item, alone and beside the
-  served ``--devices``, ``--latency-bands`` and ``--distributed``
-  (tests/test_torch_parallel.py and test_torch_multiproc.py run those).
+* ``--backend native`` (the C++ engine, ROADMAP A14) writes the API's
+  bytes, and refuses ``--devices``, ``--latency-bands`` and
+  ``--distributed`` with exit code 2 and no output file, as the JAX CLI
+  does (tests/test_torch_parallel.py and test_torch_multiproc.py run
+  those flags on the auto backend; tests/test_torch_native.py holds the
+  native engine against the JAX package's).
 """
 
 import io
@@ -88,21 +90,33 @@ def test_cli_stdin_stdout_pipe(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize(
-    "flags, item",
+    "flags, refusal",
     [
-        (["--devices", "2", "--backend", "native"], "A14"),
-        (["--latency-bands", "2", "--backend", "native"], "A14"),
-        (["--distributed", "env", "--backend", "native"], "A14"),
-        (["--backend", "native"], "A14"),
+        (["--devices", "2", "--backend", "native"], "--devices requires the auto backend"),
+        (["--latency-bands", "2", "--backend", "native"],
+         "--latency-bands requires the auto backend"),
+        (["--distributed", "env", "--backend", "native"],
+         "--distributed requires the auto backend"),
+        (["--backend", "native"], None),
     ],
 )
-def test_unported_flags_raise_naming_the_roadmap_item(tmp_path, flags, item):
-    src = _stream(tmp_path / "in.yuv", 256, 128, 1)
-    args = ["--vf", "cube_edge_length=32:input_stereo_format=mono", "--input-size",
-            "256x128", "-i", str(src), "-o", str(tmp_path / "o.yuv"), "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match=item):
-        cli_main(args + flags)
-    assert not (tmp_path / "o.yuv").exists()
+def test_unported_flags_raise_naming_the_roadmap_item(tmp_path, capsys, flags, refusal):
+    # ROADMAP A14, served now: the native backend refuses the auto
+    # backend's device, band and process flags; alone it writes the API's bytes
+    vf = "cube_edge_length=32:input_stereo_format=mono"
+    src = _stream(tmp_path / "in.yuv", 256, 128, 2)
+    out = tmp_path / "o.yuv"
+    args = ["--vf", vf, "--input-size", "256x128", "-i", str(src), "-o", str(out),
+            "--device", "cpu"]
+    rc = cli_main(args + flags)
+    if refusal:
+        assert rc == 2 and refusal in capsys.readouterr().err
+        assert not out.exists()
+        return
+    assert rc == 0
+    planes = read_yuv420_batch(str(src), 256, 128)
+    api = [o.numpy() for o in P.open_filter(vf, 256, 128, backend="native").transform(*planes)]
+    assert out.read_bytes() == b"".join(p[k].tobytes() for k in range(2) for p in api)
 
 
 def _api_bytes(vf, w, h, planes, pix_fmt):

@@ -32,7 +32,8 @@ def test_every_module_is_walked():
               "transform360_tpu_torch.fidelity", "transform360_tpu_torch.ffmpeg",
               "transform360_tpu_torch.parallel", "transform360_tpu_torch.parallel.mesh",
               "transform360_tpu_torch.parallel.latency",
-              "transform360_tpu_torch.parallel.distributed"):
+              "transform360_tpu_torch.parallel.distributed",
+              "transform360_tpu_torch.native"):
         assert m in MODULES
     assert "transform360_tpu_torch.ops.remap" not in MODULES  # K2 is retired
 
@@ -60,7 +61,11 @@ def test_cuda_sources_exist_and_are_packaged():
     assert not (_build.CSRC / "remap.cu").exists()
     with open(ROOT / "pyproject.toml", "rb") as f:
         data = tomllib.load(f)["tool"]["setuptools"]["package-data"]
-    assert data["transform360_tpu_torch"] == ["csrc/*.cu", "csrc/*.cuh", "data/*.npz"]
+    assert data["transform360_tpu_torch"] == ["csrc/*.cu", "csrc/*.cuh", "data/*.npz",
+                                              "native/*.cpp"]
+    # the native engine's source: the port's own copy, byte for byte
+    assert _build.NATIVE_SRC.read_bytes() == (
+        ROOT / "transform360_tpu" / "native" / "t360.cpp").read_bytes()
     assert (ROOT / "transform360_tpu_torch" / "data" / "fidelity_oracle.npz").is_file()
     # sm_90a target (wgmma/TMA-capable Hopper) and no silent FMA contraction
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
@@ -128,19 +133,29 @@ def test_wrappers_refuse_other_devices_and_bad_inputs(monkeypatch):
 
 
 @pytest.mark.parametrize(
-    "kwargs, item",
+    "kwargs, refusal",
     [
-        (dict(backend="native"), "A14"),
-        (dict(backend="native", mesh=["cpu"] * 2), "A14"),  # mesh= is served (A13)
+        (dict(backend="native"), None),
+        (dict(backend="native", mesh=["cpu"] * 2), "mesh"),  # mesh= needs the auto backend
     ],
 )
-def test_unported_options_raise_naming_the_roadmap_item(kwargs, item):
+def test_unported_options_raise_naming_the_roadmap_item(kwargs, refusal):
+    # ROADMAP A14, served now: backend="native" builds an engine on the
+    # host's CPU (whatever device= says); with a mesh it is refused
     cfg = t3.TransformConfig(
         input_stereo_format=t3.StereoFormat.MONO,
         output_stereo_format=t3.StereoFormat.MONO,
     )
-    with pytest.raises(NotImplementedError, match=item):
-        t3.Transform360(cfg, 96, 64, device="cpu", **kwargs)
+    if refusal:
+        with pytest.raises(ValueError, match=refusal):
+            t3.Transform360(cfg, 96, 64, device="cpu", **kwargs)
+        return
+    eng = t3.Transform360(cfg, 96, 64, device="cuda", **kwargs)
+    assert eng.device == torch.device("cpu")
+    y = np.zeros((128, 256), np.uint8)
+    out = eng.transform(y, y[:64, :128], y[:64, :128])
+    assert [tuple(o.shape) for o in out] == [(64, 96), (32, 48), (32, 48)]
+    assert all(o.dtype == torch.uint8 and o.device.type == "cpu" for o in out)
 
 
 @pytest.mark.parametrize(

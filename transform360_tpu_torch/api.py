@@ -13,9 +13,10 @@ inputs are moved there, outputs are tensors there, uint8 or, for the deep
 pixel formats, uint16.  With ``mesh=`` (:func:`.parallel.make_mesh`, or a
 sequence of devices) a ``[B, H, W]`` batch is sharded over the mesh's
 devices instead, and each output plane is a
-:class:`.parallel.mesh.ShardedBatch`.  The C++ engine
-(``backend="native"``) is not ported yet and raises
-``NotImplementedError`` naming its ROADMAP item; nothing degrades
+:class:`.parallel.mesh.ShardedBatch`.  ``backend="native"`` runs the
+dependency-free C++ engine (:mod:`.native`) on the host's CPU instead:
+8-bit formats only, its device is ``cpu`` and its outputs are CPU uint8
+tensors; without a C++ compiler it raises, and nothing degrades
 silently.
 """
 
@@ -51,27 +52,28 @@ class Transform360:
         mesh=None,
         device="cuda",
     ):
-        """``backend``: "auto" only; the dependency-free C++ engine
-        ("native") is not ported yet.  ``mesh``: shard ``[B, H, W]``
-        batches over these devices (a :class:`.parallel.mesh.Mesh` or a
-        sequence of devices; B must be a multiple of its size).
-        ``device``: where frames are transformed otherwise ("cuda"
-        launches the hand-written kernels; "cpu" runs their plain PyTorch
-        versions)."""
+        """``backend``: "auto" (the PyTorch pipeline on ``device``) or
+        "native" (the dependency-free C++ engine on the host's CPU, with
+        the reference's threading model; see :mod:`.native`; ``device``
+        is then ``cpu``).  ``mesh``: shard ``[B, H, W]`` batches over
+        these devices (a :class:`.parallel.mesh.Mesh` or a sequence of
+        devices; B must be a multiple of its size).  ``device``: where
+        frames are transformed otherwise ("cuda" launches the hand-written
+        kernels; "cpu" runs their plain PyTorch versions)."""
         config.validate()
-        if backend == "native":
-            raise NotImplementedError(
-                "backend='native' (the C++ engine) is not ported yet: ROADMAP A14"
-            )
-        if backend != "auto":
+        if backend not in ("auto", "native"):
             raise ValueError(f"unknown backend {backend!r}")
+        if mesh is not None and backend == "native":
+            raise ValueError("mesh sharding requires the auto backend")
+        self._backend = backend
         self._mesh = None if mesh is None else as_mesh(mesh)
         self._pix_fmt = get_pixel_format(pix_fmt)
-        self._device = device_of(device)
+        self._device = torch.device("cpu") if backend == "native" else device_of(device)
         self._cfg = config
         self._out_w = out_w
         self._out_h = out_h
         self._plan: Optional[TransformPlan] = None
+        self._native = None
 
     @property
     def config(self) -> TransformConfig:
@@ -140,7 +142,10 @@ class Transform360:
         CLI pipeline calls (as ``transform360_tpu.api.Transform360
         .transform_async``).  Returns device tensors whose work is queued
         on the current stream; ``.cpu()`` waits for it.  Batches retire
-        in submission order because one stream runs them in order."""
+        in submission order because one stream runs them in order.  On
+        the native backend this is synchronous (CPU tensors out)."""
+        if self._backend == "native":
+            return self._transform_native(y, u, v)
         if self._mesh is not None and getattr(y, "ndim", None) == 3:
             n = self._mesh.size
             if y.shape[0] % n:
@@ -155,6 +160,40 @@ class Transform360:
         in_h, in_w = planes[0].shape[-2:]
         plan = self._ensure_plan(int(in_w), int(in_h))
         return transform_batch(plan, *planes)
+
+    def _transform_native(self, y, u, v):
+        from . import native
+
+        pf = self._pix_fmt
+        if pf.depth > 8:
+            raise ValueError(
+                f"the native (C++) engine is 8-bit only — {pf.name} "
+                "requires the auto backend (the reference engine wraps "
+                "planes as CV_8U, VideoFrameTransform.cpp:1331-1335)"
+            )
+        # a device tensor is copied to the host explicitly (the engine's
+        # device is the CPU); numpy arrays and CPU tensors are not copied
+        planes = [p.cpu() if isinstance(p, torch.Tensor) else p
+                  for p in (y, u, v) if p is not None]
+        if len(planes) != pf.n_planes:
+            raise ValueError(
+                f"expected {pf.n_planes} plane(s) for {pf.name}, got {len(planes)}"
+            )
+        if self._out_w is None or self._out_h is None:
+            raise ValueError("output size not set")
+        cfg = self._cfg
+        if StereoFormat.GUESS in (cfg.input_stereo_format, cfg.output_stereo_format):
+            in_fmt, out_fmt = resolve_stereo_formats(
+                cfg, planes[0].shape[-1], planes[0].shape[-2]
+            )
+            cfg = cfg.replace(input_stereo_format=in_fmt, output_stereo_format=out_fmt)
+        if self._native is None or self._native.config != cfg:
+            self._native = native.NativeTransform(cfg)
+        # single frame, or batch via the C engine's frame-pool runner (one
+        # worker per frame, maps generated once)
+        outs = self._native.transform_planar(planes, self._out_w, self._out_h, pf.name)
+        outs = tuple(torch.from_numpy(o) for o in outs)
+        return outs if len(outs) > 1 else outs[0]
 
     def transform_frame_plane(
         self, plane, map_plane_index: int, in_w: int, in_h: int
@@ -204,6 +243,6 @@ def open_filter(
     t = Transform360(
         cfg, out_w, out_h, backend=backend, pix_fmt=pix_fmt, mesh=mesh, device=device
     )
-    if eager:
+    if eager and backend != "native":
         t.generate_map(in_w, in_h)
     return t

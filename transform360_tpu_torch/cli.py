@@ -32,9 +32,9 @@ Several devices: ``--devices N`` shards each batch over N GPUs;
 ``--latency-bands N`` bands each frame's output rows over devices instead
 of batching frames (for a live stream); ``--distributed HOST:PORT,P,p``
 (or ``env``) runs P processes that each take their own run of every batch
-or their own group of bands (``parallel/``).  ``--backend native`` (the
-C++ engine) is not ported yet and raises ``NotImplementedError`` naming
-its ROADMAP item.
+or their own group of bands (``parallel/``).  ``--backend native`` runs
+the dependency-free C++ engine on the host's CPU instead (8-bit formats;
+no device flags, plan files or multi-process runs).
 """
 
 from __future__ import annotations
@@ -224,8 +224,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--stats", action="store_true", help="print a JSON stats line")
     p.add_argument(
         "--backend", choices=("auto", "native"), default="auto",
-        help="'auto' = the PyTorch/CUDA pipeline; 'native' = the C++ "
-             "engine (not ported yet: ROADMAP A14)",
+        help="'auto' = the PyTorch/CUDA pipeline; 'native' = the "
+             "dependency-free C++ engine (the host's CPU, the reference's "
+             "threading model; built with the host's C++ compiler at first use)",
     )
     p.add_argument(
         "--distributed", default=None, metavar="SPEC",
@@ -240,10 +241,17 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _refuse_unported(args) -> None:
-    """Raise for flags whose modules are not ported yet."""
-    if args.backend == "native":
-        raise NotImplementedError("--backend native (the C++ engine) is not ported yet: ROADMAP A14")
+def _native_refusal(args):
+    """The message for a flag the native backend cannot serve, or None."""
+    if args.latency_bands:
+        return "--latency-bands requires the auto backend"
+    if args.devices not in (None, 1):
+        return "--devices requires the auto backend"
+    if args.save_plan or args.load_plan:
+        return "plan files apply to the auto backend only"
+    if args.distributed:
+        return "--distributed requires the auto backend"
+    return None
 
 
 class _Usage(Exception):
@@ -334,7 +342,11 @@ def banded_outputs(plan, inq, devices, n_bands: int, bands_slice, stats):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    _refuse_unported(args)
+    if args.backend == "native":
+        refusal = _native_refusal(args)
+        if refusal:
+            print(f"error: {refusal}", file=sys.stderr)
+            return 2
 
     pf = get_pixel_format(args.pix_fmt)
     if is_raw_path(args.input):
@@ -430,7 +442,7 @@ def main(argv=None) -> int:
         return 2
 
     t = open_filter(args.vf, in_w, in_h, eager=args.load_plan is None, pix_fmt=pf,
-                    mesh=mesh, device=args.device)
+                    mesh=mesh, device=args.device, backend=args.backend)
     if args.load_plan:
         t.load_plan(args.load_plan)
 
