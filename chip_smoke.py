@@ -7,8 +7,9 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper GPU,
 nvcc and CUDA PyTorch (no jax needed).  Phases:
 
 1. the device, and ``nvidia-smi``'s name and power limit;
-2. build the two kernels from ``transform360_tpu_torch/csrc`` with nvcc,
-   one process per source, all at once, and print ptxas's registers,
+2. build the three kernels (K1, K3, K4) from
+   ``transform360_tpu_torch/csrc`` with nvcc, one process per source, all
+   at once, and print ptxas's registers,
    spills and shared memory; for every instantiation of K3 (uint8 and
    uint16 samples) its registers and local (spill) bytes as the runtime
    reports them and the count of int-to-float conversions (``I2F``,
@@ -30,12 +31,17 @@ nvcc and CUDA PyTorch (no jax needed).  Phases:
    against the same plain versions, TF32 on and off: the 10-bit
    flagship's luma at batch 1, 7 and 128 and stacked chroma at 256, 16-bit
    planes with samples at 65535, and a 10-bit barrel chroma plane whose
-   corners hold the neutral 512;
+   corners hold the neutral 512; K4 (INTER_AREA + round) against
+   ``area_plain`` at 0 LSB, uint8 and uint16, TF32 on and off, on the 2x2
+   flagship's luma (128 frames) and stacked chroma (256), at 1.5x2, 4x4,
+   the upscale branch and one latency band's rows, with its tile plans,
+   registers and resident CTAs per SM;
 4. the batch path: ``open_filter(<flagship>, 3840, 2160, device="cuda")
    .transform(y, u, v)`` on 128 video-like frames, with every launch
    counter set to 0 just before it and read just after (K1 once per
-   plane batch, K3; no other remap exists); its output against the plain
-   functions on the same tensors, and a small size against the CPU
+   plane batch, K3; no other remap exists; no K4 at scale factor 1); its
+   output against the plain functions on the same tensors, and a small
+   size against the CPU
    engine;
 5. times with CUDA events after warm-up (medians, with a tail percentile
    and the sample count): K1 and K3 beside their plain versions on 16
@@ -59,10 +65,16 @@ nvcc and CUDA PyTorch (no jax needed).  Phases:
    launch); its output against the plain functions; the step's device
    median, frames/s and its stages;
 10. supersampling: the flagship with ``width_scale_factor=2:
-    height_scale_factor=2`` (K3 remaps to 3072x2048 luma, INTER_AREA
-    brings it to 1536x1024) at batch 128 and 1, counted the same way; its
-    output against the plain path; the stages K1, K3, the area resize and
-    its round;
+    height_scale_factor=2`` (K3 remaps to 3072x2048 luma, K4 resizes it
+    with INTER_AREA and rounds to 1536x1024) at batch 128 and 1, counted
+    the same way (K4 twice per step, uint8), and at 10 bits on 128 frames
+    (K4's uint16 instantiation only); its output against the plain path;
+    the step's device time and its peak memory over what was allocated
+    before it; the stages K1, K3 and K4, beside them ``area_plain`` and
+    ``torch.nn.functional.avg_pool2d`` on float32 copies (the PyTorch call
+    that computes the same function at 2x2; timed only) and K4's byte
+    bound; K4 beside its plain version on 16 luma frames, at 8 and 10
+    bits;
 11. plan files: ``build_plan`` and the remap's tile plans against
     ``save_plan`` + ``load_plan`` and the tile plans (a restarted
     transcoder's cold start), the loaded plan's output bytes against the
@@ -96,8 +108,8 @@ nvcc and CUDA PyTorch (no jax needed).  Phases:
     the whole banded frame and the first call's wall (band plans built);
     the pinned host-to-device rate of one 4K frame (the host term of
     ``broadcast_ms``) and the one-card projection of N-card banded
-    latency; the supersampled 2x2 flagship in 3 bands and the 10-bit one
-    in 2 equal their unbanded frames;
+    latency; the supersampled 2x2 flagship in 3 bands (K4 twice per band)
+    and the 10-bit one in 2 equal their unbanded frames;
 16. two processes on the one card: the CLI with ``--distributed
     127.0.0.1:PORT,2,PID`` (gloo; both ranks on cuda:0) in batch mode and
     with ``--latency-bands 2``, 8 frames 1920x960: the ranks' outputs
@@ -125,8 +137,10 @@ Bound for kernel vs plain: at most 1 LSB on under 0.5% of the pixels
 timing line carries ``nvidia-smi``'s name and power limit.  The
 second-to-last line is a JSON object with each kernel's numbers; the last
 is ``{"ok": true, "device": {...}}``.  The kernels line lists each kernel's
-uint8 instantiation (``blur``, ``window``, launches from phase 4) and its
-uint16 one (``blur_u16``, ``window_u16``, launches from phase 9).  Any failure raises and exits
+uint8 instantiation (``blur``, ``window``, launches from phase 4;
+``area``, launches from phase 10's supersampled batch) and its uint16 one
+(``blur_u16``, ``window_u16``, launches from phase 9; ``area_u16``, from
+phase 10's 10-bit supersampled batch).  Any failure raises and exits
 non-zero; without a GPU the script exits non-zero before printing a
 result.
 """
@@ -148,6 +162,7 @@ FLAGSHIP = (
     "cube_edge_length=512:interpolation_alg=cubic:enable_low_pass_filter=1:"
     "input_stereo_format=mono"
 )
+SUPERSAMPLED = FLAGSHIP + ":width_scale_factor=2:height_scale_factor=2"
 IN_W, IN_H = 3840, 2160
 BATCH = 128
 LADDER = (1, 2, 4, 7, 8, 16, 32, 64, 128)
@@ -330,6 +345,20 @@ def blur_bound(bt, B: int):
     return bound(2 * bt.sample_bytes * B * bt.H * bt.W + tables, flops)
 
 
+def area_bound(da, B: int, sample_bytes: int):
+    """INTER_AREA's compulsory bytes (plane in, plane out, its tables) and
+    its float operations over the nonzero taps: per output pixel, a row
+    sum (nr products, nr - 1 additions) per column tap, and the column sum
+    (nc products, nc - 1 additions)."""
+    oh, ow = da.out_shape
+    nr = (da.row_w != 0).sum(dim=1).double()
+    nc = (da.col_w != 0).sum(dim=1).double()
+    per_px = nc[None, :] * (2 * nr[:, None] - 1) + 2 * nc[None, :] - 1
+    tables = tensor_bytes(da.row_first, da.row_w, da.col_first, da.col_w, da.tiles)
+    return bound(sample_bytes * B * (da.in_h * da.in_w + oh * ow) + tables,
+                 float(per_px.sum()) * B)
+
+
 def cuobjdump_path() -> str:
     """cuobjdump beside nvcc, on PATH, or the copy in Triton's package."""
     from transform360_tpu_torch.ops import _build
@@ -462,15 +491,17 @@ def main() -> int:
         Interpolation, Layout, StereoFormat, TransformConfig,
     )
     from transform360_tpu_torch.filtering import blur_plain
-    from transform360_tpu_torch.ops import _build, blur, window
-    from transform360_tpu_torch.sampling import area_resize, remap_plain, round_px, round_u8
+    from transform360_tpu_torch.ops import _build, area, blur, window
+    from transform360_tpu_torch.parallel import latency
+    from transform360_tpu_torch.sampling import AreaTables, DeviceArea, remap_plain, round_px, round_u8
     from transform360_tpu_torch.utils.yuv import write_yuv420_batch
 
     u16 = torch.uint16
 
     # each kernel's uint8 and uint16 instantiations count their launches apart
     counters = {"blur": (blur, "LAUNCHES"), "window": (window, "LAUNCHES"),
-                "blur_u16": (blur, "LAUNCHES_U16"), "window_u16": (window, "LAUNCHES_U16")}
+                "area": (area, "LAUNCHES"), "blur_u16": (blur, "LAUNCHES_U16"),
+                "window_u16": (window, "LAUNCHES_U16"), "area_u16": (area, "LAUNCHES_U16")}
 
     def reset_counts():
         for m, attr in counters.values():
@@ -491,8 +522,8 @@ def main() -> int:
 
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    _build.build_all(["blur", "window"])
-    say(f"[2] built blur.cu + window.cu for sm_90a in "
+    _build.build_all(["blur", "window", "area"])
+    say(f"[2] built blur.cu + window.cu + area.cu for sm_90a in "
         f"{time.perf_counter() - t0:.2f} s, one nvcc each in parallel "
         f"(nvcc: {_build.BUILD_SECONDS})")
     for name, log in _build.BUILD_LOG.items():
@@ -578,7 +609,7 @@ def main() -> int:
             f"of staged rows per CTA")
 
     y, u, v = video_like_planes(IN_W, IN_H)
-    err = {"blur": 0, "window": 0, "blur_u16": 0, "window_u16": 0}
+    err = {"blur": 0, "window": 0, "area": 0, "blur_u16": 0, "window_u16": 0, "area_u16": 0}
 
     # -- 3. kernels vs plain on the card -----------------------------------
     rng = torch.Generator(device="cuda").manual_seed(0)
@@ -710,6 +741,47 @@ def main() -> int:
         f"chroma) and a 10-bit barrel chroma plane (corners {sorted(set(corners.flatten().tolist()))}"
         f"), TF32 on and off: max |diff| K1 {err['blur_u16']}, K3 {err['window_u16']} LSB")
 
+    # K4 against area_plain: the 2x2 flagship's luma and stacked chroma, 1.5x2,
+    # 4x4, the upscale branch and a latency band's rows, uint8 and uint16
+    ss = open_filter(SUPERSAMPLED, IN_W, IN_H, device="cuda")
+    sp = ss.plan
+    area_cases = [("2x2 flagship luma", sp.luma.tables("cuda").area, BATCH),
+                  ("2x2 flagship chroma (U+V)", sp.chroma.tables("cuda").area, 2 * BATCH)]
+    for what, sizes, b in (("1.5x2", (2304, 2048, 1536, 1024), 7),
+                           ("4x4", (6144, 4096, 1536, 1024), 3),
+                           ("upscale", (768, 512, 1536, 1024), 7)):
+        area_cases.append((f"{what} {sizes[0]}x{sizes[1]} -> {sizes[2]}x{sizes[3]}",
+                           DeviceArea.from_tables(AreaTables.build(*sizes), "cuda"), b))
+    band = latency.band_plans(sp, 3)[1].luma
+    area_cases.append((f"band 2 of 3, luma rows {band.out_h}", band.tables("cuda").area, 7))
+    ga = torch.Generator(device="cuda").manual_seed(4)
+    for what, da, b in area_cases:
+        for name, dt, mx in (("area", torch.uint8, 255), ("area_u16", u16, 1023)):
+            x = torch.randint(0, mx + 1, (b, da.in_h, da.in_w), dtype=torch.int32,
+                              device="cuda", generator=ga).to(dt)
+            for tf32 in (True, False):
+                torch.backends.cudnn.allow_tf32 = tf32
+                torch.backends.cuda.matmul.allow_tf32 = tf32
+                got = area.area_px(da, x, mx)
+                for f0 in range(0, b, 32):  # the plain version in slices of 32 frames
+                    want = area.area_plain(da, x[f0:f0 + 32], mx)
+                    err[name] = max(err[name], compare(got[f0:f0 + 32], want,
+                                                       f"K4 {name} {what}"))
+                    if err[name]:
+                        raise SystemExit(f"FAIL K4 {name} {what} differs from area_plain")
+                del got, want
+            del x
+        attrs = [area.kernel_attrs(da, sb) for sb in (1, 2)]
+        say(f"[3] K4 vs area_plain, {what} ({da.in_w}x{da.in_h} -> {da.out_shape[1]}x"
+            f"{da.out_shape[0]}, batch {b}, {da.row_w.shape[1]}x{da.col_w.shape[1]} taps, "
+            f"{int((da.tiles[:, 7] == 0).sum())} direct of {da.tiles.shape[0]} tiles; uint8 "
+            f"{attrs[0]['registers']} registers, {attrs[0]['local_bytes']} B local, "
+            f"{attrs[0]['ctas_per_sm']} CTAs per SM at {attrs[0]['smem_bytes']} B, uint16 "
+            f"{attrs[1]['ctas_per_sm']} at {attrs[1]['smem_bytes']} B), uint8 and uint16, "
+            f"TF32 on and off: max |diff| {err['area']} and {err['area_u16']} LSB")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
     # -- 4. batch path -----------------------------------------------------
     torch.cuda.synchronize()
     reset_counts()
@@ -717,9 +789,9 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = read_counts()
     if (launches["blur"] != 2 or launches["window"] <= 0 or launches["blur_u16"]
-            or launches["window_u16"]):
+            or launches["window_u16"] or launches["area"] or launches["area_u16"]):
         raise SystemExit(f"FAIL batch path did not launch K1 once per plane batch and K3 "
-                         f"(uint8 only): {launches}")
+                         f"(uint8 only, no K4 at scale factor 1): {launches}")
     if "transform360_tpu_torch.ops.remap" in sys.modules or (_build.CSRC / "remap.cu").exists():
         raise SystemExit("FAIL the retired batch remap K2 is still present")
     want_shapes = [(BATCH, plan.out_h, plan.out_w)] + 2 * [
@@ -985,9 +1057,6 @@ def main() -> int:
     del xd, xdf, dy, du, dv
 
     # -- 10. supersampling + INTER_AREA -------------------------------------
-    ss = open_filter(FLAGSHIP + ":width_scale_factor=2:height_scale_factor=2", IN_W, IN_H,
-                     device="cuda")
-    sp = ss.plan
     if ((sp.luma.scaled_w, sp.luma.scaled_h, sp.out_w, sp.out_h) != (3072, 2048, 1536, 1024)
             or sp.luma.area is None):
         raise SystemExit(f"FAIL supersampled plan {sp.luma.scaled_w}x{sp.luma.scaled_h} -> "
@@ -997,9 +1066,10 @@ def main() -> int:
     sy, su, sv = ss.transform(yb, ub, vb)
     torch.cuda.synchronize()
     ss_launches = read_counts()
-    if (ss_launches["blur"] != 2 or ss_launches["window"] <= 0 or ss_launches["blur_u16"]
-            or ss_launches["window_u16"]):
-        raise SystemExit(f"FAIL the supersampled batch path's launches {ss_launches}")
+    if (ss_launches["blur"] != 2 or ss_launches["window"] <= 0 or ss_launches["area"] != 2
+            or ss_launches["blur_u16"] or ss_launches["window_u16"] or ss_launches["area_u16"]):
+        raise SystemExit(f"FAIL the supersampled batch path's launches {ss_launches} (K1 2, "
+                         f"K3, K4 2, uint8 only)")
     for pname, xin, o, pp in (("Y", yb, sy, sp.luma), ("U", ub, su, sp.chroma),
                               ("V", vb, sv, sp.chroma)):
         if tuple(o.shape) != (BATCH, pp.out_h, pp.out_w):
@@ -1007,49 +1077,114 @@ def main() -> int:
         t = pp.tables("cuda")
         x = xin[frames]
         k3 = round_u8(remap_plain(t.remap, round_u8(blur_plain(t.blur.plan, x.float()))))
-        compare(o[frames], round_u8(area_resize(t.area, k3)), f"supersampled {pname} vs plain")
+        compare(o[frames], area.area_plain(t.area, k3), f"supersampled {pname} vs plain")
     reset_counts()
     one = ss.transform(yb[0], ub[0], vb[0])
     torch.cuda.synchronize()
     ss_one = read_counts()
+    if ss_one["blur"] != 2 or ss_one["area"] != 2 or ss_one["area_u16"]:
+        raise SystemExit(f"FAIL the supersampled [H, W] frame's launches {ss_one}")
     for o, ob, pname in zip(one, (sy, su, sv), "YUV"):
         compare(o, ob[0], f"supersampled [H, W] frame {pname} vs frame 0 of the batch")
     say(f"[10] supersampled 2x2 {IN_W}x{IN_H} -> K3 at {sp.luma.scaled_w}x{sp.luma.scaled_h} "
-        f"-> INTER_AREA {sp.out_w}x{sp.out_h}, batch {BATCH}: frames {frames} match the plain "
-        f"path; launches {ss_launches}; one [H, W] frame matches frame 0, launches {ss_one}")
+        f"-> K4 (INTER_AREA) {sp.out_w}x{sp.out_h}, batch {BATCH}: frames {frames} match the "
+        f"plain path; launches {ss_launches}; one [H, W] frame matches frame 0, launches "
+        f"{ss_one}")
+    ssd = open_filter(SUPERSAMPLED, IN_W, IN_H, pix_fmt="yuv420p10le", device="cuda")
+    dsp = ssd.plan
+    torch.cuda.synchronize()
+    reset_counts()
+    dso = ssd.transform(ydb, udb, vdb)
+    torch.cuda.synchronize()
+    ssd_launches = read_counts()
+    if (ssd_launches["area_u16"] != 2 or ssd_launches["blur_u16"] != 2
+            or ssd_launches["window_u16"] <= 0
+            or any(ssd_launches[k] for k in ("blur", "window", "area"))):
+        raise SystemExit(f"FAIL the 10-bit supersampled batch path's launches {ssd_launches} "
+                         f"(K1 2, K3, K4 2, uint16 only)")
+    for pname, xin, o, pp in (("Y", ydb, dso[0], dsp.luma), ("U", udb, dso[1], dsp.chroma),
+                              ("V", vdb, dso[2], dsp.chroma)):
+        t = pp.tables("cuda")
+        x = frames_of(xin, frames)
+        k3 = round_px(remap_plain(t.remap, round_px(blur_plain(t.blur.plan, x.float()), 1023,
+                                                    u16)), 1023, u16)
+        compare(frames_of(o, frames), area.area_plain(t.area, k3, 1023),
+                f"10-bit supersampled {pname} vs plain")
+    del dso
     cuda_times(lambda: ss.transform(yb, ub, vb), 2)
     steps = cuda_times(lambda: ss.transform(yb, ub, vb), 20)
     sstep = statistics.median(steps)
     lat = cuda_times(lambda: ss.transform(yb[0], ub[0], vb[0]), 50)
+    cuda_times(lambda: ssd.transform(ydb, udb, vdb), 2)
+    dsteps = cuda_times(lambda: ssd.transform(ydb, udb, vdb), 10)
+    del sy, su, sv, one
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ss.transform(yb, ub, vb)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - resident
     say(f"[10] supersampled step, batch {BATCH}: device median {sstep:.4f} ms (p90 "
         f"{pct(steps, 0.9):.4f}, n={len(steps)}) = {BATCH / sstep * 1e3:.1f} frames/s; one "
         f"[H, W] frame {statistics.median(lat):.4f} ms (p90 {pct(lat, 0.9):.4f}, "
-        f"n={len(lat)})  ({smi})")
+        f"n={len(lat)}); the step's peak memory over what was allocated before it "
+        f"(torch.cuda.max_memory_allocated) {peak / 2**30:.3f} GiB; 10-bit supersampled "
+        f"step {statistics.median(dsteps):.4f} ms (n={len(dsteps)}), launches {ssd_launches}"
+        f"  ({smi})")
     slt, sct = sp.luma.tables("cuda"), sp.chroma.tables("cuda")
     slw, scw = sp.luma.window_tables("cuda"), sp.chroma.window_tables("cuda")
-    del sy, su, sv, one
+    avg_pool2d = torch.nn.functional.avg_pool2d  # timed only: the port never calls it
     for b in (BATCH, 1):
         ys, cs = yb[:b], torch.cat([ub[:b], vb[:b]])
         yl, cl = blur.blur_px(slt.blur, ys), blur.blur_px(sct.blur, cs)
         yr, cr = window.remap_window_px(slw, yl), window.remap_window_px(scw, cl)
-        ya, ca = area_resize(slt.area, yr), area_resize(sct.area, cr)
-        parts = {}
-        for name, fn in {
-            "K1 luma": lambda: blur.blur_px(slt.blur, ys),
-            "K1 chroma (U+V)": lambda: blur.blur_px(sct.blur, cs),
-            "K3 luma (to the scaled size)": lambda: window.remap_window_px(slw, yl),
-            "K3 chroma (U+V)": lambda: window.remap_window_px(scw, cl),
-            "area luma": lambda: area_resize(slt.area, yr),
-            "area chroma (U+V)": lambda: area_resize(sct.area, cr),
-            "round luma + chroma": lambda: (round_u8(ya), round_u8(ca)),
-            "cat of U and V": lambda: torch.cat([ub[:b], vb[:b]]),
-        }.items():
+        yrf, crf = yr.float(), cr.float()  # avg_pool2d's pre-converted float32 copies
+        parts, aside = {}, {}
+        for d, name, fn in (
+            (parts, "K1 luma", lambda: blur.blur_px(slt.blur, ys)),
+            (parts, "K1 chroma (U+V)", lambda: blur.blur_px(sct.blur, cs)),
+            (parts, "K3 luma (to the scaled size)", lambda: window.remap_window_px(slw, yl)),
+            (parts, "K3 chroma (U+V)", lambda: window.remap_window_px(scw, cl)),
+            (parts, "K4 luma", lambda: area.area_px(slt.area, yr)),
+            (parts, "K4 chroma (U+V)", lambda: area.area_px(sct.area, cr)),
+            (parts, "cat of U and V", lambda: torch.cat([ub[:b], vb[:b]])),
+            (aside, "area_plain luma", lambda: area.area_plain(slt.area, yr)),
+            (aside, "area_plain chroma (U+V)", lambda: area.area_plain(sct.area, cr)),
+            (aside, "avg_pool2d luma", lambda: avg_pool2d(yrf, 2)),
+            (aside, "avg_pool2d chroma (U+V)", lambda: avg_pool2d(crf, 2)),
+        ):
             cuda_times(fn, 2)
-            parts[name] = statistics.median(cuda_times(fn, 10 if b > 1 else 50))
+            d[name] = statistics.median(cuda_times(fn, 10 if b > 1 else 50))
+        k4b = area_bound(slt.area, b, 1)[0] + area_bound(sct.area, 2 * b, 1)[0]
+        k4 = parts["K4 luma"] + parts["K4 chroma (U+V)"]
         say(f"[10] supersampled batch-{b} stages, device medians: "
             + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items())
-            + f"; sum {sum(parts.values()):.4f} ms  ({smi})")
-        del yl, cl, yr, cr, ya, ca
+            + f"; sum {sum(parts.values()):.4f} ms; K4 luma + chroma {k4:.4f} ms against their "
+            f"byte bound {k4b:.4f} ms ({k4b / k4:.1%}); beside them, not on the path: "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in aside.items())
+            + f"  ({smi})")
+        del yl, cl, yr, cr, yrf, crf
+    # K4 alone on 16 luma frames at the scaled size, as K1 and K3 in phase 5
+    xs8 = window.remap_window_px(slw, blur.blur_px(slt.blur, yb[:tb].contiguous()))
+    dslt = dsp.luma.tables("cuda")
+    xs16 = window.remap_window_px(dsp.luma.window_tables("cuda"),
+                                  blur.blur_px(dslt.blur, ydb[:tb].contiguous(), 1023), 1023)
+    library = {}
+    for name, da, xa, mx in (("area", slt.area, xs8, 255), ("area_u16", dslt.area, xs16, 1023)):
+        xaf = xa.float()
+        km, pm, ks = in_turns(lambda: area.area_px(da, xa, mx),
+                              lambda: area.area_plain(da, xa, mx), rounds=5)
+        cuda_times(lambda: avg_pool2d(xaf, 2), 2)
+        library[name] = statistics.median(cuda_times(lambda: avg_pool2d(xaf, 2), 20))
+        times[name] = (km, pm)
+        bounds[name] = area_bound(da, tb, xa.element_size())
+        say(f"[10] {name}: kernel median {km:.4f} ms (p75 {pct(ks, 0.75):.4f}, n={len(ks)}), "
+            f"plain median {pm:.4f} ms, avg_pool2d on a float32 copy {library[name]:.4f} ms, "
+            f"per call on {tb} {'10-bit ' if mx > 255 else ''}luma frames {da.in_w}x{da.in_h} -> "
+            f"{da.out_shape[1]}x{da.out_shape[0]}; bound {bounds[name][0]:.4f} ms "
+            f"({bounds[name][1]}), {bounds[name][0] / km:.1%} of it reached  ({smi})")
+        del xaf
+    del xs8, xs16
 
     # -- 11. plan files ----------------------------------------------------
     from transform360_tpu_torch import plan as tplan
@@ -1208,7 +1343,7 @@ def main() -> int:
 
     # -- 14. batch sharding over a mesh -------------------------------------
     from transform360_tpu_torch import pipeline
-    from transform360_tpu_torch.parallel import latency, make_mesh, transform_batch_sharded
+    from transform360_tpu_torch.parallel import make_mesh, transform_batch_sharded
 
     k3_per_frame = len(luma_w.groups) + len(chroma_w.groups)
     for mname, mesh in (("make_mesh()", make_mesh()), ('["cuda:0"] * 2', make_mesh(["cuda:0"] * 2))):
@@ -1342,7 +1477,8 @@ def main() -> int:
         if any(not np.array_equal(g, w) for g, w in zip(got, want)):
             raise SystemExit(f"FAIL {what} flagship in {n} bands differs from its unbanded frame")
         k1 = bl["blur_u16"] if p.luma.depth > 8 else bl["blur"]
-        if k1 != 2 * n:
+        k4 = 2 * n if p.luma.area is not None else 0  # K4 per band and plane batch
+        if k1 != 2 * n or bl["area"] + bl["area_u16"] != k4:
             raise SystemExit(f"FAIL {what} flagship in {n} bands launches {bl}")
         say(f"[15] {what} flagship in {n} bands, cost-model edges (luma rows "
             f"{[b.luma.out_h for b in latency.band_plans(p, n, 'auto')]}): bytes equal its "
@@ -1513,6 +1649,7 @@ def main() -> int:
     say(f"[18] every phase passed in {time.perf_counter() - t_start:.1f} s, the kernels' build "
         f"included")
     launches.update({k: deep_launches[k] for k in ("blur_u16", "window_u16")})
+    launches.update(area=ss_launches["area"], area_u16=ssd_launches["area_u16"])
 
     def entry(name, src, replaces, **extra):
         return {"name": name, "route": "cuda", "source": src, "replaces": replaces,
@@ -1534,6 +1671,15 @@ def main() -> int:
         entry("window_u16", "transform360_tpu_torch/csrc/window.cu",
               "transform360_tpu/ops/remap_pallas.py:441", serves="B5 at 10-16 bits",
               batches="all", shape="16 10-bit luma frames"),
+        entry("area", "transform360_tpu_torch/csrc/area.cu", "transform360_tpu/sampling.py:483",
+              serves="the XLA stage apply_area_resize + round (pipeline.py:304-311 there); "
+              "no pallas_call", batches="all",
+              shape="16 supersampled 2x2 luma frames 3072x2048 -> 1536x1024",
+              library_ms=library["area"], library="avg_pool2d on a float32 copy"),
+        entry("area_u16", "transform360_tpu_torch/csrc/area.cu",
+              "transform360_tpu/sampling.py:483", serves="the same at 10-16 bits",
+              batches="all", shape="16 10-bit supersampled 2x2 luma frames",
+              library_ms=library["area_u16"], library="avg_pool2d on a float32 copy"),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

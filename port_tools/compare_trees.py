@@ -2,6 +2,7 @@
 
     python3 port_tools/compare_trees.py parent=old change=. change=. parent=old
     python3 port_tools/compare_trees.py k2=old:pipeline.WINDOW_MAX_BATCH=64
+    python3 port_tools/compare_trees.py --supersampled parent=old change=. change=. parent=old
 
 Run from the root of a checkout on a machine with one NVIDIA GPU.  Each
 argument is ``label=DIR`` (a directory holding ``transform360_tpu_torch/``,
@@ -23,6 +24,11 @@ back still wait on the host at one frame), the same for each window
 class's launch alone at one and 128 luma frames (``k3_class_ms_graph``:
 tiles, ms), the host's time to issue one call (``k3_host_ms``: 200 calls
 issued, then one synchronize), and the card's name and power limit.
+With ``--supersampled`` each process times the supersampled 2x2
+flagship (``chip_smoke.SUPERSAMPLED``) instead: its step's device median
+at batch 128 and at batch 1, and the batch-128 step's peak memory over
+what was allocated before it (``torch.cuda.max_memory_allocated``); no
+K3 times.
 """
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def child(label: str, settings: list) -> None:
+def child(label: str, settings: list, supersampled: bool = False) -> None:
     import dataclasses
     import importlib
     import statistics
@@ -47,7 +53,7 @@ def child(label: str, settings: list) -> None:
     from transform360_tpu_torch.ops import blur, window
 
     sys.path.append(ROOT)
-    from chip_smoke import FLAGSHIP, batch_of, cuda_times, video_like_planes
+    from chip_smoke import FLAGSHIP, SUPERSAMPLED, batch_of, cuda_times, video_like_planes
 
     # the remap wrapper's name in this tree (remap_window_u8 before it took
     # uint16 planes too)
@@ -60,7 +66,7 @@ def child(label: str, settings: list) -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
-    eng = P.open_filter(FLAGSHIP, 3840, 2160, device="cuda")
+    eng = P.open_filter(SUPERSAMPLED if supersampled else FLAGSHIP, 3840, 2160, device="cuda")
     y, u, v = video_like_planes(3840, 2160)
     yb, ub, vb = batch_of(y, 128), batch_of(u, 128), batch_of(v, 128)
     res = {"label": label, "package": os.path.dirname(P.__file__), "settings": settings,
@@ -72,6 +78,15 @@ def child(label: str, settings: list) -> None:
         ts = cuda_times(lambda: eng.transform(*planes), reps)
         res[f"batch{b}"] = {"step_ms": statistics.median(ts), "n": len(ts),
                             "k1_launches": (blur.LAUNCHES - n0) / len(ts)}
+    if supersampled:
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        eng.transform(yb, ub, vb)
+        torch.cuda.synchronize()
+        res["batch128"]["peak_gib"] = (torch.cuda.max_memory_allocated() - resident) / 2**30
+        print(json.dumps(res), flush=True)
+        return
     lw, cw = (pp.window_tables("cuda") for pp in (eng.plan.luma, eng.plan.chroma))
     cb = torch.cat([ub, vb])
     res["k3_ms"], res["k3_ms_graph"], res["k3_host_ms"], res["k3_class_ms_graph"] = {}, {}, {}, {}
@@ -111,14 +126,17 @@ def child(label: str, settings: list) -> None:
 
 def main(argv) -> int:
     if argv and argv[0] == "--child":
-        child(argv[1], argv[2:])
+        child(argv[2], argv[3:], argv[1] == "supersampled")
         return 0
+    mode = "flagship"
+    if argv and argv[0] == "--supersampled":
+        mode, argv = "supersampled", argv[1:]
     rc = 0
     for spec in argv:
         label, rest = spec.split("=", 1)
         tree, *settings = rest.split(":")
         env = dict(os.environ, PYTHONPATH=os.path.abspath(tree))
-        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", label,
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", mode, label,
                               *settings], env=env, capture_output=True, text=True)
         if out.returncode:
             print(f"{label}: exit {out.returncode}\n{out.stderr[-3000:]}", flush=True)

@@ -13,7 +13,11 @@ direct kernel (a wider y radius), its frame loops and an unaligned
 plane.  The uint16 instantiations of both (10- to 16-bit planes, samples
 saturated at 65535 included) on the same cases, every K3 instantiation
 at uint16, an unaligned uint16 plane, and the deep, supersampled and
-plan-file engines against the CPU engine.  The fidelity gate at its size
+plan-file engines against the CPU engine.  K4 (csrc/area.cu) against
+``area_plain`` at 0 LSB, at uint8, 10 and 16 bits (samples past the
+depth's maximum), batch 1, 7 and 256, at 2x2, 4x4, 1.5x2, 200x90 ->
+70x40, the upscale branch, 8x (direct tiles), a ragged width with
+unaligned rows, and an unaligned plane.  The fidelity gate at its size
 against the committed oracle fixture, and the drop-in ffmpeg wrapper on
 in-memory pipes, at 8 and 10 bits.
 Marked ``cuda``: they skip without a GPU.  On the GPU host, which has no
@@ -32,9 +36,10 @@ import torch
 import transform360_tpu_torch as P
 from transform360_tpu_torch.config import Interpolation, Layout, StereoFormat, TransformConfig
 from transform360_tpu_torch.filtering import blur_plain
-from transform360_tpu_torch.ops import blur, window
+from transform360_tpu_torch.ops import area, blur, window
 from transform360_tpu_torch.sampling import (
-    BORDER_FILL, BORDER_REFLECT, BORDER_WRAP, remap_plain, round_px, round_u8,
+    BORDER_FILL, BORDER_REFLECT, BORDER_WRAP, AreaTables, DeviceArea, remap_plain, round_px,
+    round_u8,
 )
 
 pytestmark = pytest.mark.cuda
@@ -332,6 +337,56 @@ def test_uint16_kernels_unaligned_plane(name, gpu):
     assert _same(got, round_px(remap_plain(t.remap, x), 4095, torch.uint16))
 
 
+AREA_CASES = {  # INTER_AREA (K4): (scaled w, h), (out w, h)
+    "2x2": ((384, 256), (192, 128)),
+    "4x4": ((384, 512), (96, 128)),
+    "1.5x2": ((72, 64), (48, 32)),
+    "200x90": ((200, 90), (70, 40)),
+    "upscale": ((48, 32), (96, 48)),
+    "8x direct": ((1024, 64), (128, 8)),  # tiles read device memory directly
+    # width not a multiple of the tile's or of 4, rows not 16-byte aligned
+    "ragged 2x2": ((780, 520), (390, 260)),
+}
+
+
+def _area_input(b, sw, sh, depth, gpu, g):
+    mx = (1 << depth) - 1
+    if depth == 8:
+        x = torch.randint(0, 256, (b, sh, sw), dtype=torch.uint8, device=gpu, generator=g)
+    else:  # samples past the depth's maximum too: the sums saturate
+        x = _rand_u16((b, sh, sw), 65535, gpu, g)
+    x[0] = mx
+    return x
+
+
+@pytest.mark.parametrize("depth", [8, 10, 16])
+@pytest.mark.parametrize("name", sorted(AREA_CASES))
+def test_area_kernel_matches_plain(name, depth, gpu):
+    (sw, sh), (ow, oh) = AREA_CASES[name]
+    da = DeviceArea.from_tables(AreaTables.build(sw, sh, ow, oh), gpu)
+    mx = (1 << depth) - 1
+    g = torch.Generator(device=gpu).manual_seed(depth)
+    for b in (1, 7, 256):
+        x = _area_input(b, sw, sh, depth, gpu, g)
+        n = (area.LAUNCHES, area.LAUNCHES_U16)
+        got = area.area_px(da, x, mx)
+        torch.cuda.synchronize()
+        assert (area.LAUNCHES, area.LAUNCHES_U16) == (n[0] + (depth == 8), n[1] + (depth > 8))
+        assert got.dtype == x.dtype and tuple(got.shape) == (b, oh, ow)
+        assert _same(got, area.area_plain(da, x, mx)), (name, depth, b)
+
+
+@pytest.mark.parametrize("depth", [8, 12])
+def test_area_kernel_unaligned_plane(depth, gpu):
+    # a plane one sample past a 16-byte boundary: sample-wise staging
+    (sw, sh), (ow, oh) = AREA_CASES["2x2"]
+    da = DeviceArea.from_tables(AreaTables.build(sw, sh, ow, oh), gpu)
+    g = torch.Generator(device=gpu).manual_seed(3)
+    x = _area_input(3 * sh * sw + 1, 1, 1, depth, gpu, g)[1:].view(3, sh, sw)
+    mx = (1 << depth) - 1
+    assert _same(area.area_px(da, x, mx), area.area_plain(da, x, mx))
+
+
 @pytest.mark.parametrize("opts, pix_fmt", [
     ("", "yuv420p10le"),
     ("", "gray16le"),
@@ -354,6 +409,7 @@ def test_deep_and_supersampled_engines_match_the_cpu_engine(opts, pix_fmt, gpu, 
     loaded.load_plan(str(tmp_path / "p.npz"))
     n8 = (blur.LAUNCHES, window.LAUNCHES)
     n16 = (blur.LAUNCHES_U16, window.LAUNCHES_U16)
+    na = (area.LAUNCHES, area.LAUNCHES_U16)
     got = eng.transform(*planes)
     again = loaded.transform(*planes)
     want = cpu.transform(*planes)
@@ -361,6 +417,9 @@ def test_deep_and_supersampled_engines_match_the_cpu_engine(opts, pix_fmt, gpu, 
     if pf.depth > 8:
         assert (blur.LAUNCHES, window.LAUNCHES) == n8
         assert blur.LAUNCHES_U16 > n16[0] and window.LAUNCHES_U16 > n16[1]
+    if "scale" in opts:  # K4 for luma and the stacked chroma, in both engines
+        assert (area.LAUNCHES - na[0], area.LAUNCHES_U16 - na[1]) == (
+            (4, 0) if pf.depth == 8 else (0, 4))
     got, again, want = ((o,) if isinstance(o, torch.Tensor) else o for o in (got, again, want))
     for a, b, c in zip(got, again, want):
         assert a.device.type == "cuda" and a.dtype == c.dtype

@@ -7,9 +7,9 @@ K1 (the prefilter, with its half-up round, when the plan has one) and
 then K3, the window-gather remap with its half-up round
 (:mod:`.ops.window`), at every batch size, both saturated at the
 format's largest sample.  A supersampled plan remaps at the scaled size
-and then resizes to the output size with INTER_AREA
-(:func:`.sampling.area_resize`, banded sums in torch) and rounds again,
-as the JAX package's ``pipeline.py:304-311``.  The wrappers in :mod:`.ops`
+and then resizes to the output size with INTER_AREA and rounds again, as
+the JAX package's ``pipeline.py:304-311``, in one launch of K4 per plane
+batch (:mod:`.ops.area`).  The wrappers in :mod:`.ops`
 launch the CUDA kernels for CUDA tensors and run the plain versions for
 CPU tensors.  The JAX package routes between five TPU kernels by batch
 size (``pipeline.py:144-284`` there); its lane-batched variants B2-B4
@@ -20,8 +20,7 @@ the H100 a batch remap in their style lost to K3 at every batch size
 Rounding parity: the reference filters into a uint8 plane and remaps it
 with fixed-point arithmetic; every stage rounds with ``floor(x + 0.5)``
 and saturation (``VideoFrameTransform.cpp:620-777``): inside the kernels,
-and through :func:`.sampling.round_px` in their plain versions and after
-the area resize.
+and through :func:`.sampling.round_px` in their plain versions.
 """
 
 from __future__ import annotations
@@ -31,10 +30,10 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from .ops.area import area_px
 from .ops.blur import blur_px
 from .ops.window import remap_window_px
 from .plan import PlanePlan, TransformPlan
-from .sampling import area_resize, round_px
 
 
 def device_of(device) -> torch.device:
@@ -77,7 +76,7 @@ def _plane_program(pp: PlanePlan, x: torch.Tensor) -> torch.Tensor:
         x = blur_px(t.blur, x, pp.maxval)
     out = remap_window_px(pp.window_tables(x.device), x, pp.maxval)
     if t.area is not None:
-        out = round_px(area_resize(t.area, out), pp.maxval, pp.dtype)
+        out = area_px(t.area, out, pp.maxval)
     return out
 
 

@@ -18,7 +18,8 @@ depth's largest sample.
 
 Supersampling: :func:`area_matrix` (a copy of the reference's) gives
 INTER_AREA as a matrix per axis; :class:`AreaTables` keeps each row's
-nonzero band, and :func:`area_resize` sums it in torch.
+nonzero band, and :func:`area_resize` sums it in torch: the plain version
+of the CUDA kernel K4 (:mod:`.ops.area`).
 """
 
 from __future__ import annotations
@@ -466,22 +467,40 @@ class AreaTables:
 
 @dataclasses.dataclass(frozen=True)
 class DeviceArea:
-    """:class:`AreaTables` on one device."""
+    """:class:`AreaTables` on one device: the int64 tap indices of the
+    plain version, and what the CUDA kernel K4 (:mod:`.ops.area`) reads --
+    each axis's int32 first taps and float32 weights and the tile plan."""
 
     row_idx: torch.Tensor  # int64 [out_h, Kr]
     row_w: torch.Tensor  # float32 [out_h, Kr]
     col_idx: torch.Tensor  # int64 [out_w, Kc]
     col_w: torch.Tensor  # float32 [out_w, Kc]
+    row_first: torch.Tensor  # int32 [out_h]
+    col_first: torch.Tensor  # int32 [out_w]
+    tiles: torch.Tensor  # int32 [n, 8], :func:`.ops.area.build_area_tiles`
+    stage: int  # samples of the largest staged span (0: every tile direct)
+    in_h: int
+    in_w: int
 
     @classmethod
     def from_tables(cls, at: AreaTables, device) -> "DeviceArea":
+        from .ops.area import build_area_tiles  # ops.area imports this module
+
         def put(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
+        tiles, stage = build_area_tiles(at)
         return cls(
             row_idx=put(at.row.indices()), row_w=put(at.row.weights),
             col_idx=put(at.col.indices()), col_w=put(at.col.weights),
+            row_first=put(at.row.first.astype(np.int32)),
+            col_first=put(at.col.first.astype(np.int32)),
+            tiles=put(tiles), stage=stage, in_h=at.row.n_in, in_w=at.col.n_in,
         )
+
+    @property
+    def out_shape(self):
+        return (self.row_w.shape[0], self.col_w.shape[0])
 
 
 def area_resize(da: DeviceArea, x: torch.Tensor) -> torch.Tensor:
