@@ -9,8 +9,9 @@ nvcc and CUDA PyTorch (no jax needed).  Phases:
 1. the device, and ``nvidia-smi``'s name and power limit;
 2. build the three kernels (K1, K3, K4) from
    ``transform360_tpu_torch/csrc`` with nvcc, one process per source, all
-   at once, and print ptxas's registers,
-   spills and shared memory; for every instantiation of K3 (uint8 and
+   at once, and print ptxas's registers, spills and shared memory, and
+   K4's SASS counts (instructions, shared, generic and local loads and
+   stores) per instantiation; for every instantiation of K3 (uint8 and
    uint16 samples) its registers and local (spill) bytes as the runtime
    reports them and the count of int-to-float conversions (``I2F``,
    ``I2FP``) in its SASS (``cuobjdump -sass``; K3 must have none), and
@@ -34,8 +35,9 @@ nvcc and CUDA PyTorch (no jax needed).  Phases:
    corners hold the neutral 512; K4 (INTER_AREA + round) against
    ``area_plain`` at 0 LSB, uint8 and uint16, TF32 on and off, on the 2x2
    flagship's luma (128 frames) and stacked chroma (256), at 1.5x2, 4x4,
-   the upscale branch and one latency band's rows, with its tile plans,
-   registers and resident CTAs per SM;
+   the upscale branch and one latency band's rows, with its tile plans
+   (packed, staged and direct tiles, the stage's boxes), registers,
+   resident CTAs per SM and ring stages;
 4. the batch path: ``open_filter(<flagship>, 3840, 2160, device="cuda")
    .transform(y, u, v)`` on 128 video-like frames, with every launch
    counter set to 0 just before it and read just after (K1 once per
@@ -73,8 +75,9 @@ nvcc and CUDA PyTorch (no jax needed).  Phases:
     before it; the stages K1, K3 and K4, beside them ``area_plain`` and
     ``torch.nn.functional.avg_pool2d`` on float32 copies (the PyTorch call
     that computes the same function at 2x2; timed only) and K4's byte
+    bound; one frame's step and K4 as replayed CUDA graphs beside K4's
     bound; K4 beside its plain version on 16 luma frames, at 8 and 10
-    bits;
+    bits (K4 as a replayed CUDA graph and by events in turns);
 11. plan files: ``build_plan`` and the remap's tile plans against
     ``save_plan`` + ``load_plan`` and the tile plans (a restarted
     transcoder's cold start), the loaded plan's output bytes against the
@@ -140,7 +143,9 @@ is ``{"ok": true, "device": {...}}``.  The kernels line lists each kernel's
 uint8 instantiation (``blur``, ``window``, launches from phase 4;
 ``area``, launches from phase 10's supersampled batch) and its uint16 one
 (``blur_u16``, ``window_u16``, launches from phase 9; ``area_u16``, from
-phase 10's 10-bit supersampled batch).  Any failure raises and exits
+phase 10's 10-bit supersampled batch); K4's ``ms`` is the device time of
+a replayed CUDA graph (a call on 16 frames is as short as the host's
+issue of it), its time by events in turns beside it as ``ms_events``.  Any failure raises and exits
 non-zero; without a GPU the script exits non-zero before printing a
 result.
 """
@@ -384,8 +389,9 @@ SAMPLE = {"h": "u8", "t": "u16"}  # the Itanium-ABI codes of uint8_t and uint16_
 def sass_counts(lib_path, pattern: str) -> dict:
     """{key: counts} for each kernel function of the library's SASS whose
     mangled name matches ``pattern`` (its groups make the key):
-    instructions, int-to-float conversions (I2F, I2FP), LDS and
-    float-to-int conversions (F2I)."""
+    instructions, int-to-float conversions (I2F, I2FP), LDS, generic loads
+    (LD), local loads and stores (LDL, STL: spills) and float-to-int
+    conversions (F2I)."""
     out = subprocess.run([cuobjdump_path(), "-sass", str(lib_path)], capture_output=True,
                          text=True, check=True, timeout=600).stdout
     res, cur = {}, None
@@ -394,7 +400,8 @@ def sass_counts(lib_path, pattern: str) -> dict:
             m = re.search(pattern, line)
             cur = m.groups() if m else None
             if cur:
-                res[cur] = {"instructions": 0, "I2F": 0, "LDS": 0, "F2I": 0}
+                res[cur] = {"instructions": 0, "I2F": 0, "LDS": 0, "LD": 0, "LDL": 0,
+                            "STL": 0, "F2I": 0}
             continue
         m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
         if cur and m:
@@ -403,7 +410,7 @@ def sass_counts(lib_path, pattern: str) -> dict:
             c["instructions"] += 1
             if op in ("I2F", "I2FP"):
                 c["I2F"] += 1
-            elif op in ("LDS", "F2I"):
+            elif op in ("LDS", "LD", "LDL", "STL", "F2I"):
                 c[op] += 1
     if not res:
         raise SystemExit(f"FAIL no function matching {pattern} in the SASS of {lib_path}")
@@ -414,6 +421,12 @@ def k3_sass(lib_path) -> dict:
     """{(sample, T, MODE): counts} for each K3 instantiation."""
     raw = sass_counts(lib_path, r"window_kernelI([ht])Li(\d+)ELi(\d+)E")
     return {(SAMPLE[s], int(t), int(m)): c for (s, t, m), c in raw.items()}
+
+
+def k4_sass(lib_path) -> dict:
+    """{(sample, taps): counts} for each K4 instantiation."""
+    raw = sass_counts(lib_path, r"area_kernelI([ht])Li(\d+)E")
+    return {(SAMPLE[s], int(k)): c for (s, k), c in raw.items()}
 
 
 def k1_sass(lib_path) -> dict:
@@ -559,6 +572,10 @@ def main() -> int:
     if len(k1) != 6 or any(c["I2F"] > k1[("u8", kname)]["I2F"]
                            for (sname, kname), c in k1.items() if sname == "u16"):
         raise SystemExit(f"FAIL K1's uint16 SASS holds more I2F/I2FP than its uint8 SASS: {k1}")
+
+    for (sname, k), c in sorted(k4_sass(_build._build("area")).items()):
+        say(f"    K4 {sname} {k} register taps: {c['instructions']} instructions, {c['LDS']} "
+            f"LDS, {c['LD']} generic loads, {c['LDL']} LDL and {c['STL']} STL (spills)")
 
     # -- plan (CPU) ------------------------------------------------------
     t0 = time.perf_counter()
@@ -772,12 +789,16 @@ def main() -> int:
                 del got, want
             del x
         attrs = [area.kernel_attrs(da, sb) for sb in (1, 2)]
+        modes = da.tiles[:, 7]
         say(f"[3] K4 vs area_plain, {what} ({da.in_w}x{da.in_h} -> {da.out_shape[1]}x"
             f"{da.out_shape[0]}, batch {b}, {da.row_w.shape[1]}x{da.col_w.shape[1]} taps, "
-            f"{int((da.tiles[:, 7] == 0).sum())} direct of {da.tiles.shape[0]} tiles; uint8 "
+            f"{da.tiles.shape[0]} tiles: {int((modes == area.PACKED).sum())} packed, "
+            f"{int((modes == area.STAGED).sum())} staged per column, "
+            f"{int((modes == area.DIRECT).sum())} direct; stage boxes {da.box}; uint8 "
             f"{attrs[0]['registers']} registers, {attrs[0]['local_bytes']} B local, "
-            f"{attrs[0]['ctas_per_sm']} CTAs per SM at {attrs[0]['smem_bytes']} B, uint16 "
-            f"{attrs[1]['ctas_per_sm']} at {attrs[1]['smem_bytes']} B), uint8 and uint16, "
+            f"{attrs[0]['ctas_per_sm']} CTAs per SM, a ring of {attrs[0]['stages']} stages in "
+            f"{attrs[0]['smem_bytes']} B; uint16 {attrs[1]['ctas_per_sm']} CTAs per SM, "
+            f"{attrs[1]['stages']} stages in {attrs[1]['smem_bytes']} B), uint8 and uint16, "
             f"TF32 on and off: max |diff| {err['area']} and {err['area_u16']} LSB")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1134,6 +1155,7 @@ def main() -> int:
     slt, sct = sp.luma.tables("cuda"), sp.chroma.tables("cuda")
     slw, scw = sp.luma.window_tables("cuda"), sp.chroma.window_tables("cuda")
     avg_pool2d = torch.nn.functional.avg_pool2d  # timed only: the port never calls it
+    from transform360_tpu_torch import pipeline as pipeline_mod
     for b in (BATCH, 1):
         ys, cs = yb[:b], torch.cat([ub[:b], vb[:b]])
         yl, cl = blur.blur_px(slt.blur, ys), blur.blur_px(sct.blur, cs)
@@ -1163,23 +1185,37 @@ def main() -> int:
             f"byte bound {k4b:.4f} ms ({k4b / k4:.1%}); beside them, not on the path: "
             + ", ".join(f"{k} {v:.4f} ms" for k, v in aside.items())
             + f"  ({smi})")
+        if b == 1:  # one frame: events read the host's issue, a replayed graph the card
+            k4g = graph_ms(lambda: (area.area_px(slt.area, yr), area.area_px(sct.area, cr)), 20)
+            k4lg = graph_ms(lambda: area.area_px(slt.area, yr), 20)
+            x1 = [yb[:1], ub[:1], vb[:1]]
+            fg = graph_ms(lambda: pipeline_mod.transform_frame_planes(sp, x1))
+            say(f"[10] one supersampled frame as a replayed CUDA graph: the step {fg:.4f} ms; "
+                f"K4 luma {k4lg:.4f} ms, luma + chroma {k4g:.4f} ms against their byte bound "
+                f"{k4b:.4f} ms ({k4b / k4g:.1%})  ({smi})")
         del yl, cl, yr, cr, yrf, crf
     # K4 alone on 16 luma frames at the scaled size, as K1 and K3 in phase 5
     xs8 = window.remap_window_px(slw, blur.blur_px(slt.blur, yb[:tb].contiguous()))
     dslt = dsp.luma.tables("cuda")
     xs16 = window.remap_window_px(dsp.luma.window_tables("cuda"),
                                   blur.blur_px(dslt.blur, ydb[:tb].contiguous(), 1023), 1023)
-    library = {}
+    library, events_ms = {}, {}
     for name, da, xa, mx in (("area", slt.area, xs8, 255), ("area_u16", dslt.area, xs16, 1023)):
         xaf = xa.float()
         km, pm, ks = in_turns(lambda: area.area_px(da, xa, mx),
                               lambda: area.area_plain(da, xa, mx), rounds=5)
+        # a call of K4 here is as short as the host's issue of it: the
+        # kernels line takes its device time, 20 calls in a replayed graph
+        kg = graph_ms(lambda: area.area_px(da, xa, mx), 20)
         cuda_times(lambda: avg_pool2d(xaf, 2), 2)
         library[name] = statistics.median(cuda_times(lambda: avg_pool2d(xaf, 2), 20))
-        times[name] = (km, pm)
+        times[name] = (kg, pm)
+        events_ms[name] = km
         bounds[name] = area_bound(da, tb, xa.element_size())
-        say(f"[10] {name}: kernel median {km:.4f} ms (p75 {pct(ks, 0.75):.4f}, n={len(ks)}), "
-            f"plain median {pm:.4f} ms, avg_pool2d on a float32 copy {library[name]:.4f} ms, "
+        say(f"[10] {name}: kernel {kg:.4f} ms as a replayed CUDA graph, {bounds[name][0] / kg:.1%} "
+            f"of the bound; by events in turns median {km:.4f} ms (p75 {pct(ks, 0.75):.4f}, "
+            f"n={len(ks)}), plain median {pm:.4f} ms, avg_pool2d on a float32 copy "
+            f"{library[name]:.4f} ms, "
             f"per call on {tb} {'10-bit ' if mx > 255 else ''}luma frames {da.in_w}x{da.in_h} -> "
             f"{da.out_shape[1]}x{da.out_shape[0]}; bound {bounds[name][0]:.4f} ms "
             f"({bounds[name][1]}), {bounds[name][0] / km:.1%} of it reached  ({smi})")
@@ -1675,11 +1711,15 @@ def main() -> int:
               serves="the XLA stage apply_area_resize + round (pipeline.py:304-311 there); "
               "no pallas_call", batches="all",
               shape="16 supersampled 2x2 luma frames 3072x2048 -> 1536x1024",
-              library_ms=library["area"], library="avg_pool2d on a float32 copy"),
+              library_ms=library["area"], library="avg_pool2d on a float32 copy",
+              timing="ms: a replayed CUDA graph of 20 calls; plain_ms, library_ms: CUDA events",
+              ms_events=events_ms["area"]),
         entry("area_u16", "transform360_tpu_torch/csrc/area.cu",
               "transform360_tpu/sampling.py:483", serves="the same at 10-16 bits",
               batches="all", shape="16 10-bit supersampled 2x2 luma frames",
-              library_ms=library["area_u16"], library="avg_pool2d on a float32 copy"),
+              library_ms=library["area_u16"], library="avg_pool2d on a float32 copy",
+              timing="ms: a replayed CUDA graph of 20 calls; plain_ms, library_ms: CUDA events",
+              ms_events=events_ms["area_u16"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -26,8 +26,12 @@ tiles, ms), the host's time to issue one call (``k3_host_ms``: 200 calls
 issued, then one synchronize), and the card's name and power limit.
 With ``--supersampled`` each process times the supersampled 2x2
 flagship (``chip_smoke.SUPERSAMPLED``) instead: its step's device median
-at batch 128 and at batch 1, and the batch-128 step's peak memory over
-what was allocated before it (``torch.cuda.max_memory_allocated``); no
+at batch 128 and at batch 1, the batch-128 step's peak memory over what
+was allocated before it (``torch.cuda.max_memory_allocated``), and the
+INTER_AREA kernel K4 alone on the plan's luma (``k4_ms``: 1 and 16
+frames as a replayed CUDA graph of 20 calls, 128 frames by CUDA events;
+uint8 and uint16 samples under 1024) and the host's time to issue one
+call on one frame (``k4_host_ms``: 200 calls, then one synchronize); no
 K3 times.
 """
 
@@ -85,6 +89,32 @@ def child(label: str, settings: list, supersampled: bool = False) -> None:
         eng.transform(yb, ub, vb)
         torch.cuda.synchronize()
         res["batch128"]["peak_gib"] = (torch.cuda.max_memory_allocated() - resident) / 2**30
+        from chip_smoke import graph_ms
+        from transform360_tpu_torch.ops import area
+
+        da = eng.plan.luma.tables("cuda").area
+        g = torch.Generator(device="cuda").manual_seed(0)
+        res["k4_ms"] = {}
+        for dt, mx in ((torch.uint8, 255), (torch.uint16, 1023)):
+            for b in (1, 16, 128):
+                x = torch.randint(0, mx + 1, (b, da.in_h, da.in_w), dtype=torch.int32,
+                                  device="cuda", generator=g).to(dt)
+                fn = lambda: area.area_px(da, x, mx)
+                if b <= 16:
+                    ms = graph_ms(fn, 20, 20)
+                else:
+                    cuda_times(fn, 3)
+                    ms = statistics.median(cuda_times(fn, 20))
+                res["k4_ms"][f"u{8 * x.element_size()} b{b}"] = ms
+                if b == 1:  # the host's time to issue one call
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(200):
+                        fn()
+                    res.setdefault("k4_host_ms", {})[f"u{8 * x.element_size()} b1"] = (
+                        (time.perf_counter() - t0) * 1e3 / 200)
+                    torch.cuda.synchronize()
+                del x
         print(json.dumps(res), flush=True)
         return
     lw, cw = (pp.window_tables("cuda") for pp in (eng.plan.luma, eng.plan.chroma))

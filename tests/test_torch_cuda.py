@@ -17,7 +17,8 @@ plan-file engines against the CPU engine.  K4 (csrc/area.cu) against
 ``area_plain`` at 0 LSB, at uint8, 10 and 16 bits (samples past the
 depth's maximum), batch 1, 7 and 256, at 2x2, 4x4, 1.5x2, 200x90 ->
 70x40, the upscale branch, 8x (direct tiles), a ragged width with
-unaligned rows, and an unaligned plane.  The fidelity gate at its size
+unaligned rows, and an unaligned plane; the flagship's 2x2 luma at batch
+1 and 129; and every copy, ring depth, path and grid of a launch.  The fidelity gate at its size
 against the committed oracle fixture, and the drop-in ffmpeg wrapper on
 in-memory pipes, at 8 and 10 bits.
 Marked ``cuda``: they skip without a GPU.  On the GPU host, which has no
@@ -385,6 +386,48 @@ def test_area_kernel_unaligned_plane(depth, gpu):
     x = _area_input(3 * sh * sw + 1, 1, 1, depth, gpu, g)[1:].view(3, sh, sw)
     mx = (1 << depth) - 1
     assert _same(area.area_px(da, x, mx), area.area_plain(da, x, mx))
+
+
+@pytest.mark.parametrize("depth", [8, 10])
+@pytest.mark.parametrize("b", [1, 129])
+def test_area_kernel_persistent_batches(b, depth, gpu):
+    # the 2x2 flagship's luma: one frame (fewer items than resident CTAs)
+    # and 129 frames (CTAs whose runs straddle tiles), every tile packed
+    da = DeviceArea.from_tables(AreaTables.build(3072, 2048, 1536, 1024), gpu)
+    assert bool((da.tiles[:, 7] == area.PACKED).all())
+    mx = (1 << depth) - 1
+    g = torch.Generator(device=gpu).manual_seed(b)
+    x = _area_input(b, 3072, 2048, depth, gpu, g)
+    got = area.area_px(da, x, mx)
+    for f0 in range(0, b, 32):
+        assert _same(got[f0:f0 + 32], area.area_plain(da, x[f0:f0 + 32], mx)), (b, depth, f0)
+
+
+@pytest.mark.parametrize("name", ["2x2", "1.5x2", "ragged 2x2"])
+def test_area_kernel_launch_variants(name, gpu):
+    # every copy (TMA, cp.async, by every thread), ring depth, path, grid
+    # -- one CTA walking all items through the ring, the persistent grid,
+    # one CTA per item -- and walk of the items computes the same bytes
+    (sw, sh), (ow, oh) = AREA_CASES[name]
+    da = DeviceArea.from_tables(AreaTables.build(sw, sh, ow, oh), gpu)
+    g = torch.Generator(device=gpu).manual_seed(11)
+    x = _area_input(9, sw, sh, 8, gpu, g)
+    want = area.area_plain(da, x)
+    lib = area._lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    n_items = da.tiles.shape[0] * x.shape[0]
+    copies = [area.COPY_SCALAR] + ([area.COPY_TMA, area.COPY_ASYNC]
+                                   if area.copy_mode(da, x) == area.COPY_TMA else [])
+    for copy in copies:
+        for stages in (2, 3, 8):
+            for packed in (True, False):
+                for ctas in (1, 0, n_items):
+                    for order in (0, 1):
+                        out = torch.zeros_like(want)
+                        area.launch(lib, da, x, out, stream, copy=copy, stages=stages,
+                                    packed=packed, ctas=ctas, order=order)
+                        torch.cuda.synchronize()
+                        assert _same(out, want), (name, copy, stages, packed, ctas, order)
 
 
 @pytest.mark.parametrize("opts, pix_fmt", [

@@ -8,95 +8,180 @@
 // transform360_tpu/pipeline.py:304-311.  It is no Pallas kernel there.  It
 // computes the function of the plain version
 // transform360_tpu_torch.ops.area.area_plain -- round_px(area_resize(...))
-// -- bit for bit: per output pixel (r, c) and for ascending column tap kc,
-// the row pass h = sum over ascending kr of float(x[ri[r,kr], ci[c,kc]]) *
-// rw[r,kr] (the kr = 0 product itself, then each product added), times
-// cw[c,kc], summed in ascending kc; every product and every sum is rounded
+// -- bit for bit: per output pixel (r, c) and for ascending column tap q,
+// the row pass h = sum over ascending p of float(x[ri[r,p], ci[c,q]]) *
+// rw[r,p] (the p = 0 product itself, then each product added), times
+// cw[c,q], summed in ascending q; every product and every sum is rounded
 // on its own (-fmad=false, __fmul_rn/__fadd_rn), then floor(s + 0.5) is
 // clamped to [0, maxval].  Tap indices are first + k clamped into the
 // input, as AreaAxis.indices gives them; the zero-weight padding taps add
 // +0 to a sum of non-negative terms, which changes no bit, so they run.
 //
-// What bounds it on the H100: bytes.  At the 2x2 flagship a 3072x2048
-// luma frame (6.3 MB) becomes 1536x1024 (1.6 MB) with about 9 float
-// operations per output pixel against at least 5 bytes moved.  The plain
-// version writes a float32 tensor of the whole scaled plane per op; K4
-// reads each sample once and writes each output once.  Each CTA of 256
-// threads takes one 8x128 output tile of the plan (ops/area.py, built once
-// per plan and device), one warp per output row and the columns lane,
-// lane + 32, lane + 64, lane + 96 per thread, so that neighbouring lanes
-// read neighbouring staged samples (no bank conflict) and store
-// neighbouring outputs.  Once per CTA each thread loads its row's and its
-// columns' tap offsets and weights into registers (2 or 4 taps per axis, a
-// template parameter: the first build kept them in shared memory and lost
-// most of its time to bank conflicts on them); then, for each frame of its
-// group (blockIdx.y), the CTA stages the input rows and columns that the
-// tile's taps span (16 x 256 samples at 2x2) with 16-byte cp.async where
-// the plane's rows are 16-byte aligned, double-buffered so that the next
-// frame loads while this one is summed (a ring of 3 or 4 buffers measured
-// no faster).  Samples become
-// floats by an OR into 0x4B000000 and one subtract (no I2F).  Tiles of a
-// plan with more than 4 taps on an axis, or whose span exceeds the plan's
-// shared-memory budget (large factors such as 8x), have pitch 0 and read
-// device memory directly in this same kernel.
+// What bounds it on the H100: bytes, and at uint8 the instructions that
+// turn them into sums.  At the 2x2 flagship a 3072x2048 luma frame (6.3
+// MB) becomes 1536x1024 (1.6 MB) with about 9 float operations per output
+// pixel against at least 5 bytes moved, so the card must keep enough bytes
+// in flight to cover the memory's latency from the first frame of a
+// launch to its last, and issue few instructions per sample.  The design
+// (port_tools/k4_check.py times each choice against the others):
+//
+// * Persistent CTAs.  The grid is the CTAs resident on every SM (3 per SM:
+//   T360_AREA_MIN_BLOCKS caps the registers at 72, where the 2-tap
+//   instantiations do not spill).  Each CTA walks its share of the plan's (tile, frame) items --
+//   8x128 output tiles, ops/area.py -- each tile's frames in order, so its
+//   taps stay in registers: a contiguous run of the tile-major items
+//   (order 0), or on planes whose rows are not whole 128-byte lines every
+//   P-th tile (order 1: the CTAs then take adjacent tiles at one frame at
+//   a time and share the lines that straddle two tiles).  Only a CTA's
+//   first load has nothing to overlap it.
+// * A ring of shared-memory stages fed by one producer warp.  Each stage
+//   holds one item's input span, as `nbox` boxes of `box_h` rows by
+//   `box_w` samples (box-major; a box row is at most 256 samples, TMA's
+//   limit).  On a plane whose rows are 16-byte aligned one lane of the
+//   producer warp issues a TMA copy per box (cp.async.bulk.tensor.3d, a
+//   (column, row, frame) box of a CUtensorMap encoded on the host at each
+//   launch) that completes on the stage's `full` mbarrier; the eight
+//   consumer warps spend no instruction on copies.  Each consumer warp
+//   arrives on the stage's `empty` mbarrier when it has read it, and the
+//   producer reuses a stage only after all eight did, running up to
+//   `stages` items (4) ahead, across tile boundaries.  A plane whose rows
+//   are not 16-byte aligned, which TMA cannot address, is staged by every
+//   thread of the CTA with plain loads between two CTA barriers (the
+//   plan's choice, by shape; never a fallback).
+// * Packed taps.  On a tile where every output column's taps are K
+//   consecutive samples with one weight (whole-number factors, K = 2 or 4,
+//   marked by the plan), each consumer thread takes 4 adjacent outputs:
+//   per tap row one 8- to 32-byte shared load of its 4K samples, bytes or
+//   halves to floats by PRMT into 0x4B0000bb and one subtract (no I2F),
+//   and one 32- or 64-bit store of its 4 outputs.  Other tiles (fractional
+//   factors such as 1.5x2) take one output column in 32 per lane (lane +
+//   32 j, so neighbouring lanes read neighbouring samples) with per-column
+//   tap offsets and weights in registers.  The round is floor by a
+//   round-down add of 2^23 and an integer min, no F2I.
+// * Tiles of a plan with more than 4 taps on an axis, or whose span
+//   exceeds the ring's budget (large factors such as 8x), are direct: they
+//   read device memory in the consumer warps and take no stage.
+
+#include <cuda.h>
 
 #include "common.cuh"
+
+#ifndef T360_AREA_MIN_BLOCKS
+#define T360_AREA_MIN_BLOCKS 3  // resident CTAs per SM the registers must allow
+#endif
 
 namespace {
 
 constexpr int kTR = 8, kTC = 128;  // output tile rows, columns
-constexpr int kThreads = 256;  // a warp per output row, columns lane + 32 j
-static_assert(kThreads == 32 * kTR && kTC == 4 * 32, "a warp per row, 4 columns per lane");
+constexpr int kWarps = kTR;        // consumer warps: one per output row
+constexpr int kThreads = 32 * (kWarps + 1);  // and the producer warp
+constexpr int kMaxStages = 8;
+static_assert(kTC == 4 * 32, "4 columns per lane");
+
+enum Copy { kTma = 0, kAsync = 1, kScalar = 2 };  // how a stage is filled
+enum Mode { kDirect = 0, kStaged = 1, kPacked = 2 };  // a tile's path (its row's last entry)
 
 struct Args {
   const void* src;        // [B, H, W]
   void* dst;              // [B, OH, OW]
-  const int* tiles;       // [n, 8]: r0, c0, rows, cols, y0, x0, span rows, pitch (0: direct)
+  const int* tiles;       // [n, 8]: r0, c0, rows, cols, y0, x0, span rows, Mode
   const int* row_first;   // [OH]
   const float* row_w;     // [OH, kr]
   const int* col_first;   // [OW]
   const float* col_w;     // [OW, kc]
-  int B, H, W, OH, OW, kr, kc;
-  int frames;             // frames per CTA
-  int stage_bytes;        // one staged buffer
-  float maxval;
-  bool vec;               // rows and src 16-byte aligned: cp.async chunks
+  int B, H, W, OH, OW, kr, kc, n_tiles;
+  int box_w, box_h, nbox;  // a stage: nbox boxes of box_h rows of box_w samples
+  int stage_bytes;         // a stage's bytes, a multiple of 128
+  int stages;              // the ring's depth
+  int copy;                // Copy
+  int packed;              // take the packed path on the tiles marked for it
+  int order;               // the items' walk (Item)
+  unsigned maxval;
 };
+
+// A CTA's walk over its (tile, frame) items, each tile's frames in order
+// (ops.area.work_list).  order 0: the contiguous run [i T / P, (i + 1) T /
+// P) of the T = n_tiles x B items in tile-major order (CTA i of P); order
+// 1: the tiles i, i + P, i + 2 P, ..., all frames of each, so that the P
+// CTAs take P adjacent tiles at one frame at a time.
+struct Item {
+  int tile, f, left, step;  // left: items still to walk; step: tiles to the next
+  __device__ explicit Item(const Args& a) {
+    const int P = gridDim.x, i = blockIdx.x;
+    if (a.order == 0) {
+      const long long T = static_cast<long long>(a.n_tiles) * a.B;
+      const int t0 = static_cast<int>(i * T / P), t1 = static_cast<int>((i + 1) * T / P);
+      tile = t0 / a.B, f = t0 - tile * a.B, left = t1 - t0, step = 1;
+    } else {
+      tile = i, f = 0, step = P;
+      left = i < a.n_tiles ? (a.n_tiles - 1 - i) / P * a.B + a.B : 0;
+    }
+  }
+  __device__ void next(const Args& a) {
+    --left;
+    if (++f == a.B) f = 0, tile += step;
+  }
+};
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// Arrives on bar when all of this thread's earlier cp.async copies are done.
+__device__ __forceinline__ void mbar_arrive_cp_async(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+// Waits until the phase of bar with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int x,
+                                         int y, int f) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(x), "r"(y), "r"(f)
+      : "memory");
+}
 
 // The exact float value of a sample (< 2^23): 0x4B000000 | v is 2^23 + v.
 __device__ __forceinline__ float sample_float(uint32_t v) {
   return __fsub_rn(__uint_as_float(0x4B000000u | v), 8388608.0f);
 }
 
-template <typename S>
-__device__ __forceinline__ S round_sample(float s, float maxval) {
-  float r = floorf(__fadd_rn(s, 0.5f));
-  r = fminf(fmaxf(r, 0.0f), maxval);
-  return static_cast<S>(static_cast<uint32_t>(r));
+// min(max(floor(s + 0.5), 0), maxval) as an integer: s + 0.5 rounded to
+// nearest as the plain version rounds it, then 2^23 added rounding down,
+// which leaves floor(t) in the low bits for 0 <= t < 2^23.
+__device__ __forceinline__ uint32_t round_bits(float s, uint32_t maxval) {
+  const float t = fmaxf(__fadd_rn(s, 0.5f), 0.0f);
+  return min(__float_as_uint(__fadd_rd(t, 8388608.0f)) - 0x4B000000u, maxval);
 }
 
-// Stage frame `src` (already offset to the tile's first row and column)
-// into buf: span rows of `pitch` samples; columns at or past the plane's
-// width are not loaded (no tap reads them).  The caller commits.
-template <typename S>
-__device__ __forceinline__ void stage(S* buf, const S* src, int span, int pitch, int cols,
-                                      int W, bool vec) {
-  if (vec) {
-    constexpr int kChunk = 16 / sizeof(S);
-    const int per_row = pitch / kChunk;
-    const int inside = cols / kChunk;  // cols and W are whole chunks here
-    for (int i = threadIdx.x; i < span * per_row; i += kThreads) {
-      const int row = i / per_row, ch = i - row * per_row;
-      if (ch < inside)
-        t360::cp_async16(buf + row * pitch + ch * kChunk,
-                         src + static_cast<size_t>(row) * W + ch * kChunk);
-    }
-  } else {
-    for (int i = threadIdx.x; i < span * pitch; i += kThreads) {
-      const int row = i / pitch, col = i - row * pitch;
-      if (col < cols) buf[i] = src[static_cast<size_t>(row) * W + col];
-    }
-  }
+// Offset in a stage of the span's sample (row, col), both relative to
+// the span's origin: boxes of box_h rows of box_w samples, box-major.
+__device__ __forceinline__ int stage_offset(const Args& a, int row, int col) {
+  const int box = col / a.box_w;
+  return (box * a.box_h + row) * a.box_w + (col - box * a.box_w);
 }
 
 // One output pixel from device memory, with any number of taps.
@@ -118,79 +203,231 @@ __device__ __forceinline__ float sum_global(const S* src, const Args& a, int r, 
   return s;
 }
 
-// K: the taps held in registers per axis on the staged path (the plan's
+// The producer warp: fills a stage for each staged item of its CTA, in
+// order, by TMA or cp.async, waiting for the stage's consumers of
+// `stages` items before.
+template <typename S>
+__device__ __forceinline__ void produce(const CUtensorMap* map, const Args& a, unsigned char* ring,
+                                        uint64_t* full, uint64_t* empty) {
+  const int lane = threadIdx.x & 31;
+  const size_t plane = static_cast<size_t>(a.H) * a.W;
+  const S* src = static_cast<const S*>(a.src);
+  const unsigned box_bytes = a.box_w * a.box_h * sizeof(S);
+  int s = 0, cur = -1;
+  unsigned phase = 0;
+  int y0 = 0, x0 = 0, span = 0, mode = kDirect;
+  for (Item it(a); it.left > 0; it.next(a)) {
+    const int tile = it.tile, f = it.f;
+    if (tile != cur) {
+      const int* tl = a.tiles + tile * 8;
+      y0 = __ldg(tl + 4), x0 = __ldg(tl + 5), span = __ldg(tl + 6), mode = __ldg(tl + 7);
+      cur = tile;
+    }
+    if (mode == kDirect) continue;
+    mbar_wait(&empty[s], phase ^ 1);  // its consumers of `stages` items before are done
+    unsigned char* buf = ring + s * a.stage_bytes;
+    if (a.copy == kTma) {
+      if (lane == 0) {
+        mbar_expect_tx(&full[s], a.nbox * box_bytes);
+        for (int i = 0; i < a.nbox; ++i)
+          tma_load(buf + i * box_bytes, map, &full[s], x0 + i * a.box_w, y0, f);
+      }
+    } else {  // 16-byte cp.async chunks; the rows and columns are whole chunks here
+      constexpr int kChunk = 16 / sizeof(S);
+      const S* base = src + f * plane + static_cast<size_t>(y0) * a.W + x0;
+      const int per_row = min(a.box_w * a.nbox, a.W - x0) / kChunk;  // none past the width
+      S* sbuf = reinterpret_cast<S*>(buf);
+      for (int i = lane; i < span * per_row; i += 32) {
+        const int row = i / per_row, col = (i - row * per_row) * kChunk;
+        t360::cp_async16(sbuf + stage_offset(a, row, col), base + row * a.W + col);
+      }
+      mbar_arrive_cp_async(&full[s]);
+    }
+    if (++s == a.stages) s = 0, phase ^= 1;
+  }
+}
+
+// Every thread of the CTA stages one item's span (base: its first sample
+// in the frame, x0 its column) with plain loads: 32-bit words when the
+// rows and the plane are 4-byte aligned, else sample by sample.  The
+// columns at or past the plane's width are not loaded (no tap reads them).
+template <typename S>
+__device__ __forceinline__ void stage_all(const Args& a, unsigned char* buf, const S* base,
+                                          int span, int x0, bool words) {
+  const int cols = min(a.box_w * a.nbox, a.W - x0);
+  if (words) {  // cols and W are whole words here
+    constexpr int kPer = 4 / sizeof(S);
+    const int per_row = cols / kPer;
+    for (int i = threadIdx.x; i < span * per_row; i += kThreads) {
+      const int row = i / per_row, col = (i - row * per_row) * kPer;
+      *reinterpret_cast<uint32_t*>(buf + stage_offset(a, row, col) * sizeof(S)) =
+          __ldg(reinterpret_cast<const uint32_t*>(base + static_cast<size_t>(row) * a.W + col));
+    }
+  } else {
+    for (int i = threadIdx.x; i < span * cols; i += kThreads) {
+      const int row = i / cols, col = i - row * cols;
+      reinterpret_cast<S*>(buf)[stage_offset(a, row, col)] =
+          __ldg(base + static_cast<size_t>(row) * a.W + col);
+    }
+  }
+}
+
+// A packed row of a lane: 4 K samples as 32-bit words, from one 8-, 16-
+// or 32-byte shared load.
+template <int N>
+__device__ __forceinline__ void load_words(const unsigned char* p, uint32_t (&w)[N]) {
+  if constexpr (N == 2) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    w[0] = v.x, w[1] = v.y;
+  } else {
+#pragma unroll
+    for (int i = 0; i < N / 4; ++i) {
+      const uint4 v = reinterpret_cast<const uint4*>(p)[i];
+      w[4 * i] = v.x, w[4 * i + 1] = v.y, w[4 * i + 2] = v.z, w[4 * i + 3] = v.w;
+    }
+  }
+}
+
+// K: the taps held in registers per axis on the staged paths (the plan's
 // kr and kc, padded with zero weights on the last real tap: each adds +0
 // to a sum of non-negative terms, which changes no bit).
 template <typename S, int K>
-__global__ void __launch_bounds__(kThreads) area_kernel(const Args a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int* t = a.tiles + blockIdx.x * 8;
-  const int r0 = t[0], c0 = t[1], nr = t[2], nc = t[3];
-  const int y0 = t[4], x0 = t[5], span = t[6], pitch = t[7];
-  const int f0 = blockIdx.y * a.frames;
-  const int nf = min(a.frames, a.B - f0);
-  const int tr = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const bool row_in = tr < nr;
-  const int r = r0 + min(tr, nr - 1);
-  const size_t plane = static_cast<size_t>(a.H) * a.W;
-  const size_t oplane = static_cast<size_t>(a.OH) * a.OW;
-  const S* src = static_cast<const S*>(a.src) + f0 * plane;
-  S* dst = static_cast<S*>(a.dst) + f0 * oplane + static_cast<size_t>(r) * a.OW + c0 + lane;
-
-  if (pitch == 0) {  // direct: taps read from device memory
-    if (!row_in) return;
-    for (int f = 0; f < nf; ++f, src += plane, dst += oplane)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (lane + 32 * j < nc)
-          dst[32 * j] = round_sample<S>(sum_global<S>(src, a, r, c0 + lane + 32 * j), a.maxval);
+__global__ void __launch_bounds__(kThreads, T360_AREA_MIN_BLOCKS)
+    area_kernel(const __grid_constant__ CUtensorMap map, const Args a) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[kMaxStages], empty[kMaxStages];
+  // TMA writes 128-byte aligned stages; offsetting the array itself (no
+  // integer round trip) keeps its accesses shared-memory loads
+  unsigned char* const ring = smem_raw + ((0u - smem_u32(smem_raw)) & 127u);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // coop: every thread stages each item, between two CTA barriers, in two
+  // stages taken in turn (a plane whose rows are not 16-byte aligned)
+  const bool coop = a.copy == kScalar;
+  const bool words = (a.W * sizeof(S)) % 4 == 0 && reinterpret_cast<uintptr_t>(a.src) % 4 == 0;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < a.stages; ++s) {
+      mbar_init(&full[s], a.copy == kTma ? 1 : 32);
+      mbar_init(&empty[s], kWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (warp == kWarps && !coop) {
+    produce<S>(&map, a, ring, full, empty);
     return;
   }
 
-  // this thread's taps: its row's, and its 4 columns' (lane + 32 j), as
-  // offsets in the staged span
+  const size_t plane = static_cast<size_t>(a.H) * a.W;
+  const size_t oplane = static_cast<size_t>(a.OH) * a.OW;
+  const S* const src = static_cast<const S*>(a.src);
+  constexpr int kPer = 4 / sizeof(S);     // samples per 32-bit word
+  constexpr int kWords = K * sizeof(S);  // a packed row: 4 K samples
+  // this thread's taps for the current tile: its row's, and on the
+  // per-column path its 4 columns' (lane + 32 j), as stage offsets; on the
+  // packed path coff[0][0] is its 4 outputs' first sample and cw[0][0]
+  // the tile's one column weight
   int roff[K], coff[4][K];
   float rw[K], cw[4][K];
+  int s = 0, cur = -1;
+  unsigned phase = 0;
+  int r = 0, c0 = 0, nc = 0, mode = kDirect;
+  bool row_in = false;
+  S* out_row = nullptr;  // this thread's output row of the tile in frame 0
+  for (Item it(a); it.left > 0; it.next(a)) {
+    const int tile = it.tile, f = it.f;
+    if (tile != cur) {
+      const int* tl = a.tiles + tile * 8;
+      const int r0 = __ldg(tl), nr = __ldg(tl + 2), y0 = __ldg(tl + 4), x0 = __ldg(tl + 5);
+      c0 = __ldg(tl + 1), nc = __ldg(tl + 3), mode = __ldg(tl + 7);
+      if (mode == kPacked && !a.packed) mode = kStaged;
+      row_in = warp < nr;
+      r = r0 + min(warp, nr - 1);
+      out_row = static_cast<S*>(a.dst) + static_cast<size_t>(r) * a.OW + c0;
+      cur = tile;
+      if (mode != kDirect) {
 #pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const int p = min(k, a.kr - 1);
-    roff[k] = (min(__ldg(a.row_first + r) + p, a.H - 1) - y0) * pitch;
-    rw[k] = k < a.kr ? __ldg(a.row_w + r * a.kr + p) : 0.0f;
-  }
+        for (int k = 0; k < K; ++k) {
+          const int p = min(k, a.kr - 1);
+          roff[k] = stage_offset(a, min(__ldg(a.row_first + r) + p, a.H - 1) - y0, 0);
+          rw[k] = k < a.kr ? __ldg(a.row_w + r * a.kr + p) : 0.0f;
+        }
+      }
+      if (mode == kPacked) {
+        coff[0][0] = stage_offset(a, 0, __ldg(a.col_first + c0) - x0 + 4 * K * lane);
+        cw[0][0] = __ldg(a.col_w + c0 * a.kc);
+      } else if (mode == kStaged) {
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int c = c0 + min(lane + 32 * j, nc - 1);
+        for (int j = 0; j < 4; ++j) {
+          const int c = c0 + min(lane + 32 * j, nc - 1);
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int q = min(k, a.kc - 1);
-      coff[j][k] = min(__ldg(a.col_first + c) + q, a.W - 1) - x0;
-      cw[j][k] = k < a.kc ? __ldg(a.col_w + c * a.kc + q) : 0.0f;
+          for (int k = 0; k < K; ++k) {
+            const int q = min(k, a.kc - 1);
+            coff[j][k] = stage_offset(a, 0, min(__ldg(a.col_first + c) + q, a.W - 1) - x0);
+            cw[j][k] = k < a.kc ? __ldg(a.col_w + c * a.kc + q) : 0.0f;
+          }
+        }
+      }
     }
-  }
+    S* const dst = out_row + f * oplane;
+    if (mode == kDirect) {  // taps read from device memory
+      if (row_in)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (lane + 32 * j < nc)
+            dst[lane + 32 * j] =
+                static_cast<S>(round_bits(sum_global<S>(src + f * plane, a, r, c0 + lane + 32 * j),
+                                          a.maxval));
+      continue;
+    }
 
-  const int cols = min(pitch, a.W - x0);
-  const S* tile_src = src + static_cast<size_t>(y0) * a.W + x0;
-  S* const buf0 = reinterpret_cast<S*>(smem);
-  S* const buf1 = reinterpret_cast<S*>(smem + a.stage_bytes);
-  stage<S>(buf0, tile_src, span, pitch, cols, a.W, a.vec);
-  t360::cp_async_commit();
-  for (int f = 0; f < nf; ++f, dst += oplane) {
-    if (f + 1 < nf) {
-      stage<S>((f & 1) ? buf0 : buf1, tile_src + (f + 1) * plane, span, pitch, cols, a.W, a.vec);
-      t360::cp_async_commit();
-      t360::cp_async_wait<1>();
+    unsigned char* const buf = ring + s * a.stage_bytes;
+    if (coop) {  // the previous barrier freed this stage: its item was two ago
+      const int* tl = a.tiles + tile * 8;
+      const int y0 = __ldg(tl + 4), x0 = __ldg(tl + 5);
+      stage_all<S>(a, buf, src + f * plane + static_cast<size_t>(y0) * a.W + x0, __ldg(tl + 6),
+                   x0, words);
+      __syncthreads();
     } else {
-      t360::cp_async_wait<0>();
+      mbar_wait(&full[s], phase);  // this item's span has landed
     }
-    __syncthreads();  // this frame's span is complete
-    const S* buf = (f & 1) ? buf1 : buf0;
-    if (row_in) {
+    if (row_in && mode == kPacked) {
+      if (4 * lane < nc) {  // nc is a multiple of 4 on a packed tile
+        // h[i]: the row pass at the lane's sample i; output j sums h[K j + q]
+        float h[4 * K];
+#pragma unroll
+        for (int p = 0; p < K; ++p) {
+          uint32_t w[kWords];
+          load_words(buf + (roff[p] + coff[0][0]) * sizeof(S), w);
+#pragma unroll
+          for (int i = 0; i < 4 * K; ++i) {
+            const float term = __fmul_rn(t360::sample_to_float<S>(w[i / kPer], i % kPer), rw[p]);
+            h[i] = p == 0 ? term : __fadd_rn(h[i], term);
+          }
+        }
+        uint32_t v[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float sum = __fmul_rn(h[K * j], cw[0][0]);
+#pragma unroll
+          for (int q = 1; q < K; ++q) sum = __fadd_rn(sum, __fmul_rn(h[K * j + q], cw[0][0]));
+          v[j] = round_bits(sum, a.maxval);
+        }
+        if constexpr (sizeof(S) == 1) {
+          *reinterpret_cast<uint32_t*>(dst + 4 * lane) = __byte_perm(
+              __byte_perm(v[0], v[1], 0x0040), __byte_perm(v[2], v[3], 0x0040), 0x5410);
+        } else {
+          *reinterpret_cast<uint2*>(dst + 4 * lane) =
+              make_uint2(__byte_perm(v[0], v[1], 0x5410), __byte_perm(v[2], v[3], 0x5410));
+        }
+      }
+    } else if (row_in) {
+      const S* sbuf = reinterpret_cast<const S*>(buf);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        float s = 0.0f;
+        float sum = 0.0f;
 #pragma unroll
         for (int q = 0; q < K; ++q) {
-          const S* col = buf + coff[j][q];
+          const S* col = sbuf + coff[j][q];
           float h = 0.0f;
 #pragma unroll
           for (int p = 0; p < K; ++p) {
@@ -198,12 +435,16 @@ __global__ void __launch_bounds__(kThreads) area_kernel(const Args a) {
             h = p == 0 ? term : __fadd_rn(h, term);
           }
           const float term = __fmul_rn(h, cw[j][q]);
-          s = q == 0 ? term : __fadd_rn(s, term);
+          sum = q == 0 ? term : __fadd_rn(sum, term);
         }
-        if (lane + 32 * j < nc) dst[32 * j] = round_sample<S>(s, a.maxval);
+        if (lane + 32 * j < nc) dst[lane + 32 * j] = static_cast<S>(round_bits(sum, a.maxval));
       }
     }
-    __syncthreads();  // this buffer is free for the frame after next
+    if (!coop) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with the stage
+    }
+    if (++s == (coop ? 2 : a.stages)) s = 0, phase ^= 1;
   }
 }
 
@@ -226,9 +467,37 @@ const void* kernel_for(int sample_bytes, int taps) {
   }
 }
 
+// A ring of `stages` stages and the 128 bytes that align it.
+int smem_for(int stage_bytes, int stages) {
+  return stage_bytes > 0 ? stages * stage_bytes + 128 : 0;
+}
+
 cudaError_t allow_smem(const void* k, int smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled (a libcuda entry point), fetched through the
+// runtime, so that the library needs no -lcuda.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                     cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return e == cudaSuccess && q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
+                                                               : nullptr;
+  }();
+  return fn;
 }
 
 }  // namespace
@@ -237,46 +506,79 @@ cudaError_t allow_smem(const void* k, int smem) {
 // uint8; 2: uint16, rounded and saturated to maxval, the depth's largest
 // sample); row_first int32 [OH], row_w float32 [OH, kr]; col_first int32
 // [OW], col_w float32 [OW, kc]; tiles int32 [n, 8] (r0, c0, rows, cols,
-// y0, x0, span rows, pitch in samples, a multiple of 16; pitch 0: direct).
-// taps: 2 or 4, at least kr and kc if any tile is staged.  stage_bytes:
-// one staged buffer (the largest span x pitch x sample_bytes over the
-// staged tiles, a multiple of 16), 0 if no tile is staged; a CTA holds
-// two.  Each CTA takes `frames` consecutive frames.
-// vec: W * sample_bytes and src 16-byte aligned.
-extern "C" int t360_area(const void* src, void* dst, int sample_bytes, float maxval, int B,
-                         int H, int W, int OH, int OW, const int* row_first, const float* row_w,
-                         int kr, const int* col_first, const float* col_w, int kc, int taps,
-                         const int* tiles, int n_tiles, int stage_bytes, int frames, int vec,
-                         void* stream) {
+// y0, x0, span rows, mode: 0 direct, 1 staged, 2 staged with packed
+// taps).  taps: 2 or 4, at least kr and kc if any tile is staged.  A stage
+// holds nbox boxes of box_h rows of box_w samples (box_w a multiple of 16
+// and at most 256, box_h at most 256; 0 0 0 if no tile is staged); the
+// ring has `stages` of them (2 to 8).  copy: 0, TMA (src and its rows
+// 16-byte aligned); 1, 16-byte cp.async by the producer warp (the same
+// alignment); 2, every thread with plain loads, two stages in turn.
+// packed: 0 takes the per-column path on packed tiles too.  ctas: the
+// grid.  order: how a CTA walks the n_tiles x B (tile, frame) items (0: a
+// contiguous run; 1: every ctas-th tile; see Item).  Returns 0, a
+// cudaError_t, or -CUresult if the tensor map cannot be encoded.
+extern "C" int t360_area(const void* src, void* dst, int sample_bytes, int maxval, int B, int H,
+                         int W, int OH, int OW, const int* row_first, const float* row_w, int kr,
+                         const int* col_first, const float* col_w, int kc, int taps,
+                         const int* tiles, int n_tiles, int box_w, int box_h, int nbox,
+                         int stages, int copy, int packed, int ctas, int order, void* stream) {
   const void* k = kernel_for(sample_bytes, taps);
-  const int smem = 2 * stage_bytes;
+  const bool staged = box_w > 0;
+  const int stage_bytes = (box_w * box_h * nbox * sample_bytes + 127) / 128 * 128;
+  const int smem = smem_for(stage_bytes, stages);
   if (k == nullptr || B <= 0 || H <= 0 || W <= 0 || OH <= 0 || OW <= 0 || kr <= 0 ||
-      kc <= 0 || (stage_bytes > 0 && (kr > taps || kc > taps)) || n_tiles <= 0 ||
-      stage_bytes < 0 || (stage_bytes & 15) != 0 || frames <= 0 ||
-      (B + frames - 1) / frames > 65535 || smem > 227 * 1024 ||
-      (sample_bytes == 1 ? maxval != 255.0f : !(maxval >= 255.0f && maxval <= 65535.0f)))
+      kc <= 0 || (staged && (kr > taps || kc > taps)) || n_tiles <= 0 || ctas <= 0 ||
+      static_cast<long long>(n_tiles) * B > 0x7fffffffLL || ctas > n_tiles * B ||
+      stages < 2 || stages > kMaxStages || copy < kTma || copy > kScalar ||
+      (staged && (box_w % 16 != 0 || box_w > 256 || box_h <= 0 || box_h > 256 || nbox <= 0)) ||
+      smem > 227 * 1024 ||
+      (staged && copy != kScalar &&
+       ((static_cast<long long>(W) * sample_bytes) % 16 != 0 ||
+        reinterpret_cast<uintptr_t>(src) % 16 != 0)) ||
+      (sample_bytes == 1 ? maxval != 255 : !(maxval >= 255 && maxval <= 65535)) ||
+      order < 0 || order > 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap map = {};
+  if (staged && copy == kTma) {
+    const EncodeTiled encode = encode_tiled();
+    if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+    const cuuint64_t dims[3] = {static_cast<cuuint64_t>(W), static_cast<cuuint64_t>(H),
+                                static_cast<cuuint64_t>(B)};
+    const cuuint64_t strides[2] = {static_cast<cuuint64_t>(W) * sample_bytes,
+                                   static_cast<cuuint64_t>(H) * W * sample_bytes};
+    const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_w), static_cast<cuuint32_t>(box_h), 1};
+    const cuuint32_t elem[3] = {1, 1, 1};
+    const CUresult r = encode(
+        &map, sample_bytes == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_UINT16,
+        3, const_cast<void*>(src), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+        CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    if (r != CUDA_SUCCESS) return -static_cast<int>(r);
+  }
   cudaError_t e = allow_smem(k, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  Args a{src, dst, tiles, row_first, row_w, col_first, col_w, B, H, W, OH, OW, kr, kc,
-         frames, stage_bytes, maxval, vec != 0};
-  void* args[] = {&a};
-  const dim3 grid(n_tiles, (B + frames - 1) / frames);
-  e = cudaLaunchKernel(k, grid, dim3(kThreads), args, smem, static_cast<cudaStream_t>(stream));
+  Args a{src,     dst,   tiles, row_first, row_w,       col_first, col_w, B,    H,
+         W,       OH,    OW,    kr,        kc,          n_tiles,   box_w, box_h, nbox,
+         stage_bytes, stages, copy, packed, order, static_cast<unsigned>(maxval)};
+  void* args[] = {&map, &a};
+  e = cudaLaunchKernel(k, dim3(ctas), dim3(kThreads), args, smem,
+                       static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return static_cast<int>(e);
   T360_CHECK_LAUNCH();
   return 0;
 }
 
 // One instantiation's registers, local memory bytes (spills and stack),
-// resident CTAs per SM and dynamic shared memory for a launch with two
-// staged buffers of stage_bytes: out[0..3].
-extern "C" int t360_area_attrs(int sample_bytes, int taps, int stage_bytes, int* out) {
+// resident CTAs per SM and dynamic shared memory for a launch with a ring
+// of `stages` stages of stage_bytes: out[0..3].
+extern "C" int t360_area_attrs(int sample_bytes, int taps, int stage_bytes, int stages,
+                               int* out) {
   const void* k = kernel_for(sample_bytes, taps);
-  if (k == nullptr || stage_bytes < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (k == nullptr || stage_bytes < 0 || stages < 2 || stages > kMaxStages)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaFuncAttributes fa;
   cudaError_t e = cudaFuncGetAttributes(&fa, k);
-  const int smem = 2 * stage_bytes;
+  const int smem = smem_for(stage_bytes, stages);
   if (e == cudaSuccess) e = allow_smem(k, smem);
   int blocks = 0;
   if (e == cudaSuccess)

@@ -4,18 +4,30 @@
 K4 computes :func:`area_plain`, ``round_px(area_resize(da, x), maxval,
 dtype)``, bit for bit, on uint8 planes and on uint16 planes (deep
 formats, saturated at the depth's maximum): the epilogue of a
-supersampled plane, from the scaled size to the output size.
+supersampled plane, from the scaled size to the output size.  It is
+bound by bytes; the kernel's header says how its design keeps them in
+flight (persistent CTAs, a ring of stages filled by TMA, packed taps).
 
 Plan time (numpy, vectorized, once per plan and device in
 :meth:`..sampling.DeviceArea.from_tables`): :func:`build_area_tiles` cuts
 the output into ``TR x TC`` tiles and gives each the span of input rows
 and columns its taps read (clamped padding taps included), from a column
-aligned down to ``ALIGN`` samples with a pitch of whole ``ALIGN``s, so
-that one plan serves both sample sizes.  A tile is staged through shared
-memory when the plan has at most ``MAX_TAPS`` taps per axis (the kernel
-holds them in registers: :func:`taps` picks its instantiation) and two of
-its spans fit ``SMEM_BUDGET`` at uint16; any other tile has pitch 0 and
-reads device memory directly inside the same kernel.
+aligned down to ``ALIGN`` samples, so that one plan serves both sample
+sizes, and a mode.  A tile is staged through the kernel's ring when the
+plan has at most ``MAX_TAPS`` taps per axis (the kernel holds them in
+registers: :func:`taps` picks its instantiation) and two ring stages fit
+``SMEM_BUDGET`` at uint16; a staged tile is packed when every output
+column's taps are ``K`` consecutive samples with one weight (whole-number
+factors); any other tile is direct and reads device memory inside the
+same kernel.  One stage layout serves the plan: ``box`` = (width, rows,
+count) of the TMA boxes that hold the widest and tallest span.
+
+Launch time: the grid is persistent (:func:`grid_ctas`: the CTAs resident
+on every SM, at most one per item) and each CTA walks its share of the
+(tile, frame) items (:func:`work_list`, :func:`walk_order`), each tile's
+frames in order.  A plane whose rows and base are
+16-byte aligned is staged by TMA, any other by every thread of the CTA
+with plain loads (``COPY_SCALAR``): the shape chooses, never a failure.
 
 For a CUDA tensor :func:`area_px` launches the kernel or raises; it never
 falls back.  ``LAUNCHES`` counts the uint8 instantiation's launches and
@@ -25,26 +37,31 @@ falls back.  ``LAUNCHES`` counts the uint8 instantiation's launches and
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import threading
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
-from ..sampling import AreaTables, DeviceArea, area_resize, round_px
+from ..sampling import AreaAxis, AreaTables, DeviceArea, area_resize, round_px
 from . import _build
 
 LAUNCHES = 0  # uint8 planes
 LAUNCHES_U16 = 0  # uint16 planes
 
 TR, TC = 8, 128  # output tile: a warp per row, 4 columns per thread
-ALIGN = 16  # span origin and pitch, in samples: whole 16-byte chunks at either size
-SMEM_BUDGET = 96 * 1024  # a staged CTA's two buffers
+ALIGN = 16  # span origin, in samples: whole 16-byte chunks at either size
+BOX_MAX = 256  # samples or rows in one dimension of a TMA box
+SMEM_BUDGET = 96 * 1024  # two ring stages at uint16 fit in it
 MAX_TAPS = 4  # taps per axis that the staged path holds in registers
-CTA_FRAMES = 16  # most frames one CTA loops over (measured faster than 4 and 8)
-CTAS_TARGET = 4096  # below this many CTAs a CTA takes fewer frames
+RING = 4  # ring stages a launch takes, as SMEM_BUDGET allows
+DIRECT, STAGED, PACKED = 0, 1, 2  # a tile's mode, its row's last entry
+COPY_TMA, COPY_ASYNC, COPY_SCALAR = 0, 1, 2  # how a stage is filled
 
 _c_void_p = ctypes.c_void_p
 _c_int = ctypes.c_int
+_LOCK = threading.Lock()
+_RESIDENT: Dict[tuple, int] = {}  # (device, sample bytes, taps, smem) -> resident CTAs
 
 
 def taps(kr: int, kc: int) -> int:
@@ -53,10 +70,26 @@ def taps(kr: int, kc: int) -> int:
     return 2 if max(kr, kc) <= 2 else 4
 
 
-def smem_bytes(da: DeviceArea, sample_bytes: int) -> int:
-    """A launch's dynamic shared memory: two staged buffers, or 0 when
-    every tile reads device memory directly."""
-    return 2 * da.stage * sample_bytes
+def stage_bytes(box: Tuple[int, int, int], sample_bytes: int) -> int:
+    """One ring stage: ``box`` = (width, rows, count) boxes of samples,
+    rounded up to 128 bytes (TMA's alignment); 0 with no staged tile."""
+    w, h, n = box
+    return -(-w * h * n * sample_bytes // 128) * 128
+
+
+def ring_stages(da: DeviceArea, sample_bytes: int) -> int:
+    """The stages of a launch's ring: ``RING`` or as many as
+    ``SMEM_BUDGET`` holds, and at least 2."""
+    sb = stage_bytes(da.box, sample_bytes)
+    return max(2, min(RING, SMEM_BUDGET // sb)) if sb else 2
+
+
+def smem_bytes(da: DeviceArea, sample_bytes: int, stages: int = 0) -> int:
+    """A launch's dynamic shared memory: its ring (``stages`` or
+    :func:`ring_stages`) and 128 bytes to align it, or 0 when every tile
+    reads device memory directly."""
+    sb = stage_bytes(da.box, sample_bytes)
+    return (stages or ring_stages(da, sample_bytes)) * sb + 128 if sb else 0
 
 
 def _spans(idx: np.ndarray, step: int):
@@ -68,12 +101,45 @@ def _spans(idx: np.ndarray, step: int):
             np.maximum.reduceat(idx.max(axis=1), starts))
 
 
-def build_area_tiles(at: AreaTables) -> Tuple[np.ndarray, int]:
+def _box(span: np.ndarray, pitch: np.ndarray) -> Tuple[int, int, int]:
+    """The TMA boxes of a stage that holds every given span: ``count``
+    boxes of ``rows`` x ``width`` samples side by side, each at most
+    ``BOX_MAX`` wide (and a multiple of 128 samples when there are
+    several, so each box starts 128-byte aligned)."""
+    if span.size == 0:
+        return 0, 0, 0
+    pm = int(pitch.max())
+    n = -(-pm // BOX_MAX)
+    w = pm if n == 1 else -(-pm // (n * 128)) * 128
+    return w, int(span.max()), n
+
+
+def _packed_columns(col: AreaAxis, c0: np.ndarray, nc: np.ndarray, K: int) -> np.ndarray:
+    """Per column tile: every output column's taps are ``K`` consecutive
+    samples, ``K`` apart from its neighbour's, starting 16-aligned at the
+    tile's first column, inside the input, all with one weight; and the
+    output width is whole groups of 4 (the kernel's vector stores)."""
+    w = col.weights
+    if w.shape[1] != K or w.shape[0] % 4:
+        return np.zeros(c0.size, bool)
+    first = col.first.astype(np.int64)
+    out = np.arange(first.size)
+    tile = np.repeat(np.arange(c0.size), nc)
+    lead = c0[tile]
+    steps = first == first[lead] + K * (out - lead)
+    inside = first + K - 1 <= col.n_in - 1
+    same = (w == w[lead, :1]).all(axis=1)
+    ok = np.logical_and.reduceat(steps & inside & same, c0)
+    return ok & (first[c0] % ALIGN == 0)
+
+
+def build_area_tiles(at: AreaTables) -> Tuple[np.ndarray, Tuple[int, int, int]]:
     """K4's tile plan: int32 ``[n, 8]`` rows of (out row, out col, rows,
-    cols, y0, x0, span rows, pitch) -- the tile's input span starts at
-    (y0, x0) and holds ``span`` rows of ``pitch`` samples; pitch 0: read
-    device memory directly -- direct tiles first (the longest CTAs start
-    early), and the samples of the largest staged span (0: none)."""
+    cols, y0, x0, span rows, mode) -- the tile's input span starts at (y0,
+    x0) and holds ``span`` rows; mode ``DIRECT`` (read device memory),
+    ``STAGED`` or ``PACKED`` -- direct tiles first (the longest items
+    start early), and the stage's boxes (width, rows, count) that hold
+    every staged span ((0, 0, 0): none)."""
     kr, kc = at.row.weights.shape[1], at.col.weights.shape[1]
     r0, nr, ylo, yhi = _spans(at.row.indices(), TR)
     c0, nc, xlo, xhi = _spans(at.col.indices(), TC)
@@ -82,18 +148,45 @@ def build_area_tiles(at: AreaTables) -> Tuple[np.ndarray, int]:
     span = yhi[R] - ylo[R] + 1
     x0 = xlo[C] // ALIGN * ALIGN
     pitch = -(-(xhi[C] + 1 - x0) // ALIGN) * ALIGN
-    staged = (max(kr, kc) <= MAX_TAPS) & (2 * 2 * span * pitch <= SMEM_BUDGET)
-    stage = int((span * pitch)[staged].max(initial=0))
-    tiles = np.stack([r0[R], c0[C], nr[R], nc[C], ylo[R], x0, span,
-                      np.where(staged, pitch, 0)], axis=1)
-    return np.ascontiguousarray(tiles[np.argsort(staged, kind="stable")], np.int32), stage
+    staged = ((max(kr, kc) <= MAX_TAPS) & (span <= BOX_MAX)
+              & (2 * 2 * span * pitch <= SMEM_BUDGET))
+    box = _box(span[staged], pitch[staged])
+    if 2 * stage_bytes(box, 2) > SMEM_BUDGET:  # the spans' union is too large
+        staged[:], box = False, (0, 0, 0)
+    packed = staged & _packed_columns(at.col, c0, nc, taps(kr, kc))[C]
+    mode = np.where(packed, PACKED, np.where(staged, STAGED, DIRECT))
+    tiles = np.stack([r0[R], c0[C], nr[R], nc[C], ylo[R], x0, span, mode], axis=1)
+    return np.ascontiguousarray(tiles[np.argsort(staged, kind="stable")], np.int32), box
 
 
-def frames_per_cta(B: int, n_tiles: int) -> int:
-    """Frames one CTA loops over: up to ``CTA_FRAMES`` while the grid keeps
-    ``CTAS_TARGET`` CTAs, and never a grid of more than 65535 frame groups."""
-    f = max(1, min(CTA_FRAMES, B * n_tiles // CTAS_TARGET))
-    return max(f, -(-B // 65535))
+def work_list(n_tiles: int, B: int, ctas: int,
+              order: int = 0) -> List[List[Tuple[int, int, int]]]:
+    """Each CTA's work as the kernel walks it, as runs (tile, first frame,
+    frames), each tile's frames in order.  Order 0: CTA ``i`` of ``ctas``
+    takes the items ``[i T / ctas, (i + 1) T / ctas)`` of the ``T =
+    n_tiles * B`` (tile, frame) items in tile-major order.  Order 1: CTA
+    ``i`` takes tiles ``i, i + ctas, i + 2 ctas, ...``, all frames of
+    each, so that the CTAs take adjacent tiles at one frame at a time."""
+    if order == 1:
+        return [[(j, 0, B) for j in range(i, n_tiles, ctas)] for i in range(ctas)]
+    T = n_tiles * B
+    out = []
+    for i in range(ctas):
+        t, t1 = i * T // ctas, (i + 1) * T // ctas
+        runs = []
+        while t < t1:
+            tile, f = divmod(t, B)
+            n = min(t1 - t, B - f)
+            runs.append((tile, f, n))
+            t += n
+        out.append(runs)
+    return out
+
+
+def grid_ctas(n_items: int, resident: int) -> int:
+    """The persistent grid: every CTA the card holds at once
+    (``resident``), but no more than there are items."""
+    return max(1, min(n_items, resident))
 
 
 def area_plain(da: DeviceArea, x: torch.Tensor, maxval: int = 255) -> torch.Tensor:
@@ -108,20 +201,27 @@ def _lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         fn.argtypes = [
             _c_void_p, _c_void_p,  # src, dst
-            _c_int, ctypes.c_float,  # sample bytes, largest sample
+            _c_int, _c_int,  # sample bytes, largest sample
             _c_int, _c_int, _c_int, _c_int, _c_int,  # B, H, W, OH, OW
             _c_void_p, _c_void_p, _c_int,  # row_first, row_w, kr
             _c_void_p, _c_void_p, _c_int, _c_int,  # col_first, col_w, kc, register taps
-            _c_void_p, _c_int, _c_int,  # tiles, n_tiles, stage bytes
-            _c_int, _c_int,  # frames per CTA, vec
+            _c_void_p, _c_int,  # tiles, n_tiles
+            _c_int, _c_int, _c_int, _c_int,  # box width, rows, count; stages
+            _c_int, _c_int, _c_int, _c_int,  # copy, packed, ctas, order
             _c_void_p,  # stream
         ]
         fn.restype = _c_int
-        lib.t360_area_attrs.argtypes = [_c_int, _c_int, _c_int, _c_void_p]
+        lib.t360_area_attrs.argtypes = [_c_int, _c_int, _c_int, _c_int, _c_void_p]
         lib.t360_area_attrs.restype = _c_int
         lib.t360_error_string.argtypes = [_c_int]
         lib.t360_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _error(lib: ctypes.CDLL, err: int) -> str:
+    if err < 0:
+        return f"cuTensorMapEncodeTiled returned CUresult {-err}"
+    return lib.t360_error_string(err).decode()
 
 
 def _check_input(da: DeviceArea, x: torch.Tensor) -> None:
@@ -139,23 +239,69 @@ def _check_input(da: DeviceArea, x: torch.Tensor) -> None:
         raise ValueError(f"plane on {x.device} but the area tables on {da.tiles.device}")
 
 
-def launch(lib: ctypes.CDLL, da: DeviceArea, x: torch.Tensor, out: torch.Tensor,
-           frames: int, stream: int, maxval: int = 255) -> None:
-    """One launch of K4 from ``lib`` over ``da``'s tiles, ``frames``
-    frames of ``x`` per CTA, into ``out`` on the CUDA stream ``stream``;
-    uint16 samples round and saturate to ``maxval``.  Raises if the launch
-    fails."""
+def copy_mode(da: DeviceArea, x: torch.Tensor) -> int:
+    """How a launch stages ``x``: by TMA when its rows and base are
+    16-byte aligned (TMA's rule), else by every thread of a CTA with plain
+    loads (``COPY_SCALAR``)."""
+    sb = x.element_size()
+    return COPY_TMA if da.in_w * sb % 16 == 0 and x.data_ptr() % 16 == 0 else COPY_SCALAR
+
+
+def walk_order(da: DeviceArea, x: torch.Tensor) -> int:
+    """How a launch's CTAs walk their items (:func:`work_list`): order 0,
+    contiguous runs, when the plane's rows are whole 128-byte lines; else
+    order 1, where the CTAs take adjacent tiles at one frame at a time
+    and so share the lines that straddle two tiles (measured faster on
+    such planes by ``port_tools/k4_check.py``)."""
+    return 0 if da.in_w * x.element_size() % 128 == 0 else 1
+
+
+def resident_ctas(lib: ctypes.CDLL, da: DeviceArea, sample_bytes: int, stages: int = 0) -> int:
+    """CTAs of K4 resident on all of the current card's SMs at once for a
+    launch of ``da``'s plan (memoized per card, sample size, taps and
+    shared memory)."""
+    dev = torch.cuda.current_device()
+    key = (dev, sample_bytes, taps(da.row_w.shape[1], da.col_w.shape[1]),
+           smem_bytes(da, sample_bytes, stages))
+    with _LOCK:
+        n = _RESIDENT.get(key)
+    if n is None:
+        per_sm = kernel_attrs(da, sample_bytes, stages, lib)["ctas_per_sm"]
+        if per_sm <= 0:
+            raise RuntimeError(f"area kernel: no CTA fits an SM with {key[3]} B of shared memory")
+        n = per_sm * torch.cuda.get_device_properties(dev).multi_processor_count
+        with _LOCK:
+            _RESIDENT[key] = n
+    return n
+
+
+def launch(lib: ctypes.CDLL, da: DeviceArea, x: torch.Tensor, out: torch.Tensor, stream: int,
+           maxval: int = 255, *, copy: int = -1, stages: int = 0, packed: bool = True,
+           ctas: int = 0, order: int = -1) -> None:
+    """One launch of K4 from ``lib`` over ``da``'s tiles into ``out`` on
+    the CUDA stream ``stream``; uint16 samples round and saturate to
+    ``maxval``.  By default the plane's alignment picks the copy
+    (:func:`copy_mode`) and the walk (:func:`walk_order`), the ring has
+    :func:`ring_stages` stages (2 when every thread stages,
+    ``COPY_SCALAR``), packed tiles take the packed path and the grid is
+    persistent (:func:`grid_ctas`); ``port_tools/k4_check.py`` sets each
+    to time its variants.  Raises if the launch fails."""
     sb = x.element_size()
     kr, kc = da.row_w.shape[1], da.col_w.shape[1]
+    copy = copy_mode(da, x) if copy < 0 else copy
+    order = walk_order(da, x) if order < 0 else order
+    stages = stages or (2 if copy == COPY_SCALAR else ring_stages(da, sb))
+    n_items = da.tiles.shape[0] * x.shape[0]
+    ctas = ctas or grid_ctas(n_items, resident_ctas(lib, da, sb, stages))
     err = lib.t360_area(
-        x.data_ptr(), out.data_ptr(), sb, float(maxval), x.shape[0], da.in_h, da.in_w,
+        x.data_ptr(), out.data_ptr(), sb, maxval, x.shape[0], da.in_h, da.in_w,
         *da.out_shape, da.row_first.data_ptr(), da.row_w.data_ptr(), kr,
         da.col_first.data_ptr(), da.col_w.data_ptr(), kc, taps(kr, kc),
-        da.tiles.data_ptr(), da.tiles.shape[0], da.stage * sb, frames,
-        int(da.in_w * sb % 16 == 0 and x.data_ptr() % 16 == 0), stream,
+        da.tiles.data_ptr(), da.tiles.shape[0], *da.box, stages, copy, int(packed),
+        min(ctas, n_items), order, stream,
     )
     if err:
-        raise RuntimeError(f"area kernel launch failed: {lib.t360_error_string(err).decode()}")
+        raise RuntimeError(f"area kernel launch failed: {_error(lib, err)}")
 
 
 def area_px(da: DeviceArea, x: torch.Tensor, maxval: int = 255) -> torch.Tensor:
@@ -177,8 +323,7 @@ def area_px(da: DeviceArea, x: torch.Tensor, maxval: int = 255) -> torch.Tensor:
     out = torch.empty((x.shape[0],) + da.out_shape, dtype=x.dtype, device=x.device)
     lib = _lib()
     with torch.cuda.device(x.device):
-        launch(lib, da, x, out, frames_per_cta(x.shape[0], da.tiles.shape[0]),
-               torch.cuda.current_stream(x.device).cuda_stream, maxval)
+        launch(lib, da, x, out, torch.cuda.current_stream(x.device).cuda_stream, maxval)
     if sb == 1:
         LAUNCHES += 1
     else:
@@ -186,15 +331,19 @@ def area_px(da: DeviceArea, x: torch.Tensor, maxval: int = 255) -> torch.Tensor:
     return out
 
 
-def kernel_attrs(da: DeviceArea, sample_bytes: int = 1) -> dict:
+def kernel_attrs(da: DeviceArea, sample_bytes: int = 1, stages: int = 0,
+                 lib: ctypes.CDLL = None) -> dict:
     """K4's instantiation for ``sample_bytes`` on the current GPU: its
     registers, local memory bytes (spills and stack), resident CTAs per SM
-    for a launch of ``da``'s plan, and that launch's dynamic shared
-    memory."""
-    lib = _lib()
+    for a launch of ``da``'s plan with a ring of ``stages`` (default
+    :func:`ring_stages`), that launch's dynamic shared memory, and the
+    stages."""
+    lib = lib or _lib()
+    stages = stages or ring_stages(da, sample_bytes)
     out = (_c_int * 4)()
     err = lib.t360_area_attrs(sample_bytes, taps(da.row_w.shape[1], da.col_w.shape[1]),
-                              da.stage * sample_bytes, out)
+                              stage_bytes(da.box, sample_bytes), stages, out)
     if err:
-        raise RuntimeError(f"area kernel attributes: {lib.t360_error_string(err).decode()}")
-    return dict(zip(("registers", "local_bytes", "ctas_per_sm", "smem_bytes"), out))
+        raise RuntimeError(f"area kernel attributes: {_error(lib, err)}")
+    return dict(zip(("registers", "local_bytes", "ctas_per_sm", "smem_bytes"), out),
+                stages=stages)

@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -469,7 +469,8 @@ class AreaTables:
 class DeviceArea:
     """:class:`AreaTables` on one device: the int64 tap indices of the
     plain version, and what the CUDA kernel K4 (:mod:`.ops.area`) reads --
-    each axis's int32 first taps and float32 weights and the tile plan."""
+    each axis's int32 first taps and float32 weights, the tile plan and
+    its ring stage's layout."""
 
     row_idx: torch.Tensor  # int64 [out_h, Kr]
     row_w: torch.Tensor  # float32 [out_h, Kr]
@@ -478,7 +479,7 @@ class DeviceArea:
     row_first: torch.Tensor  # int32 [out_h]
     col_first: torch.Tensor  # int32 [out_w]
     tiles: torch.Tensor  # int32 [n, 8], :func:`.ops.area.build_area_tiles`
-    stage: int  # samples of the largest staged span (0: every tile direct)
+    box: Tuple[int, int, int]  # a ring stage: (box width, rows, boxes); 0s: every tile direct
     in_h: int
     in_w: int
 
@@ -489,13 +490,13 @@ class DeviceArea:
         def put(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
-        tiles, stage = build_area_tiles(at)
+        tiles, box = build_area_tiles(at)
         return cls(
             row_idx=put(at.row.indices()), row_w=put(at.row.weights),
             col_idx=put(at.col.indices()), col_w=put(at.col.weights),
             row_first=put(at.row.first.astype(np.int32)),
             col_first=put(at.col.first.astype(np.int32)),
-            tiles=put(tiles), stage=stage, in_h=at.row.n_in, in_w=at.col.n_in,
+            tiles=put(tiles), box=box, in_h=at.row.n_in, in_w=at.col.n_in,
         )
 
     @property
