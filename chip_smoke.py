@@ -53,7 +53,8 @@ nvcc and CUDA PyTorch (no jax needed).  Phases:
    stages one by one;
 6. the latency path: ``transform(y, u, v)`` with ``[H, W]`` planes, the
    counters set to 0 just before it and read just after (K1 and K3),
-   its output against the plain path; device time and host wall; its
+   its output against the plain path; device time and host wall, numpy
+   in to CPU tensors out beside the pageable host-to-device rate; its
    stages; K3 beside its plain version on one luma frame;
 7. the batch ladder 1 ... 128: whole-step device ms, frames/s and host
    wall;
@@ -72,7 +73,8 @@ nvcc and CUDA PyTorch (no jax needed).  Phases:
     the same way (K4 twice per step, uint8), and at 10 bits on 128 frames
     (K4's uint16 instantiation only); its output against the plain path;
     the step's device time and its peak memory over what was allocated
-    before it; the stages K1, K3 and K4, beside them ``area_plain`` and
+    before it; the stages K1, K3 (with its bound at the scaled size) and
+    K4, beside them ``area_plain`` and
     ``torch.nn.functional.avg_pool2d`` on float32 copies (the PyTorch call
     that computes the same function at 2x2; timed only) and K4's byte
     bound; one frame's step and K4 as replayed CUDA graphs beside K4's
@@ -133,7 +135,20 @@ nvcc and CUDA PyTorch (no jax needed).  Phases:
     ``LAUNCHES`` reads them, with their summed device times beside phase
     5's stages; ``time_frame_step`` (the chain-difference timer) at batch
     128 and 1 beside phase 5's step median, phase 6's events time and
-    the frame's replayed CUDA graph (phase 15).
+    the frame's replayed CUDA graph (phase 15);
+19. the plane executors (``pipeline.plane_executor``): their replayed
+    CUDA graphs against the eager program (``GRAPH_MAX_BATCH`` 0), 0 LSB,
+    on the flagship, the 10-bit and the supersampled 2x2 flagship at
+    batch 1, 2 and 8 and on phase 6's frame in 2, 4 and 8 bands; then,
+    eager and executor in turns: batch 1 by CUDA events, behind a busy
+    card (the call issued while the card spins, so that only its device
+    time is read), host wall and numpy in to CPU tensors out; the ladder
+    1 ... 32; max(band) and the host's issue per banded frame; the CLI's
+    wall per frame at ``--batch 1`` and ``8``; the batch-128 step; the
+    memory a capture takes at batch 1 and at ``GRAPH_MAX_BATCH``.  Phase
+    6's numpy-in-to-CPU-out measure is repeated beside the pageable
+    host-to-device rate, and three CLI runs that each build the flagship's
+    plan anew must add no executor and no device memory.
 
 Bound for kernel vs plain: at most 1 LSB on under 0.5% of the pixels
 (the kernels are built to be bit-identical, so 0 is expected).  Every
@@ -266,6 +281,16 @@ def host_walls(fn, reps: int) -> list:
     return walls
 
 
+def h2d_gbps(planes) -> float:
+    """GB/s of one copy of these host tensors to the card (the median of
+    30, by CUDA events)."""
+    import torch
+
+    fn = lambda: [p.to("cuda", non_blocking=True) for p in planes]
+    cuda_times(fn, 3)
+    return tensor_bytes(*planes) / statistics.median(cuda_times(fn, 30)) / 1e6
+
+
 def graph_ms(fn, calls: int = 10, reps: int = 20) -> float:
     """Device milliseconds of one fn() call: ``calls`` calls captured in a
     CUDA graph, the median of ``reps`` replays over ``calls``, so that no
@@ -297,6 +322,31 @@ def issue_ms(fn, calls: int = 100) -> float:
         fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / calls
+
+
+SPIN_CYCLES = 8_000_000  # about 4 ms of torch.cuda._sleep at the H100's 1980 MHz
+
+
+def behind_ms(fn, reps: int = 30) -> float:
+    """Device milliseconds of one fn() call issued while the card still
+    spins on ``torch.cuda._sleep``: the host's issue of the call is hidden
+    behind the spin (if it takes less), so CUDA events around it read the
+    device's own time for the call's work, copies and graph replays
+    included.  The median of reps."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
 
 
 def pct(xs, q: float) -> float:
@@ -934,11 +984,13 @@ def main() -> int:
         return [o.cpu() for o in eng.transform(yn, un, vn)]
 
     e2e = host_walls(from_host, 50)
+    pageable6 = h2d_gbps([torch.from_numpy(p) for p in (yn, un, vn)])
     say(f"[6] latency, batch 1: device median {statistics.median(lat):.4f} ms "
         f"(p90 {pct(lat, 0.9):.4f}, n={len(lat)}); host wall incl. sync, planes on the "
         f"card, median {statistics.median(lat_walls):.4f} ms (p90 {pct(lat_walls, 0.9):.4f}, "
         f"n={len(lat_walls)}); numpy in to CPU tensors out median "
-        f"{statistics.median(e2e):.4f} ms (p90 {pct(e2e, 0.9):.4f}, n={len(e2e)})  ({smi})")
+        f"{statistics.median(e2e):.4f} ms (p90 {pct(e2e, 0.9):.4f}, n={len(e2e)}); pageable "
+        f"host to device {pageable6:.2f} GB/s  ({smi})")
     x1 = yb[:1].contiguous()
     c2 = torch.cat([ub[:1], vb[:1]])
     stages = {
@@ -1179,9 +1231,15 @@ def main() -> int:
             d[name] = statistics.median(cuda_times(fn, 10 if b > 1 else 50))
         k4b = area_bound(slt.area, b, 1)[0] + area_bound(sct.area, 2 * b, 1)[0]
         k4 = parts["K4 luma"] + parts["K4 chroma (U+V)"]
+        k3b = [remap_bound(t.remap, n, tensor_bytes(w.meta, w.pos, w.fy, w.fx, w.w1))
+               for t, w, n in ((slt, slw, b), (sct, scw, 2 * b))]
+        k3 = parts["K3 luma (to the scaled size)"] + parts["K3 chroma (U+V)"]
         say(f"[10] supersampled batch-{b} stages, device medians: "
             + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items())
-            + f"; sum {sum(parts.values()):.4f} ms; K4 luma + chroma {k4:.4f} ms against their "
+            + f"; sum {sum(parts.values()):.4f} ms; K3 luma + chroma at the scaled size "
+            f"{k3:.4f} ms against their bound {k3b[0][0]:.4f} + {k3b[1][0]:.4f} ms "
+            f"({k3b[0][1]}, {k3b[1][1]}; {(k3b[0][0] + k3b[1][0]) / k3:.1%}); "
+            f"K4 luma + chroma {k4:.4f} ms against their "
             f"byte bound {k4b:.4f} ms ({k4b / k4:.1%}); beside them, not on the path: "
             + ", ".join(f"{k} {v:.4f} ms" for k, v in aside.items())
             + f"  ({smi})")
@@ -1486,11 +1544,7 @@ def main() -> int:
     pinned = [torch.from_numpy(p).pin_memory() for p in (y, u, v)]
     pageable = [torch.from_numpy(p) for p in (y, u, v)]
     nbytes = tensor_bytes(*pinned)
-    rates = {}
-    for kind_, src in (("pinned", pinned), ("pageable", pageable)):
-        fn = (lambda s=src: [p.to("cuda", non_blocking=True) for p in s])
-        cuda_times(fn, 3)
-        rates[kind_] = nbytes / statistics.median(cuda_times(fn, 30)) / 1e6
+    rates = {"pinned": h2d_gbps(pinned), "pageable": h2d_gbps(pageable)}
     bc = latency.broadcast_ms(plan, IN_W, IN_H, 1, host_gbps=rates["pinned"])
     say(f"[15] host to device, one 4K yuv420p frame ({nbytes} B): pinned {rates['pinned']:.2f} "
         f"GB/s, pageable {rates['pageable']:.2f} GB/s; broadcast_ms to one card at the pinned "
@@ -1682,7 +1736,160 @@ def main() -> int:
         f"{chain1:.4f} ms (phase 6 by CUDA events {frame_ms:.4f}, phase 15 as a replayed CUDA "
         f"graph {frame_graph:.4f})  ({smi})")
 
-    say(f"[18] every phase passed in {time.perf_counter() - t_start:.1f} s, the kernels' build "
+    # -- 19. executors -------------------------------------------------------
+    import contextlib
+
+    gmax = pipeline.GRAPH_MAX_BATCH
+
+    @contextlib.contextmanager
+    def graphs_upto(n):
+        """The executors with GRAPH_MAX_BATCH = n (0: every call eager)."""
+        keep = pipeline.GRAPH_MAX_BATCH
+        pipeline.GRAPH_MAX_BATCH = n
+        try:
+            yield
+        finally:
+            pipeline.GRAPH_MAX_BATCH = keep
+
+    def replayed(plan_, b):
+        """True when the executors of the plan hold captured graphs for b
+        frames (luma b planes, the stacked chroma 2b)."""
+        return all(any(type(g).__name__ == "_Graph" and k[0][0] == n for k, g in
+                       pipeline.plane_executor(pp, "cuda")._by_shape.items())
+                   for pp, n in ((plan_.luma, b), (plan_.chroma, 2 * b)))
+
+    def max_lsb(got, want):
+        return max(int((a.int() - w.int()).abs().max()) for a, w in zip(got, want))
+
+    same = []
+    for what, e, planes in (("flagship", eng, (yb, ub, vb)), ("10-bit", deep, (ydb, udb, vdb)),
+                            ("supersampled 2x2", ss, (yb, ub, vb))):
+        for b in (1, 2, 8):
+            xs = [t[:b] for t in planes]
+            with graphs_upto(max(gmax, b)):
+                e.transform(*xs)  # the first call of a shape is eager and captures the graph
+                got = e.transform(*xs)
+            if not replayed(e.plan, b):
+                raise SystemExit(f"FAIL {what} batch {b} did not replay a captured graph")
+            with graphs_upto(0):
+                want = e.transform(*xs)
+            same.append((f"{what} b={b}", max_lsb(got, want)))
+    for n in (2, 4, 8):
+        latency.transform_frame_banded(plan, one_frame, n=n)
+        got = latency.transform_frame_banded(plan, one_frame, n=n)
+        if not all(replayed(band, 1) for band in latency.band_plans(plan, n)):
+            raise SystemExit(f"FAIL {n} bands did not replay captured graphs")
+        with graphs_upto(0):
+            want = latency.transform_frame_banded(plan, one_frame, n=n)
+        same.append((f"{n} bands", max(int(np.abs(g.astype(int) - w.astype(int)).max())
+                                       for g, w in zip(got, want))))
+    say(f"[19] executors (GRAPH_MAX_BATCH {gmax}): replayed CUDA graph vs eager program, max "
+        f"|diff| in LSB: " + ", ".join(f"{k} {v}" for k, v in same))
+    if any(v for _, v in same):
+        raise SystemExit(f"FAIL executor replays differ from the eager program: {same}")
+
+    def both(fn, measure, rounds=4):
+        """(eager, executor) medians of measure(fn) in turns: eager,
+        executor, executor, eager, ..."""
+        res = {"eager": [], "executor": []}
+        for r in range(rounds):
+            for mode in (("eager", "executor") if r % 2 == 0 else ("executor", "eager")):
+                with graphs_upto(0 if mode == "eager" else 32):
+                    res[mode].append(measure(fn))
+        return statistics.median(res["eager"]), statistics.median(res["executor"])
+
+    def ev(fn):
+        return statistics.median(cuda_times(fn, 40))
+
+    def wall(fn):
+        return statistics.median(host_walls(fn, 40))
+
+    def bh(fn):
+        return behind_ms(fn, 15)
+
+    one = lambda: eng.transform(y1, u1, v1)
+    rows = {"device by CUDA events": both(one, ev), "device behind a busy card": both(one, bh),
+            "host wall, planes on the card": both(one, wall),
+            "numpy in to CPU tensors out": both(from_host, lambda f: statistics.median(
+                host_walls(f, 20)))}
+    say("[19] batch 1, flagship, eager / executor in turns (medians of 4 rounds): "
+        + "; ".join(f"{k} {a:.4f} / {b:.4f} ms" for k, (a, b) in rows.items()) + f"  ({smi})")
+    e2e19 = host_walls(from_host, 50)
+    say(f"[19] numpy in to CPU tensors out, phase 6's measure repeated (executor, 50 calls): "
+        f"median {statistics.median(e2e19):.4f} ms (p90 {pct(e2e19, 0.9):.4f}; phase 6 "
+        f"{statistics.median(e2e):.4f}); pageable host to device "
+        f"{h2d_gbps([torch.from_numpy(p) for p in (yn, un, vn)]):.2f} GB/s (phase 6 "
+        f"{pageable6:.2f})  ({smi})")
+    ladder = {}
+    for b in (1, 2, 4, 8, 16, 32):
+        xs = (yb[:b], ub[:b], vb[:b])
+        step = lambda: eng.transform(*xs)
+        ladder[b] = (both(step, ev, 2), both(step, bh, 2), both(step, wall, 2))
+        (ee, ex), (be, bx), (we, wx) = ladder[b]
+        say(f"[19] ladder batch {b:2d}, eager / executor: CUDA events {ee:.4f} / {ex:.4f} ms, "
+            f"behind a busy card {be:.4f} / {bx:.4f} ms, host wall {we:.4f} / {wx:.4f} ms "
+            f"(executor/eager by events {ex / ee:.3f})  ({smi})")
+    for n in (2, 4, 8):
+        bands = latency.band_plans(plan, n)
+        xs = [p[None] for p in one_frame]
+        per = []
+        for band in bands:
+            fn = lambda: pipeline.transform_frame_planes(band, xs)
+            per.append((both(fn, bh, 2), both(fn, issue_ms, 2)))
+        say(f"[19] {n} bands, eager / executor: max(band) behind a busy card "
+            f"{max(p[0][0] for p in per):.4f} / {max(p[0][1] for p in per):.4f} ms; host issue "
+            f"summed over the bands {sum(p[1][0] for p in per):.4f} / "
+            f"{sum(p[1][1] for p in per):.4f} ms  ({smi})")
+    n_exec = len(pipeline._EXEC_CACHE)
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "in.yuv")
+        write_yuv420_batch(src, *(t[:n_cli].cpu().numpy() for t in (yb, ub, vb)))
+        for b in (1, 8):
+            def cli_wall(_):
+                t0 = time.perf_counter()
+                if cli.main(["--vf", FLAGSHIP, "--input-size", f"{IN_W}x{IN_H}", "-i", src, "-o",
+                             os.path.join(tmp, "out.yuv"), "--batch", str(b), "--device",
+                             "cuda"]) != 0:
+                    raise SystemExit(f"FAIL CLI --batch {b} in phase 19")
+                return (time.perf_counter() - t0) * 1e3 / n_cli
+
+            with graphs_upto(32):
+                cli_wall(None)  # the CLI's plan may be new: its first call captures
+            e, x = both(None, cli_wall)
+            say(f"[19] CLI --batch {b}, {n_cli} frames, wall per frame eager / executor "
+                f"{e:.2f} / {x:.2f} ms  ({smi})")
+        # runs that each build the flagship's plan anew share the engine's
+        # executors: neither the cache nor the card's memory grows
+        held = []
+        for _ in range(3):
+            tplan.clear_plan_cache()
+            cli_wall(None)
+            torch.cuda.synchronize()
+            held.append(torch.cuda.memory_allocated())
+    say(f"[19] cached executors before the CLI runs {n_exec}, after {len(pipeline._EXEC_CACHE)}; "
+        f"allocated after each of 3 runs with a new plan {[f'{h / 2**20:.1f}' for h in held]} "
+        f"MiB")
+    if len(pipeline._EXEC_CACHE) != n_exec or held[2] > held[1]:
+        raise SystemExit(f"FAIL the CLI runs added executors or memory: {n_exec} -> "
+                         f"{len(pipeline._EXEC_CACHE)} executors, {held} B")
+    e, x = both(lambda: eng.transform(yb, ub, vb), ev, 4)
+    say(f"[19] flagship step, batch {BATCH} (eager in both modes: above GRAPH_MAX_BATCH), by "
+        f"CUDA events {e:.4f} / {x:.4f} ms  ({smi})")
+    for b in (1, gmax):
+        xs = (yb[:b], ub[:b], vb[:b])
+        pipeline.clear_executor_cache()
+        torch.cuda.synchronize()
+        a0, r0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+        torch.cuda.reset_peak_memory_stats()
+        eng.transform(*xs)  # eager, then captured
+        torch.cuda.synchronize()
+        say(f"[19] capture at batch {b} (luma and chroma executors): peak allocated over what "
+            f"was allocated before {(torch.cuda.max_memory_allocated() - a0) / 2**20:.1f} MiB; "
+            f"held after it (static inputs and outputs) "
+            f"{(torch.cuda.memory_allocated() - a0) / 2**20:.1f} MiB, reserved "
+            f"{(torch.cuda.memory_reserved() - r0) / 2**20:.1f} MiB  ({smi})")
+
+    say(f"[19] every phase passed in {time.perf_counter() - t_start:.1f} s, the kernels' build "
         f"included")
     launches.update({k: deep_launches[k] for k in ("blur_u16", "window_u16")})
     launches.update(area=ss_launches["area"], area_u16=ssd_launches["area_u16"])

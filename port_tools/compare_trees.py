@@ -14,7 +14,9 @@ the run.  Each argument runs in its own process, in the order given, so
 Each process builds its kernels, makes the flagship's video-like frames
 (``chip_smoke.py``'s generator), and prints one JSON line: the step's
 device median in ms by CUDA events at batch 128 and at batch 1 (one
-[H, W] frame), the sample count, the K1 launches per step, the remap
+[H, W] frame), the sample count, the K1 launches per step, one numpy
+frame in to CPU tensors out (``numpy_to_cpu_ms``: the median host wall
+of 50 calls, synchronized), the remap
 kernel K3 alone at the paths' shapes (16, 1 and 128 luma frames, a
 chroma pair, 256 chroma planes): the median by CUDA events around one
 call (``k3_ms``: the wrapper's host time before the launch included),
@@ -57,7 +59,8 @@ def child(label: str, settings: list, supersampled: bool = False) -> None:
     from transform360_tpu_torch.ops import blur, window
 
     sys.path.append(ROOT)
-    from chip_smoke import FLAGSHIP, SUPERSAMPLED, batch_of, cuda_times, video_like_planes
+    from chip_smoke import (FLAGSHIP, SUPERSAMPLED, batch_of, cuda_times, host_walls,
+                            video_like_planes)
 
     # the remap wrapper's name in this tree (remap_window_u8 before it took
     # uint16 planes too)
@@ -82,6 +85,9 @@ def child(label: str, settings: list, supersampled: bool = False) -> None:
         ts = cuda_times(lambda: eng.transform(*planes), reps)
         res[f"batch{b}"] = {"step_ms": statistics.median(ts), "n": len(ts),
                             "k1_launches": (blur.LAUNCHES - n0) / len(ts)}
+    from_host = lambda: [o.cpu() for o in eng.transform(y, u, v)]
+    host_walls(from_host, 5)
+    res["batch1"]["numpy_to_cpu_ms"] = statistics.median(host_walls(from_host, 50))
     if supersampled:
         torch.cuda.synchronize()
         resident = torch.cuda.memory_allocated()

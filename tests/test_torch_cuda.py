@@ -20,7 +20,11 @@ depth's maximum), batch 1, 7 and 256, at 2x2, 4x4, 1.5x2, 200x90 ->
 unaligned rows, and an unaligned plane; the flagship's 2x2 luma at batch
 1 and 129; and every copy, ring depth, path and grid of a launch.  The fidelity gate at its size
 against the committed oracle fixture, and the drop-in ffmpeg wrapper on
-in-memory pipes, at 8 and 10 bits.
+in-memory pipes, at 8 and 10 bits.  The plane executors: a replayed CUDA
+graph against the eager program at 0 LSB (batch 1, 2 and 8; uint8,
+10-bit and supersampled 2x2, so K4 in the graph; a banded frame), the
+launch counters at each replay, a call inside a caller's own capture,
+and a capture that fails.
 Marked ``cuda``: they skip without a GPU.  On the GPU host, which has no
 jax, run them without the suite's conftest.py (which imports jax):
 
@@ -533,3 +537,174 @@ def test_ffmpeg_wrapper_fake_pipes_on_the_card(pix_fmt, gpu, monkeypatch):
     out = P.open_filter(vf, w, h, pix_fmt=pix_fmt, device=gpu).transform(*planes)
     out = [o.cpu().numpy().astype(dt) for o in out]
     assert sink.getvalue() == b"".join(p[k].tobytes() for k in range(n) for p in out)
+
+
+# -- the plane executors: captured CUDA graphs (pipeline.plane_executor) --
+
+EXEC_OPTS = ("cube_edge_length=64:interpolation_alg=cubic:enable_low_pass_filter=1:"
+             "input_stereo_format=mono")
+
+
+def _counts():
+    return (blur.LAUNCHES, blur.LAUNCHES_U16, window.LAUNCHES, window.LAUNCHES_U16,
+            area.LAUNCHES, area.LAUNCHES_U16)
+
+
+def _exec_planes(pf, b, seed):
+    rng = np.random.default_rng(seed)
+    dt = np.uint8 if pf.depth == 8 else np.uint16
+    cw, ch = P.chroma_dims(512, 256, pf)
+    return [rng.integers(0, pf.maxval + 1, (b, 256, 512)).astype(dt)] + [
+        rng.integers(0, pf.maxval + 1, (b, ch, cw)).astype(dt) for _ in range(2)]
+
+
+@pytest.mark.parametrize("b", [1, 2, 8])
+@pytest.mark.parametrize("opts, pix_fmt", [
+    ("", "yuv420p"),
+    ("", "yuv420p10le"),
+    (":width_scale_factor=2:height_scale_factor=2", "yuv420p"),  # K4 in the graph
+])
+def test_executor_replay_equals_eager(opts, pix_fmt, b, gpu, monkeypatch):
+    from transform360_tpu_torch import pipeline
+
+    pf = P.config.get_pixel_format(pix_fmt)
+    plan = P.open_filter(EXEC_OPTS + opts, 512, 256, pix_fmt=pix_fmt, device=gpu).plan
+    pipeline.clear_executor_cache()
+    monkeypatch.setattr(pipeline, "GRAPH_MAX_BATCH", max(pipeline.GRAPH_MAX_BATCH, b))
+    host = [_exec_planes(pf, b, s) for s in (0, 1)]
+    dev = [[torch.from_numpy(p).to(gpu) for p in planes] for planes in host]
+    n0 = _counts()
+    first = pipeline.transform_batch(plan, *dev[0])  # eager, then captured
+    n1 = _counts()
+    ex = pipeline.plane_executor(plan.luma, gpu)
+    assert [type(g).__name__ for g in ex._by_shape.values()] == ["_Graph"]
+    replays = [pipeline.transform_batch(plan, *dev[0]),
+               pipeline.transform_batch(plan, *host[1])]  # numpy: host to device
+    n2 = _counts()
+    # LAUNCHES counts each replay's kernels, as if they were launched eagerly
+    assert [2 * (a - z) for a, z in zip(n1, n0)] == [c - a for c, a in zip(n2, n1)]
+    monkeypatch.setattr(pipeline, "GRAPH_MAX_BATCH", 0)  # today's eager program
+    eager = [pipeline.transform_batch(plan, *planes) for planes in dev]
+    torch.cuda.synchronize()
+    assert [c - a for c, a in zip(_counts(), n2)] == [c - a for c, a in zip(n2, n1)]
+    for got, want in ((first, eager[0]), (replays[0], eager[0]), (replays[1], eager[1])):
+        for a, w in zip(got, want):
+            assert a.device.type == "cuda" and a.dtype == w.dtype and _same(a, w)
+    # a returned tensor never aliases a later call's output (replays[0]
+    # was compared after replays[1] was made)
+    assert len({o.data_ptr() for out in [first] + replays for o in out}) == 9
+
+
+def test_banded_frame_replays_one_graph_per_band_and_plane(gpu):
+    from transform360_tpu_torch.parallel import latency
+
+    pf = P.config.get_pixel_format("yuv420p")
+    planes = [p[0] for p in _exec_planes(pf, 1, 2)]
+    eng = P.open_filter(EXEC_OPTS, 512, 256, device=gpu)
+    want = [o.cpu().numpy() for o in eng.transform(*planes)]
+    latency.clear_band_caches()
+    n0 = _counts()
+    first = latency.transform_frame_banded(eng.plan, planes, devices=[gpu], n=3)
+    n1 = _counts()
+    again = latency.transform_frame_banded(eng.plan, planes, devices=[gpu], n=3)
+    n2 = _counts()
+    assert [c - a for c, a in zip(n1, n0)] == [c - a for c, a in zip(n2, n1)]
+    assert n2[0] - n1[0] == 6  # K1 per band and plane batch
+    from transform360_tpu_torch import pipeline
+
+    for band in latency.band_plans(eng.plan, 3):
+        for pp in (band.luma, band.chroma):
+            assert [type(g).__name__ for g in
+                    pipeline.plane_executor(pp, gpu)._by_shape.values()] == ["_Graph"]
+    for got in (first, again):
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+    bands = latency.band_plans(eng.plan, 3)
+    latency.clear_band_caches()
+    assert not any(ex.pp is pp for band in bands for pp in (band.luma, band.chroma)
+                   for ex in pipeline._EXEC_CACHE.values())
+
+
+def test_engines_with_one_config_share_graphs(gpu):
+    # engines that each build the plan anew replay the first one's graphs:
+    # one executor per plane, and no device memory held for the others
+    import gc
+
+    from transform360_tpu_torch import pipeline
+    from transform360_tpu_torch.plan import clear_plan_cache
+
+    pf = P.config.get_pixel_format("yuv420p")
+    planes = [torch.from_numpy(p).to(gpu) for p in _exec_planes(pf, 1, 7)]
+    pipeline.clear_executor_cache()
+    held, outs = [], []
+    for _ in range(4):
+        clear_plan_cache()
+        eng = P.open_filter(EXEC_OPTS, 512, 256, device=gpu)
+        outs.append(eng.transform(*planes))
+        del eng
+        clear_plan_cache()
+        gc.collect()
+        torch.cuda.synchronize()
+        held.append(torch.cuda.memory_allocated())
+    assert len(pipeline._EXEC_CACHE) == 2
+    # from the second engine on, each adds only its kept outputs (the
+    # allocator rounds blocks up to 512 B)
+    kept = sum(-(-o.nbytes // 512) * 512 for o in outs[0])
+    assert held[2] - held[1] == held[3] - held[2] == kept
+    assert all(_same(a, b) for out in outs[1:] for a, b in zip(out, outs[0]))
+
+
+def test_executor_inside_an_outer_capture(gpu, monkeypatch):
+    # a caller's own capture takes the program's kernels; the executor
+    # starts no capture of its own and caches nothing for it
+    from transform360_tpu_torch import pipeline
+
+    pf = P.config.get_pixel_format("yuv420p")
+    plan = P.open_filter(EXEC_OPTS, 512, 256, device=gpu).plan
+    pipeline.device_put_plan(plan, gpu)
+    ex = pipeline.plane_executor(plan.luma, gpu)
+    for b in (1, 3):  # a shape with a graph of its own, and one seen only in the capture
+        xs = [torch.from_numpy(p).to(gpu) for p in _exec_planes(pf, b, 5)]
+        if b == 1:
+            pipeline.transform_frame_planes(plan, xs)
+        with monkeypatch.context() as m:
+            m.setattr(pipeline, "GRAPH_MAX_BATCH", 0)
+            want = pipeline.transform_frame_planes(plan, xs)
+        shapes = dict(ex._by_shape)
+        outer = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(outer):
+            out = pipeline.transform_frame_planes(plan, xs)
+        assert ex._by_shape == shapes
+        outer.replay()
+        torch.cuda.synchronize()
+        assert all(_same(a, w) for a, w in zip(out, want))
+
+
+def test_failed_capture_raises_and_never_runs_eagerly(gpu, monkeypatch):
+    from transform360_tpu_torch import pipeline
+
+    pf = P.config.get_pixel_format("yuv420p")
+    plan = P.open_filter(EXEC_OPTS, 512, 256, device=gpu).plan
+    pipeline.clear_executor_cache()
+    real = pipeline._plane_program
+
+    def unsafe(pp, x):  # synchronizes the device, which no capture may record
+        out = real(pp, x)
+        if torch.cuda.is_current_stream_capturing():
+            torch.cuda.synchronize()
+        return out
+
+    monkeypatch.setattr(pipeline, "_plane_program", unsafe)
+    planes = [torch.from_numpy(p).to(gpu) for p in _exec_planes(pf, 2, 6)]
+    for _ in range(2):  # no eager result in its place, and no graph kept
+        n = _counts()
+        with pytest.raises(RuntimeError, match="CUDA graph"):
+            pipeline.transform_batch(plan, *planes)
+        torch.cuda.synchronize()
+        # only the luma warm-up ran: K1 once and K3 once per luma class
+        assert blur.LAUNCHES - n[0] == 1
+        assert window.LAUNCHES - n[2] == len(plan.luma.window_tables(gpu).groups)
+        assert not pipeline.plane_executor(plan.luma, gpu)._by_shape
+    monkeypatch.setattr(pipeline, "_plane_program", real)
+    got = pipeline.transform_batch(plan, *planes)  # the device is still usable
+    assert all(o.shape[0] == 2 for o in got)

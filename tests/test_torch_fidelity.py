@@ -26,6 +26,7 @@ from transform360_tpu_torch import fidelity as F
 from transform360_tpu_torch import geometry, sampling
 from transform360_tpu_torch.config import Interpolation, StereoFormat
 from transform360_tpu_torch.ops import window
+from transform360_tpu_torch.pipeline import clear_executor_cache
 from transform360_tpu_torch.plan import clear_plan_cache
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -102,9 +103,13 @@ def small_want():
 
 @pytest.fixture
 def fresh_plans():
+    # plans, and the executors that hold equal plans' tables, built anew
+    # with the code as the test patches it
     clear_plan_cache()
+    clear_executor_cache()
     yield
     clear_plan_cache()
+    clear_executor_cache()
 
 
 def test_gate_green_at_the_small_size(small_want, fresh_plans):

@@ -35,7 +35,7 @@ from .config import (
     resolve_stereo_formats,
 )
 from .parallel.mesh import as_mesh, transform_batch_sharded
-from .pipeline import as_plane, device_of, transform_batch, transform_plane
+from .pipeline import device_of, drop_executors, transform_batch, transform_plane
 from .plan import TransformPlan, build_plan, load_plan, save_plan
 
 
@@ -101,7 +101,8 @@ class Transform360:
 
     def use_plan(self, plan: TransformPlan) -> None:
         """Adopt a ready plan (e.g. :func:`..plan.plan_from_jax`) and move
-        its arrays to the engine's device."""
+        its arrays to the engine's device; the executors (and their CUDA
+        graphs) of the plan it replaces are dropped."""
         if plan.pix_fmt != self._pix_fmt.name:
             raise ValueError(
                 f"plan was built for pix_fmt {plan.pix_fmt!r} but this engine "
@@ -112,6 +113,8 @@ class Transform360:
             if pp is not None:
                 for d in devices:
                     pp.tables(d)
+        if self._plan is not None and self._plan is not plan:
+            drop_executors(self._plan)
         self._plan = plan
         self._out_w, self._out_h = plan.out_w, plan.out_h
 
@@ -133,7 +136,9 @@ class Transform360:
         on its device until ``.cpu()``/``.numpy()`` joins them in batch
         order.  CUDA work is queued on the current stream; reading the
         result waits for it.  Every batch size runs the same kernels (K1,
-        then the window-gather remap K3).
+        then the window-gather remap K3), through the plan's executors
+        (:func:`..pipeline.plane_executor`): a batch of at most
+        ``GRAPH_MAX_BATCH`` frames replays a captured CUDA graph.
         """
         return self.transform_async(y, u, v)
 
@@ -155,11 +160,15 @@ class Transform360:
             in_h, in_w = y.shape[-2:]
             plan = self._ensure_plan(int(in_w), int(in_h))
             return transform_batch_sharded(self._mesh, plan, y, u, v)
-        planes = [None if p is None else as_plane(p, self._device).to(self._device)
-                  for p in (y, u, v)]
+        planes = [self._on_device(p) for p in (y, u, v)]
         in_h, in_w = planes[0].shape[-2:]
         plan = self._ensure_plan(int(in_w), int(in_h))
-        return transform_batch(plan, *planes)
+        return transform_batch(plan, *planes, device=self._device)
+
+    def _on_device(self, p):
+        """A tensor moved to the engine's device; a numpy plane as it is
+        (the executor copies it into its static input)."""
+        return p.to(self._device) if isinstance(p, torch.Tensor) else p
 
     def _transform_native(self, y, u, v):
         from . import native
@@ -205,9 +214,8 @@ class Transform360:
             self._ensure_plan(in_w, in_h)
         elif self._plan is None:
             raise RuntimeError("generate luma map before transforming chroma planes")
-        return transform_plane(
-            self._plan, as_plane(plane, self._device).to(self._device), map_plane_index
-        )
+        return transform_plane(self._plan, self._on_device(plane), map_plane_index,
+                               device=self._device)
 
     def output_dims(self) -> Tuple[int, int]:
         return self._out_w, self._out_h

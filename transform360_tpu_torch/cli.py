@@ -49,6 +49,7 @@ from collections import deque
 import numpy as np
 import torch
 
+from . import pipeline
 from .api import open_filter
 from .config import get_pixel_format
 from .pipeline import device_of
@@ -104,14 +105,28 @@ def start_reader(frames_in, batch: int):
     return inq, stop
 
 
-def batched_outputs(transform_async, inq, n_planes, batch, prefetch, stats):
+def tail_frames(n: int, batch: int, device, backend: str = "auto", shards: int = 1) -> int:
+    """The frames a short tail batch of ``n`` real frames is submitted as
+    (its last frame repeated).  It is padded to ``batch`` where the steady
+    batch replays a captured CUDA graph (a CUDA device, the auto backend,
+    at most ``pipeline.GRAPH_MAX_BATCH`` frames a shard), as the JAX
+    package's CLI pads to reuse its compiled shape: a second shape would
+    be captured for one call.  Otherwise it runs eagerly, padded only to a
+    multiple of the mesh's ``shards``."""
+    if (backend != "native" and torch.device(device).type == "cuda"
+            and batch // shards <= pipeline.GRAPH_MAX_BATCH):
+        return batch
+    return -(-n // shards) * shards
+
+
+def batched_outputs(transform_async, inq, n_planes, batch, prefetch, stats, pad):
     """Yield per-frame output plane tuples (numpy) from a reader queue,
     submitting ``batch``-frame device steps without waiting (up to
     ``prefetch`` batches in flight) and retiring them in submission order.
 
-    A short tail batch is submitted as it is: the port runs eagerly, so a
-    new batch size costs no compile, and every batch size computes the
-    same bytes."""
+    ``pad(n)``: the frames a short tail batch of ``n`` is submitted as, its
+    last frame repeated (:func:`tail_frames`).  The padded frames are
+    never yielded."""
     batches = [[] for _ in range(n_planes)]
     pending: deque = deque()  # (frames, device outputs) not yet retired
 
@@ -119,7 +134,11 @@ def batched_outputs(transform_async, inq, n_planes, batch, prefetch, stats):
         n = len(batches[0])
         if not n:
             return
-        pending.append((n, transform_async(*[np.stack(b) for b in batches])))
+        stacked = [np.stack(b) for b in batches]
+        m = pad(n)
+        if m > n:
+            stacked = [np.concatenate([s, np.repeat(s[-1:], m - n, 0)]) for s in stacked]
+        pending.append((n, transform_async(*stacked)))
         for b in batches:
             b.clear()
 
@@ -288,20 +307,6 @@ def _own_frames(frames_in, batch: int, rank: int, world: int):
             close()
 
 
-def _padded(transform_async, size: int):
-    """``transform_async`` with a short batch padded to a multiple of
-    ``size`` (the mesh's) by repeating its last frame; the caller reads
-    only the real frames."""
-    def run(*planes):
-        n = planes[0].shape[0]
-        m = -(-n // size) * size
-        if m != n:
-            planes = [np.concatenate([p, np.repeat(p[-1:], m - n, 0)]) for p in planes]
-        return transform_async(*planes)
-
-    return run
-
-
 def banded_outputs(plan, inq, devices, n_bands: int, bands_slice, stats):
     """Yield per-frame output plane tuples (numpy) in latency mode: each
     frame's output rows banded over ``devices`` (:mod:`.parallel.latency`,
@@ -453,9 +458,10 @@ def main(argv=None) -> int:
     if args.latency_bands:
         out_iter = banded_outputs(t.plan, inq, devices, n_bands, bands_slice, stats)
     else:
-        transform = t.transform_async if mesh is None else _padded(t.transform_async,
-                                                                    mesh.size)
-        out_iter = batched_outputs(transform, inq, pf.n_planes, batch, args.prefetch, stats)
+        shards = 1 if mesh is None else mesh.size
+        out_iter = batched_outputs(
+            t.transform_async, inq, pf.n_planes, batch, args.prefetch, stats,
+            lambda n: tail_frames(n, batch, t.device, args.backend, shards))
     try:
         if is_raw_path(args.output):
             write_yuv420_frames(args.output, out_iter)

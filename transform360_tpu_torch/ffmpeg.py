@@ -154,6 +154,21 @@ def tokenize_outputs(argv: List[str]):
     return inputs, outputs, globals_
 
 
+def tokenize(argv: List[str]):
+    """Single-output form of :func:`tokenize_outputs` (the reference
+    wrapper's ``tokenize``): ``(inputs, out_opts, out_path, globals_)``;
+    a command with several outputs raises :class:`UsageError` (``main``
+    handles those through :func:`tokenize_outputs`)."""
+    inputs, outputs, globals_ = tokenize_outputs(argv)
+    if len(outputs) > 1:
+        raise UsageError(
+            f"multiple outputs ({outputs[0][1]!r}, {outputs[1][1]!r}): only one "
+            "output may carry the transform360 filter"
+        )
+    (out_opts, out_path), = outputs
+    return inputs, out_opts, out_path, globals_
+
+
 def split_filterchain(graph: str, sep: str = ",") -> List[str]:
     """Split a filtergraph on top-level ``sep`` (``,`` between filters,
     ``;`` between chains), honoring ffmpeg's ``'...'`` quoting and
@@ -1035,7 +1050,7 @@ def main(argv=None) -> int:
             (in_w, in_h, fps), (out_w, out_h), pix_fmt=fmt,
         )
 
-    from .cli import batched_outputs, start_reader
+    from .cli import batched_outputs, start_reader, tail_frames
 
     stats = StageStats(stream=sys.stderr)
     t0 = time.perf_counter()
@@ -1053,7 +1068,8 @@ def main(argv=None) -> int:
     )
     try:
         for planes in batched_outputs(
-            t.transform_async, inq, pf.n_planes, batch, prefetch, stats
+            t.transform_async, inq, pf.n_planes, batch, prefetch, stats,
+            lambda n: tail_frames(n, batch, t.device),
         ):
             for p in planes:
                 p = np.ascontiguousarray(p)

@@ -8,7 +8,10 @@ is indexed by output pixel, so a row slice of a plane plan is itself a
 plane plan (:func:`band_plans`).  Each band runs the plan's frame path,
 K1 and then K3 (:func:`..pipeline.transform_frame_planes`), on its device
 against its own copy of the input planes: no collective, one input copy
-per device and small band outputs back.
+per device and small band outputs back.  Its plane plans have executors
+of their own per device and shape (the JAX package's ``_band_executor``):
+a banded frame replays one captured CUDA graph per band and plane, each
+copying the frame's planes into its static input.
 
 Trade-off (the JAX package's): the prefilter works on the input plane, so
 every band blurs the whole input plane: duplicated work that bounds the
@@ -39,7 +42,7 @@ import torch
 
 from ..config import chroma_dims
 from ..ops.window import CLASS_BYTES, TH
-from ..pipeline import as_plane, transform_frame_planes
+from ..pipeline import as_plane, drop_executors, transform_frame_planes
 from ..plan import PlanePlan, TransformPlan, _DeviceCache
 from ..sampling import AreaAxis, AreaTables
 from . import distributed
@@ -204,7 +207,11 @@ def band_plans(plan: TransformPlan, n: int, row_costs=None) -> Tuple[TransformPl
 
 
 def clear_band_caches() -> None:
+    """Drop the memoized band plans and their executors."""
     with _BAND_LOCK:
+        for _, bands in _BAND_CACHE.values():
+            for band in bands:
+                drop_executors(band)
         _BAND_CACHE.clear()
 
 

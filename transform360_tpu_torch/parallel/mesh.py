@@ -4,7 +4,8 @@ The port of ``transform360_tpu.parallel.mesh``.  Frames are independent,
 so a batch of ``[B, H, W]`` planes is cut on ``B`` into contiguous equal
 shards, one per mesh entry, and each shard runs the whole frame path
 (K1, then K3, then INTER_AREA for a supersampled plan) on its own device
-against that device's copy of the plan's tables.  No collective and no
+against that device's copy of the plan's tables, through that device's
+plane executors (:func:`..pipeline.plane_executor`).  No collective and no
 device-to-device copy runs: the host scatters the shards and reads them
 back.
 

@@ -1,5 +1,5 @@
 """Batched frame pipeline: prefilter → round → remap → round (→ INTER_AREA
-→ round).
+→ round), run by cached plane executors.
 
 Planes are batch-major ``[B, H, W]`` tensors end to end, uint8 for 8-bit
 formats and uint16 for the deep ones (10, 12, 16 bits).  Each plane runs
@@ -17,6 +17,26 @@ exist for TPU lane occupancy.  K3 computes their function too, and on
 the H100 a batch remap in their style lost to K3 at every batch size
 (PERF.md), so nothing here routes by batch size.
 
+Executors (the JAX package's ``_StagedExecutor`` and ``plane_executor``,
+``pipeline.py:317-366`` there): :func:`plane_executor` gives one
+:class:`PlaneExecutor` per plane plan (by key and content) and device.  On a
+CUDA device, the first call of a batch of at most ``GRAPH_MAX_BATCH``
+frames of a shape runs the program eagerly (its result is that call's)
+and captures it in a ``torch.cuda.CUDAGraph`` that reads a static input
+buffer; every later call of that shape copies its planes into the static
+input (numpy planes host to device, U and V into the two halves of the
+chroma input, in place of a ``torch.cat``), replays the graph once and
+returns a clone of the static output, so that no returned tensor aliases
+a later call's.  Static buffers fix every pointer, so the alignments
+that K1, K3 and K4 read from them and the batch-dependent grids are the
+same at every replay.  The executors of one device share a graph memory
+pool; every call runs on the device's current stream, and calls that
+overlap on two streams are not supported.  Larger batches, the CPU, and
+a call made while the current stream is being captured by the caller
+(its graph then takes the kernels) run the program eagerly.  A capture
+that fails raises; nothing runs eagerly in its place.  A replay adds the
+launches its graph holds to the kernels' ``LAUNCHES`` counters.
+
 Rounding parity: the reference filters into a uint8 plane and remaps it
 with fixed-point arithmetic; every stage rounds with ``floor(x + 0.5)``
 and saturation (``VideoFrameTransform.cpp:620-777``): inside the kernels,
@@ -25,15 +45,27 @@ and through :func:`.sampling.round_px` in their plain versions.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+import dataclasses
+import threading
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from .ops import area, blur, window
 from .ops.area import area_px
 from .ops.blur import blur_px
 from .ops.window import remap_window_px
 from .plan import PlanePlan, TransformPlan
+
+# Plane batches of at most this many frames replay a captured CUDA graph;
+# larger ones run eagerly.  On an H100 (chip_smoke.py phase 19, PERF.md
+# §5) a replay beat the eager launches at 1 and 2 4K frames, where the
+# host's issue of them outlasts the card's work; from 4 frames on the card
+# hides that issue, and the replay's copies into its static input and out
+# of its static output (about 16% more device time) won at 4 frames on one
+# host and lost on another.
+GRAPH_MAX_BATCH = 2
 
 
 def device_of(device) -> torch.device:
@@ -53,7 +85,34 @@ def as_plane(p, device) -> torch.Tensor:
     copied to ``device``."""
     if isinstance(p, torch.Tensor):
         return p
-    return torch.from_numpy(np.require(p, requirements=("C", "W"))).to(device_of(device))
+    return _host(p).to(device_of(device))
+
+
+def _host(p) -> torch.Tensor:
+    """A numpy plane as a CPU tensor over its memory (copied only if it is
+    not C-contiguous and writeable)."""
+    return torch.from_numpy(np.require(p, requirements=("C", "W")))
+
+
+def _indexed(d: torch.device) -> torch.device:
+    """``cuda`` as the current CUDA device's index (where ``torch.empty``
+    puts it); any other device as it is."""
+    if d.type == "cuda" and d.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
+def _placed(p, device) -> Tuple[torch.Tensor, torch.device]:
+    """(plane, the device it is transformed on): a tensor on its own
+    device; a numpy plane as a host tensor, bound for ``device``."""
+    if isinstance(p, torch.Tensor):
+        return p, p.device
+    return _host(p), _indexed(device_of(device))
+
+
+def _plane_put(pp: PlanePlan, device) -> None:
+    pp.tables(device)
+    pp.window_tables(device)
 
 
 def device_put_plan(plan: TransformPlan, device="cuda") -> TransformPlan:
@@ -63,8 +122,7 @@ def device_put_plan(plan: TransformPlan, device="cuda") -> TransformPlan:
     d = device_of(device)
     for pp in (plan.luma, plan.chroma):
         if pp is not None:
-            pp.tables(d)
-            pp.window_tables(d)
+            _plane_put(pp, d)
     return plan
 
 
@@ -90,29 +148,234 @@ def _check_plane(x, pp: PlanePlan, what: str) -> None:
         raise ValueError(f"{what}: expected [B, {h}, {w}], got {tuple(x.shape)}")
 
 
+# every kernel's launch counters, in the order a graph records them
+_COUNTERS = tuple((m, a) for m in (blur, window, area) for a in ("LAUNCHES", "LAUNCHES_U16"))
+
+
+def _launch_counts() -> Tuple[int, ...]:
+    return tuple(getattr(m, a) for m, a in _COUNTERS)
+
+
+def _add_launches(counts: Sequence[int]) -> None:
+    for (m, a), n in zip(_COUNTERS, counts):
+        setattr(m, a, getattr(m, a) + n)
+
+
+def _stacked(planes: Sequence[torch.Tensor], device: torch.device) -> torch.Tensor:
+    """The planes as one contiguous batch on ``device`` (a cat when there
+    are several)."""
+    if len(planes) == 1:
+        return planes[0].to(device).contiguous()
+    return torch.cat([p.to(device) for p in planes])
+
+
+def _slots(x: torch.Tensor, planes: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+    """Views of consecutive frames of ``x``, one per plane, of its batch."""
+    if len(planes) == 1:
+        return (x,)
+    out, off = [], 0
+    for p in planes:
+        out.append(x[off:off + p.shape[0]])
+        off += p.shape[0]
+    return tuple(out)
+
+
+def _fill(slots: Sequence[torch.Tensor], planes: Sequence[torch.Tensor]) -> None:
+    """Copy each plane into its slot (host to device for host planes)."""
+    for s, p in zip(slots, planes):
+        s.copy_(p)
+
+
+# per CUDA device: the graph memory pool its executors share, and the
+# stream their graphs are captured on.  Dropping executors starts a new
+# pool: the allocator frees a pool once its last graph is gone, and a
+# freed pool's handle must not be captured into again.
+_GRAPH_STATE: Dict[torch.device, tuple] = {}
+
+
+def _graph_state(device: torch.device) -> tuple:
+    st = _GRAPH_STATE.get(device)
+    if st is None:
+        with torch.cuda.device(device):
+            st = _GRAPH_STATE[device] = (torch.cuda.graph_pool_handle(),
+                                         torch.cuda.Stream(device))
+    return st
+
+
+@dataclasses.dataclass(frozen=True)
+class _Graph:
+    """One captured program: its static input, that input's views for
+    the capture's planes, its static output, and the kernel launches that
+    one replay makes (module, counter, count)."""
+
+    graph: torch.cuda.CUDAGraph
+    x: torch.Tensor
+    slots: Tuple[torch.Tensor, ...]
+    out: torch.Tensor
+    launches: Tuple[Tuple[object, str, int], ...]
+
+    def __call__(self, planes: Sequence[torch.Tensor]) -> torch.Tensor:
+        same = len(planes) == len(self.slots) and all(
+            p.shape[0] == s.shape[0] for p, s in zip(planes, self.slots))
+        _fill(self.slots if same else _slots(self.x, planes), planes)
+        self.graph.replay()
+        for m, a, n in self.launches:
+            setattr(m, a, getattr(m, a) + n)
+        return self.out.clone()
+
+
+def _capture(pp: PlanePlan, planes: Sequence[torch.Tensor], shape: Tuple[int, ...],
+             device: torch.device) -> Tuple[_Graph, torch.Tensor]:
+    """(the graph of ``pp``'s program on a static input of ``shape``, the
+    program's output on ``planes``).  The tables are built and the program
+    runs once eagerly (its output is returned; its launches count) before
+    the capture, which only records: its launches are taken off the
+    counters and added back at each replay."""
+    _plane_put(pp, device)
+    x = torch.empty(shape, dtype=pp.dtype, device=device)
+    slots = _slots(x, planes)
+    _fill(slots, planes)
+    out = _plane_program(pp, x)
+    pool, stream = _graph_state(device)
+    graph = torch.cuda.CUDAGraph()
+    before = _launch_counts()
+    try:
+        with torch.cuda.stream(stream):
+            graph.capture_begin(pool=pool)
+            try:
+                static = _plane_program(pp, x)
+            finally:
+                graph.capture_end()
+    except Exception as e:
+        _GRAPH_STATE.pop(device, None)  # the next capture starts on a fresh stream and pool
+        raise RuntimeError(
+            f"capturing the plane program of {pp.key} at {tuple(shape)} in a CUDA graph "
+            f"failed; nothing ran in its place") from e
+    finally:
+        launched = [a - b for a, b in zip(_launch_counts(), before)]
+        _add_launches([-n for n in launched])
+    launches = tuple((m, a, n) for (m, a), n in zip(_COUNTERS, launched) if n)
+    return _Graph(graph, x, slots, static, launches), out
+
+
+class PlaneExecutor:
+    """One plane plan's program on one device, by input shape (the JAX
+    package's ``_StagedExecutor``).
+
+    ``ex(*planes)``: ``[b, in_h, in_w]`` planes (on the executor's device,
+    or host tensors, copied in) stacked in order on the batch axis →
+    ``[sum b, out_h, out_w]`` on the device.  ``_by_shape`` maps (stacked
+    shape, dtype, device) to the captured :class:`_Graph`, or to ``None``
+    for a shape that runs eagerly (the CPU, or more than
+    ``GRAPH_MAX_BATCH`` frames)."""
+
+    def __init__(self, pp: PlanePlan, device: torch.device):
+        self.pp = pp
+        self.device = device
+        self._by_shape: Dict[Tuple, Optional[_Graph]] = {}
+        self._lock = threading.Lock()
+
+    def __call__(self, *planes: torch.Tensor) -> torch.Tensor:
+        for i, p in enumerate(planes):  # a replay's copy would convert any dtype
+            _check_plane(p, self.pp, f"plane plan {self.pp.key}, input {i}")
+        frames = planes[0].shape[0]
+        shape = (sum(p.shape[0] for p in planes),) + tuple(planes[0].shape[1:])
+        key = (shape, self.pp.dtype, str(self.device))
+        if self.device.type == "cuda" and frames <= GRAPH_MAX_BATCH:
+            with torch.cuda.device(self.device):
+                # inside the caller's own capture, its graph takes the launches
+                if not torch.cuda.is_current_stream_capturing():
+                    with self._lock:
+                        g = self._by_shape.get(key)
+                        if g is None:
+                            g, out = _capture(self.pp, planes, shape, self.device)
+                            self._by_shape[key] = g
+                            return out
+                        return g(planes)
+        else:
+            self._by_shape.setdefault(key, None)
+        return _plane_program(self.pp, _stacked(planes, self.device))
+
+
+# (plane plan's key, device) -> its executor, as the JAX package keys its
+# _EXEC_CACHE by ``pp.key``: equal plans share one executor (the first
+# plan's, whose tables it holds), so the cache holds one executor per
+# distinct plan and device however many engines open and drop that plan.
+# A plan whose key is taken by a plan of other content replaces it.
+_EXEC_CACHE: Dict[Tuple[str, str], PlaneExecutor] = {}
+_EXEC_LOCK = threading.Lock()
+
+
+def plane_executor(pp: PlanePlan, device="cuda") -> PlaneExecutor:
+    """The executor of one plane plan on ``device``, cached by the plan's
+    key (and content) and the device."""
+    return _executor(pp, _indexed(device_of(device)))
+
+
+def _executor(pp: PlanePlan, d: torch.device) -> PlaneExecutor:
+    key = (pp.key, str(d))
+    with _EXEC_LOCK:
+        ex = _EXEC_CACHE.get(key)
+        if ex is None or (ex.pp is not pp and ex.pp.digest() != pp.digest()):
+            if ex is not None:
+                _drop([key])
+            ex = _EXEC_CACHE[key] = PlaneExecutor(pp, d)
+    return ex
+
+
+def _drop(keys) -> None:
+    """Drop the executors at ``keys`` (the caller holds ``_EXEC_LOCK``).
+    Their graphs may be the last of their pool, which the allocator then
+    frees: later captures start a new pool."""
+    for k in keys:
+        del _EXEC_CACHE[k]
+    if keys:
+        _GRAPH_STATE.clear()
+
+
+def drop_executors(plan: TransformPlan) -> None:
+    """Drop the executors (and their graphs) that hold ``plan``'s plane
+    plans, on every device."""
+    planes = [pp for pp in (plan.luma, plan.chroma) if pp is not None]
+    with _EXEC_LOCK:
+        _drop([k for k, ex in _EXEC_CACHE.items() if any(ex.pp is pp for pp in planes)])
+
+
+def clear_executor_cache() -> None:
+    with _EXEC_LOCK:
+        _drop(list(_EXEC_CACHE))
+
+
 def transform_frame_planes(
-    plan: TransformPlan, planes: Sequence[torch.Tensor]
+    plan: TransformPlan, planes: Sequence, device="cuda"
 ) -> Tuple[torch.Tensor, ...]:
     """[B, H, W] planes in (uint8, or uint16 for deep formats), same
-    layout and dtype out.
+    layout and dtype out, through the plane executors.
 
     Plane 0 uses the luma map; every other plane shares the chroma map
     (``vf_transform360.c:372``).  The chroma planes are stacked on the
-    batch axis into one launch of each kernel.
+    batch axis into one launch of each kernel.  Tensors are transformed
+    on their own device; numpy planes are copied to ``device``.
     """
+    placed = [_placed(p, device) for p in planes]
     if len(planes) != plan.n_planes:
         raise ValueError(
             f"expected {plan.n_planes} plane(s) for {plan.pix_fmt}, got {len(planes)}"
         )
-    _check_plane(planes[0], plan.luma, "plane 0")
-    outs = [_plane_program(plan.luma, planes[0].contiguous())]
-    rest = planes[1:]
+    (y, dev), rest = placed[0], placed[1:]
+    outs = [_executor(plan.luma, dev)(y)]
     if rest:
-        for i, p in enumerate(rest, 1):
-            _check_plane(p, plan.chroma, f"plane {i}")
-        stacked = _plane_program(plan.chroma, torch.cat(rest, dim=0))
-        outs.extend(torch.split(stacked, [p.shape[0] for p in rest], dim=0))
+        devs = {d for _, d in rest}
+        if len(devs) > 1:
+            raise ValueError(f"the chroma planes lie on several devices: {sorted(map(str, devs))}")
+        stacked = _executor(plan.chroma, devs.pop())(*[p for p, _ in rest])
+        outs.extend(torch.split(stacked, [p.shape[0] for p, _ in rest], dim=0))
     return tuple(outs)
+
+
+def transform_planes(plan: TransformPlan, y, u, v, device="cuda"):
+    """YUV 3-plane convenience over :func:`transform_frame_planes`."""
+    return transform_frame_planes(plan, (y, u, v), device=device)
 
 
 def transform_batch(plan: TransformPlan, y, u=None, v=None, device="cuda"):
@@ -121,15 +384,15 @@ def transform_batch(plan: TransformPlan, y, u=None, v=None, device="cuda"):
     ``y``: [B, H, W] (or [H, W] for one frame), uint8 or, for deep
     formats, uint16; ``u``/``v``: the chroma planes (omit for single-plane
     formats).  Tensors are transformed on their own device; numpy planes
-    are copied to ``device`` first.  Returns planes of the same dtype at
-    the negotiated output size on the planes' device (a bare tensor for
-    single-plane formats).
+    are copied to ``device`` (straight into an executor's static input).
+    Returns planes of the same dtype at the negotiated output size on the
+    planes' device (a bare tensor for single-plane formats).
     """
-    planes = [as_plane(p, device) for p in (y, u, v) if p is not None]
-    squeeze = planes[0].dim() == 2
+    planes = [p for p in (y, u, v) if p is not None]
+    squeeze = len(planes[0].shape) == 2
     if squeeze:
         planes = [p[None] for p in planes]
-    outs = transform_frame_planes(plan, planes)
+    outs = transform_frame_planes(plan, planes, device=device)
     if squeeze:
         outs = tuple(o[0] for o in outs)
     return outs if len(outs) > 1 else outs[0]
@@ -150,10 +413,9 @@ def transform_plane(plan: TransformPlan, plane, map_plane_index: int, device="cu
     pp = plan.luma if map_plane_index == 0 else plan.chroma
     if pp is None:
         raise ValueError(f"plan has no map plane {map_plane_index} ({plan.pix_fmt})")
-    plane = as_plane(plane, device)
+    plane, dev = _placed(plane, device)
     squeeze = plane.dim() == 2
     if squeeze:
         plane = plane[None]
-    _check_plane(plane, pp, "plane")
-    out = _plane_program(pp, plane.contiguous())
+    out = _executor(pp, dev)(plane)
     return out[0] if squeeze else out

@@ -20,6 +20,7 @@ other.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import threading
 from typing import Dict, Optional, Tuple
@@ -59,15 +60,24 @@ class DeviceTables:
 
 
 class _DeviceCache:
-    """Per-device :class:`DeviceTables` of one plane plan, built once, and
-    its window tile plan (for the plan's sample size), built on first use
-    and moved once per device."""
+    """Per-device :class:`DeviceTables` of one plane plan, built once, its
+    window tile plan (for the plan's sample size), built on first use and
+    moved once per device, and the hash of its content."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._by_device: Dict[str, DeviceTables] = {}
         self._window_plan: Optional[WindowPlan] = None
         self._window_by_device: Dict[str, WindowTables] = {}
+        self._digest: Optional[str] = None
+
+    def digest(self, pp: "PlanePlan") -> str:
+        with self._lock:
+            if self._digest is None:
+                h = hashlib.blake2b(digest_size=16)
+                _feed(h, pp)
+                self._digest = h.hexdigest()
+            return self._digest
 
     def get(self, pp: "PlanePlan", device: torch.device) -> DeviceTables:
         key = str(device)
@@ -102,6 +112,26 @@ class _DeviceCache:
                 hit = WindowTables.from_plan(self._host_window_plan(pp), device)
                 self._window_by_device[key] = hit
             return hit
+
+
+def _feed(h, v) -> None:
+    """Hash ``v``'s content: a dataclass by its compared fields, arrays by
+    dtype, shape and bytes, sequences item by item, anything else by repr."""
+    if dataclasses.is_dataclass(v):
+        h.update(type(v).__name__.encode())
+        for f in dataclasses.fields(v):
+            if f.compare:
+                h.update(f.name.encode())
+                _feed(h, getattr(v, f.name))
+    elif isinstance(v, np.ndarray):
+        h.update(f"{v.dtype}{v.shape}".encode())
+        h.update(np.ascontiguousarray(v).reshape(-1).view(np.uint8))
+    elif isinstance(v, (tuple, list)):
+        h.update(f"[{len(v)}".encode())
+        for x in v:
+            _feed(h, x)
+    else:
+        h.update(repr(v).encode())
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,6 +180,13 @@ class PlanePlan:
         """The remap's host (numpy) tile plan for this plan's samples,
         built once and shared with :meth:`window_tables`."""
         return self._cache.window_plan(self)
+
+    def digest(self) -> str:
+        """A hash of the plan's content (every field but its device
+        cache), computed once: plans with one ``key`` may still differ
+        (a plan built here and the JAX package's, through
+        :func:`plan_from_jax`, can part in a rounding tie)."""
+        return self._cache.digest(self)
 
 
 @dataclasses.dataclass(frozen=True)

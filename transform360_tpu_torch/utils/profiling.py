@@ -125,7 +125,9 @@ def time_frame_step(
     repeats: int = 3,
 ) -> float:
     """Steady-state seconds per full-frame step (every plane) of
-    :func:`..pipeline.transform_batch` on the planes' device.
+    :func:`..pipeline.transform_batch` on the planes' device: a chain of
+    the plane executors' calls (replays of their CUDA graphs at batches
+    of at most ``pipeline.GRAPH_MAX_BATCH`` frames, eager launches above).
 
     The chain-difference method of :func:`time_chain` (no data dependency
     between steps, one synchronize per chain).  Tensors stay on their own
