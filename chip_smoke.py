@@ -16,14 +16,22 @@ nvcc and CUDA PyTorch (no jax needed).  Phases:
    reports them and the count of int-to-float conversions (``I2F``,
    ``I2FP``) in its SASS (``cuobjdump -sass``; K3 must have none), and
    the same counts for K1's instantiations (its uint16 ones may hold no
-   more than its uint8 ones); both kernels' tile plans, at
-   8 bits and at the 10-bit flagship, and the resident CTAs per SM of
-   each K3 class launch;
+   more than its uint8 ones; its ring kernels no ``F2I``, and the
+   flagship's, uint8 at y radius 1, no ``LDL`` or ``STL``); K1's row loop
+   per output pixel by pipe at the flagship's x radii 1, 2 and 6, from
+   probe builds with the radius fixed (``k1_probe_source``,
+   ``loop_counts``), which phases 5 and 9 turn into K1's issue bound at the
+   card's largest SM clock; both kernels' tile plans, at 8 bits and at the
+   10-bit flagship, K1's ring, registers and resident CTAs per SM, and
+   the resident CTAs per SM of each K3 class launch;
 3. each kernel against its plain version on the card, with the TF32
    switches on and off (nothing here may depend on them): K1 (prefilter)
    against ``blur_plain`` at the flagship's luma and chroma shapes and on
    small TB-odd, LR-odd, adaptive 32x15 and wide-y-radius planes (the
-   last one K1's direct kernel); K3 (remap) against ``remap_plain`` at
+   last one K1's direct kernel), and on the main path's own frames at
+   the batches it gives K1 (16 and 128 luma frames, 256 stacked chroma
+   planes), where a launch takes the 16-column kernel, with the 8-column
+   kernel on the same frames beside it; K3 (remap) against ``remap_plain`` at
    the flagship's shapes at batch 1, 2 and 7, on small barrel cases for
    the clamp-with-fill (linear) and REFLECT_101 (lanczos4) rules and a
    cubemap whose width is not a multiple of the tile's, and on the
@@ -48,7 +56,8 @@ nvcc and CUDA PyTorch (no jax needed).  Phases:
 5. times with CUDA events after warm-up (medians, with a tail percentile
    and the sample count): K1 and K3 beside their plain versions on 16
    luma frames, and K3 on the 256 stacked chroma planes of the batch
-   path, in turns, each with its bound; the whole flagship step at batch
+   path, in turns, each with its bound; K1's issue bound there and per
+   batch-128 step, beside its byte and float-operation bounds; the whole flagship step at batch
    128 (with the SM clock and power draw read while it runs), and its
    stages one by one;
 6. the latency path: ``transform(y, u, v)`` with ``[H, W]`` planes, the
@@ -151,7 +160,10 @@ nvcc and CUDA PyTorch (no jax needed).  Phases:
     plan anew must add no executor and no device memory.
 
 Bound for kernel vs plain: at most 1 LSB on under 0.5% of the pixels
-(the kernels are built to be bit-identical, so 0 is expected).  Every
+(the kernels are built to be bit-identical, so 0 is expected).  A
+kernel's ``bound_ms`` is the larger of its compulsory bytes at 3.35 TB/s
+and its float operations (each product and sum, never fused) at 33.45e12
+a second; K1's line adds ``issue_bound_ms`` from its SASS.  Every
 timing line carries ``nvidia-smi``'s name and power limit.  The
 second-to-last line is a JSON object with each kernel's numbers; the last
 is ``{"ok": true, "device": {...}}``.  The kernels line lists each kernel's
@@ -188,7 +200,12 @@ BATCH = 128
 LADDER = (1, 2, 4, 7, 8, 16, 32, 64, 128)
 MAX_WRONG = 0.005  # fraction of pixels allowed to differ, by 1 LSB at most
 HBM_BYTES_PER_MS = 3.35e9  # H100 SXM: 3.35 TB/s
-FP32_FLOP_PER_MS = 67e9  # H100 SXM: 67 TFLOP/s float32 outside the tensor cores
+# H100 SXM, float32 outside the tensor cores: 67 TFLOP/s counts an FMA as
+# two operations.  The kernels are built with -fmad=false, so each product
+# and each sum is its own FMUL or FADD at the FMA's issue rate: 132 SMs x
+# 128 lanes x 1.98 GHz = 33.45e12 operations/s.
+FP32_OPS_PER_MS = 33.45e9
+SMS, LANES_PER_SM = 132, 4 * 32  # a warp instruction per scheduler per clock, 4 schedulers
 
 
 def say(msg: str) -> None:
@@ -369,10 +386,11 @@ def tensor_bytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, ops: float):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    float32 operations over the card's peak float32 rate."""
-    tb, to = nbytes / HBM_BYTES_PER_MS, flops / FP32_FLOP_PER_MS
+    float32 operations (products and sums, never fused) over the card's
+    rate for them (FP32_OPS_PER_MS)."""
+    tb, to = nbytes / HBM_BYTES_PER_MS, ops / FP32_OPS_PER_MS
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -384,20 +402,58 @@ def remap_bound(ds, B: int, plan_bytes: int, sample_bytes: int = 1):
     return bound(nbytes, 2.0 * ds.taps * ds.taps * n * B)
 
 
-def blur_bound(bt, B: int):
-    """The prefilter's compulsory bytes (plane in, plane out, its tables)
-    and its multiply-adds: each output pixel of a tile takes its band's
-    2*rx+1 x taps and 2*ry+1 y taps (the plan's own radii, not the ring
-    kernel's padding).  Samples are bt.sample_bytes each."""
+def blur_pixels(bt, B: int) -> dict:
+    """{x radius: output pixels} of B frames of bt's tiles (zero tiles
+    apart)."""
     import numpy as np
+
+    tl = bt.tiles.cpu().numpy().astype(np.int64)
+    t = tl[tl[:, 4] >= 0]
+    rx = bt.rx.cpu().numpy()[t[:, 4]]
+    return {int(r): float(np.sum(t[rx == r, 2] * t[rx == r, 3])) * B for r in np.unique(rx)}
+
+
+def blur_work(bt, B: int):
+    """(bytes, operations) of the prefilter on B frames: its compulsory
+    bytes (plane in, plane out, its tables) and its float operations:
+    each output pixel of a tile takes its band's 2*rx sums of x products
+    and 2*ry sums of y products (the plan's own radii, not the ring
+    kernel's padding), and 2*rx+1 and 2*ry+1 products, or rx+1 and ry+1
+    where the taps are Gaussian (symmetric, bit for bit: a sample's
+    product with k[u] and with k[2r - u] is one product, so each sample
+    needs one per distinct tap).  Samples are bt.sample_bytes each."""
+    import numpy as np
+
+    from transform360_tpu_torch.ops.blur import gaussian_taps
 
     tl = bt.tiles.cpu().numpy().astype(np.int64)
     rx, ry = bt.rx.cpu().numpy(), bt.ry.cpu().numpy()
     t = tl[tl[:, 4] >= 0]
-    taps = (2 * rx[t[:, 4]] + 1) + (2 * ry[t[:, 4]] + 1)
-    flops = 2.0 * float(np.sum(taps * t[:, 2] * t[:, 3])) * B
+    gx, gy = rx[t[:, 4]], ry[t[:, 4]]
+    if gaussian_taps(bt.kx.cpu().numpy(), bt.ky.cpu().numpy()):
+        ops = (3 * gx + 1) + (3 * gy + 1)
+    else:
+        ops = (4 * gx + 1) + (4 * gy + 1)
     tables = tensor_bytes(bt.tiles, bt.kx, bt.rx, bt.ky, bt.ry)
-    return bound(2 * bt.sample_bytes * B * bt.H * bt.W + tables, flops)
+    return (2 * bt.sample_bytes * B * bt.H * bt.W + tables,
+            float(np.sum(ops * t[:, 2] * t[:, 3])) * B)
+
+
+def blur_bound(bt, B: int):
+    """The prefilter's bound on B frames (``blur_work``)."""
+    return bound(*blur_work(bt, B))
+
+
+def issue_bound(per_px: dict, pixels: dict, sm_mhz: float):
+    """The least time for the card to issue a kernel's instructions:
+    sum over x radii of its SASS instructions per output pixel times the
+    pixels, over SMS x 4 schedulers x 32 lanes at sm_mhz (one warp
+    instruction per scheduler per clock); None if a radius was not
+    counted."""
+    if any(r not in per_px for r in pixels):
+        return None
+    instr = sum(per_px[r] * n for r, n in pixels.items())
+    return instr / (SMS * LANES_PER_SM * sm_mhz * 1e3)
 
 
 def area_bound(da, B: int, sample_bytes: int):
@@ -479,12 +535,131 @@ def k4_sass(lib_path) -> dict:
     return {(SAMPLE[s], int(k)): c for (s, k), c in raw.items()}
 
 
+# SASS opcodes (before the first '.') by the pipe that issues them
+PIPES = {"float": ("FMUL", "FADD", "FMNMX"),
+         "integer and logic": ("PRMT", "LOP3", "SHF", "IMNMX", "IADD", "IADD3"),
+         "conversion": ("F2I", "I2F", "I2FP"),
+         "memory": ("LDS", "LDG", "STG")}
+STORE_BYTES = {"U8": 1, "S8": 1, "U16": 2, "S16": 2, "64": 8, "128": 16}
+
+
+def loop_counts(lib_path, pattern: str, sample_bytes: dict) -> dict:
+    """{key: counts per output pixel} of the innermost loop with the most
+    FMULs in each kernel function of the library's SASS whose mangled name
+    matches ``pattern`` (its groups make the key): every opcode and each
+    PIPES group, and ``total``, divided by the loop's output pixels per
+    iteration (its stores' bytes over sample_bytes[key[0]]), with
+    ``px_per_iteration``.  A loop is the range from a backward branch's
+    target to the branch, innermost if it holds no other; built with one x
+    radius (a probe build), that radius's row loop is the one with the most
+    FMULs."""
+    out = subprocess.run([cuobjdump_path(), "-sass", str(lib_path)], capture_output=True,
+                         text=True, check=True, timeout=600).stdout
+    funcs, cur = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            m = re.search(pattern, line)
+            cur = m.groups() if m else None
+            if cur:
+                funcs[cur] = []
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);", line)
+        if cur and m:
+            funcs[cur].append((int(m.group(1), 16), m.group(2), m.group(3)))
+    res = {}
+    for key, ins in funcs.items():
+        loops = []  # (first, last) address of each backward branch's range
+        for addr, op, arg in ins:
+            t = re.search(r"0x([0-9a-f]+)", arg)
+            if op.split(".")[0] == "BRA" and t and int(t.group(1), 16) < addr:
+                loops.append((int(t.group(1), 16), addr))
+        best = None
+        for lo, hi in loops:
+            if any(lo <= a and b <= hi and (a, b) != (lo, hi) for a, b in loops):
+                continue  # not innermost
+            body = [o for a, o, _ in ins if lo <= a <= hi]
+            n_fmul = sum(o.split(".")[0] == "FMUL" for o in body)
+            if best is None or n_fmul > best[0]:
+                best = (n_fmul, body)
+        if best is None:
+            continue
+        body = best[1]
+        stored = sum(STORE_BYTES.get(o.split(".")[-1], 4) for o in body
+                     if o.split(".")[0] == "STG")
+        px = stored / sample_bytes[key[0]]
+        if px <= 0:
+            continue
+        ops = {}
+        for o in body:
+            ops[o.split(".")[0]] = ops.get(o.split(".")[0], 0) + 1
+        c = {k: v / px for k, v in sorted(ops.items())}
+        for pipe, names in PIPES.items():
+            c[pipe] = sum(ops.get(n, 0) for n in names) / px
+        c["total"] = len(body) / px
+        c["px_per_iteration"] = px
+        res[key] = c
+    return res
+
+
+def k1_probe_counts(lib_path) -> dict:
+    """{(sample, columns per thread): counts per output pixel} of each
+    y-radius-1 ring kernel's row loop in a probe build of K1 (one x
+    radius; ``loop_counts``); columns None for a kernel without that
+    template argument (an earlier K1's)."""
+    raw = loop_counts(lib_path, r"blur_ring_kernelI([ht])Li1E(?:Li(\d+)E)?E", {"h": 1, "t": 2})
+    return {(SAMPLE[k[0]], int(k[1]) if k[1] else None): c for k, c in raw.items()}
+
+
+def k1_cols(bt, B: int) -> int:
+    """K1's columns per thread on a launch of B frames of bt."""
+    from transform360_tpu_torch.ops import blur
+
+    return blur.launch_cols(blur._lib(), bt, B)
+
+
+K1_PROBE_RX = (1, 2, 6)  # the flagship's x radii
+# What a probe build rewrites in K1's source, once each: its x-radius
+# switch, fixed to one radius so that its row loop alone is in the SASS,
+# and the test for a thread's whole-group store, made true so that the
+# scalar stores of partial groups drop out of the loop.  The second entry
+# is an earlier K1's (for port_tools/k1_sass.py on older trees).
+K1_PROBE_EDITS = ((("switch (rx) {", "switch ({r}) {"), ("if (cl.whole) {", "if (true) {")),
+                  (("switch (t.rx) {", "switch ({r}) {"), ("if (vec_store) {", "if (true) {")))
+
+
+def k1_probe_source(src: str, r: int) -> str:
+    """K1's source ``src`` with its ring kernel fixed to x radius r
+    (``K1_PROBE_EDITS``)."""
+    for edits in K1_PROBE_EDITS:
+        if all(src.count(old) == 1 for old, _ in edits):
+            for old, new in edits:
+                src = src.replace(old, new.replace("{r}", str(r)))
+            return src
+    raise SystemExit("FAIL cannot fix the x radius of this blur.cu: no probe edit matches it")
+
+
+def k1_probe_builds(csrc, tag: str = "") -> dict:
+    """{x radius: library} of K1's probe builds at ``K1_PROBE_RX`` from the
+    ``blur.cu`` and headers in the directory ``csrc``, one nvcc each, all
+    at once (``_build._build`` with the rewritten source)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from pathlib import Path
+
+    from transform360_tpu_torch.ops import _build
+
+    src = (Path(csrc) / "blur.cu").read_text()
+    with ThreadPoolExecutor(max_workers=len(K1_PROBE_RX)) as ex:
+        futs = {r: ex.submit(_build._build, "blur", (), k1_probe_source(src, r), Path(csrc),
+                             f"probe {tag}rx {r}") for r in K1_PROBE_RX}
+        return {r: f.result() for r, f in futs.items()}
+
+
 def k1_sass(lib_path) -> dict:
     """{(sample, kernel): counts} for each K1 instantiation (ring kernels
-    by y radius, and the direct kernel)."""
-    raw = sass_counts(lib_path, r"blur_(ring|direct)_kernelI([ht])(?:Li(\d+)E)?E")
-    return {(SAMPLE[s], f"ring y radius {ry}" if k == "ring" else "direct"): c
-            for (k, s, ry), c in raw.items()}
+    by y radius and columns per thread, and the direct kernel)."""
+    raw = sass_counts(lib_path, r"blur_(ring|direct)_kernelI([ht])(?:Li(\d+)ELi(\d+)E)?E")
+    return {(SAMPLE[s], f"ring y radius {ry}, {v} columns" if k == "ring" else "direct"): c
+            for (k, s, ry, v), c in raw.items()}
 
 
 STUB_FFPROBE = """import os, sys
@@ -585,11 +760,18 @@ def main() -> int:
 
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    _build.build_all(["blur", "window", "area"])
-    say(f"[2] built blur.cu + window.cu + area.cu for sm_90a in "
-        f"{time.perf_counter() - t0:.2f} s, one nvcc each in parallel "
-        f"(nvcc: {_build.BUILD_SECONDS})")
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=1) as ex:  # the probes' nvccs beside the kernels'
+        probe_builds = ex.submit(k1_probe_builds, _build.CSRC)
+        _build.build_all(["blur", "window", "area"])
+        probes = probe_builds.result()
+    say(f"[2] built blur.cu + window.cu + area.cu for sm_90a, and K1's probe builds at x "
+        f"radius {K1_PROBE_RX}, in {time.perf_counter() - t0:.2f} s, one nvcc each in "
+        f"parallel (nvcc: {_build.BUILD_SECONDS})")
     for name, log in _build.BUILD_LOG.items():
+        if "probe" in name:
+            continue
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 say(f"    ptxas {name}: {line.strip()}")
@@ -616,12 +798,33 @@ def main() -> int:
     k1 = k1_sass(_build._build("blur"))
     for (sname, kname), c in sorted(k1.items()):
         say(f"    K1 {sname} {kname}: {c['instructions']} instructions, {c['I2F']} I2F, "
-            f"{c['F2I']} F2I")
+            f"{c['F2I']} F2I, {c['LDL']} LDL and {c['STL']} STL (spills)")
     # K1 converts its samples by PRMT at either size: the uint16
-    # instantiations add no int-to-float conversion to the uint8 ones'
-    if len(k1) != 6 or any(c["I2F"] > k1[("u8", kname)]["I2F"]
-                           for (sname, kname), c in k1.items() if sname == "u16"):
-        raise SystemExit(f"FAIL K1's uint16 SASS holds more I2F/I2FP than its uint8 SASS: {k1}")
+    # instantiations add no int-to-float conversion to the uint8 ones';
+    # the ring kernels round with no F2I, and the flagship's (uint8, y
+    # radius 1) spills nothing
+    ring = {k: c for k, c in k1.items() if k[1].startswith("ring")}
+    flagship = [k1[("u8", f"ring y radius 1, {v} columns")] for v in (8, 16)]
+    if (len(k1) != 7 or any(c["I2F"] > k1[("u8", kname)]["I2F"]
+                            for (sname, kname), c in k1.items() if sname == "u16")
+            or any(c["F2I"] for c in ring.values()) or any(c["LDL"] or c["STL"] for c in flagship)):
+        raise SystemExit(f"FAIL K1's SASS: uint16 I2F over uint8's, F2I in a ring kernel, or "
+                         f"spills in the flagship's: {k1}")
+    k1_px = {}  # {(sample, columns, x radius): counts per output pixel of the ring row loop}
+    for r in K1_PROBE_RX:
+        for (sname, v), c in k1_probe_counts(probes[r]).items():
+            k1_px[(sname, v, r)] = c
+            say(f"    K1 {sname} ring y radius 1, {v} columns a thread, x radius {r}, row loop per "
+                f"output pixel ({c['px_per_iteration']:.0f} pixels an iteration): "
+                f"{c['total']:.3f} instructions; "
+                + ", ".join(f"{pipe} {c[pipe]:.3f}" for pipe in PIPES)
+                + "; " + ", ".join(f"{o} {c[o]:.3f}" for o in sorted(c)
+                                   if o.isupper() and c[o] >= 0.1))
+    if len(k1_px) != 3 * len(K1_PROBE_RX):
+        raise SystemExit(f"FAIL K1's probe builds gave no row loop for {k1_px.keys()}")
+    sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
 
     for (sname, k), c in sorted(k4_sass(_build._build("area")).items()):
         say(f"    K4 {sname} {k} register taps: {c['instructions']} instructions, {c['LDS']} "
@@ -665,15 +868,23 @@ def main() -> int:
             f"{[int((wp.tile_class == c).sum()) for c in range(len(window.CLASS_BYTES))]}, "
             f"{int((wp.meta[:, 5] == 0).sum())} global-path tiles; launches {wp.groups}, "
             f"resident CTAs per SM {[a['ctas_per_sm'] for a in occ]}")
-    for pname, t in (("luma", luma_t), ("chroma", chroma_t),
-                     ("10-bit luma", deep.plan.luma.tables("cuda")),
-                     ("10-bit chroma", deep.plan.chroma.tables("cuda"))):
+    for pname, t, b in (("luma", luma_t, BATCH), ("chroma", chroma_t, 2 * BATCH),
+                        ("10-bit luma", deep.plan.luma.tables("cuda"), BATCH),
+                        ("10-bit chroma", deep.plan.chroma.tables("cuda"), 2 * BATCH)):
         tl = t.blur.tiles.cpu().numpy()
+        cols = k1_cols(t.blur, b)
+        at = blur.kernel_attrs(t.blur, cols=cols)
+        resident = blur.resident_ctas(blur._lib(), t.blur, cols=cols)
         say(f"    K1 tile plan {pname}: {tl.shape[0]} tiles of {sorted(set(tl[:, 2].tolist()))} "
             f"rows x {sorted(set(tl[:, 3].tolist()))} columns, x radii "
             f"{sorted(set(t.blur.rx.cpu().tolist()))}, ring kernel y radius {t.blur.ring_ry} "
-            f"(plan: {sorted(set(t.blur.ry.cpu().tolist()))}), 2 x {t.blur.buf_bytes} B "
-            f"of staged rows per CTA")
+            f"(plan: {sorted(set(t.blur.ry.cpu().tolist()))}); a ring of {blur.STAGES} stages "
+            f"of {t.blur.slab} rows of {t.blur.row_bytes} B, {t.blur.pitch} B apart: "
+            f"{at['smem_bytes']} B of shared memory, {at['threads']} threads, "
+            f"{at['registers']} registers, {at['local_bytes']} B local, {at['ctas_per_sm']} "
+            f"resident CTAs per SM ({resident} on the card) at batch {b}, {cols} columns a "
+            f"thread, {blur.launch_parts(t.blur, b, resident)} parts per tile; batch 1: "
+            f"{k1_cols(t.blur, 1)} columns")
 
     y, u, v = video_like_planes(IN_W, IN_H)
     err = {"blur": 0, "window": 0, "area": 0, "blur_u16": 0, "window_u16": 0, "area_u16": 0}
@@ -694,6 +905,24 @@ def main() -> int:
         sp = build_plan(cfg, iw, ih, ow, oh, "yuv420p")
         blur_cases += [(f"{what} {pp.in_w}x{pp.in_h}", pp.tables("cuda").blur, 3)
                        for pp in (sp.luma, sp.chroma)]
+    yb, ub, vb = batch_of(y, BATCH), batch_of(u, BATCH), batch_of(v, BATCH)
+    cb = torch.cat([ub, vb])  # the chroma plane batch of the batch path
+    # K1 on the main path's frames at the batches it is given there (phase
+    # 5's 16 luma frames, the step's luma and stacked chroma), where a
+    # uint8 launch takes the 16-column kernel: the wrapper's own launch,
+    # and the 8-column kernel's on the same frames
+    path_cases = [("luma", luma_t.blur, yb[:16].contiguous()), ("luma", luma_t.blur, yb),
+                  ("stacked chroma", chroma_t.blur, cb)]
+    for what, bt, xs in path_cases:
+        if k1_cols(bt, xs.shape[0]) != 16:
+            raise SystemExit(f"FAIL K1 takes {k1_cols(bt, xs.shape[0])} columns a thread on "
+                             f"{xs.shape[0]} flagship {what} planes, not 16")
+
+    def k1_cols8(bt, xs):
+        out = torch.empty_like(xs)
+        blur._launch(blur._lib(), bt, xs, out, torch.cuda.current_stream().cuda_stream, cols=8)
+        return out
+
     for tf32 in (True, False):
         torch.backends.cudnn.allow_tf32 = tf32
         torch.backends.cuda.matmul.allow_tf32 = tf32
@@ -704,6 +933,14 @@ def main() -> int:
             want = round_u8(blur_plain(bt.plan, x.float()))
             torch.cuda.synchronize()
             err["blur"] = max(err["blur"], compare(got, want, f"K1 {what}"))
+        for what, bt, xs in path_cases:
+            b = xs.shape[0]
+            for ncols, got in ((16, blur.blur_px(bt, xs)), (8, k1_cols8(bt, xs))):
+                for f0 in range(0, b, 32):  # the plain version in slices of 32 frames
+                    want = round_u8(blur_plain(bt.plan, xs[f0:f0 + 32].float()))
+                    err["blur"] = max(err["blur"], compare(
+                        got[f0:f0 + 32], want, f"K1 flagship {what} b={b}, {ncols} columns"))
+                del got, want
         for pname, t, pp in (("luma", luma_t, plan.luma), ("chroma", chroma_t, plan.chroma)):
             x = torch.randint(0, 256, (7, pp.in_h, pp.in_w), dtype=torch.uint8,
                               device="cuda", generator=rng)
@@ -716,7 +953,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     say(f"[3] K1 vs blur_plain, TF32 on and off, on "
         + ", ".join(f"{w} (ring y radius {bt.ring_ry})" for w, bt, _ in blur_cases)
-        + f": max |diff| {err['blur']} LSB")
+        + ", and on the main path's video-like frames, "
+        + ", ".join(f"{xs.shape[0]} flagship {w}" for w, _, xs in path_cases)
+        + f", with 16 columns a thread (the path's launch) and 8: max |diff| {err['blur']} LSB")
+    if err["blur"]:
+        raise SystemExit(f"FAIL K1 differs from blur_plain by {err['blur']} LSB")
     say(f"[3] K3 vs remap_plain at luma {plan.luma.in_h}x{plan.luma.in_w} and chroma "
         f"{plan.chroma.in_h}x{plan.chroma.in_w}, batch 1, 2 and 7, TF32 on and off: "
         f"max |diff| {err['window']} LSB")
@@ -741,8 +982,6 @@ def main() -> int:
                 err["window"] = max(err["window"], compare(got, want, f"K3 {what}"))
         say(f"[3] K3 vs remap_plain, {what} {iw}x{ih} -> {ow}x{oh}, luma and chroma, "
             f"batch 1 and 3: max |diff| {err['window']} LSB")
-    yb, ub, vb = batch_of(y, BATCH), batch_of(u, BATCH), batch_of(v, BATCH)
-    cb = torch.cat([ub, vb])  # the chroma plane batch of the batch path
     for pname, xs, t, wt, sizes in (("luma", yb, luma_t, luma_w, (8, 16, 32, 64, 128)),
                                     ("chroma", cb, chroma_t, chroma_w, (2 * BATCH,))):
         for b in sizes:
@@ -911,6 +1150,31 @@ def main() -> int:
             f"n={len(ks)}), plain median {pm:.4f} ms per call on {tb} luma frames "
             f"{IN_W}x{IN_H}; bound {bounds[name][0]:.4f} ms ({bounds[name][1]}), "
             f"{bounds[name][0] / km:.1%} of it reached  ({smi})")
+    # K1's issue bound from its SASS row loop (phase 2's probe builds), at
+    # the columns per thread each launch takes
+    def k1_per_px(sname, bt, B):
+        v = k1_cols(bt, B)
+        return v, {r: k1_px[(sname, v, r)]["total"] for r in K1_PROBE_RX}
+
+    v_tb, px_tb = k1_per_px("u8", luma_t.blur, tb)
+    k1_issue = {"blur": issue_bound(px_tb, blur_pixels(luma_t.blur, tb), sm_mhz)}
+    vl, pxl = k1_per_px("u8", luma_t.blur, BATCH)
+    vc, pxc = k1_per_px("u8", chroma_t.blur, 2 * BATCH)
+    wl, wc = blur_work(luma_t.blur, BATCH), blur_work(chroma_t.blur, 2 * BATCH)
+    k1_step = {"issue_bound_ms": issue_bound(pxl, blur_pixels(luma_t.blur, BATCH), sm_mhz)
+               + issue_bound(pxc, blur_pixels(chroma_t.blur, 2 * BATCH), sm_mhz),
+               "bytes_bound_ms": (wl[0] + wc[0]) / HBM_BYTES_PER_MS,
+               "operations_bound_ms": (wl[1] + wc[1]) / FP32_OPS_PER_MS}
+    say(f"[5] K1's issue bound: its row loop's SASS instructions per output pixel at x radius "
+        f"{K1_PROBE_RX}, over {SMS} SMs x {LANES_PER_SM} lanes at {sm_mhz:.0f} MHz: "
+        f"{k1_issue['blur']:.4f} ms on {tb} luma frames ({v_tb} columns a thread: "
+        f"{ {r: round(v, 3) for r, v in px_tb.items()} }; bytes "
+        f"{blur_work(luma_t.blur, tb)[0] / HBM_BYTES_PER_MS:.4f}, float operations "
+        f"{blur_work(luma_t.blur, tb)[1] / FP32_OPS_PER_MS:.4f}); per batch-{BATCH} step (luma "
+        f"{vl} and stacked chroma {vc} columns a thread: "
+        f"{ {r: round(v, 3) for r, v in pxl.items()} }): issue "
+        f"{k1_step['issue_bound_ms']:.4f} ms, bytes {k1_step['bytes_bound_ms']:.4f}, float "
+        f"operations {k1_step['operations_bound_ms']:.4f}  ({smi})")
     cplan_bytes = tensor_bytes(chroma_w.meta, chroma_w.pos, chroma_w.fy, chroma_w.fx, chroma_w.w1)
     cbound = remap_bound(chroma_t.remap, 2 * BATCH, cplan_bytes)
     km, pm, ks = in_turns(lambda: window.remap_window_px(chroma_w, cb),
@@ -1124,6 +1388,9 @@ def main() -> int:
         km, pm, ks = in_turns(kern, plain_fn, rounds=5)
         times[name] = (km, pm)
         bounds[name] = bnd
+        if name == "blur_u16":
+            k1_issue[name] = issue_bound(k1_per_px("u16", dlt.blur, tb)[1],
+                                         blur_pixels(dlt.blur, tb), sm_mhz)
         say(f"[9] {name}: kernel median {km:.4f} ms (p75 {pct(ks, 0.75):.4f}, n={len(ks)}), "
             f"plain median {pm:.4f} ms per call on {tb} 10-bit luma frames {IN_W}x{IN_H}; "
             f"bound {bnd[0]:.4f} ms ({bnd[1]}), {bnd[0] / km:.1%} of it reached  ({smi})")
@@ -1904,13 +2171,18 @@ def main() -> int:
     kernels = [
         entry("blur", "transform360_tpu_torch/csrc/blur.cu",
               "transform360_tpu/ops/blur_lane.py:269", serves="B1", batches="all",
-              shape="16 luma frames"),
+              shape="16 luma frames", issue_bound_ms=k1_issue["blur"],
+              sass_per_px={f"{v} columns": {str(r): k1_px[("u8", v, r)]["total"]
+                                            for r in K1_PROBE_RX} for v in (8, 16)},
+              step=dict(k1_step, ms=stages_b128["K1 luma"] + stages_b128["K1 chroma (U+V)"])),
         entry("window", "transform360_tpu_torch/csrc/window.cu",
               "transform360_tpu/ops/remap_pallas.py:441", serves="B5; B2, B3, B4 closed on it",
               batches="all", shape="16 luma frames", chroma=chroma_k3),
         entry("blur_u16", "transform360_tpu_torch/csrc/blur.cu",
               "transform360_tpu/ops/blur_lane.py:269", serves="B1 at 10-16 bits",
-              batches="all", shape="16 10-bit luma frames"),
+              batches="all", shape="16 10-bit luma frames", issue_bound_ms=k1_issue["blur_u16"],
+              sass_per_px={"8 columns": {str(r): k1_px[("u16", 8, r)]["total"]
+                                         for r in K1_PROBE_RX}}),
         entry("window_u16", "transform360_tpu_torch/csrc/window.cu",
               "transform360_tpu/ops/remap_pallas.py:441", serves="B5 at 10-16 bits",
               batches="all", shape="16 10-bit luma frames"),

@@ -25,7 +25,12 @@ graph and replayed, so that no host time enters; 20 calls issued back to
 back still wait on the host at one frame), the same for each window
 class's launch alone at one and 128 luma frames (``k3_class_ms_graph``:
 tiles, ms), the host's time to issue one call (``k3_host_ms``: 200 calls
-issued, then one synchronize), and the card's name and power limit.
+issued, then one synchronize), the prefilter kernel K1 alone at the same
+shapes (``k1_ms``: the median by CUDA events around one call;
+``k1_ms_graph``: the device time per call of 20 calls replayed as a CUDA
+graph; ``k1_host_ms``: the host's time to issue one call, the median of
+9 rounds of 100 calls issued, each round then synchronized), and the
+card's name and power limit.
 With ``--supersampled`` each process times the supersampled 2x2
 flagship (``chip_smoke.SUPERSAMPLED``) instead: its step's device median
 at batch 128 and at batch 1, the batch-128 step's peak memory over what
@@ -127,17 +132,20 @@ def child(label: str, settings: list, supersampled: bool = False) -> None:
     cb = torch.cat([ub, vb])
     res["k3_ms"], res["k3_ms_graph"], res["k3_host_ms"], res["k3_class_ms_graph"] = {}, {}, {}, {}
 
-    def graph_ms(wt, x, reps):
-        """K3's device ms per call: 20 calls captured in a CUDA graph, the
+    def graph_fn_ms(fn, reps):
+        """Device ms per fn() call: 20 calls captured in a CUDA graph, the
         median of reps replays."""
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             for _ in range(20):
-                remap(wt, x)
+                fn()
         graph.replay()
         ms = statistics.median(cuda_times(graph.replay, reps)) / 20
         del graph
         return ms
+
+    def graph_ms(wt, x, reps):
+        return graph_fn_ms(lambda: remap(wt, x), reps)
 
     for shape, wt, x in (("16 luma", lw, yb[:16].contiguous()), ("1 luma", lw, yb[:1].contiguous()),
                          ("2 chroma", cw, cb[:2].contiguous()), ("128 luma", lw, yb),
@@ -157,6 +165,24 @@ def child(label: str, settings: list, supersampled: bool = False) -> None:
             remap(wt, x)
         res["k3_host_ms"][shape] = (time.perf_counter() - t0) * 1e3 / 200
         torch.cuda.synchronize()
+    lb, cbt = (pp.tables("cuda").blur for pp in (eng.plan.luma, eng.plan.chroma))
+    res["k1_ms"], res["k1_ms_graph"], res["k1_host_ms"] = {}, {}, {}
+    for shape, bt, x in (("16 luma", lb, yb[:16].contiguous()), ("1 luma", lb, yb[:1].contiguous()),
+                         ("2 chroma", cbt, cb[:2].contiguous()), ("128 luma", lb, yb),
+                         ("256 chroma", cbt, cb)):
+        fn = lambda: blur.blur_px(bt, x)
+        cuda_times(fn, 3)
+        res["k1_ms"][shape] = statistics.median(cuda_times(fn, 10 if x.shape[0] >= 100 else 40))
+        res["k1_ms_graph"][shape] = graph_fn_ms(fn, 3 if x.shape[0] >= 100 else 20)
+        rounds = []
+        for _ in range(9):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(100):
+                fn()
+            rounds.append((time.perf_counter() - t0) * 1e3 / 100)
+        torch.cuda.synchronize()
+        res["k1_host_ms"][shape] = statistics.median(rounds)
     print(json.dumps(res), flush=True)
 
 

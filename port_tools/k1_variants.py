@@ -1,26 +1,42 @@
 """Time variants of K1 (``csrc/blur.cu``) against each other, in turns.
 
-    python3 port_tools/k1_variants.py [--min-blocks 2 3 4] [--strip 16 24]
+    python3 port_tools/k1_variants.py [--min-blocks 3 4] [--stages 2 3 4]
+        [--budget-kb 40 54] [--parts 1 5 9] [--cols 8 16] [--copy]
 
 Run from the root of a checkout on a machine with an NVIDIA Hopper GPU.
-Each ``--min-blocks`` value rebuilds K1 with the ring kernel's
-``__launch_bounds__(256, N)`` (ptxas then caps its registers; its lines
-are printed), each ``--strip`` value rebuilds the flagship's tile plans
-with ``ops.blur.STRIP_MAX`` rows per warp strip.  Every variant is first
-checked against the shipping build on two luma frames (same bytes), then
-all are timed by CUDA events in alternating order over four rounds, at
-the shapes of the flagship's paths: 16, 1 and 128 luma frames, a chroma
-pair and 256 chroma planes.  Prints one JSON line of medians (ms) per
-shape.  The builds go to ``transform360_tpu_torch/build/`` (gitignored).
+Each variant changes one choice of the shipping build and launch (the
+package's own constants), which is always timed beside them:
+
+* ``--min-blocks``: K1 built with ``kMinBlocks`` at y radius 1 set to N
+  in a rewritten copy of its source (the resident CTAs per SM its
+  registers must allow; ptxas's lines are printed);
+* ``--stages``: the ring's depth (its slab height then follows from the
+  budget, ``ops.blur.slab_rows``);
+* ``--budget-kb``: a CTA's ring budget (``ops.blur.SMEM_CTA``), so the
+  slab height;
+* ``--parts``: N parts per tile at every shape (the launch's ``parts``;
+  by default ``ops.blur.launch_parts`` picks them by batch);
+* ``--cols``: N adjacent columns per thread at every shape (the launch's
+  ``cols``; by default ``ops.blur.thread_cols`` picks 8 or 16 by batch);
+* ``--copy``: every stage filled by the producer warp's loads
+  (``ops.blur.COPY_WARP``) where the shipping launch fills it by TMA.
+
+Every variant is first checked against the shipping launch on two luma
+frames (same bytes), then all are timed in alternating order over four
+rounds at the shapes of the flagship's paths: 16, 1 and 128 luma frames,
+a chroma pair and 256 chroma planes, each call's device time as a
+replayed CUDA graph of 20 calls (``chip_smoke.graph_ms``).  Prints one
+JSON line of medians (ms) per shape, with the card's name and power
+limit.  The builds go to ``transform360_tpu_torch/build/`` (gitignored).
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import json
 import os
-import shutil
 import statistics
 import subprocess
 import sys
@@ -31,14 +47,18 @@ sys.path.insert(0, ROOT)
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--min-blocks", type=int, nargs="+", default=[2, 3, 4])
-    ap.add_argument("--strip", type=int, nargs="+", default=[16, 24])
+    ap.add_argument("--min-blocks", type=int, nargs="+", default=[])
+    ap.add_argument("--stages", type=int, nargs="+", default=[])
+    ap.add_argument("--budget-kb", type=int, nargs="+", default=[])
+    ap.add_argument("--parts", type=int, nargs="+", default=[])
+    ap.add_argument("--cols", type=int, nargs="+", default=[])
+    ap.add_argument("--copy", action="store_true")
     args = ap.parse_args()
 
     import torch
 
     import transform360_tpu_torch as P
-    from chip_smoke import FLAGSHIP, batch_of, cuda_times, video_like_planes
+    from chip_smoke import FLAGSHIP, batch_of, graph_ms, video_like_planes
     from transform360_tpu_torch.ops import _build, blur
 
     smi = subprocess.run(
@@ -47,71 +67,82 @@ def main() -> int:
     ).stdout.strip()
     shipping = blur._lib()
     src = (_build.CSRC / "blur.cu").read_text()
-    bound = "__launch_bounds__(kThreads, 3)"
-    assert src.count(bound) == 1, "the ring kernel's launch bounds moved"
-    libs, csrc = {}, _build.CSRC
+    mb_line = "constexpr int kMinBlocks = RY == 1 ? 4 : 2;"
+    if args.min_blocks and src.count(mb_line) != 1:
+        raise SystemExit(f"FAIL {mb_line!r} is not in blur.cu once")
+    libs = {}
     for mb in args.min_blocks:
-        d = _build.BUILD_DIR / "variants" / f"min_blocks_{mb}"
-        d.mkdir(parents=True, exist_ok=True)
-        for h in csrc.glob("*.cuh"):
-            shutil.copy(h, d / h.name)
-        (d / "blur.cu").write_text(src.replace(bound, f"__launch_bounds__(kThreads, {mb})"))
-        _build.CSRC = d
-        _build.BUILD_LOG.pop("blur", None)
-        try:
-            lib = ctypes.CDLL(str(_build._build("blur")))
-        finally:
-            _build.CSRC = csrc
-        # an unchanged source hashes to the shipping library: nothing is rebuilt
-        log = _build.BUILD_LOG.get("blur", "(the shipping build: chip_smoke.py prints its lines)")
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "shipping" in line:
-                print(f"min_blocks {mb}: {line.strip()}", flush=True)
-        lib.t360_blur.argtypes = shipping.t360_blur.argtypes
-        lib.t360_blur.restype = ctypes.c_int
-        lib.t360_error_string.argtypes = [ctypes.c_int]
-        lib.t360_error_string.restype = ctypes.c_char_p
-        libs[mb] = lib
+        label = f"min_blocks {mb}"
+        text = src.replace(mb_line, f"constexpr int kMinBlocks = RY == 1 ? {mb} : 2;")
+        lib = ctypes.CDLL(str(_build._build("blur", (), text, label=label)))
+        for name in ("t360_blur", "t360_blur_attrs", "t360_error_string"):
+            getattr(lib, name).argtypes = getattr(shipping, name).argtypes
+            getattr(lib, name).restype = getattr(shipping, name).restype
+        libs[label] = lib
+        for line in _build.BUILD_LOG.get(f"blur {label}", "").splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"{label}: {line.strip()}", flush=True)
 
     plan = P.open_filter(FLAGSHIP, 3840, 2160, device="cuda").plan
+    tabs = tuple(pp.tables("cuda").blur for pp in (plan.luma, plan.chroma))
     y, u, v = video_like_planes(3840, 2160)
     yb, ub, vb = batch_of(y, 128), batch_of(u, 128), batch_of(v, 128)
     cb = torch.cat([ub, vb])
-    strip0 = blur.STRIP_MAX
-    tabs = {}
-    for st in args.strip:
-        blur.STRIP_MAX = st
-        tabs[st] = tuple(blur.BlurTables.from_plan(pp.blur, pp.in_h, pp.in_w, "cuda")
-                         for pp in (plan.luma, plan.chroma))
-        print(f"strip {st}: tile rows luma {sorted(set(tabs[st][0].tiles[:, 2].tolist()))}, "
-              f"chroma {sorted(set(tabs[st][1].tiles[:, 2].tolist()))}", flush=True)
-    blur.STRIP_MAX = strip0
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
-    def run(lib, bt, x):
-        blur._lib = lambda: lib
-        try:
-            return blur.blur_px(bt, x)
-        finally:
-            blur._lib = lambda: shipping
+    # label -> (lib, stages, ring budget, parts per tile, columns per thread
+    # (0: by batch), copy (-1: by the plane))
+    base = (shipping, blur.STAGES, blur.SMEM_CTA, 0, 0, -1)
+    variants = {"shipping": base}
+    variants.update({k: (lib,) + base[1:] for k, lib in libs.items()})
+    variants.update({f"stages {n}": (shipping, n) + base[2:] for n in args.stages})
+    variants.update({f"budget {kb} KB": (shipping, base[1], kb * 1024) + base[3:]
+                     for kb in args.budget_kb})
+    variants.update({f"parts {n}": base[:3] + (n,) + base[4:] for n in args.parts})
+    variants.update({f"cols {n}": base[:4] + (n, -1) for n in args.cols})
+    if args.copy:
+        variants["producer warp's loads"] = base[:5] + (blur.COPY_WARP,)
 
-    want = run(shipping, tabs[args.strip[0]][0], yb[:2].contiguous())
-    variants = {f"min_blocks {mb}, strip {st}": (libs[mb], tabs[st])
-                for mb in args.min_blocks for st in args.strip}
-    for name, (lib, (lt, _)) in variants.items():
-        if not torch.equal(run(lib, lt, yb[:2].contiguous()), want):
-            raise SystemExit(f"FAIL variant {name} differs from the shipping build")
+    def tables(bt, stages, budget):
+        return dataclasses.replace(bt, slab=blur.slab_rows(bt.pitch, bt.ring_ry, stages, budget))
+
+    launches = {}  # (variant, plane, B) -> (lib, tables, stages, parts, cols, ctas, copy)
+
+    def run(name, plane, x, out=None):
+        key = (name, plane, x.shape[0])
+        if key not in launches:  # set up outside any capture
+            lib, stages, budget, parts, cols, copy = variants[name]
+            bt = tables(tabs[plane], stages, budget)
+            cols = cols or blur.launch_cols(lib, bt, x.shape[0], stages)
+            resident = blur.kernel_attrs(bt, stages, lib, cols)["ctas_per_sm"] * sms
+            parts = parts or blur.launch_parts(bt, x.shape[0], resident)
+            launches[key] = (lib, bt, stages, parts, cols,
+                             min(resident, bt.tiles.shape[0] * x.shape[0] * parts), copy)
+        lib, bt, stages, parts, cols, ctas, copy = launches[key]
+        out = torch.empty_like(x) if out is None else out
+        blur._launch(lib, bt, x, out, torch.cuda.current_stream().cuda_stream, copy=copy,
+                     stages=stages, parts=parts, ctas=ctas, cols=cols)
+        return out
+
+    for name, var in variants.items():
+        bt = tables(tabs[0], var[1], var[2])
+        print(f"{name}: slab {bt.slab} rows, "
+              f"{[blur.kernel_attrs(bt, var[1], var[0], v) for v in (8, 16)]}", flush=True)
+    want = run("shipping", 0, yb[:2].contiguous())
+    for name in variants:
+        if not torch.equal(run(name, 0, yb[:2].contiguous()), want):
+            raise SystemExit(f"FAIL variant {name} differs from the shipping launch")
     shapes = {"16 luma": (0, yb[:16].contiguous()), "1 luma": (0, yb[:1].contiguous()),
-              "2 chroma": (1, torch.cat([ub[:1], vb[:1]])), "128 luma": (0, yb),
-              "256 chroma": (1, cb)}
+              "2 chroma": (1, cb[:2].contiguous()), "128 luma": (0, yb), "256 chroma": (1, cb)}
     for shape, (plane, x) in shapes.items():
         times = {k: [] for k in variants}
-        reps = 3 if x.shape[0] >= 100 else 10
-        order = list(variants.items())
+        order = list(variants)
+        out = torch.empty_like(x)  # one output for every timed call
         for rnd in range(4):
-            for name, (lib, t) in (order if rnd % 2 == 0 else order[::-1]):
-                run(lib, t[plane], x)
-                times[name] += cuda_times(lambda: run(lib, t[plane], x), reps)
-        print(json.dumps({"shape": shape, "card": smi, "n": 4 * reps,
+            for name in (order if rnd % 2 == 0 else order[::-1]):
+                times[name].append(graph_ms(lambda: run(name, plane, x, out), 20,
+                                            3 if x.shape[0] >= 100 else 10))
+        print(json.dumps({"shape": shape, "card": smi, "n": 4,
                           "median_ms": {k: statistics.median(v) for k, v in times.items()}}),
               flush=True)
     return 0

@@ -9,8 +9,11 @@ rule, at batch 1 and 3), an output width that is not a
 multiple of the tile's, tap rows starting at every byte of a word, an
 unaligned plane, K3's global-path tiles, and every stereo raster of K1
 at small sizes, its ring kernels (y radius padded to 1 or 3) and its
-direct kernel (a wider y radius), its frame loops and an unaligned
-plane.  The uint16 instantiations of both (10- to 16-bit planes, samples
+direct kernel (a wider y radius, or taps that are not Gaussian); K1's
+persistent walks (one CTA to one per item, parts, ring depths, both
+copies), the flagship's stacked chroma at batch 1, 2, 19 and 512, tiles
+at all four plane edges with rx 6 at 8 and 16 bits (samples at 65535),
+unaligned rows and bases, and K1 inside a captured CUDA graph.  The uint16 instantiations of both (10- to 16-bit planes, samples
 saturated at 65535 included) on the same cases, every K3 instantiation
 at uint16, an unaligned uint16 plane, and the deep, supersampled and
 plan-file engines against the CPU engine.  K4 (csrc/area.cu) against
@@ -118,13 +121,138 @@ def test_blur_frame_loops_match_one_frame_at_a_time(gpu, monkeypatch):
     t = P.build_plan(cfg, iw, ih, ow, oh, "gray").luma.tables(gpu)
     x = torch.randint(0, 256, (19, ih, iw), dtype=torch.uint8, device=gpu)
     want = torch.cat([blur.blur_px(t.blur, x[i : i + 1].contiguous()) for i in range(19)])
-    # every CTA loops over 8 frames: groups of 8, 8 and an odd 3
-    monkeypatch.setattr(blur, "CTAS_TARGET", 1)
-    assert blur.frames_per_cta(19, t.blur.tiles.shape[0]) == blur.CTA_FRAMES == 8
+    # one persistent CTA walks every (tile, frame, part) item of the 19
+    # frames through the ring, then two CTAs, then one per item
+    lib, stream = blur._lib(), torch.cuda.current_stream().cuda_stream
+    for parts, ctas in ((1, 1), (3, 2), (2, 0), (1, t.blur.tiles.shape[0] * 19)):
+        out = torch.zeros_like(x)
+        blur._launch(lib, t.blur, x, out, stream, parts=parts, ctas=ctas)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), (parts, ctas)
+    monkeypatch.setattr(blur, "ITEMS_PER_CTA", 1)  # parts: 1 per tile
     n = blur.LAUNCHES
     got = blur.blur_px(t.blur, x)
     torch.cuda.synchronize()
     assert blur.LAUNCHES == n + 1 and torch.equal(got, want)
+
+
+def _flagship_pp(plane, pix_fmt="yuv420p", scale=1):
+    opts = ("cube_edge_length=%d:interpolation_alg=cubic:enable_low_pass_filter=1:"
+            "input_stereo_format=mono" % (512 // scale))
+    plan = P.open_filter(opts, 3840 // scale, 2160 // scale, pix_fmt=pix_fmt, device="cpu").plan
+    return plan.luma if plane == "luma" else plan.chroma
+
+
+@pytest.mark.parametrize("b", [1, 2, 19, 512])
+def test_blur_kernel_batches_of_stacked_chroma(b, gpu):
+    # the flagship's stacked chroma (1920x1080: two column tiles, rx 6 at
+    # the poles) at the batch sizes whose parts and grids differ
+    pp = _flagship_pp("chroma")
+    t = pp.tables(gpu)
+    g = torch.Generator(device=gpu).manual_seed(b)
+    x = torch.randint(0, 256, (b, pp.in_h, pp.in_w), dtype=torch.uint8, device=gpu, generator=g)
+    got = blur.blur_px(t.blur, x)
+    for f0 in range(0, b, 32):
+        want = round_u8(blur_plain(t.blur.plan, x[f0:f0 + 32].float()))
+        assert torch.equal(got[f0:f0 + 32], want), (b, f0)
+
+
+EDGE_CASES = {  # K1's plane-edge tiles: rx 6 tiles at all four edges, and rows
+    # that are not 16-byte aligned (the producer's loads) at odd widths
+    "edges-rx6": (TransformConfig(**MONO), 320, 180, 126, 84),
+    "edges-rx6-odd-width": (TransformConfig(**MONO), 322, 181, 126, 84),
+    "lr-odd": CASES["lr-odd"],
+}
+
+
+@pytest.mark.parametrize("depth", [8, 16])
+@pytest.mark.parametrize("name", sorted(EDGE_CASES))
+def test_blur_kernel_plane_edges(name, depth, gpu):
+    cfg, iw, ih, ow, oh = EDGE_CASES[name]
+    pix = "gray" if depth == 8 else "gray16le"
+    t = P.build_plan(cfg, iw, ih, ow, oh, pix).luma.tables(gpu)
+    mx = (1 << depth) - 1
+    g = torch.Generator(device=gpu).manual_seed(depth)
+    x = _rand_u16((5, ih, iw), mx, gpu, g) if depth == 16 else torch.randint(
+        0, 256, (5, ih, iw), dtype=torch.uint8, device=gpu, generator=g)
+    x[1] = mx  # a saturated frame
+    x[2, :, :7] = mx  # saturated columns along the left edge, and rows at the top
+    x[2, :3] = mx
+    want = round_px(blur_plain(t.blur.plan, x.float()), mx, x.dtype)
+    assert _same(blur.blur_px(t.blur, x, mx), want)
+    buf = torch.zeros(5 * ih * iw + 1, dtype=x.dtype, device=gpu)  # an unaligned base
+    xu = buf[1:].view(5, ih, iw)
+    xu.copy_(x)
+    assert blur.copy_mode(t.blur, xu) == blur.COPY_WARP
+    assert _same(blur.blur_px(t.blur, xu, mx), want)
+
+
+@pytest.mark.parametrize("name", ["edges-rx6", "half-flagship"])
+def test_blur_kernel_launch_variants(name, gpu):
+    # every copy (TMA where the plane allows it, the producer's loads),
+    # ring depth, part count, grid and columns per thread computes the same
+    # bytes; the flagship at half size (1920x1080 luma) has TMA-staged edge
+    # tiles
+    if name == "half-flagship":
+        t = _flagship_pp("luma", scale=2).tables(gpu)
+        ih, iw = t.blur.H, t.blur.W
+    else:
+        cfg, iw, ih, ow, oh = EDGE_CASES[name]
+        t = P.build_plan(cfg, iw, ih, ow, oh, "gray").luma.tables(gpu)
+    x = torch.randint(0, 256, (7, ih, iw), dtype=torch.uint8, device=gpu)
+    want = round_u8(blur_plain(t.blur.plan, x.float()))
+    lib, stream = blur._lib(), torch.cuda.current_stream().cuda_stream
+    n_items = t.blur.tiles.shape[0] * 7
+    copies = (blur.COPY_WARP,) + ((blur.COPY_TMA,) if blur.copy_mode(t.blur, x) == blur.COPY_TMA
+                                  else ())
+    assert (name == "half-flagship") == (len(copies) == 2)
+    for copy in copies:
+        for stages in (2, 3, 8):
+            for parts in (1, 2, 5):
+                for ctas in (1, 0, n_items * parts):
+                    for cols in (8, 16):  # uint8 at y radius 1: both instantiations
+                        out = torch.zeros_like(want)
+                        blur._launch(lib, t.blur, x, out, stream, copy=copy, stages=stages,
+                                     parts=parts, ctas=ctas, cols=cols)
+                        torch.cuda.synchronize()
+                        assert torch.equal(out, want), (name, copy, stages, parts, ctas, cols)
+
+
+def test_blur_kernel_in_a_captured_graph(gpu):
+    # K1 captured in a CUDA graph (its tensor map and grid fixed at
+    # capture) replays on new frames copied into the static input
+    pp = _flagship_pp("luma", scale=2)
+    t = pp.tables(gpu)
+    g = torch.Generator(device=gpu).manual_seed(3)
+    static = torch.randint(0, 256, (2, pp.in_h, pp.in_w), dtype=torch.uint8, device=gpu,
+                           generator=g)
+    blur.blur_px(t.blur, static)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = blur.blur_px(t.blur, static)
+    for seed in range(3):
+        g.manual_seed(100 + seed)
+        static.copy_(torch.randint(0, 256, static.shape, dtype=torch.uint8, device=gpu,
+                                   generator=g))
+        n = blur.LAUNCHES
+        graph.replay()
+        torch.cuda.synchronize()
+        assert blur.LAUNCHES == n  # a replay is no call of the wrapper
+        assert torch.equal(out, round_u8(blur_plain(t.blur.plan, static.float()))), seed
+
+
+def test_blur_direct_kernel_takes_taps_that_are_not_gaussian(gpu):
+    cfg, iw, ih, ow, oh = CASES["cubic-cubemap"]
+    bp = P.build_plan(cfg, iw, ih, ow, oh, "gray").luma.blur
+    b = bp.bands[0]
+    kx = b.kx.copy()
+    kx[:, 0] = np.nextafter(kx[:, 0], np.float32(1))  # asymmetric by an ulp
+    odd = dataclasses.replace(bp, bands=(dataclasses.replace(b, kx=kx),) + tuple(bp.bands[1:]))
+    bt = blur.BlurTables.from_plan(odd, ih, iw, gpu)
+    assert bt.ring_ry == -1
+    x = torch.randint(0, 256, (3, ih, iw), dtype=torch.uint8, device=gpu)
+    assert torch.equal(blur.blur_px(bt, x), round_u8(blur_plain(odd, x.float())))
 
 
 def test_kernels_take_a_batch_of_1024(gpu):

@@ -224,9 +224,12 @@ def test_uint16_blur_tables(name):
     assert b16.ring_ry == b8.ring_ry and b16.sample_bytes == 2
     if b16.ring_ry >= 0:
         staged = t[:, 4] >= 0
-        assert (t[staged, 5] % 8 == 0).all()  # 16-byte chunks of 8 samples
-        assert b16.buf_bytes == 2 * int(((t[:, 2] + 2 * b16.ring_ry) * t[:, 5])[staged].max())
-        assert 2 * b16.buf_bytes <= blur.SMEM_TARGET
+        assert (t[staged, 5] % 8 == 0).all()  # staged rows start 16-byte aligned (TMA)
+        assert (t[:, 3] <= blur.tile_width(2)).all() and blur.tile_width(2) < blur.tile_width(1)
+        # a staged row of 768 samples and its halo is one TMA box
+        assert (b16.row_bytes, b16.pitch) == blur.staged_row(int(b16.rx.max()), 2)
+        assert b16.row_bytes <= blur.ROW_MAX
+        assert blur.STAGES * b16.slab * b16.pitch <= blur.SMEM_CTA
     rng = np.random.default_rng(3)
     x = torch.from_numpy(rng.integers(0, 1024, (2, ih, iw), dtype=np.uint16))
     got = blur.blur_px(b16, x, 1023)

@@ -62,8 +62,6 @@
 //   exceeds the ring's budget (large factors such as 8x), are direct: they
 //   read device memory in the consumer warps and take no stage.
 
-#include <cuda.h>
-
 #include "common.cuh"
 
 #ifndef T360_AREA_MIN_BLOCKS
@@ -123,58 +121,18 @@ struct Item {
   }
 };
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-// Arrives on bar when all of this thread's earlier cp.async copies are done.
-__device__ __forceinline__ void mbar_arrive_cp_async(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
-               : "memory");
-}
-// Waits until the phase of bar with this parity has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred done;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra WAIT;\n"
-      "}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int x,
-                                         int y, int f) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(x), "r"(y), "r"(f)
-      : "memory");
-}
+using t360::mbar_arrive;
+using t360::mbar_arrive_cp_async;
+using t360::mbar_expect_tx;
+using t360::mbar_init;
+using t360::mbar_wait;
+using t360::round_bits;
+using t360::smem_u32;
+using t360::tma_load;
 
 // The exact float value of a sample (< 2^23): 0x4B000000 | v is 2^23 + v.
 __device__ __forceinline__ float sample_float(uint32_t v) {
   return __fsub_rn(__uint_as_float(0x4B000000u | v), 8388608.0f);
-}
-
-// min(max(floor(s + 0.5), 0), maxval) as an integer: s + 0.5 rounded to
-// nearest as the plain version rounds it, then 2^23 added rounding down,
-// which leaves floor(t) in the low bits for 0 <= t < 2^23.
-__device__ __forceinline__ uint32_t round_bits(float s, uint32_t maxval) {
-  const float t = fmaxf(__fadd_rn(s, 0.5f), 0.0f);
-  return min(__float_as_uint(__fadd_rd(t, 8388608.0f)) - 0x4B000000u, maxval);
 }
 
 // Offset in a stage of the span's sample (row, col), both relative to
@@ -472,34 +430,6 @@ int smem_for(int stage_bytes, int stages) {
   return stage_bytes > 0 ? stages * stage_bytes + 128 : 0;
 }
 
-cudaError_t allow_smem(const void* k, int smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled (a libcuda entry point), fetched through the
-// runtime, so that the library needs no -lcuda.
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                     cudaEnableDefault, &q);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    return e == cudaSuccess && q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
-                                                               : nullptr;
-  }();
-  return fn;
-}
-
 }  // namespace
 
 // src: [B, H, W] and dst: [B, OH, OW] samples of sample_bytes each (1:
@@ -540,7 +470,7 @@ extern "C" int t360_area(const void* src, void* dst, int sample_bytes, int maxva
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap map = {};
   if (staged && copy == kTma) {
-    const EncodeTiled encode = encode_tiled();
+    const t360::EncodeTiled encode = t360::encode_tiled();
     if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
     const cuuint64_t dims[3] = {static_cast<cuuint64_t>(W), static_cast<cuuint64_t>(H),
                                 static_cast<cuuint64_t>(B)};
@@ -555,7 +485,7 @@ extern "C" int t360_area(const void* src, void* dst, int sample_bytes, int maxva
         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
     if (r != CUDA_SUCCESS) return -static_cast<int>(r);
   }
-  cudaError_t e = allow_smem(k, smem);
+  cudaError_t e = t360::allow_smem(k, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   Args a{src,     dst,   tiles, row_first, row_w,       col_first, col_w, B,    H,
          W,       OH,    OW,    kr,        kc,          n_tiles,   box_w, box_h, nbox,
@@ -579,7 +509,7 @@ extern "C" int t360_area_attrs(int sample_bytes, int taps, int stage_bytes, int 
   cudaFuncAttributes fa;
   cudaError_t e = cudaFuncGetAttributes(&fa, k);
   const int smem = smem_for(stage_bytes, stages);
-  if (e == cudaSuccess) e = allow_smem(k, smem);
+  if (e == cudaSuccess) e = t360::allow_smem(k, smem);
   int blocks = 0;
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, kThreads, smem);

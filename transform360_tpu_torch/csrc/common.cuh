@@ -3,10 +3,16 @@
 // Every entry point has a plain C interface (no PyTorch headers), takes
 // device pointers and a cudaStream_t as void*, launches on that stream,
 // never synchronises, allocates nothing, and returns cudaGetLastError().
+// The mbarrier, TMA and rounding helpers serve the two ring kernels, K1
+// (blur.cu) and K4 (area.cu).
 
 #pragma once
 
 #include <cstdint>
+#include <map>
+#include <mutex>
+#include <utility>
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 namespace t360 {
@@ -56,6 +62,105 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// -- The ring of shared-memory stages of K1 and K4: mbarriers and TMA. --
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// Arrives on bar when all of this thread's earlier cp.async copies are done.
+__device__ __forceinline__ void mbar_arrive_cp_async(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+// Waits until the phase of bar with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+// One box of a 3-d tensor map (x, y, frame) into shared memory, completing
+// on bar (its bytes counted against the barrier's expected transactions).
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int x,
+                                         int y, int f) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(x), "r"(y), "r"(f)
+      : "memory");
+}
+// Orders this thread's generic-proxy writes to shared memory before later
+// async-proxy (TMA) accesses to it.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// min(max(floor(s + 0.5), 0), maxval) as an integer: s + 0.5 rounded to
+// nearest as the plain versions round it, then 2^23 added rounding down,
+// which leaves floor(t) in the low bits for 0 <= t < 2^23 (no F2I).
+__device__ __forceinline__ uint32_t round_bits(float s, uint32_t maxval) {
+  const float t = fmaxf(__fadd_rn(s, 0.5f), 0.0f);
+  return min(__float_as_uint(__fadd_rd(t, 8388608.0f)) - 0x4B000000u, maxval);
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled (a libcuda entry point), fetched through the
+// runtime, so that a library needs no -lcuda; nullptr if it is missing.
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                     cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return e == cudaSuccess && q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
+                                                               : nullptr;
+  }();
+  return fn;
+}
+
+// Lets kernel k take smem bytes of dynamic shared memory (above 48 KB) on
+// the current device; sets the attribute only where an earlier call did
+// not already allow as much, so that a launch pays for it once.
+inline cudaError_t allow_smem(const void* k, int smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  static std::mutex mu;
+  static std::map<std::pair<const void*, int>, int> allowed;  // (kernel, device) -> bytes
+  std::lock_guard<std::mutex> lock(mu);
+  int& have = allowed[{k, dev}];
+  if (smem <= have) return cudaSuccess;
+  e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess) have = smem;
+  return e;
 }
 
 }  // namespace t360

@@ -31,7 +31,7 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Tuple
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -51,7 +51,7 @@ CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-Wall", "-march=native", "-shared", 
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
-BUILD_SECONDS: Dict[str, float] = {}  # compiler wall time per library built here
+BUILD_SECONDS: Dict[str, float] = {}  # compiler wall time per library built here (by key)
 BUILD_LOG: Dict[str, str] = {}  # nvcc's output (ptxas registers, spills)
 
 
@@ -73,18 +73,30 @@ def nvcc_path() -> str:
     )
 
 
-def _build(name: str) -> Path:
+def _build(name: str, extra: Sequence[str] = (), text: str = None, include: Path = CSRC,
+           label: str = "") -> Path:
+    """``csrc/<name>.cu`` built (if needed) with ``NVCC_FLAGS`` and the
+    ``extra`` flags (a variant, such as ``-DT360_AREA_MIN_BLOCKS=3``; its
+    file name hashes them too), or, given ``text``, that source in its
+    place (a rewritten variant, written under ``BUILD_DIR/variants``) with
+    the headers of ``include``.  ``BUILD_SECONDS`` and ``BUILD_LOG`` key a
+    build by the name, its extra flags and ``label``."""
     src = CSRC / f"{name}.cu"
-    deps = sorted(CSRC.glob("*.cuh"))
-    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for p in [src, *deps]:
+    deps = sorted(Path(include).glob("*.cuh"))
+    h = hashlib.sha1(" ".join((*NVCC_FLAGS, *extra)).encode())
+    h.update(src.read_bytes() if text is None else text.encode())
+    for p in deps:
         h.update(p.read_bytes())
     out = BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    if text is not None:
+        src = BUILD_DIR / "variants" / f"{name}-{h.hexdigest()[:12]}.cu"
+        src.parent.mkdir(exist_ok=True)
+        src.write_text(text)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)]
+    cmd = [nvcc_path(), *NVCC_FLAGS, *extra, "-I", str(include), "-o", str(tmp), str(src)]
     t0 = time.perf_counter()
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
@@ -93,8 +105,9 @@ def _build(name: str) -> Path:
             f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}"
         )
     os.replace(tmp, out)  # atomic: a concurrent build never loads a partial file
-    BUILD_SECONDS[name] = time.perf_counter() - t0
-    BUILD_LOG[name] = res.stdout + res.stderr
+    key = " ".join((name, *extra, *([label] if label else [])))
+    BUILD_SECONDS[key] = time.perf_counter() - t0
+    BUILD_LOG[key] = res.stdout + res.stderr
     return out
 
 
@@ -197,11 +210,17 @@ def library(name: str) -> ctypes.CDLL:
 
 
 
-def build_all(names: Sequence[str]) -> None:
+def build_all(names: Sequence[str], variants: Sequence[Tuple[str, Sequence[str]]] = ()
+              ) -> Dict[Tuple[str, ...], Path]:
     """Build several sources at once, one nvcc each, all started together
-    (each writes its own hash-named file), then load them."""
-    with ThreadPoolExecutor(max_workers=max(1, len(names))) as ex:
-        for f in [ex.submit(_build, n) for n in names]:
-            f.result()
+    (each writes its own hash-named file), then load them; the
+    ``variants`` -- (name, extra flags) -- are built in the same pool but
+    not loaded.  Returns each variant's library path, keyed by (name,
+    *flags)."""
+    jobs = [(n, ()) for n in names] + [(n, tuple(e)) for n, e in variants]
+    with ThreadPoolExecutor(max_workers=max(1, len(jobs))) as ex:
+        futures = [ex.submit(_build, n, e) for n, e in jobs]
+        paths = [f.result() for f in futures]
     for n in names:
         library(n)
+    return {(n, *e): p for (n, e), p in zip(jobs, paths) if e}

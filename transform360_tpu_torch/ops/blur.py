@@ -5,22 +5,39 @@ deep formats, saturated at the depth's maximum).
 
 :class:`BlurTables` cuts a :class:`..filtering.BlurPlan`'s band raster
 into the kernel's tiles, vectorized in numpy: rectangles of at most
-``WARPS * strip`` rows by ``TW`` columns that never cross a latitude
+``TH`` rows by :func:`tile_width` columns (the CTA's consumer warps side
+by side, 8 or 16 adjacent columns per thread) that never cross a latitude
 band, a blur segment or a stereo eye, so that each tile has one tap set.
 A tile names its tap set (-1: the zeroed leftover row or column of odd
-stereo dims) and the row pitch, in samples, of its staged source rows;
-``csrc/blur.cu`` documents how the kernel walks them.  The tables are cut
-for one sample size: two staged buffers of a tile must fit the shared
-memory budget, so uint16 tiles are about half as tall.  For a CUDA tensor
-the wrapper launches the kernel or raises; it never falls back.
-``LAUNCHES`` counts the uint8 instantiation's launches and
-``LAUNCHES_U16`` the uint16 one's (one per call on a CUDA tensor).
+stereo dims) and ``x0``, the first sample of its staged rows.  The
+tables also fix the ring's layout for the plan and sample size: each
+staged row holds ``row_bytes`` (one TMA box), ``pitch`` bytes apart,
+``slab`` rows to a stage.  The ring kernel takes Gaussian taps only
+(symmetric and non-negative, bit for bit: it computes each mirrored
+product once); other plans, y radii over 3 and rows over one box take the
+direct kernel.  ``csrc/blur.cu`` documents how the kernel walks them.
+
+A launch (:func:`launch`) runs a persistent grid (:func:`grid_ctas`: the
+CTAs resident on the card) over the tile-major (tile, frame, part) items
+(:func:`work_list`), a part being an even share of a tile's rows
+(:func:`part_rows`; :func:`launch_parts` cuts tiles into parts where the
+batch gives too few items) and :func:`launch_cols` picks the columns per
+thread.  A plane whose rows and base are 16-byte aligned and whose rows
+hold a staged row is staged by TMA, any other by the producer warp's
+loads (``COPY_WARP``): the shape chooses, never a failure.  The tables
+memoize each batch size's choices (:func:`geometry`), so that a call
+after the first spends no host time on them.  For a CUDA
+tensor the wrapper launches the kernel or raises; it never falls back.
+``LAUNCHES`` counts the uint8 instantiations' launches and
+``LAUNCHES_U16`` the uint16 ones' (one per call on a CUDA tensor).
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import threading
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -33,29 +50,71 @@ from . import _build
 LAUNCHES = 0  # uint8 planes
 LAUNCHES_U16 = 0  # uint16 planes
 
-WARPS = 8  # a CTA: 8 warps, each walking a strip of rows
-TW = 32 * 4  # tile width: 32 threads of 4 adjacent columns
-STRIP_MAX = 24  # rows of a warp's strip
-# y radii of the register-ring kernels; a plan's is padded up to the
-# first that holds it (zero taps change no bit), larger ones take the
-# direct kernel
+TILE_COLS = {1: 1024, 2: 768}  # a tile's columns by sample bytes (csrc/blur.cu: kTW)
+GROUP = 16  # tiles are cut, and their threads start, at columns aligned to this
+# a uint8 ring launch at y radius 1 gives each thread 16 adjacent columns
+# (fewer instructions per pixel) once it has this many tile-frames per
+# resident CTA, else 8 (twice the warps on an item: a small batch ends
+# sooner); every other ring launch 8
+WIDE_TILES_PER_CTA = 1
+TH = 144  # rows of a tile at most
+# y radii of the ring kernels; a plan's is padded up to the first that
+# holds it (zero taps change no bit), larger ones take the direct kernel
 RING_RY = (1, 3)
-SMEM_TARGET = 64 * 1024  # two staged buffers per CTA: three CTAs share an SM
-SMEM_MAX = 227 * 1024  # the most one CTA may use on Hopper
-CTA_FRAMES = 8  # most frames one CTA loops over
-CTAS_TARGET = 4096  # below this many CTAs a CTA takes fewer frames
+ROW_MAX = 2048  # bytes of a staged row: one TMA box of 256 8-byte elements
+PITCH_ALIGN = 128  # TMA writes each row 128-byte aligned
+SMEM_CTA = 54 * 1024  # a CTA's ring: four CTAs share an SM
+STAGES = 3  # the ring's depth
+ITEMS_PER_CTA = 8  # a launch cuts tiles into parts until each CTA has this many items
+PART_ROWS_MIN = 16  # but no part under this many rows
+COPY_TMA, COPY_WARP = 0, 1  # how a stage is filled
 
 _c_void_p = ctypes.c_void_p
 _c_int = ctypes.c_int
+_LOCK = threading.Lock()
+_RESIDENT: Dict[tuple, int] = {}  # (device, sample bytes, ring, columns, ring bytes) -> CTAs
 
 
-def tile_pitch(ncols, rx, sample_bytes: int = 1):
-    """Staged samples per row of a tile: its whole 4-column groups, the
-    2*rx halo, up to one 16-byte chunk less a sample of alignment in front
-    and the last thread's word read past its taps (``x_pass`` in
-    ``csrc/blur.cu``), in 16-byte chunks."""
-    cs = 16 // sample_bytes  # samples per 16-byte chunk
-    return (4 * (-(-ncols // 4)) + 2 * rx + cs + 4 // sample_bytes + cs - 1) // cs * cs
+def tile_width(sample_bytes: int) -> int:
+    """Columns of a tile: the CTA's consumer warps side by side, 32
+    threads of 8 or 16 columns each (1024 at uint8, 768 at uint16)."""
+    return TILE_COLS[sample_bytes]
+
+
+def thread_cols(bt: "BlurTables", B: int, resident: int) -> int:
+    """Adjacent columns per thread of a ring launch of ``B`` frames on
+    ``resident`` CTAs: 16 for uint8 at y radius 1 from
+    ``WIDE_TILES_PER_CTA`` tile-frames per CTA, else 8."""
+    wide = bt.tiles.shape[0] * B >= WIDE_TILES_PER_CTA * resident
+    return 16 if bt.sample_bytes == 1 and bt.ring_ry == 1 and wide else 8
+
+
+def staged_row(rx: int, sample_bytes: int) -> Tuple[int, int]:
+    """(row_bytes, pitch) of a staged row for taps of x radius up to
+    ``rx``: up to 16 bytes of alignment in front (a TMA box starts 16-byte
+    aligned) and 8 samples where the threads start past the tile's
+    ``GROUP``-aligned column, a tile's columns, the 2*rx halo and the
+    words the last thread reads past its taps, in 16-byte chunks; rows
+    ``PITCH_ALIGN``-aligned."""
+    e, p = 16 // sample_bytes, 4 // sample_bytes  # samples per 16 bytes, per word
+    n = e + 8 + tile_width(sample_bytes) + 2 * rx + 2 * p
+    row = -(-n * sample_bytes // 16) * 16
+    return row, -(-row // PITCH_ALIGN) * PITCH_ALIGN
+
+
+def slab_rows(pitch: int, ring_ry: int, stages: int = STAGES, budget: int = SMEM_CTA) -> int:
+    """Rows of a stage: as many as ``stages`` stages fit in ``budget``,
+    a multiple of the rotation's 2 * ring_ry rows (0: none fits)."""
+    return budget // (stages * pitch) // (2 * ring_ry) * (2 * ring_ry)
+
+
+def gaussian_taps(kx: np.ndarray, ky: np.ndarray) -> bool:
+    """Every set's x and y taps read the same backwards, bit for bit, and
+    none has its sign bit set (the ring kernel computes k[u] * p once for
+    u and 2 r - u, and omits the round's clamp at 0).  The arrays are
+    centred and zero-padded, so the symmetry of a row is its set's."""
+    bits = [np.ascontiguousarray(a, np.float32).view(np.uint32) for a in (kx, ky)]
+    return all(np.array_equal(b, b[:, ::-1]) and not (b >> 31).any() for b in bits)
 
 
 def _runs(key: np.ndarray):
@@ -64,20 +123,29 @@ def _runs(key: np.ndarray):
     return starts, np.r_[starts[1:], key.size], key[starts]
 
 
-def _split(starts, ends, keys, most: int, even: bool):
-    """Cut each run into pieces of at most ``most``: nearly equal ones
-    (``even``) or ``most`` from the start.  Returns (start, length, key)."""
+def _split_even(starts, ends, keys, most: int):
+    """Cut each run into the fewest nearly equal pieces of at most
+    ``most``.  Returns (start, length, key)."""
     n = -(-(ends - starts) // most)
     run = np.repeat(np.arange(starts.size), n)
     i = np.arange(run.size) - np.repeat(np.cumsum(n) - n, n)
     length = ends[run] - starts[run]
-    if even:
-        lo = i * length // n[run]
-        hi = (i + 1) * length // n[run]
-    else:
-        lo = i * most
-        hi = np.minimum(lo + most, length)
+    lo = i * length // n[run]
+    hi = (i + 1) * length // n[run]
     return starts[run] + lo, hi - lo, keys[run]
+
+
+def _split_aligned(starts, ends, keys, width: int):
+    """Cut each run at the multiples of ``width`` past its start aligned
+    down to ``GROUP`` samples, so that every piece's threads cover it from
+    an aligned column.  Returns (start, length, key)."""
+    g = starts // GROUP * GROUP
+    n = 1 + np.maximum(0, -(-(ends - g - width) // width))
+    run = np.repeat(np.arange(starts.size), n)
+    i = np.arange(run.size) - np.repeat(np.cumsum(n) - n, n)
+    lo = np.where(i == 0, starts[run], g[run] + i * width)
+    hi = np.minimum(ends[run], g[run] + (i + 1) * width)
+    return lo, hi - lo, keys[run]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,14 +155,20 @@ class BlurTables:
     plan: BlurPlan
     H: int
     W: int
-    tiles: torch.Tensor  # int32 [n, 6]: r0, c0, nrows, ncols, set (-1: zeros), pitch
+    tiles: torch.Tensor  # int32 [n, 6]: r0, c0, nrows, ncols, set (-1: zeros), x0
     kx: torch.Tensor  # float32 [sets, 2*RX+1] centred x taps (set = band * nseg + segment)
     rx: torch.Tensor  # int32 [sets]
     ky: torch.Tensor  # float32 [sets, 2*ring_ry+1] (direct: 2*RY+1) centred y taps
     ry: torch.Tensor  # int32 [sets], the plan's own radii
     ring_ry: int  # y radius of the ring kernel, or -1: the direct kernel
-    buf_bytes: int  # one staged buffer of the ring kernel
+    row_bytes: int  # bytes of a staged row (ring kernel)
+    pitch: int  # bytes between staged rows
+    slab: int  # staged rows per stage
+    min_rows: int  # rows of the shortest tile that is not zeros
     sample_bytes: int  # 1: uint8 planes, 2: uint16
+    # (device, B, base 16-byte aligned) -> (copy, stages, cols, parts, ctas) of a launch
+    memo: dict = dataclasses.field(default_factory=dict, init=False, repr=False,
+                                       compare=False)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -107,29 +181,30 @@ class BlurTables:
             raise ValueError(f"samples of {sample_bytes} bytes: 1 (uint8) or 2 (uint16)")
         RX, RY = plan_radii(plan)
         nseg = max(b.kx.shape[0] for b in plan.bands)
-        ring = next((r for r in RING_RY if r >= RY), -1)
-        strip = 0
-        if ring >= 0:  # rows per warp strip that let two buffers fit
-            for budget in (SMEM_TARGET, SMEM_MAX):
-                rows = budget // (2 * sample_bytes * tile_pitch(TW, RX, sample_bytes)) - 2 * ring
-                if rows >= WARPS:
-                    strip = min(STRIP_MAX, rows // WARPS)
-                    break
-            else:
-                ring = -1
-        ly = ring if ring >= 0 else RY
         sets = len(plan.bands) * nseg
-        kx = np.zeros((sets, 2 * RX + 1), np.float32)
-        ky = np.zeros((sets, 2 * ly + 1), np.float32)
         rx = np.zeros(sets, np.int32)
         ry = np.zeros(sets, np.int32)
         for i, b in enumerate(plan.bands):
-            brx, bry = band_radii(b)
-            s = slice(i * nseg, i * nseg + b.kx.shape[0])
-            kx[s, RX - brx : RX + brx + 1] = b.kx
-            ky[s, ly - bry : ly + bry + 1] = b.ky
-            rx[i * nseg : (i + 1) * nseg] = brx
-            ry[i * nseg : (i + 1) * nseg] = bry
+            rx[i * nseg : (i + 1) * nseg], ry[i * nseg : (i + 1) * nseg] = band_radii(b)
+
+        def taps(ly):
+            kx = np.zeros((sets, 2 * RX + 1), np.float32)
+            ky = np.zeros((sets, 2 * ly + 1), np.float32)
+            for i, b in enumerate(plan.bands):
+                brx, bry = band_radii(b)
+                s = slice(i * nseg, i * nseg + b.kx.shape[0])
+                kx[s, RX - brx : RX + brx + 1] = b.kx
+                ky[s, ly - bry : ly + bry + 1] = b.ky
+            return kx, ky
+
+        ring = next((r for r in RING_RY if r >= RY), -1)
+        row_bytes, pitch = staged_row(RX, sample_bytes)
+        slab = slab_rows(pitch, ring) if ring > 0 else 0
+        kx, ky = taps(max(ring, RY))
+        if ring > 0 and not (row_bytes <= ROW_MAX and slab > 0 and gaussian_taps(kx, ky)):
+            ring, kx, ky = -1, *taps(RY)
+        if ring < 0:
+            row_bytes = pitch = slab = 0
 
         # row runs keyed by band (-1: the leftover row of odd TB dims);
         # column runs keyed by eye and segment (-1: odd LR's leftover column)
@@ -142,22 +217,16 @@ class BlurTables:
         covered = c < (2 if plan.stereo == StereoFormat.LR else 1) * plan.eye_w
         seg = np.minimum((c - eye * plan.eye_w) // plan.tile_w, nseg - 1)
         col_key = np.where(covered, eye * nseg + seg, -1)
-        th = WARPS * (strip or STRIP_MAX)
-        r0, nr, band = _split(*_runs(band_of), th, even=True)
-        c0, nc, ck = _split(*_runs(col_key), TW, even=False)
+        r0, nr, band = _split_even(*_runs(band_of), TH)
+        c0, nc, ck = _split_aligned(*_runs(col_key), tile_width(sample_bytes))
         cseg = np.where(ck >= 0, ck % nseg, -1)
 
         R, C = np.meshgrid(np.arange(r0.size), np.arange(c0.size), indexing="ij")
         R, C = R.reshape(-1), C.reshape(-1)
         tset = np.where((band[R] >= 0) & (cseg[C] >= 0), band[R] * nseg + cseg[C], -1)
-        trx = np.where(tset >= 0, rx[tset], 0)
-        pitch = np.where(tset >= 0, tile_pitch(nc[C], trx, sample_bytes), 0)
-        tiles = np.stack([r0[R], c0[C], nr[R], nc[C], tset, pitch], axis=1)
-        # the widest taps first (the longest CTAs start early), zeros last
-        tiles = tiles[np.argsort(np.where(tset >= 0, -trx, 1), kind="stable")]
-        staged = tiles[:, 4] >= 0
-        buf = sample_bytes * int(
-            ((tiles[:, 2] + 2 * max(ring, 0)) * tiles[:, 5])[staged].max(initial=0))
+        e = 16 // sample_bytes  # a staged row starts 16-byte aligned (TMA's rule)
+        x0 = np.where(tset >= 0, (c0[C] // GROUP * GROUP - rx[np.maximum(tset, 0)]) // e * e, 0)
+        tiles = np.stack([r0[R], c0[C], nr[R], nc[C], tset, x0], axis=1)
 
         def put(a, dt):
             return torch.from_numpy(np.ascontiguousarray(a, dt)).to(device)
@@ -172,16 +241,48 @@ class BlurTables:
             ky=put(ky, np.float32),
             ry=put(ry, np.int32),
             ring_ry=ring,
-            buf_bytes=buf if ring >= 0 else 0,
+            row_bytes=row_bytes,
+            pitch=pitch,
+            slab=slab,
+            min_rows=int(nr[R][tset >= 0].min()) if (tset >= 0).any() else 1,
             sample_bytes=sample_bytes,
         )
 
 
-def frames_per_cta(B: int, n_tiles: int) -> int:
-    """Frames one CTA loops over: up to ``CTA_FRAMES`` while the grid keeps
-    ``CTAS_TARGET`` CTAs, and never a grid of more than 65535 frame groups."""
-    f = max(1, min(CTA_FRAMES, B * n_tiles // CTAS_TARGET))
-    return max(f, -(-B // 65535))
+def part_rows(r0: int, nrows: int, part: int, parts: int) -> Tuple[int, int]:
+    """Rows [p0, p1) of part ``part`` of ``parts`` of a tile's rows
+    (csrc/blur.cu: Item)."""
+    return r0 + part * nrows // parts, r0 + (part + 1) * nrows // parts
+
+
+def work_list(n_tiles: int, B: int, parts: int, ctas: int) -> List[List[Tuple[int, int, int]]]:
+    """Each CTA's items as the kernel walks them: CTA ``i`` of ``ctas``
+    takes items i, i + ctas, i + 2 ctas, ... of the tile-major list of the
+    ``n_tiles * B * parts`` (tile, frame, part) items."""
+    per_tile = B * parts
+    return [[(j // per_tile, j % per_tile // parts, j % parts)
+             for j in range(i, n_tiles * per_tile, ctas)] for i in range(ctas)]
+
+
+def launch_parts(bt: BlurTables, B: int, ctas: int) -> int:
+    """Parts per tile for a launch of ``B`` frames on ``ctas`` CTAs: the
+    fewest that give every CTA ``ITEMS_PER_CTA`` items, but none that
+    leaves a part of the shortest tile under ``PART_ROWS_MIN`` rows, and
+    no more than one item per CTA where the tile-frames fit on the CTAs
+    (a second round for a few CTAs would double a small batch's time); 1
+    for the direct kernel.  ``port_tools/k1_variants.py --parts`` times
+    the alternatives."""
+    if bt.ring_ry < 0:
+        return 1
+    items = bt.tiles.shape[0] * B
+    parts = max(1, min(-(-ITEMS_PER_CTA * ctas // items), bt.min_rows // PART_ROWS_MIN))
+    return max(1, min(parts, ctas // items)) if items <= ctas else parts
+
+
+def grid_ctas(n_items: int, resident: int) -> int:
+    """The persistent grid: every CTA the card holds at once
+    (``resident``), but no more than there are items."""
+    return max(1, min(n_items, resident))
 
 
 def _lib() -> ctypes.CDLL:
@@ -195,14 +296,23 @@ def _lib() -> ctypes.CDLL:
             _c_void_p, _c_int,  # tiles, n_tiles
             _c_void_p, _c_void_p, _c_int,  # kx, rx, lx
             _c_void_p, _c_void_p, _c_int,  # ky, ry, ly
-            _c_int, _c_int, _c_int,  # ring_ry, frames per CTA, buffer bytes
-            _c_int, _c_int,  # vec_in, vec_out
+            _c_int, _c_int,  # ring_ry, columns per thread
+            _c_int, _c_int, _c_int, _c_int,  # row bytes, pitch, slab, stages
+            _c_int, _c_int, _c_int, _c_int,  # parts, copy, ctas, vec_out
             _c_void_p,  # stream
         ]
         fn.restype = _c_int
+        lib.t360_blur_attrs.argtypes = [_c_int] * 6 + [_c_void_p]
+        lib.t360_blur_attrs.restype = _c_int
         lib.t360_error_string.argtypes = [_c_int]
         lib.t360_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _error(lib: ctypes.CDLL, err: int) -> str:
+    if err < 0:
+        return f"cuTensorMapEncodeTiled returned CUresult {-err}"
+    return lib.t360_error_string(err).decode()
 
 
 def _check_input(bt: BlurTables, x: torch.Tensor) -> None:
@@ -220,6 +330,117 @@ def _check_input(bt: BlurTables, x: torch.Tensor) -> None:
         raise ValueError(f"plane on {x.device} but the blur tables on {bt.kx.device}")
 
 
+def copy_mode(bt: BlurTables, x: torch.Tensor) -> int:
+    """How a launch stages ``x``: by TMA when its rows and base are
+    16-byte aligned (TMA's rule) and a row holds a staged row (a box is no
+    wider than the plane), else by the producer warp's loads."""
+    rows = bt.W * bt.sample_bytes
+    tma = rows % 16 == 0 and rows >= bt.row_bytes and x.data_ptr() % 16 == 0
+    return COPY_TMA if tma else COPY_WARP
+
+
+def kernel_attrs(bt: BlurTables, stages: int = STAGES, lib: ctypes.CDLL = None,
+                 cols: int = 8) -> dict:
+    """K1's instantiation for ``bt`` and ``cols`` columns per thread on
+    the current GPU: its registers, local memory bytes (spills and stack),
+    resident CTAs per SM and dynamic shared memory for a launch with a
+    ring of ``stages``, its threads per CTA, and the stages."""
+    lib = lib or _lib()
+    out = (_c_int * 5)()
+    err = lib.t360_blur_attrs(bt.sample_bytes, bt.ring_ry, cols, bt.pitch, bt.slab, stages, out)
+    if err:
+        raise RuntimeError(f"blur kernel attributes: {_error(lib, err)}")
+    return dict(zip(("registers", "local_bytes", "ctas_per_sm", "smem_bytes", "threads"), out),
+                stages=stages, cols=cols)
+
+
+def resident_ctas(lib: ctypes.CDLL, bt: BlurTables, stages: int = STAGES, cols: int = 8) -> int:
+    """CTAs of K1 resident on all of the current card's SMs at once for a
+    launch of ``bt`` (memoized per card, sample size, kernel and shared
+    memory)."""
+    dev = torch.cuda.current_device()
+    key = (dev, bt.sample_bytes, bt.ring_ry, cols, bt.pitch * bt.slab * stages)
+    with _LOCK:
+        n = _RESIDENT.get(key)
+    if n is None:
+        per_sm = kernel_attrs(bt, stages, lib, cols)["ctas_per_sm"]
+        if per_sm <= 0:
+            raise RuntimeError(f"blur kernel: no CTA fits an SM with a ring of {key[4]} B")
+        n = per_sm * torch.cuda.get_device_properties(dev).multi_processor_count
+        with _LOCK:
+            _RESIDENT[key] = n
+    return n
+
+
+def launch_cols(lib: ctypes.CDLL, bt: BlurTables, B: int, stages: int = STAGES) -> int:
+    """Columns per thread of a ring launch of ``B`` frames of ``bt``:
+    :func:`thread_cols` on the 16-column instantiation's resident CTAs,
+    where there is one (uint8 at y radius 1), else 8."""
+    if bt.sample_bytes == 1 and bt.ring_ry == 1:
+        return thread_cols(bt, B, resident_ctas(lib, bt, stages, 16))
+    return 8
+
+
+def geometry(lib: ctypes.CDLL, bt: BlurTables, B: int, stages: int = STAGES, *, cols: int = 0,
+             parts: int = 0, ctas: int = 0) -> Tuple[int, int, int]:
+    """(columns per thread, parts per tile, CTAs) of a launch of ``B``
+    frames of ``bt`` with a ring of ``stages``, each as given or, where 0,
+    as the launch picks it: :func:`launch_cols`, :func:`launch_parts` and
+    the persistent grid (:func:`grid_ctas`); the direct kernel takes 8,
+    1 and a CTA per item."""
+    n = bt.tiles.shape[0]
+    if bt.ring_ry < 0:
+        return 8, 1, ctas or n * B
+    cols = cols or launch_cols(lib, bt, B, stages)
+    resident = resident_ctas(lib, bt, stages, cols)
+    parts = parts or launch_parts(bt, B, resident)
+    return cols, parts, ctas or grid_ctas(n * B * parts, resident)
+
+
+def launch(lib: ctypes.CDLL, bt: BlurTables, x: torch.Tensor, out: torch.Tensor, stream: int,
+           maxval: int = 255) -> None:
+    """One launch of K1 from ``lib`` over ``bt``'s tiles into ``out`` on
+    the CUDA stream ``stream``; uint16 samples round and saturate to
+    ``maxval``.  The plane's alignment picks the copy (:func:`copy_mode`)
+    and the batch the rest (:func:`geometry`), memoized in ``bt``.  Raises
+    if the launch fails."""
+    key = (x.device.index, x.shape[0], x.data_ptr() % 16 == 0)
+    g = bt.memo.get(key)
+    if g is None:
+        g = bt.memo[key] = (copy_mode(bt, x), STAGES, *geometry(lib, bt, x.shape[0]))
+    _call(lib, bt, x, out, stream, maxval, *g)
+
+
+def _launch(lib: ctypes.CDLL, bt: BlurTables, x: torch.Tensor, out: torch.Tensor, stream: int,
+            maxval: int = 255, *, copy: int = -1, stages: int = STAGES, parts: int = 0,
+            ctas: int = 0, cols: int = 0) -> None:
+    """:func:`launch` with each choice open to the tests and
+    ``port_tools/``: the copy (-1: :func:`copy_mode`), the ring's depth,
+    and the columns per thread, parts per tile and CTAs (0: as
+    :func:`geometry` picks them); nothing memoized."""
+    copy = copy_mode(bt, x) if copy < 0 else copy
+    g = geometry(lib, bt, x.shape[0], stages, cols=cols, parts=parts, ctas=ctas)
+    _call(lib, bt, x, out, stream, maxval, copy, stages, *g)
+
+
+def _call(lib: ctypes.CDLL, bt: BlurTables, x: torch.Tensor, out: torch.Tensor, stream: int,
+          maxval: int, copy: int, stages: int, cols: int, parts: int, ctas: int) -> None:
+    B = x.shape[0]
+    n = bt.tiles.shape[0]
+    err = lib.t360_blur(
+        x.data_ptr(), out.data_ptr(), bt.sample_bytes, maxval, B, bt.H, bt.W,
+        bt.tiles.data_ptr(), n,
+        bt.kx.data_ptr(), bt.rx.data_ptr(), bt.kx.shape[1],
+        bt.ky.data_ptr(), bt.ry.data_ptr(), bt.ky.shape[1],
+        bt.ring_ry, cols, bt.row_bytes, bt.pitch, bt.slab, stages, parts, copy,
+        min(ctas, n * B * parts),
+        int(bt.W % 16 == 0 and out.data_ptr() % 16 == 0),
+        stream,
+    )
+    if err:
+        raise RuntimeError(f"blur kernel launch failed: {_error(lib, err)}")
+
+
 def blur_px(bt: BlurTables, x: torch.Tensor, maxval: int = 255) -> torch.Tensor:
     """Prefilter + half-up round: ``[B, H, W]`` samples → same shape and
     dtype, on ``x``'s device: uint8 (saturated at 255), or uint16
@@ -234,24 +455,10 @@ def blur_px(bt: BlurTables, x: torch.Tensor, maxval: int = 255) -> torch.Tensor:
         return round_px(blur_plain(bt.plan, x.float()), maxval, x.dtype)
     if x.device.type != "cuda":
         raise ValueError(f"blur runs on cpu or cuda tensors, not {x.device}")
-    B = x.shape[0]
-    n = bt.tiles.shape[0]
     out = torch.empty_like(x)
     lib = _lib()
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.t360_blur(
-            x.data_ptr(), out.data_ptr(), bt.sample_bytes, maxval, B, bt.H, bt.W,
-            bt.tiles.data_ptr(), n,
-            bt.kx.data_ptr(), bt.rx.data_ptr(), bt.kx.shape[1],
-            bt.ky.data_ptr(), bt.ry.data_ptr(), bt.ky.shape[1],
-            bt.ring_ry, frames_per_cta(B, n), bt.buf_bytes,
-            int(bt.W * bt.sample_bytes % 16 == 0 and x.data_ptr() % 16 == 0),
-            int(bt.W % 4 == 0 and out.data_ptr() % (4 * bt.sample_bytes) == 0),
-            stream,
-        )
-    if err:
-        raise RuntimeError(f"blur kernel launch failed: {lib.t360_error_string(err).decode()}")
+        launch(lib, bt, x, out, torch.cuda.current_stream(x.device).cuda_stream, maxval)
     if bt.sample_bytes == 1:
         LAUNCHES += 1
     else:
