@@ -13,8 +13,15 @@ nvcc and CUDA PyTorch (no jax needed).  Phases:
    K4's SASS counts (instructions, shared, generic and local loads and
    stores) per instantiation; for every instantiation of K3 (uint8 and
    uint16 samples) its registers and local (spill) bytes as the runtime
-   reports them and the count of int-to-float conversions (``I2F``,
-   ``I2FP``) in its SASS (``cuobjdump -sass``; K3 must have none), and
+   reports them, its resident CTAs per SM at class 0's window bytes, and
+   the counts of int-to-float conversions
+   (``I2F``, ``I2FP``), float64 products (``DMUL``) and float64-to-float32
+   conversions (``F2F.F32.F64``) in its SASS (``cuobjdump -sass``; K3
+   must have none of them, and its uint8 instantiations with T <= 4 no
+   spill), its frame loop's SASS per output pixel by pipe (its copy loops
+   apart) from a loop build with every tile staged (``k3_loop_source``,
+   ``k3_loop_counts``), which phases 5 and 9 turn into K3's issue bound,
+   and
    the same counts for K1's instantiations (its uint16 ones may hold no
    more than its uint8 ones; its ring kernels no ``F2I``, and the
    flagship's, uint8 at y radius 1, no ``LDL`` or ``STL``); K1's row loop
@@ -34,13 +41,17 @@ nvcc and CUDA PyTorch (no jax needed).  Phases:
    kernel on the same frames beside it; K3 (remap) against ``remap_plain`` at
    the flagship's shapes at batch 1, 2 and 7, on small barrel cases for
    the clamp-with-fill (linear) and REFLECT_101 (lanczos4) rules and a
-   cubemap whose width is not a multiple of the tile's, and on the
-   flagship luma at batch 8 ... 128 (the JAX package's B2-B4 range) and
-   the stacked chroma at 256; the uint16 instantiations of K1 and K3
+   cubemap whose width is not a multiple of the tile's, on the main
+   path's frames at the batches it gives K3 (flagship luma at 1, 16 and
+   128, through the JAX package's B2-B4 range 8 ... 128, and the stacked
+   chroma at 2 and 256) and at the 2x2 supersampled plan's scaled size
+   (128 luma frames, 256 chroma planes), TF32 on and off, failing on any
+   difference; the uint16 instantiations of K1 and K3
    against the same plain versions, TF32 on and off: the 10-bit
    flagship's luma at batch 1, 7 and 128 and stacked chroma at 256, 16-bit
    planes with samples at 65535, and a 10-bit barrel chroma plane whose
-   corners hold the neutral 512; K4 (INTER_AREA + round) against
+   corners hold the neutral 512 (K3 failing on any difference); K4
+   (INTER_AREA + round) against
    ``area_plain`` at 0 LSB, uint8 and uint16, TF32 on and off, on the 2x2
    flagship's luma (128 frames) and stacked chroma (256), at 1.5x2, 4x4,
    the upscale branch and one latency band's rows, with its tile plans
@@ -56,8 +67,9 @@ nvcc and CUDA PyTorch (no jax needed).  Phases:
 5. times with CUDA events after warm-up (medians, with a tail percentile
    and the sample count): K1 and K3 beside their plain versions on 16
    luma frames, and K3 on the 256 stacked chroma planes of the batch
-   path, in turns, each with its bound; K1's issue bound there and per
-   batch-128 step, beside its byte and float-operation bounds; the whole flagship step at batch
+   path, in turns, each with its bound; K1's and K3's issue bounds there
+   and per batch-128 step, beside their byte and float-operation bounds;
+   the whole flagship step at batch
    128 (with the SM clock and power draw read while it runs), and its
    stages one by one;
 6. the latency path: ``transform(y, u, v)`` with ``[H, W]`` planes, the
@@ -163,7 +175,7 @@ Bound for kernel vs plain: at most 1 LSB on under 0.5% of the pixels
 (the kernels are built to be bit-identical, so 0 is expected).  A
 kernel's ``bound_ms`` is the larger of its compulsory bytes at 3.35 TB/s
 and its float operations (each product and sum, never fused) at 33.45e12
-a second; K1's line adds ``issue_bound_ms`` from its SASS.  Every
+a second; K1's and K3's lines add ``issue_bound_ms`` from their SASS.  Every
 timing line carries ``nvidia-smi``'s name and power limit.  The
 second-to-last line is a JSON object with each kernel's numbers; the last
 is ``{"ok": true, "device": {...}}``.  The kernels line lists each kernel's
@@ -496,8 +508,9 @@ def sass_counts(lib_path, pattern: str) -> dict:
     """{key: counts} for each kernel function of the library's SASS whose
     mangled name matches ``pattern`` (its groups make the key):
     instructions, int-to-float conversions (I2F, I2FP), LDS, generic loads
-    (LD), local loads and stores (LDL, STL: spills) and float-to-int
-    conversions (F2I)."""
+    (LD), local loads and stores (LDL, STL: spills), float-to-int
+    conversions (F2I), float64 products (DMUL) and float64-to-float32
+    conversions (F2F.F32.F64, as ``F2F64``)."""
     out = subprocess.run([cuobjdump_path(), "-sass", str(lib_path)], capture_output=True,
                          text=True, check=True, timeout=600).stdout
     res, cur = {}, None
@@ -507,17 +520,20 @@ def sass_counts(lib_path, pattern: str) -> dict:
             cur = m.groups() if m else None
             if cur:
                 res[cur] = {"instructions": 0, "I2F": 0, "LDS": 0, "LD": 0, "LDL": 0,
-                            "STL": 0, "F2I": 0}
+                            "STL": 0, "F2I": 0, "DMUL": 0, "F2F64": 0}
             continue
-        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)([.A-Z0-9_]*)",
+                      line)
         if cur and m:
             op = m.group(1)
             c = res[cur]
             c["instructions"] += 1
             if op in ("I2F", "I2FP"):
                 c["I2F"] += 1
-            elif op in ("LDS", "LD", "LDL", "STL", "F2I"):
+            elif op in ("LDS", "LD", "LDL", "STL", "F2I", "DMUL"):
                 c[op] += 1
+            elif op == "F2F" and m.group(2).startswith(".F32.F64"):
+                c["F2F64"] += 1
     if not res:
         raise SystemExit(f"FAIL no function matching {pattern} in the SASS of {lib_path}")
     return res
@@ -543,7 +559,7 @@ PIPES = {"float": ("FMUL", "FADD", "FMNMX"),
 STORE_BYTES = {"U8": 1, "S8": 1, "U16": 2, "S16": 2, "64": 8, "128": 16}
 
 
-def loop_counts(lib_path, pattern: str, sample_bytes: dict) -> dict:
+def loop_counts(lib_path, pattern: str, sample_bytes: dict, innermost: bool = True) -> dict:
     """{key: counts per output pixel} of the innermost loop with the most
     FMULs in each kernel function of the library's SASS whose mangled name
     matches ``pattern`` (its groups make the key): every opcode and each
@@ -552,7 +568,11 @@ def loop_counts(lib_path, pattern: str, sample_bytes: dict) -> dict:
     ``px_per_iteration``.  A loop is the range from a backward branch's
     target to the branch, innermost if it holds no other; built with one x
     radius (a probe build), that radius's row loop is the one with the most
-    FMULs."""
+    FMULs.  With ``innermost`` False the loop is the one with the most
+    FMULs of its own (outside the loops it holds: K3's frame loop holds
+    its copy loops), and the loops it holds are counted once,
+    as if each ran one iteration; ``nested`` is their share of
+    ``total``."""
     out = subprocess.run([cuobjdump_path(), "-sass", str(lib_path)], capture_output=True,
                          text=True, check=True, timeout=600).stdout
     funcs, cur = {}, None
@@ -575,12 +595,15 @@ def loop_counts(lib_path, pattern: str, sample_bytes: dict) -> dict:
                 loops.append((int(t.group(1), 16), addr))
         best = None
         for lo, hi in loops:
-            if any(lo <= a and b <= hi and (a, b) != (lo, hi) for a, b in loops):
-                continue  # not innermost
+            inner = [(a, b) for a, b in loops if lo <= a and b <= hi and (a, b) != (lo, hi)]
+            if innermost and inner:
+                continue
             body = [o for a, o, _ in ins if lo <= a <= hi]
-            n_fmul = sum(o.split(".")[0] == "FMUL" for o in body)
+            own = [o for a, o, _ in ins
+                   if lo <= a <= hi and not any(x <= a <= y for x, y in inner)]
+            n_fmul = sum(o.split(".")[0] == "FMUL" for o in own)
             if best is None or n_fmul > best[0]:
-                best = (n_fmul, body)
+                best = (n_fmul, body, len(body) - len(own))
         if best is None:
             continue
         body = best[1]
@@ -596,6 +619,7 @@ def loop_counts(lib_path, pattern: str, sample_bytes: dict) -> dict:
         for pipe, names in PIPES.items():
             c[pipe] = sum(ops.get(n, 0) for n in names) / px
         c["total"] = len(body) / px
+        c["nested"] = best[2] / px
         c["px_per_iteration"] = px
         res[key] = c
     return res
@@ -660,6 +684,33 @@ def k1_sass(lib_path) -> dict:
     raw = sass_counts(lib_path, r"blur_(ring|direct)_kernelI([ht])(?:Li(\d+)ELi(\d+)E)?E")
     return {(SAMPLE[s], f"ring y radius {ry}, {v} columns" if k == "ring" else "direct"): c
             for (k, s, ry, v), c in raw.items()}
+
+
+# What K3's loop build rewrites in its source, once: the test for a
+# staged tile, made true, so that the global path drops out of the frame
+# loop and the loop with the most FMULs of its own is the staged one.
+K3_LOOP_EDIT = ("const bool staged = pitch > 0;", "const bool staged = true;")
+
+
+def k3_loop_source(src: str) -> str:
+    """K3's source ``src`` with every tile staged (``K3_LOOP_EDIT``)."""
+    old, new = K3_LOOP_EDIT
+    if src.count(old) != 1:
+        raise SystemExit("FAIL cannot drop the global path of this window.cu: no loop edit matches")
+    return src.replace(old, new)
+
+
+def k3_loop_counts(lib_path) -> dict:
+    """{(sample, T, MODE): counts per output pixel} of each K3
+    instantiation's frame loop in a loop build (``k3_loop_source``;
+    ``loop_counts`` with ``innermost`` False), with ``own``: ``total``
+    without the loops the frame loop holds (its copy loops, whose trips
+    per frame follow the window, about 0.6 chunks a thread at the
+    flagship)."""
+    raw = loop_counts(lib_path, r"window_kernelI([ht])Li(\d+)ELi(\d+)E", {"h": 1, "t": 2},
+                      innermost=False)
+    return {(SAMPLE[s], int(t), int(m)): dict(c, own=c["total"] - c["nested"])
+            for (s, t, m), c in raw.items()}
 
 
 STUB_FFPROBE = """import os, sys
@@ -762,15 +813,19 @@ def main() -> int:
     t0 = time.perf_counter()
     from concurrent.futures import ThreadPoolExecutor
 
-    with ThreadPoolExecutor(max_workers=1) as ex:  # the probes' nvccs beside the kernels'
+    with ThreadPoolExecutor(max_workers=2) as ex:  # the probes' nvccs beside the kernels'
         probe_builds = ex.submit(k1_probe_builds, _build.CSRC)
+        k3_loop_build = ex.submit(_build._build, "window", (),
+                                  k3_loop_source((_build.CSRC / "window.cu").read_text()),
+                                  _build.CSRC, "loop build")
         _build.build_all(["blur", "window", "area"])
         probes = probe_builds.result()
-    say(f"[2] built blur.cu + window.cu + area.cu for sm_90a, and K1's probe builds at x "
-        f"radius {K1_PROBE_RX}, in {time.perf_counter() - t0:.2f} s, one nvcc each in "
-        f"parallel (nvcc: {_build.BUILD_SECONDS})")
+        k3_loop_lib = k3_loop_build.result()
+    say(f"[2] built blur.cu + window.cu + area.cu for sm_90a, K1's probe builds at x "
+        f"radius {K1_PROBE_RX} and K3's loop build, in {time.perf_counter() - t0:.2f} s, one "
+        f"nvcc each in parallel (nvcc: {_build.BUILD_SECONDS})")
     for name, log in _build.BUILD_LOG.items():
-        if "probe" in name:
+        if "probe" in name or "loop build" in name:
             continue
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
@@ -780,21 +835,43 @@ def main() -> int:
         f"{window.CLASS_BYTES} B)")
     sass = k3_sass(_build._build("window"))
     modes = ("wrap", "fill", "reflect")
+    spills = []
+    win0 = window.CLASS_BYTES[0]
     for sb, sname in ((1, "u8"), (2, "u16")):
         for taps in (1, 2, 4, 8):
             parts = []
             for mode, mname in enumerate(modes):
-                at = window.kernel_attrs(taps, mode, 0, sb)
+                at = window.kernel_attrs(taps, mode, win0, sb)
                 c = sass[(sname, taps, mode)]
+                if sb == 1 and taps <= 4 and (at["local_bytes"] or c["LDL"] or c["STL"]):
+                    spills.append((sname, taps, mname))
                 parts.append(f"{mname} {at['registers']} registers, {at['local_bytes']} B "
-                             f"local, {c['instructions']} instructions, {c['LDS']} LDS, "
-                             f"{c['I2F']} I2F, {c['F2I']} F2I")
+                             f"local, {at['ctas_per_sm']} CTAs per SM at {win0} B windows; "
+                             f"{c['instructions']} instructions, {c['LDS']} LDS, {c['I2F']} "
+                             f"I2F, {c['F2I']} F2I, {c['DMUL']} DMUL, {c['F2F64']} "
+                             f"F2F.F32.F64, {c['LDL']} LDL, {c['STL']} STL")
             say(f"    K3 {sname} T={taps}: " + "; ".join(parts))
-    n_i2f = sum(c["I2F"] for c in sass.values())
-    say(f"    K3 SASS: {n_i2f} int-to-float conversions (I2F, I2FP) in {len(sass)} "
-        f"instantiations (uint8 and uint16)")
-    if n_i2f or len(sass) != 24:
-        raise SystemExit(f"FAIL K3's SASS holds {n_i2f} I2F/I2FP in {len(sass)} instantiations")
+    n_bad = {k: sum(c[k] for c in sass.values()) for k in ("I2F", "DMUL", "F2F64")}
+    say(f"    K3 SASS: {n_bad['I2F']} int-to-float conversions (I2F, I2FP), {n_bad['DMUL']} "
+        f"DMUL and {n_bad['F2F64']} F2F.F32.F64 in {len(sass)} instantiations (uint8 and "
+        f"uint16); spills in the uint8 instantiations with T <= 4: {spills}")
+    if any(n_bad.values()) or len(sass) != 24 or spills:
+        raise SystemExit(f"FAIL K3's SASS holds {n_bad} in {len(sass)} instantiations, or "
+                         f"its uint8 instantiations with T <= 4 spill: {spills}")
+    k3_px = k3_loop_counts(k3_loop_lib)  # {(sample, T, MODE): counts per output pixel}
+    for (sname, taps, mode), c in sorted(k3_px.items()):
+        if taps == 4 or mode == 0:
+            say(f"    K3 {sname} T={taps} {modes[mode]}, frame loop per output pixel "
+                f"({c['px_per_iteration']:.0f} pixels an iteration): {c['own']:.3f} "
+                f"instructions without the copy loops it holds ({c['total']:.3f} with them, "
+                f"counted once); "
+                + ", ".join(f"{pipe} {c[pipe]:.3f}" for pipe in PIPES)
+                + "; " + ", ".join(f"{o} {c[o]:.3f}" for o in sorted(c)
+                                   if o.isupper() and c[o] >= 0.1))
+    # T = 1 has no product to find its frame loop by
+    want_px = {(sn, taps, mode) for sn in ("u8", "u16") for taps in (2, 4, 8) for mode in range(3)}
+    if not want_px <= set(k3_px):
+        raise SystemExit(f"FAIL K3's loop build gave no frame loop for {sorted(want_px - set(k3_px))}")
     k1 = k1_sass(_build._build("blur"))
     for (sname, kname), c in sorted(k1.items()):
         say(f"    K1 {sname} {kname}: {c['instructions']} instructions, {c['I2F']} I2F, "
@@ -982,18 +1059,29 @@ def main() -> int:
                 err["window"] = max(err["window"], compare(got, want, f"K3 {what}"))
         say(f"[3] K3 vs remap_plain, {what} {iw}x{ih} -> {ow}x{oh}, luma and chroma, "
             f"batch 1 and 3: max |diff| {err['window']} LSB")
-    for pname, xs, t, wt, sizes in (("luma", yb, luma_t, luma_w, (8, 16, 32, 64, 128)),
-                                    ("chroma", cb, chroma_t, chroma_w, (2 * BATCH,))):
-        for b in sizes:
-            got = window.remap_window_px(wt, xs[:b])
-            for f0 in range(0, b, 32):  # the plain version in slices of 32 frames
-                want = round_u8(remap_plain(t.remap, xs[f0:min(b, f0 + 32)]))
-                err["window"] = max(err["window"], compare(
-                    got[f0:f0 + 32], want, f"K3 {pname} b={b}"))
-            del got, want
-    say(f"[3] K3 vs remap_plain on the flagship luma at batch 8, 16, 32, 64, 128 (the "
-        f"JAX package's B2-B4 range) and the stacked chroma at {2 * BATCH}: max |diff| "
-        f"{err['window']} LSB")
+    # K3 on the main path's frames at the batches it is given there (1, 16
+    # and 128 luma frames, 2 and 256 stacked chroma planes) and through the
+    # JAX package's B2-B4 range (8 ... 128)
+    k3_path = (("luma", yb, luma_t, luma_w, (1, 8, 16, 32, 64, 128)),
+               ("chroma", cb, chroma_t, chroma_w, (2, 2 * BATCH)))
+    for tf32 in (True, False):
+        torch.backends.cudnn.allow_tf32 = tf32
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        for pname, xs, t, wt, sizes in k3_path:
+            for b in sizes:
+                got = window.remap_window_px(wt, xs[:b])
+                for f0 in range(0, b, 32):  # the plain version in slices of 32 frames
+                    want = round_u8(remap_plain(t.remap, xs[f0:min(b, f0 + 32)]))
+                    err["window"] = max(err["window"], compare(
+                        got[f0:f0 + 32], want, f"K3 {pname} b={b}"))
+                del got, want
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    say(f"[3] K3 vs remap_plain on the main path's video-like frames, flagship luma at batch "
+        f"1, 8, 16, 32, 64, 128 and the stacked chroma at 2 and {2 * BATCH}, TF32 on and off: "
+        f"max |diff| {err['window']} LSB")
+    if err["window"]:
+        raise SystemExit(f"FAIL K3 differs from remap_plain by {err['window']} LSB")
 
     def check_u16(pp, x, what, tf32s=(True, False)):
         """K1 then K3, uint16, against their plain versions on the same
@@ -1046,11 +1134,32 @@ def main() -> int:
     say(f"[3] K1 and K3 uint16 on 16-bit planes with samples at 65535 (flagship luma and "
         f"chroma) and a 10-bit barrel chroma plane (corners {sorted(set(corners.flatten().tolist()))}"
         f"), TF32 on and off: max |diff| K1 {err['blur_u16']}, K3 {err['window_u16']} LSB")
+    if err["window_u16"]:
+        raise SystemExit(f"FAIL K3 uint16 differs from remap_plain by {err['window_u16']} LSB")
 
     # K4 against area_plain: the 2x2 flagship's luma and stacked chroma, 1.5x2,
     # 4x4, the upscale branch and a latency band's rows, uint8 and uint16
     ss = open_filter(SUPERSAMPLED, IN_W, IN_H, device="cuda")
     sp = ss.plan
+    # K3 at the supersampled plan's scaled size, on the path's batches
+    for tf32 in (True, False):
+        torch.backends.cudnn.allow_tf32 = tf32
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        for pp, xs in ((sp.luma, yb), (sp.chroma, cb)):
+            got = window.remap_window_px(pp.window_tables("cuda"), xs)
+            for f0 in range(0, xs.shape[0], 16):
+                want = round_u8(remap_plain(pp.tables("cuda").remap, xs[f0:f0 + 16]))
+                err["window"] = max(err["window"], compare(
+                    got[f0:f0 + 16], want, f"K3 supersampled b={xs.shape[0]}"))
+            del got, want
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sw = [pp.window_tables("cuda") for pp in (sp.luma, sp.chroma)]
+    say(f"[3] K3 vs remap_plain at the 2x2 supersampled plan's scaled size ("
+        f"{sw[0].out_w}x{sw[0].out_h} luma, {BATCH} frames; {sw[1].out_w}x{sw[1].out_h} "
+        f"stacked chroma, {2 * BATCH} planes), TF32 on and off: max |diff| {err['window']} LSB")
+    if err["window"]:
+        raise SystemExit(f"FAIL K3 differs from remap_plain by {err['window']} LSB")
     area_cases = [("2x2 flagship luma", sp.luma.tables("cuda").area, BATCH),
                   ("2x2 flagship chroma (U+V)", sp.chroma.tables("cuda").area, 2 * BATCH)]
     for what, sizes, b in (("1.5x2", (2304, 2048, 1536, 1024), 7),
@@ -1140,7 +1249,7 @@ def main() -> int:
         "window": (lambda: window.remap_window_px(luma_w, bl),
                    lambda: round_u8(remap_plain(luma_t.remap, bl))),
     }
-    wplan_bytes = tensor_bytes(luma_w.meta, luma_w.pos, luma_w.fy, luma_w.fx, luma_w.w1)
+    wplan_bytes = tensor_bytes(luma_w.meta, luma_w.pos, luma_w.fy, luma_w.fx, luma_w.wtab)
     bounds = {"blur": blur_bound(luma_t.blur, tb),
               "window": remap_bound(luma_t.remap, tb, wplan_bytes)}
     for name, (kern, plain_fn) in runs.items():
@@ -1175,7 +1284,26 @@ def main() -> int:
         f"{ {r: round(v, 3) for r, v in pxl.items()} }): issue "
         f"{k1_step['issue_bound_ms']:.4f} ms, bytes {k1_step['bytes_bound_ms']:.4f}, float "
         f"operations {k1_step['operations_bound_ms']:.4f}  ({smi})")
-    cplan_bytes = tensor_bytes(chroma_w.meta, chroma_w.pos, chroma_w.fy, chroma_w.fx, chroma_w.w1)
+    # K3's issue bound from its frame loop's SASS (phase 2's loop build):
+    # its instructions per output pixel and frame (the copy loops apart)
+    # times the pixel-frames
+    def k3_issue_bound(sname, wb):
+        per_px = k3_px[(sname, wb[0][0].taps, wb[0][0].mode)]["own"]
+        return issue_bound({0: per_px}, {0: float(sum(b * w.out_h * w.out_w for w, b in wb))},
+                           sm_mhz)
+
+    k3_issue = {"window": k3_issue_bound("u8", [(luma_w, tb)])}
+    k3_step = {"issue_bound_ms": k3_issue_bound("u8", [(luma_w, BATCH), (chroma_w, 2 * BATCH)]),
+               "bound_ms": remap_bound(luma_t.remap, BATCH, 0)[0] + remap_bound(
+                   chroma_t.remap, 2 * BATCH, 0)[0]}
+    say(f"[5] K3's issue bound: its frame loop's SASS instructions per output pixel "
+        f"({k3_px[('u8', luma_w.taps, luma_w.mode)]['own']:.3f}, uint8 T={luma_w.taps}, the copy "
+        f"loops apart), "
+        f"over {SMS} SMs x {LANES_PER_SM} lanes at {sm_mhz:.0f} MHz: {k3_issue['window']:.4f} "
+        f"ms on {tb} luma frames (bytes {bounds['window'][0]:.4f}); per batch-{BATCH} step "
+        f"(luma and stacked chroma): issue {k3_step['issue_bound_ms']:.4f} ms, bytes or "
+        f"float operations {k3_step['bound_ms']:.4f}  ({smi})")
+    cplan_bytes = tensor_bytes(chroma_w.meta, chroma_w.pos, chroma_w.fy, chroma_w.fx, chroma_w.wtab)
     cbound = remap_bound(chroma_t.remap, 2 * BATCH, cplan_bytes)
     km, pm, ks = in_turns(lambda: window.remap_window_px(chroma_w, cb),
                           lambda: round_u8(remap_plain(chroma_t.remap, cb)), rounds=5, per_round=4)
@@ -1377,7 +1505,7 @@ def main() -> int:
     del yl, cl
     xd = ydb[:tb].contiguous()
     xdf = xd.float()
-    dplan_bytes = tensor_bytes(dlw.meta, dlw.pos, dlw.fy, dlw.fx, dlw.w1)
+    dplan_bytes = tensor_bytes(dlw.meta, dlw.pos, dlw.fy, dlw.fx, dlw.wtab)
     for name, kern, plain_fn, bnd in (
         ("blur_u16", lambda: blur.blur_px(dlt.blur, xd, 1023),
          lambda: round_px(blur_plain(dlt.blur.plan, xdf), 1023, u16), blur_bound(dlt.blur, tb)),
@@ -1391,9 +1519,12 @@ def main() -> int:
         if name == "blur_u16":
             k1_issue[name] = issue_bound(k1_per_px("u16", dlt.blur, tb)[1],
                                          blur_pixels(dlt.blur, tb), sm_mhz)
+        else:
+            k3_issue[name] = k3_issue_bound("u16", [(dlw, tb)])
         say(f"[9] {name}: kernel median {km:.4f} ms (p75 {pct(ks, 0.75):.4f}, n={len(ks)}), "
             f"plain median {pm:.4f} ms per call on {tb} 10-bit luma frames {IN_W}x{IN_H}; "
-            f"bound {bnd[0]:.4f} ms ({bnd[1]}), {bnd[0] / km:.1%} of it reached  ({smi})")
+            f"bound {bnd[0]:.4f} ms ({bnd[1]}), {bnd[0] / km:.1%} of it reached; issue bound "
+            f"{(k1_issue if name == 'blur_u16' else k3_issue)[name]:.4f} ms  ({smi})")
     del xd, xdf, dy, du, dv
 
     # -- 10. supersampling + INTER_AREA -------------------------------------
@@ -1498,7 +1629,7 @@ def main() -> int:
             d[name] = statistics.median(cuda_times(fn, 10 if b > 1 else 50))
         k4b = area_bound(slt.area, b, 1)[0] + area_bound(sct.area, 2 * b, 1)[0]
         k4 = parts["K4 luma"] + parts["K4 chroma (U+V)"]
-        k3b = [remap_bound(t.remap, n, tensor_bytes(w.meta, w.pos, w.fy, w.fx, w.w1))
+        k3b = [remap_bound(t.remap, n, tensor_bytes(w.meta, w.pos, w.fy, w.fx, w.wtab))
                for t, w, n in ((slt, slw, b), (sct, scw, 2 * b))]
         k3 = parts["K3 luma (to the scaled size)"] + parts["K3 chroma (U+V)"]
         say(f"[10] supersampled batch-{b} stages, device medians: "
@@ -2177,7 +2308,10 @@ def main() -> int:
               step=dict(k1_step, ms=stages_b128["K1 luma"] + stages_b128["K1 chroma (U+V)"])),
         entry("window", "transform360_tpu_torch/csrc/window.cu",
               "transform360_tpu/ops/remap_pallas.py:441", serves="B5; B2, B3, B4 closed on it",
-              batches="all", shape="16 luma frames", chroma=chroma_k3),
+              batches="all", shape="16 luma frames", chroma=chroma_k3,
+              issue_bound_ms=k3_issue["window"],
+              sass_per_px=k3_px[("u8", luma_w.taps, luma_w.mode)]["own"],
+              step=dict(k3_step, ms=stages_b128["K3 luma"] + stages_b128["K3 chroma (U+V)"])),
         entry("blur_u16", "transform360_tpu_torch/csrc/blur.cu",
               "transform360_tpu/ops/blur_lane.py:269", serves="B1 at 10-16 bits",
               batches="all", shape="16 10-bit luma frames", issue_bound_ms=k1_issue["blur_u16"],
@@ -2185,7 +2319,8 @@ def main() -> int:
                                          for r in K1_PROBE_RX}}),
         entry("window_u16", "transform360_tpu_torch/csrc/window.cu",
               "transform360_tpu/ops/remap_pallas.py:441", serves="B5 at 10-16 bits",
-              batches="all", shape="16 10-bit luma frames"),
+              batches="all", shape="16 10-bit luma frames", issue_bound_ms=k3_issue["window_u16"],
+              sass_per_px=k3_px[("u16", dlw.taps, dlw.mode)]["own"]),
         entry("area", "transform360_tpu_torch/csrc/area.cu", "transform360_tpu/sampling.py:483",
               serves="the XLA stage apply_area_resize + round (pipeline.py:304-311 there); "
               "no pallas_call", batches="all",

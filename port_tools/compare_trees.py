@@ -25,7 +25,9 @@ graph and replayed, so that no host time enters; 20 calls issued back to
 back still wait on the host at one frame), the same for each window
 class's launch alone at one and 128 luma frames (``k3_class_ms_graph``:
 tiles, ms), the host's time to issue one call (``k3_host_ms``: 200 calls
-issued, then one synchronize), the prefilter kernel K1 alone at the same
+issued, then one synchronize), K3 by CUDA events on 128 10-bit luma
+frames and on the supersampled 2x2 plan's 128 luma frames and 256 chroma
+planes (``k3_more_ms``), the prefilter kernel K1 alone at the same
 shapes (``k1_ms``: the median by CUDA events around one call;
 ``k1_ms_graph``: the device time per call of 20 calls replayed as a CUDA
 graph; ``k1_host_ms``: the host's time to issue one call, the median of
@@ -165,6 +167,19 @@ def child(label: str, settings: list, supersampled: bool = False) -> None:
             remap(wt, x)
         res["k3_host_ms"][shape] = (time.perf_counter() - t0) * 1e3 / 200
         torch.cuda.synchronize()
+    # K3 on the deep and the supersampled paths' planes, by CUDA events
+    deep = P.open_filter(FLAGSHIP, 3840, 2160, pix_fmt="yuv420p10le", device="cuda").plan
+    dw = deep.luma.window_tables("cuda")
+    yd = (yb.int() * 1023 // 255).to(torch.uint16)
+    sp = P.open_filter(SUPERSAMPLED, 3840, 2160, device="cuda").plan
+    slw, scw = sp.luma.window_tables("cuda"), sp.chroma.window_tables("cuda")
+    res["k3_more_ms"] = {}
+    for shape, fn in (("10-bit 128 luma", lambda: remap(dw, yd, 1023)),
+                      ("supersampled 128 luma", lambda: remap(slw, yb)),
+                      ("supersampled 256 chroma", lambda: remap(scw, cb))):
+        cuda_times(fn, 3)
+        res["k3_more_ms"][shape] = statistics.median(cuda_times(fn, 10))
+    del yd
     lb, cbt = (pp.tables("cuda").blur for pp in (eng.plan.luma, eng.plan.chroma))
     res["k1_ms"], res["k1_ms_graph"], res["k1_host_ms"] = {}, {}, {}
     for shape, bt, x in (("16 luma", lb, yb[:16].contiguous()), ("1 luma", lb, yb[:1].contiguous()),

@@ -372,6 +372,67 @@ def test_window_kernel_ragged_width_and_every_word_offset(gpu):
     assert torch.equal(got, round_u8(remap_plain(pp.tables(gpu).remap, x)))
 
 
+@pytest.mark.parametrize("frames", [1, 2, 3, 5, 0])
+def test_window_kernel_frame_groups_and_passes(frames, gpu):
+    # a launch's frames per CTA (0: the whole batch) with one and two
+    # frames a pass, on batches that end mid-pass and mid-group (1, 2, 5,
+    # 17 frames), on the wrapping cubemap (windows across the seam), the
+    # barrel's clamp-with-fill and REFLECT_101 (lanczos4) and the global
+    # path (pole tiles)
+    g = torch.Generator(device=gpu).manual_seed(7)
+    lib, stream = window._lib(), torch.cuda.current_stream().cuda_stream
+    cases = [CASES[n] for n in ("cubic-cubemap", "linear-barrel", "lanczos4-barrel")]
+    cases.append((TransformConfig(**MONO), 2048, 1024, 192, 128))  # pole tiles: global path
+    for cfg, iw, ih, ow, oh in cases:
+        pp = P.build_plan(cfg, iw, ih, ow, oh, "gray").luma
+        wt = pp.window_tables(gpu)
+        x = torch.randint(0, 256, (17, ih, iw), dtype=torch.uint8, device=gpu, generator=g)
+        want = round_u8(remap_plain(pp.tables(gpu).remap, x))
+        for b in (1, 2, 5, 17):
+            for pair in (False, True):
+                out = torch.zeros((b, wt.out_h, wt.out_w), dtype=torch.uint8, device=gpu)
+                for group in wt.groups:
+                    window.launch_class(lib, wt, x[:b], out, group, min(frames or b, b),
+                                        pair and window.pairs(group[2]), stream)
+                assert torch.equal(out, want[:b]), (frames, iw, b, pair)
+
+
+@pytest.mark.parametrize("sample_bytes", [1, 2])
+def test_window_kernel_seam_rows_and_unaligned_rows(sample_bytes, gpu):
+    # a cubemap whose windows cross the seam (chunks past W come from
+    # column 0), and planes whose rows are not whole 16-byte chunks (250
+    # and 90 samples: every chunk sample by sample)
+    g = torch.Generator(device=gpu).manual_seed(8)
+    mx = 255 if sample_bytes == 1 else 65535
+    for iw, ih in ((512, 256), (250, 125), (90, 45)):
+        pp = P.build_plan(TransformConfig(**MONO), iw, ih, 150, 100,
+                          "gray" if sample_bytes == 1 else "gray16le").luma
+        wp = pp.window_plan()
+        staged = wp.meta[:, 5] > 0
+        assert (wp.meta[staged, 3] + wp.meta[staged, 5] > iw).any()  # across the seam
+        x = _rand_u16((5, ih, iw), mx, gpu, g) if sample_bytes == 2 else \
+            torch.randint(0, 256, (5, ih, iw), dtype=torch.uint8, device=gpu, generator=g)
+        for b in (1, 5):
+            got = window.remap_window_px(pp.window_tables(gpu), x[:b], mx)
+            want = round_px(remap_plain(pp.tables(gpu).remap, x[:b]), mx, pp.dtype)
+            assert _same(got, want), (iw, b)
+
+
+def test_window_kernel_latency_band_plans(gpu):
+    # the bands of a latency-band plan: each band's classes, few tiles
+    from transform360_tpu_torch.parallel import latency
+
+    plan = P.build_plan(TransformConfig(**MONO), 512, 256, 192, 128, "yuv420p")
+    g = torch.Generator(device=gpu).manual_seed(9)
+    for band in latency.band_plans(plan, 3):
+        for pp in (band.luma, band.chroma):
+            x = torch.randint(0, 256, (3, pp.in_h, pp.in_w), dtype=torch.uint8, device=gpu,
+                              generator=g)
+            for b in (1, 3):
+                got = window.remap_window_px(pp.window_tables(gpu), x[:b])
+                assert torch.equal(got, round_u8(remap_plain(pp.tables(gpu).remap, x[:b])))
+
+
 def test_engine_routes_by_batch_on_the_card(gpu):
     # every batch size launches K1 once per plane batch and K3 once per
     # window class present, and equals the CPU engine

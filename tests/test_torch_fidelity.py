@@ -25,7 +25,6 @@ import torch
 from transform360_tpu_torch import fidelity as F
 from transform360_tpu_torch import geometry, sampling
 from transform360_tpu_torch.config import Interpolation, StereoFormat
-from transform360_tpu_torch.ops import window
 from transform360_tpu_torch.pipeline import clear_executor_cache
 from transform360_tpu_torch.plan import clear_plan_cache
 
@@ -132,7 +131,7 @@ def _scaled_tap(interp, k):
 
 def test_gate_red_on_injected_cubic_tap_bug(small_want, fresh_plans, monkeypatch):
     bug = _scaled_tap(Interpolation.CUBIC, 1)
-    monkeypatch.setattr(window, "_tap_weights", bug)  # K3's tile plan
+    # the plain path's weights and K3's tile plan (sampling.weight_table)
     monkeypatch.setattr(sampling, "_tap_weights", bug)
     broken = F.bench_fidelity(want=small_want, **SMALL)
     assert broken["worst_db"] < 50.0, f"injected tap bug not detected: {broken}"
@@ -160,7 +159,6 @@ def test_gate_red_on_injected_stereo_offset_bug(small_want, fresh_plans, monkeyp
 
 def test_gate_red_on_injected_lanczos_weight_bug(small_want, fresh_plans, monkeypatch):
     bug = _scaled_tap(Interpolation.LANCZOS4, 3)
-    monkeypatch.setattr(window, "_tap_weights", bug)
     monkeypatch.setattr(sampling, "_tap_weights", bug)
     broken = F.bench_fidelity(want=small_want, **SMALL)
     assert broken["Y"] >= 50.0, "flagship (CUBIC) should stay green"

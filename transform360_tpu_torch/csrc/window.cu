@@ -13,10 +13,23 @@
 // remap for the deep formats (sampling.remap_const / remap_traced followed
 // by pipeline._round_px), which ran because B5 is uint8-only.
 //
-// What bounds it on the H100: instruction issue, not bytes.  A 4K luma
-// frame is 8.3 MB in and 1.6 MB out (twice that at uint16), but every output pixel gathers T x T
-// taps from anywhere in a window of the source, and each tap costs a load,
-// a conversion, a product and a sum.  K3 gives each CTA of 256 threads one
+// What bounds it on the H100: the latency of its frame loop, then issue;
+// not bytes.  A 4K luma frame is 8.3 MB in and 1.6 MB out (twice that at
+// uint16), but every output pixel gathers T x T taps from anywhere in a
+// window of the source, and each tap costs a load, a conversion, a product
+// and a sum: 115 SASS instructions per pixel and frame in the frame loop at
+// T = 4 (uint8; its copy loops apart), an issue bound of about 1.04 ms per
+// batch-128 flagship step, which K3 reaches at about 55%.  The windows come
+// from the plane as rows of 48-64 bytes (37 rows a 16x16 tile at the
+// flagship), a gather of short row fragments.  Measured on the H100
+// (PERF.md, K3 variants), these lose to the design below: TMA boxes or
+// bulk copies per row from a producer warp (the TMA unit moves the short
+// rows at about half the rate the CTAs' own 16-byte cp.async do), and a
+// persistent grid over an mbarrier-paced ring in place of the CTA
+// barriers (as many cycles per frame and CTA, with a longer tail).  Tensor
+// cores do not apply: each pixel is a gather with its own weights, summed
+// in a fixed order with every product and every sum rounded, which no
+// matrix product (wgmma) computes.  K3 gives each CTA of 256 threads one
 // 16x16 output tile, one pixel per thread: ops/window.py builds the plan on
 // the CPU.  Per tile, once for its frames:
 //   * the CTA resolves the border rule (wrap modulo the plane, clamp, or
@@ -25,9 +38,11 @@
 //     chunk table in shared memory: the chunk's offset in a frame, or a
 //     mark that it is copied sample by sample (across the seam or an edge,
 //     or a plane whose rows are not 16-byte aligned).  No division or modulo runs in K3;
-//   * each thread reads its pixel's plan entry and forms its weights
-//     float32(w1[fy][ty] * w1[fx][tx]) from the float64 table w1 [32, T]
-//     -- the very values of sampling.weight_table.
+//   * each thread reads its pixel's plan entry (in flight while the table
+//     is built) and its weights, row fy * 32 + fx of the float32 table
+//     sampling.weight_table -- float32(w1[fy][ty] * w1[fx][tx]) of the
+//     float64 taps, the very values the plain version forms -- in 16-byte
+//     loads (no float64 product or conversion runs in K3).
 // A CTA takes `frames` consecutive frames of the batch (blockIdx.y picks
 // which), so that a short batch of few tiles still fills the card.  Per
 // frame the CTA issues one 16-byte cp.async per chunk from the table,
@@ -80,7 +95,7 @@ struct Args {
   const uint32_t* pos;  // [n * 256]: ly | lx << 16, tile rows of 16
   const uint8_t* fy;    // fy | (not valid) << 7
   const uint8_t* fx;
-  const double* w1;  // [32, T]
+  const float* wtab;  // [32 * 32, T * T]: sampling.weight_table
   int B, H, W, out_h, out_w;
   int first, win_bytes;
   int frames;  // per CTA: frames [blockIdx.y * frames, ...) of the batch
@@ -272,19 +287,21 @@ __global__ void __launch_bounds__(kThreads, T * T <= 16 ? 4 : 2)
 
   // frame f + j of a pass with parity `half` is staged at
   // bufs + (half * fp + j) * win
-  if (staged)  // frame 0's window is in flight while the pixel is set up
+  // the pixel's plan entry is in flight while the chunk table is built,
+  // and frame 0's window while the pixel is set up
+  const size_t ip = static_cast<size_t>(t) * kThreads + threadIdx.x;
+  const uint32_t ps = __ldg(a.pos + ip);
+  const int fyb = __ldg(a.fy + ip);
+  const int fx = __ldg(a.fx + ip);
+  if (staged)
     chunk_table<S, MODE>(src, bufs, tab, y0, x0, wh, pitch >> kLogChunk<S>, a.H, a.W,
                          a.vec);
 
   const int oy = m[0] + threadIdx.x / kTW;
   const int ox = m[1] + threadIdx.x % kTW;
-  const size_t ip = static_cast<size_t>(t) * kThreads + threadIdx.x;
-  const uint32_t ps = a.pos[ip];
   const int ly = static_cast<int>(ps & 0xFFFFu);
   const int lx = static_cast<int>(ps >> 16);
-  const int fyb = a.fy[ip];
   const int fy = fyb & 0x7F;
-  const int fx = a.fx[ip];
   const bool invalid = (fyb >> 7) != 0;
   // staged: sample of the first tap in the window; else ly | lx << 16
   const int o = staged ? ly * pitch + lx : static_cast<int>(ps);
@@ -292,21 +309,24 @@ __global__ void __launch_bounds__(kThreads, T * T <= 16 ? 4 : 2)
   float w[T * T];
   float fill_w = 0.0f;
   if (T > 1) {
+    const float4* row = reinterpret_cast<const float4*>(a.wtab + (fy * 32 + fx) * (T * T));
 #pragma unroll
-    for (int ty = 0; ty < T; ++ty) {
-      const double wy = __ldg(a.w1 + fy * T + ty);
+    for (int i = 0; i < T * T / 4; ++i) {
+      const float4 v = __ldg(row + i);
+      w[4 * i] = v.x, w[4 * i + 1] = v.y, w[4 * i + 2] = v.z, w[4 * i + 3] = v.w;
+    }
+    if (MODE == 1) {  // absolute coordinates decide what lies outside
 #pragma unroll
-      for (int tx = 0; tx < T; ++tx) {
-        float wv = __double2float_rn(__dmul_rn(wy, __ldg(a.w1 + fx * T + tx)));
-        if (MODE == 1) {  // absolute coordinates decide what lies outside
+      for (int ty = 0; ty < T; ++ty) {
+#pragma unroll
+        for (int tx = 0; tx < T; ++tx) {
           const int yy = y0 + ly + ty;
           const int xx = x0 + lx + tx;
           if (yy < 0 || yy >= a.H || xx < 0 || xx >= a.W) {
-            fill_w = __fadd_rn(fill_w, wv);
-            wv = 0.0f;
+            fill_w = __fadd_rn(fill_w, w[ty * T + tx]);
+            w[ty * T + tx] = 0.0f;
           }
         }
-        w[ty * T + tx] = wv;
       }
     }
   }
@@ -390,10 +410,10 @@ cudaError_t allow_smem(const void* k, int smem) {
 template <typename S>
 cudaError_t launch(const void* k, const void* src, void* dst, int B, int H, int W, int out_h,
                    int out_w, const int* meta, const uint32_t* pos, const uint8_t* fy,
-                   const uint8_t* fx, const double* w1, int first, int tiles, int win_bytes,
+                   const uint8_t* fx, const float* wtab, int first, int tiles, int win_bytes,
                    float fill, float maxval, int vec, int frames, int pairs, int smem,
                    cudaStream_t stream) {
-  Args<S> a{static_cast<const S*>(src), static_cast<S*>(dst), meta, pos, fy, fx, w1,
+  Args<S> a{static_cast<const S*>(src), static_cast<S*>(dst), meta, pos, fy, fx, wtab,
             B, H, W, out_h, out_w, first, win_bytes, frames, fill, maxval, vec != 0,
             pairs != 0};
   void* args[] = {&a};
@@ -407,15 +427,15 @@ cudaError_t launch(const void* k, const void* src, void* dst, int B, int H, int 
 // (1: uint8; 2: uint16, rounded and saturated to maxval, the depth's
 // largest sample); meta int32 [n, 6] (out row, out col, y0, x0, wh, pitch
 // in samples; pitch 0: global path); pos uint32, fy/fx uint8 [n * 256],
-// tiles of 16x16; w1 float64 [32, taps].  Launches tiles first .. first +
-// tiles - 1, each CTA with 2 (pairs: 4) * win_bytes of window buffers and
+// tiles of 16x16; wtab float32 [32 * 32, taps * taps].  Launches tiles
+// first .. first + tiles - 1, each CTA with 2 (pairs: 4) * win_bytes of window buffers and
 // win_bytes / 4 of chunk table (win_bytes a multiple of 16), and `frames`
 // frames of the batch, one (pairs: two) per pass.  vec: W and src are
 // 16-byte aligned.
 extern "C" int t360_window(const void* src, void* dst, int sample_bytes, float maxval, int B,
                            int H, int W, int out_h, int out_w, const int* meta,
                            const uint32_t* pos, const uint8_t* fy, const uint8_t* fx,
-                           const double* w1, int first, int tiles, int win_bytes, int taps,
+                           const float* wtab, int first, int tiles, int win_bytes, int taps,
                            int mode, float fill, int vec, int frames, int pairs,
                            void* stream) {
   const void* k = kernel_for(sample_bytes, taps, mode);
@@ -431,9 +451,9 @@ extern "C" int t360_window(const void* src, void* dst, int sample_bytes, float m
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   e = sample_bytes == 1
-          ? launch<uint8_t>(k, src, dst, B, H, W, out_h, out_w, meta, pos, fy, fx, w1, first,
+          ? launch<uint8_t>(k, src, dst, B, H, W, out_h, out_w, meta, pos, fy, fx, wtab, first,
                             tiles, win_bytes, fill, maxval, vec, frames, pairs, smem, st)
-          : launch<uint16_t>(k, src, dst, B, H, W, out_h, out_w, meta, pos, fy, fx, w1, first,
+          : launch<uint16_t>(k, src, dst, B, H, W, out_h, out_w, meta, pos, fy, fx, wtab, first,
                              tiles, win_bytes, fill, maxval, vec, frames, pairs, smem, st);
   if (e != cudaSuccess) return static_cast<int>(e);
   T360_CHECK_LAUNCH();

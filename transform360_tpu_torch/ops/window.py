@@ -18,9 +18,9 @@ from device memory inside the same kernel.  Per pixel the plan keeps the
 window-relative first tap ``ly``/``lx`` (packed in one int32) and the
 1/32 fraction indices ``fy``/``fx`` (one byte each; bit 7 of ``fy``
 marks a pixel outside the transparent ``valid`` mask): 6 B per pixel.
-Weights come from the separable float64 table ``w1 [32, T]``:
-``float32(w1[fy, ty] * w1[fx, tx])`` is exactly the entry of
-:func:`..sampling.weight_table`.
+Weights come from the float32 table ``wtab`` (:func:`..sampling.weight_table`,
+row ``fy * 32 + fx``): ``float32(w1[fy, ty] * w1[fx, tx])`` of the float64
+taps.
 
 For a CUDA tensor :func:`remap_window_px` launches the kernel or
 raises; it never falls back.  ``LAUNCHES`` counts the uint8
@@ -44,11 +44,11 @@ from ..sampling import (
     SampleSpec,
     _TAPS,
     _resolve,
-    _tap_weights,
     as_gatherable,
     border_mode,
     frac_index,
     round_px,
+    weight_table,
 )
 from . import _build
 
@@ -129,7 +129,7 @@ class WindowPlan:
     pos: np.ndarray  # int32 [n * TH * TW]: ly | lx << 16
     fy: np.ndarray  # uint8 [n * TH * TW]: fy | (not valid) << 7
     fx: np.ndarray  # uint8 [n * TH * TW]
-    w1: np.ndarray  # float64 [32, T]
+    wtab: np.ndarray  # float32 [32 * 32, T * T]: sampling.weight_table
     groups: Tuple[Tuple[int, int, int], ...]  # launches: (first tile, tiles, window bytes)
     in_h: int
     in_w: int
@@ -231,10 +231,7 @@ def build_window_plan(spec: SampleSpec, fill: float, sample_bytes: int = 1) -> W
         pos=np.ascontiguousarray((ly | (lx << 16))[order].reshape(-1), np.int32),
         fy=np.ascontiguousarray(tiles(fy)[order].reshape(-1)),
         fx=np.ascontiguousarray(tiles(frac_index(spec.frac_x))[order].reshape(-1)),
-        w1=np.stack(
-            _tap_weights(spec.interp, np.arange(INTER_TAB_SIZE) / INTER_TAB_SIZE, np),
-            axis=1,
-        ).astype(np.float64),
+        wtab=weight_table(spec.interp),
         groups=tuple(groups),
         in_h=H,
         in_w=W,
@@ -255,7 +252,7 @@ class WindowTables:
     pos: torch.Tensor  # int32 [n * TH * TW]
     fy: torch.Tensor  # uint8 [n * TH * TW]
     fx: torch.Tensor  # uint8 [n * TH * TW]
-    w1: torch.Tensor  # float64 [32, T]
+    wtab: torch.Tensor  # float32 [32 * 32, T * T]
     groups: Tuple[Tuple[int, int, int], ...]
     in_h: int
     in_w: int
@@ -277,7 +274,7 @@ class WindowTables:
 
         return cls(
             meta=put(wp.meta), pos=put(wp.pos), fy=put(wp.fy), fx=put(wp.fx),
-            w1=put(wp.w1), groups=wp.groups, in_h=wp.in_h, in_w=wp.in_w,
+            wtab=put(wp.wtab), groups=wp.groups, in_h=wp.in_h, in_w=wp.in_w,
             out_h=wp.out_h, out_w=wp.out_w, taps=wp.taps, mode=wp.mode, fill=wp.fill,
             sample_bytes=wp.sample_bytes,
         )
@@ -288,7 +285,7 @@ def remap_window_plain(wt: WindowTables, x: torch.Tensor) -> torch.Tensor:
     ``[B, out_h, out_w]`` (before rounding), walking the tile plan as the
     kernel does.  A tap at window offset (i, j) of a tile reads source
     pixel (y0 + i, x0 + j) under the loader's border rule; its weight is
-    ``float32(w1[fy, ty] * w1[fx, tx])``; the sum runs ty-major and
+    the table's ``float32(w1[fy, ty] * w1[fx, tx])``; the sum runs ty-major and
     tx-minor, the fill term is added last, then the ``valid`` mask --
     the order of :func:`..sampling.remap_plain`, which it equals exactly."""
     B = x.shape[0]
@@ -316,7 +313,7 @@ def remap_window_plain(wt: WindowTables, x: torch.Tensor) -> torch.Tensor:
             if T == 1:
                 term = g
             else:
-                w = (wt.w1[fy, ty] * wt.w1[fx, tx]).float()
+                w = wt.wtab[fy * INTER_TAB_SIZE + fx, ty * T + tx]
                 if mode == BORDER_FILL:  # on absolute coordinates
                     outside = (yy < 0) | (yy >= H) | (xx < 0) | (xx >= W)
                     ow = torch.where(outside, w, 0.0)
@@ -343,7 +340,7 @@ def _lib() -> ctypes.CDLL:
             _c_void_p, _c_void_p,  # src, dst
             _c_int, ctypes.c_float,  # sample bytes, largest sample
             _c_int, _c_int, _c_int, _c_int, _c_int,  # B, H, W, out_h, out_w
-            _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,  # meta, pos, fy, fx, w1
+            _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,  # meta, pos, fy, fx, wtab
             _c_int, _c_int, _c_int,  # first tile, tiles, window bytes
             _c_int, _c_int,  # taps, mode
             ctypes.c_float, _c_int,  # fill, vec
@@ -385,7 +382,7 @@ def launch_class(lib: ctypes.CDLL, wt: WindowTables, x: torch.Tensor, out: torch
         x.data_ptr(), out.data_ptr(), wt.sample_bytes, float(maxval),
         x.shape[0], wt.in_h, wt.in_w, wt.out_h, wt.out_w,
         wt.meta.data_ptr(), wt.pos.data_ptr(), wt.fy.data_ptr(),
-        wt.fx.data_ptr(), wt.w1.data_ptr(),
+        wt.fx.data_ptr(), wt.wtab.data_ptr(),
         first, count, win, wt.taps, wt.mode, wt.fill,
         int(wt.in_w * wt.sample_bytes % VEC == 0 and x.data_ptr() % VEC == 0),
         frames, int(pair), stream,
