@@ -775,29 +775,38 @@ def main() -> int:
 
     import numpy as np
 
-    from transform360_tpu_torch import build_plan, cli, open_filter
+    from transform360_tpu_torch import build_plan, cli, open_filter, pipeline
     from transform360_tpu_torch.config import (
         Interpolation, Layout, StereoFormat, TransformConfig,
     )
     from transform360_tpu_torch.filtering import blur_plain
-    from transform360_tpu_torch.ops import _build, area, blur, window
+    from transform360_tpu_torch.ops import _build, area, blur, sources, window
     from transform360_tpu_torch.parallel import latency
     from transform360_tpu_torch.sampling import AreaTables, DeviceArea, remap_plain, round_px, round_u8
     from transform360_tpu_torch.utils.yuv import write_yuv420_batch
 
     u16 = torch.uint16
 
-    # each kernel's uint8 and uint16 instantiations count their launches apart
+    # each kernel's uint8 and uint16 instantiations count their launches
+    # apart; beside them the planes the executors copied by .contiguous()
     counters = {"blur": (blur, "LAUNCHES"), "window": (window, "LAUNCHES"),
                 "area": (area, "LAUNCHES"), "blur_u16": (blur, "LAUNCHES_U16"),
-                "window_u16": (window, "LAUNCHES_U16"), "area_u16": (area, "LAUNCHES_U16")}
+                "window_u16": (window, "LAUNCHES_U16"), "area_u16": (area, "LAUNCHES_U16"),
+                "plane_copies": (pipeline, "PLANE_COPIES")}
 
     def reset_counts():
         for m, attr in counters.values():
             setattr(m, attr, 0)
 
     def read_counts():
-        return {k: getattr(m, attr) for k, (m, attr) in counters.items()}
+        """The counters since reset_counts(), read just after a main path
+        ran: a plane copied by .contiguous() there fails (every path's
+        planes have packed rows, so the kernels read them where they lie)."""
+        c = {k: getattr(m, attr) for k, (m, attr) in counters.items()}
+        if c["plane_copies"]:
+            raise SystemExit(f"FAIL {c['plane_copies']} plane(s) copied by .contiguous() on a "
+                             f"main path: {c}")
+        return c
 
     # -- 1. device -------------------------------------------------------
     kind = torch.cuda.get_device_name(0)
@@ -983,20 +992,23 @@ def main() -> int:
         blur_cases += [(f"{what} {pp.in_w}x{pp.in_h}", pp.tables("cuda").blur, 3)
                        for pp in (sp.luma, sp.chroma)]
     yb, ub, vb = batch_of(y, BATCH), batch_of(u, BATCH), batch_of(v, BATCH)
-    cb = torch.cat([ub, vb])  # the chroma plane batch of the batch path
+    # the chroma batch of the batch path stacked: K3's input shape (K1's
+    # output) and the plain versions' reference; the path never makes it
+    cb = torch.cat([ub, vb])
     # K1 on the main path's frames at the batches it is given there (phase
-    # 5's 16 luma frames, the step's luma and stacked chroma), where a
-    # uint8 launch takes the 16-column kernel: the wrapper's own launch,
-    # and the 8-column kernel's on the same frames
-    path_cases = [("luma", luma_t.blur, yb[:16].contiguous()), ("luma", luma_t.blur, yb),
-                  ("stacked chroma", chroma_t.blur, cb)]
+    # 5's 16 luma frames, the step's luma, and U and V in place as two
+    # sources), where a uint8 launch takes the 16-column kernel: the
+    # wrapper's own launch, and the 8-column kernel's on the same frames
+    path_cases = [("luma", luma_t.blur, (yb[:16],)), ("luma", luma_t.blur, (yb,)),
+                  ("chroma U, V in place", chroma_t.blur, (ub, vb))]
     for what, bt, xs in path_cases:
-        if k1_cols(bt, xs.shape[0]) != 16:
-            raise SystemExit(f"FAIL K1 takes {k1_cols(bt, xs.shape[0])} columns a thread on "
-                             f"{xs.shape[0]} flagship {what} planes, not 16")
+        b = sources.frames(xs)
+        if k1_cols(bt, b) != 16:
+            raise SystemExit(f"FAIL K1 takes {k1_cols(bt, b)} columns a thread on {b} flagship "
+                             f"{what} planes, not 16")
 
     def k1_cols8(bt, xs):
-        out = torch.empty_like(xs)
+        out = torch.empty((sources.frames(xs), bt.H, bt.W), dtype=bt.dtype, device="cuda")
         blur._launch(blur._lib(), bt, xs, out, torch.cuda.current_stream().cuda_stream, cols=8)
         return out
 
@@ -1011,13 +1023,14 @@ def main() -> int:
             torch.cuda.synchronize()
             err["blur"] = max(err["blur"], compare(got, want, f"K1 {what}"))
         for what, bt, xs in path_cases:
-            b = xs.shape[0]
+            b, ref = sources.frames(xs), sources.stacked(xs)
             for ncols, got in ((16, blur.blur_px(bt, xs)), (8, k1_cols8(bt, xs))):
                 for f0 in range(0, b, 32):  # the plain version in slices of 32 frames
-                    want = round_u8(blur_plain(bt.plan, xs[f0:f0 + 32].float()))
+                    want = round_u8(blur_plain(bt.plan, ref[f0:f0 + 32].float()))
                     err["blur"] = max(err["blur"], compare(
                         got[f0:f0 + 32], want, f"K1 flagship {what} b={b}, {ncols} columns"))
                 del got, want
+            del ref
         for pname, t, pp in (("luma", luma_t, plan.luma), ("chroma", chroma_t, plan.chroma)):
             x = torch.randint(0, 256, (7, pp.in_h, pp.in_w), dtype=torch.uint8,
                               device="cuda", generator=rng)
@@ -1031,7 +1044,7 @@ def main() -> int:
     say(f"[3] K1 vs blur_plain, TF32 on and off, on "
         + ", ".join(f"{w} (ring y radius {bt.ring_ry})" for w, bt, _ in blur_cases)
         + ", and on the main path's video-like frames, "
-        + ", ".join(f"{xs.shape[0]} flagship {w}" for w, _, xs in path_cases)
+        + ", ".join(f"{sources.frames(xs)} flagship {w}" for w, _, xs in path_cases)
         + f", with 16 columns a thread (the path's launch) and 8: max |diff| {err['blur']} LSB")
     if err["blur"]:
         raise SystemExit(f"FAIL K1 differs from blur_plain by {err['blur']} LSB")
@@ -1136,6 +1149,106 @@ def main() -> int:
         f"), TF32 on and off: max |diff| K1 {err['blur_u16']}, K3 {err['window_u16']} LSB")
     if err["window_u16"]:
         raise SystemExit(f"FAIL K3 uint16 differs from remap_plain by {err['window_u16']} LSB")
+
+    # K1 and K3 reading a batch where it lies, as two sources (U and V) or
+    # one strided source, against their plain versions on the same frames
+    # stacked, at 0 LSB, TF32 on and off: the main path's own U and V
+    # (128 + 128), strided views of packed yuv420p frames, b0 odd (K3's
+    # frame groups straddle the two), a frame stride that is not 16-byte
+    # aligned (K1 takes the producer's loads, K3 its sample copies), at
+    # uint8 and uint16; then the flagship without its prefilter (K3 reads
+    # U and V where they lie) through the main entry point
+    def packed_yuv(ys, us, vs, pad=0):
+        """Views Y, U, V of one buffer of packed yuv420p frames (each
+        frame Y, U, V, then pad samples), as a raw reader hands them over."""
+        n, nc = ys[0].numel(), us[0].numel()
+        buf = torch.empty((ys.shape[0], n + 2 * nc + pad), dtype=ys.dtype, device="cuda")
+        views = (buf[:, :n].unflatten(1, ys.shape[1:]),
+                 buf[:, n:n + nc].unflatten(1, us.shape[1:]),
+                 buf[:, n + nc:n + 2 * nc].unflatten(1, vs.shape[1:]))
+        for dst, src in zip(views, (ys, us, vs)):
+            dst.copy_(src)
+        return views
+
+    def hold_sources(pp, xs, what, k1=True):
+        """K1 (if k1 and the plan has a prefilter) and K3 on the sources
+        xs against blur_plain and remap_plain on the frames stacked, in
+        slices of 32; fails on any difference."""
+        t, wt = pp.tables("cuda"), pp.window_tables("cuda")
+        names = ("blur", "window") if pp.dtype == torch.uint8 else ("blur_u16", "window_u16")
+        ref = sources.stacked(xs)
+        for tf32 in (True, False):
+            torch.backends.cudnn.allow_tf32 = tf32
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            outs = [(names[1], window.remap_window_px(wt, xs, pp.maxval),
+                     lambda x: remap_plain(t.remap, x))]
+            if k1 and t.blur is not None:
+                outs.append((names[0], blur.blur_px(t.blur, xs, pp.maxval),
+                             lambda x: blur_plain(t.blur.plan, x.float())))
+            for name, got, plain_fn in outs:
+                for f0 in range(0, ref.shape[0], 32):
+                    want = round_px(plain_fn(ref[f0:f0 + 32]), pp.maxval, pp.dtype)
+                    d = int((got[f0:f0 + 32].int() - want.int()).abs().max())
+                    err[name] = max(err[name], d)
+                    if d:
+                        raise SystemExit(f"FAIL {name} on {what} differs from its plain version "
+                                         f"by {d} LSB (TF32 {tf32})")
+            del outs
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    src_cases = []
+    pyv, puv, pvv = packed_yuv(yb, ub, vb)
+    qyv, quv, qvv = packed_yuv(yb[:16], ub[:16], vb[:16], pad=8)  # frames 8 bytes off 16
+    for what, pp, xs in (
+        ("U, V of the main path (128 + 128)", plan.chroma, (ub, vb)),
+        ("U, V as views of packed yuv420p frames", plan.chroma, (puv, pvv)),
+        ("Y as a view of packed yuv420p frames", plan.luma, (pyv,)),
+        ("U, V views, b0 odd (63 + 65)", plan.chroma, (puv[:63], pvv[:65])),
+        ("U, V views, frame stride not 16-byte aligned (16 + 16)", plan.chroma, (quv, qvv)),
+        ("10-bit U, V (128 + 128)", deep.plan.chroma, (udb, vdb)),
+    ):
+        src = sources.describe(xs)
+        copy = "TMA" if blur.copy_mode(pp.tables("cuda").blur, xs) == blur.COPY_TMA else "loads"
+        if (copy == "TMA") != all(s_.aligned for s_ in src):
+            raise SystemExit(f"FAIL K1 copies {what} by {copy}, with sources {src}")
+        hold_sources(pp, xs, what)
+        src_cases.append(f"{what}: frame strides {[s_.stride for s_ in src]}, aligned "
+                         f"{[s_.aligned for s_ in src]}, K1 by {copy}")
+    dp16 = packed_yuv(ydb[:16], udb[:16], vdb[:16], pad=4)  # 10-bit, frames 8 bytes off 16
+    hold_sources(deep.plan.chroma, (dp16[1][:7], dp16[2][:9]),
+                 "10-bit U, V views, b0 odd, frame stride not 16-byte aligned")
+    src_cases.append("10-bit U, V views, b0 odd (7 + 9), frame stride not 16-byte aligned: K1 by "
+                     + ("TMA" if blur.copy_mode(deep.plan.chroma.tables("cuda").blur,
+                                                (dp16[1], dp16[2])) == blur.COPY_TMA else "loads"))
+    del qyv, quv, qvv, dp16
+    nopf = open_filter(FLAGSHIP.replace("enable_low_pass_filter=1", "enable_low_pass_filter=0"),
+                       IN_W, IN_H, device="cuda")
+    for what, planes in (("separate planes", (yb, ub, vb)), ("packed yuv420p views", (pyv, puv, pvv))):
+        torch.cuda.synchronize()
+        reset_counts()
+        outs = nopf.transform(*planes)
+        torch.cuda.synchronize()
+        nl = read_counts()
+        if nl["blur"] or nl["window"] != len(nopf.plan.luma.window_tables("cuda").groups) + len(
+                nopf.plan.chroma.window_tables("cuda").groups):
+            raise SystemExit(f"FAIL the flagship without a prefilter launched {nl}")
+        for o, xin, pp in zip(outs, planes, (nopf.plan.luma, nopf.plan.chroma, nopf.plan.chroma)):
+            for f0 in range(0, BATCH, 32):
+                want = round_u8(remap_plain(pp.tables("cuda").remap, xin[f0:f0 + 32]))
+                d = int((o[f0:f0 + 32].int() - want.int()).abs().max())
+                err["window"] = max(err["window"], d)
+                if d:
+                    raise SystemExit(f"FAIL the flagship without a prefilter, {what}, differs "
+                                     f"from remap_plain by {d} LSB")
+        src_cases.append(f"the flagship without a prefilter on {what} through open_filter("
+                         f").transform at batch {BATCH}: launches {nl}")
+        del outs
+    del pyv, puv, pvv
+    say("[3] K1 and K3 on batches read where they lie, TF32 on and off, 0 LSB against "
+        "blur_plain and remap_plain: " + "; ".join(src_cases)
+        + f"; max |diff| K1 {err['blur']}/{err['blur_u16']}, K3 {err['window']}/"
+        f"{err['window_u16']} LSB (uint8/uint16)")
 
     # K4 against area_plain: the 2x2 flagship's luma and stacked chroma, 1.5x2,
     # 4x4, the upscale branch and a latency band's rows, uint8 and uint16
@@ -1330,20 +1443,22 @@ def main() -> int:
         f"(p90 {pct(walls, 0.9):.4f}, n={len(walls)}); SM clock, its maximum and power draw "
         f"under the step: {clock}  ({smi})")
     yl = blur.blur_px(luma_t.blur, yb)  # the remaps' inputs on the batch path
-    cl = blur.blur_px(chroma_t.blur, cb)
+    cl = blur.blur_px(chroma_t.blur, (ub, vb))
     parts = {}
     for name, fn in {
         "K1 luma": lambda: blur.blur_px(luma_t.blur, yb),
-        "K1 chroma (U+V)": lambda: blur.blur_px(chroma_t.blur, cb),
+        "K1 chroma (U, V in place)": lambda: blur.blur_px(chroma_t.blur, (ub, vb)),
         "K3 luma": lambda: window.remap_window_px(luma_w, yl),
         "K3 chroma (U+V)": lambda: window.remap_window_px(chroma_w, cl),
-        "cat of U and V": lambda: torch.cat([ub, vb]),
     }.items():
         cuda_times(fn, 2)
         parts[name] = statistics.median(cuda_times(fn, 20))
+    cuda_times(lambda: torch.cat([ub, vb]), 2)
+    cat_ms = statistics.median(cuda_times(lambda: torch.cat([ub, vb]), 20))
     say(f"[5] batch-{BATCH} stages, device medians of 20 by CUDA events: "
         + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items())
-        + f"; sum {sum(parts.values()):.4f} ms against the step's {step:.4f}  ({smi})")
+        + f"; sum {sum(parts.values()):.4f} ms against the step's {step:.4f}; off the path, "
+        f"for the record: torch.cat of U and V {cat_ms:.4f} ms  ({smi})")
     stages_b128 = parts  # phase 18 sets the trace's kernel times beside them
     del yl, cl
 
@@ -1384,13 +1499,12 @@ def main() -> int:
         f"{statistics.median(e2e):.4f} ms (p90 {pct(e2e, 0.9):.4f}, n={len(e2e)}); pageable "
         f"host to device {pageable6:.2f} GB/s  ({smi})")
     x1 = yb[:1].contiguous()
-    c2 = torch.cat([ub[:1], vb[:1]])
+    c2 = torch.cat([ub[:1], vb[:1]])  # K1's stacked chroma output's shape, K3's input
     stages = {
         "K1 luma": lambda: blur.blur_px(luma_t.blur, x1),
-        "K1 chroma (U+V)": lambda: blur.blur_px(chroma_t.blur, c2),
+        "K1 chroma (U, V in place)": lambda: blur.blur_px(chroma_t.blur, (ub[:1], vb[:1])),
         "K3 luma": lambda: window.remap_window_px(luma_w, x1),
         "K3 chroma (U+V)": lambda: window.remap_window_px(chroma_w, c2),
-        "cat of U and V": lambda: torch.cat([ub[0][None], vb[0][None]]),
     }
     parts = {}
     for name, fn in stages.items():
@@ -1488,14 +1602,13 @@ def main() -> int:
     dlt, dct = dp.luma.tables("cuda"), dp.chroma.tables("cuda")
     dlw, dcw = dp.luma.window_tables("cuda"), dp.chroma.window_tables("cuda")
     yl = blur.blur_px(dlt.blur, ydb, 1023)
-    cl = blur.blur_px(dct.blur, cdb, 1023)
+    cl = blur.blur_px(dct.blur, (udb, vdb), 1023)
     parts = {}
     for name, fn in {
         "K1 luma": lambda: blur.blur_px(dlt.blur, ydb, 1023),
-        "K1 chroma (U+V)": lambda: blur.blur_px(dct.blur, cdb, 1023),
+        "K1 chroma (U, V in place)": lambda: blur.blur_px(dct.blur, (udb, vdb), 1023),
         "K3 luma": lambda: window.remap_window_px(dlw, yl, 1023),
         "K3 chroma (U+V)": lambda: window.remap_window_px(dcw, cl, 1023),
-        "cat of U and V": lambda: torch.cat([udb, vdb]),
     }.items():
         cuda_times(fn, 2)
         parts[name] = statistics.median(cuda_times(fn, 10))
@@ -1607,19 +1720,18 @@ def main() -> int:
     avg_pool2d = torch.nn.functional.avg_pool2d  # timed only: the port never calls it
     from transform360_tpu_torch import pipeline as pipeline_mod
     for b in (BATCH, 1):
-        ys, cs = yb[:b], torch.cat([ub[:b], vb[:b]])
+        ys, cs = yb[:b], (ub[:b], vb[:b])
         yl, cl = blur.blur_px(slt.blur, ys), blur.blur_px(sct.blur, cs)
         yr, cr = window.remap_window_px(slw, yl), window.remap_window_px(scw, cl)
         yrf, crf = yr.float(), cr.float()  # avg_pool2d's pre-converted float32 copies
         parts, aside = {}, {}
         for d, name, fn in (
             (parts, "K1 luma", lambda: blur.blur_px(slt.blur, ys)),
-            (parts, "K1 chroma (U+V)", lambda: blur.blur_px(sct.blur, cs)),
+            (parts, "K1 chroma (U, V in place)", lambda: blur.blur_px(sct.blur, cs)),
             (parts, "K3 luma (to the scaled size)", lambda: window.remap_window_px(slw, yl)),
             (parts, "K3 chroma (U+V)", lambda: window.remap_window_px(scw, cl)),
             (parts, "K4 luma", lambda: area.area_px(slt.area, yr)),
             (parts, "K4 chroma (U+V)", lambda: area.area_px(sct.area, cr)),
-            (parts, "cat of U and V", lambda: torch.cat([ub[:b], vb[:b]])),
             (aside, "area_plain luma", lambda: area.area_plain(slt.area, yr)),
             (aside, "area_plain chroma (U+V)", lambda: area.area_plain(sct.area, cr)),
             (aside, "avg_pool2d luma", lambda: avg_pool2d(yrf, 2)),
@@ -1881,7 +1993,7 @@ def main() -> int:
     frame_graph = graph_ms(lambda: pipeline.transform_frame_planes(plan, x1s))
     frame_issue = issue_ms(lambda: pipeline.transform_frame_planes(plan, x1s))
     lb1 = blur.blur_px(luma_t.blur, x1s[0])
-    cb1 = blur.blur_px(chroma_t.blur, torch.cat(x1s[1:]))
+    cb1 = blur.blur_px(chroma_t.blur, tuple(x1s[1:]))
     k3_graph = graph_ms(lambda: (window.remap_window_px(luma_w, lb1),
                                  window.remap_window_px(chroma_w, cb1)))
     band_rows = {}
@@ -1912,7 +2024,7 @@ def main() -> int:
                 per_band.append(graph_ms(lambda: pipeline.transform_frame_planes(b, xs)))
                 issue.append(issue_ms(lambda: pipeline.transform_frame_planes(b, xs)))
                 lb = blur.blur_px(b.luma.tables(dev).blur, xs[0])
-                cbl = blur.blur_px(b.chroma.tables(dev).blur, torch.cat(xs[1:]))
+                cbl = blur.blur_px(b.chroma.tables(dev).blur, tuple(xs[1:]))
                 lwt, cwt = b.luma.window_tables(dev), b.chroma.window_tables(dev)
                 k3_band.append(graph_ms(lambda: (window.remap_window_px(lwt, lb),
                                                  window.remap_window_px(cwt, cbl))))
@@ -2122,11 +2234,16 @@ def main() -> int:
         f"launches, {ms1:.4f} ms; K3 {n3} launches, {ms3:.4f} ms; LAUNCHES read {traced}; "
         f"every kernel in it: "
         + ", ".join(f"{n[:90]} x{c} {m:.4f} ms" for n, (c, m) in sorted(found.items()))
-        + f"; phase 5's stages by CUDA events: K1 {stages_b128['K1 luma'] + stages_b128['K1 chroma (U+V)']:.4f}"
+        + f"; phase 5's stages by CUDA events: K1 {stages_b128['K1 luma'] + stages_b128['K1 chroma (U, V in place)']:.4f}"
         f" ms, K3 {stages_b128['K3 luma'] + stages_b128['K3 chroma (U+V)']:.4f} ms  ({smi})")
     if n1 != 2 or n3 != 4 or (traced["blur"], traced["window"]) != (n1, n3):
         raise SystemExit(f"FAIL the trace holds K1 {n1} and K3 {n3} launches (want 2 and 4, "
                          f"as LAUNCHES reads: {traced})")
+    others = sorted(n for n in found if not any(
+        k in n for k in ("blur_ring_kernel", "blur_direct_kernel", "window_kernel")))
+    if others:  # no cat of U and V, no elementwise copy
+        raise SystemExit(f"FAIL the batch-{BATCH} step's trace holds kernels other than K1 and "
+                         f"K3: {others}")
     chain128 = time_frame_step(plan, yb, ub, vb) * 1e3
     chain1 = time_frame_step(plan, y1, u1, v1) * 1e3
     say(f"[18] time_frame_step (chain difference, 2 and 26 steps, best of 3): batch {BATCH} "
@@ -2305,7 +2422,8 @@ def main() -> int:
               shape="16 luma frames", issue_bound_ms=k1_issue["blur"],
               sass_per_px={f"{v} columns": {str(r): k1_px[("u8", v, r)]["total"]
                                             for r in K1_PROBE_RX} for v in (8, 16)},
-              step=dict(k1_step, ms=stages_b128["K1 luma"] + stages_b128["K1 chroma (U+V)"])),
+              step=dict(k1_step, ms=stages_b128["K1 luma"]
+                        + stages_b128["K1 chroma (U, V in place)"])),
         entry("window", "transform360_tpu_torch/csrc/window.cu",
               "transform360_tpu/ops/remap_pallas.py:441", serves="B5; B2, B3, B4 closed on it",
               batches="all", shape="16 luma frames", chroma=chroma_k3,

@@ -16,7 +16,10 @@ Each process builds its kernels, makes the flagship's video-like frames
 device median in ms by CUDA events at batch 128 and at batch 1 (one
 [H, W] frame), the sample count, the K1 launches per step, one numpy
 frame in to CPU tensors out (``numpy_to_cpu_ms``: the median host wall
-of 50 calls, synchronized), the remap
+of 50 calls, synchronized), the 10-bit flagship's step at batch 128
+(``deep_batch128``) and the flagship without its prefilter at batch 128
+and 8 (``nopf_batch128``, ``nopf_batch8``: there K3 reads U and V), each
+by CUDA events, the remap
 kernel K3 alone at the paths' shapes (16, 1 and 128 luma frames, a
 chroma pair, 256 chroma planes): the median by CUDA events around one
 call (``k3_ms``: the wrapper's host time before the launch included),
@@ -28,7 +31,9 @@ tiles, ms), the host's time to issue one call (``k3_host_ms``: 200 calls
 issued, then one synchronize), K3 by CUDA events on 128 10-bit luma
 frames and on the supersampled 2x2 plan's 128 luma frames and 256 chroma
 planes (``k3_more_ms``), the prefilter kernel K1 alone at the same
-shapes (``k1_ms``: the median by CUDA events around one call;
+shapes, its chroma as the tree's path gives it (U and V in place as two
+sources where the tree's K1 takes them, ``k1_chroma_input``, else
+stacked) (``k1_ms``: the median by CUDA events around one call;
 ``k1_ms_graph``: the device time per call of 20 calls replayed as a CUDA
 graph; ``k1_host_ms``: the host's time to issue one call, the median of
 9 rounds of 100 calls issued, each round then synchronized), and the
@@ -95,6 +100,19 @@ def child(label: str, settings: list, supersampled: bool = False) -> None:
     from_host = lambda: [o.cpu() for o in eng.transform(y, u, v)]
     host_walls(from_host, 5)
     res["batch1"]["numpy_to_cpu_ms"] = statistics.median(host_walls(from_host, 50))
+    if not supersampled:
+        deep = P.open_filter(FLAGSHIP, 3840, 2160, pix_fmt="yuv420p10le", device="cuda")
+        nopf = P.open_filter(FLAGSHIP.replace("enable_low_pass_filter=1",
+                                              "enable_low_pass_filter=0"), 3840, 2160,
+                             device="cuda")
+        dplanes = [(t.int() * 1023 // 255).to(torch.uint16) for t in (yb, ub, vb)]
+        for key, e, planes, reps in (("deep_batch128", deep, dplanes, 30),
+                                     ("nopf_batch128", nopf, (yb, ub, vb), 30),
+                                     ("nopf_batch8", nopf, [t[:8] for t in (yb, ub, vb)], 60)):
+            cuda_times(lambda: e.transform(*planes), 3)
+            ts = cuda_times(lambda: e.transform(*planes), reps)
+            res[key] = {"step_ms": statistics.median(ts), "n": len(ts)}
+        del dplanes, deep, nopf
     if supersampled:
         torch.cuda.synchronize()
         resident = torch.cuda.memory_allocated()
@@ -182,13 +200,18 @@ def child(label: str, settings: list, supersampled: bool = False) -> None:
     del yd
     lb, cbt = (pp.tables("cuda").blur for pp in (eng.plan.luma, eng.plan.chroma))
     res["k1_ms"], res["k1_ms_graph"], res["k1_host_ms"] = {}, {}, {}
+    try:  # the tree's K1 reads U and V where they lie
+        from transform360_tpu_torch.ops import sources  # noqa: F401
+        c2, c256, res["k1_chroma_input"] = (ub[:1], vb[:1]), (ub, vb), "U, V in place"
+    except ImportError:
+        c2, c256, res["k1_chroma_input"] = cb[:2].contiguous(), cb, "stacked"
     for shape, bt, x in (("16 luma", lb, yb[:16].contiguous()), ("1 luma", lb, yb[:1].contiguous()),
-                         ("2 chroma", cbt, cb[:2].contiguous()), ("128 luma", lb, yb),
-                         ("256 chroma", cbt, cb)):
+                         ("2 chroma", cbt, c2), ("128 luma", lb, yb), ("256 chroma", cbt, c256)):
+        big = (x[0].shape[0] if isinstance(x, tuple) else x.shape[0]) >= 100
         fn = lambda: blur.blur_px(bt, x)
         cuda_times(fn, 3)
-        res["k1_ms"][shape] = statistics.median(cuda_times(fn, 10 if x.shape[0] >= 100 else 40))
-        res["k1_ms_graph"][shape] = graph_fn_ms(fn, 3 if x.shape[0] >= 100 else 20)
+        res["k1_ms"][shape] = statistics.median(cuda_times(fn, 10 if big else 40))
+        res["k1_ms_graph"][shape] = graph_fn_ms(fn, 3 if big else 20)
         rounds = []
         for _ in range(9):
             torch.cuda.synchronize()

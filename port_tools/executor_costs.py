@@ -63,7 +63,7 @@ def main() -> int:
     luma = pipeline.plane_executor(plan.luma, "cuda")
     g = next(g for g in luma._by_shape.values() if g is not None)
     res = {
-        "copy_ into the static input (luma)": issue_us(lambda: g.x.copy_(xs[0])),
+        "copy_ into the static input (luma)": issue_us(lambda: g.xs[0].copy_(xs[0])),
         "graph replay (luma)": issue_us(g.graph.replay),
         "clone of the static output (luma)": issue_us(g.out.clone),
         "luma executor call": issue_us(lambda: luma(xs[0])),

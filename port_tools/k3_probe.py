@@ -71,35 +71,43 @@ extern "C" int t360_window_probe(unsigned long long* out, int reset) {
 
 CLOCKS = "  long long t360_c, t360_p[14] = {};\n  T360_NOW(t360_c);\n"
 
+# The put of a pass's first frame: the two-source kernel's, and the one
+# before it (one plane stride, a 64-bit product per frame).
+PUTS = ("    put<S, T, MODE>(out, acc0, fill_term, invalid, fill_px, a.maxval, oo);\n",
+        "    put<S, T, MODE>(dst + f * N, acc0, fill_term, invalid, fill_px, a.maxval, oo);\n")
+
+
+def _edits(put: str) -> tuple:
+    """The clock reads of the one-CTA-per-tile design, around ``put``."""
+    return (('#include "common.cuh"\n', '#include "common.cuh"\n' + HEADER),
+            ("  extern __shared__ __align__(16) unsigned char smem[];\n",
+             "  extern __shared__ __align__(16) unsigned char smem[];\n" + CLOCKS),
+            ("  int half = 0;\n", "  T360_LAP(0);\n  int half = 0;\n"),
+            ("      t360::cp_async_commit();  // empty past the batch's end\n"
+             "      t360::cp_async_wait<1>();\n"
+             "      __syncthreads();  // this pass's windows are complete\n",
+             "      t360::cp_async_commit();  // empty past the batch's end\n"
+             "      T360_LAP(1);\n"
+             "      t360::cp_async_wait<1>();\n"
+             "      __syncthreads();  // this pass's windows are complete\n"
+             "      T360_LAP(2);\n"),
+            (put, "    T360_DEP(acc0);\n    T360_DEP(acc1);\n    T360_LAP(3);\n" + put),
+            ("    if (staged) __syncthreads();  // this half is free for the pass after next\n",
+             "    T360_LAP(4);\n"
+             "    if (staged) __syncthreads();  // this half is free for the pass after next\n"
+             "    T360_LAP(5);\n"),
+            ("    half ^= 1;\n  }\n}\n",
+             "    half ^= 1;\n  }\n  if (threadIdx.x == 0) T360_PUT(nf);\n}\n"))
+
+
 # (design, phase names, edits): each edit (old, new) must match once
-PROBES = (
+PROBES = tuple(
     ("one CTA per tile, cp.async chunks by every thread, two CTA barriers per pass; "
      "thread 0 of each CTA",
      ("set-up: chunk table, first copies, weights", "issue the next pass's copies",
       "wait for the window: cp.async wait and barrier", "sums", "round and store",
       "barrier after the pass"),
-     (('#include "common.cuh"\n', '#include "common.cuh"\n' + HEADER),
-      ("  extern __shared__ __align__(16) unsigned char smem[];\n",
-       "  extern __shared__ __align__(16) unsigned char smem[];\n" + CLOCKS),
-      ("  int half = 0;\n", "  T360_LAP(0);\n  int half = 0;\n"),
-      ("      t360::cp_async_commit();  // empty past the batch's end\n"
-       "      t360::cp_async_wait<1>();\n"
-       "      __syncthreads();  // this pass's windows are complete\n",
-       "      t360::cp_async_commit();  // empty past the batch's end\n"
-       "      T360_LAP(1);\n"
-       "      t360::cp_async_wait<1>();\n"
-       "      __syncthreads();  // this pass's windows are complete\n"
-       "      T360_LAP(2);\n"),
-      ("    put<S, T, MODE>(dst + f * N, acc0, fill_term, invalid, fill_px, a.maxval, oo);\n",
-       "    T360_DEP(acc0);\n    T360_DEP(acc1);\n    T360_LAP(3);\n"
-       "    put<S, T, MODE>(dst + f * N, acc0, fill_term, invalid, fill_px, a.maxval, oo);\n"),
-      ("    if (staged) __syncthreads();  // this half is free for the pass after next\n",
-       "    T360_LAP(4);\n"
-       "    if (staged) __syncthreads();  // this half is free for the pass after next\n"
-       "    T360_LAP(5);\n"),
-      ("    half ^= 1;\n  }\n}\n",
-       "    half ^= 1;\n  }\n  if (threadIdx.x == 0) T360_PUT(nf);\n}\n"))),
-)
+     _edits(put)) for put in PUTS)
 
 
 def probe_source(src: str):

@@ -23,7 +23,8 @@ at batch 128 and at batch 1.  Every variant is first held against
 ``remap_plain`` on three luma frames and three chroma planes (same
 bytes), then all are timed by CUDA events in alternating order over four
 rounds, at the shapes of the flagship's paths: 16, 1 and 128 luma
-frames, a chroma pair and 256 chroma planes; one JSON line of medians
+frames, a chroma pair and 256 chroma planes stacked, and U and V as two
+sources (1 + 1, 8 + 8, 63 + 65, 128 + 128); one JSON line of medians
 (ms per call) per shape.  Under 100 frames a sample is a replay of 20
 calls captured in a CUDA graph (device time: one call, or calls issued
 back to back, wait there on the host).  Last, each class launch of
@@ -64,7 +65,7 @@ def main() -> int:
 
     import transform360_tpu_torch as P
     from chip_smoke import FLAGSHIP, batch_of, cuda_times, video_like_planes
-    from transform360_tpu_torch.ops import _build, window
+    from transform360_tpu_torch.ops import _build, sources, window
     from transform360_tpu_torch.sampling import remap_plain, round_u8
 
     smi = subprocess.run(
@@ -107,10 +108,12 @@ def main() -> int:
         return f, pair == "on" and window.pairs(group[2])
 
     def run(var, x, wt):
-        out = torch.empty((x.shape[0], wt.out_h, wt.out_w), dtype=torch.uint8, device=x.device)
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+        xs = sources.as_sources(x)
+        B = sources.frames(xs)
+        out = torch.empty((B, wt.out_h, wt.out_w), dtype=torch.uint8, device=xs[0].device)
+        stream = torch.cuda.current_stream(xs[0].device).cuda_stream
         for g in wt.groups:
-            window.launch_class(libs[var[0]], wt, x, out, g, *choices(var, x.shape[0], g), stream)
+            window.launch_class(libs[var[0]], wt, xs, out, g, *choices(var, B, g), stream)
         return out
 
     variants = {}
@@ -134,16 +137,20 @@ def main() -> int:
     yb, ub, vb = batch_of(y, 128), batch_of(u, 128), batch_of(v, 128)
     cb = torch.cat([ub, vb])
     lt, ct = plan.luma.tables("cuda"), plan.chroma.tables("cuda")
-    want = (round_u8(remap_plain(lt.remap, yb[:3])), round_u8(remap_plain(ct.remap, cb[:3])))
+    want = (round_u8(remap_plain(lt.remap, yb[:3])), round_u8(remap_plain(ct.remap, cb[:3])),
+            round_u8(remap_plain(ct.remap, torch.cat([ub[:1], vb[:2]]))))
     for name, var in variants.items():
         if not (torch.equal(run(var, yb[:3].contiguous(), tabs[0]), want[0])
-                and torch.equal(run(var, cb[:3].contiguous(), tabs[1]), want[1])):
+                and torch.equal(run(var, cb[:3].contiguous(), tabs[1]), want[1])
+                and torch.equal(run(var, (ub[:1], vb[:2]), tabs[1]), want[2])):
             raise SystemExit(f"FAIL variant {name} differs from remap_plain")
     print(f"all {len(variants)} variants equal remap_plain on 3 luma frames and 3 chroma "
-          f"planes", flush=True)
+          f"planes, stacked and as two sources", flush=True)
     shapes = {"16 luma": (0, yb[:16].contiguous()), "1 luma": (0, yb[:1].contiguous()),
               "2 chroma": (1, cb[:2].contiguous()), "128 luma": (0, yb),
-              "256 chroma": (1, cb)}
+              "256 chroma": (1, cb), "U, V 1 + 1": (1, (ub[:1], vb[:1])),
+              "U, V 8 + 8": (1, (ub[:8], vb[:8])), "U, V 63 + 65": (1, (ub[:63], vb[:65])),
+              "U, V 128 + 128": (1, (ub, vb))}
     order = list(variants.items())
 
     def sampler(var, x, wt, reps):
@@ -151,7 +158,7 @@ def main() -> int:
         call: under 100 frames each a replay of 20 calls captured in a CUDA
         graph, else one call."""
         run(var, x, wt)
-        if x.shape[0] >= 100:
+        if sources.frames(sources.as_sources(x)) >= 100:
             return lambda: cuda_times(lambda: run(var, x, wt), reps)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
@@ -161,7 +168,7 @@ def main() -> int:
         return lambda: [t / 20 for t in cuda_times(graph.replay, reps)]
 
     for shape, (plane, x) in shapes.items():
-        reps = 3 if x.shape[0] >= 100 else 10
+        reps = 3 if sources.frames(sources.as_sources(x)) >= 100 else 10
         samplers = {name: sampler(var, x, tabs[plane], reps) for name, var in order}
         times = {k: [] for k in variants}
         for rnd in range(4):

@@ -337,7 +337,12 @@ def test_launch_memoizes_its_choices(monkeypatch):
         calls[:] = []
     blur.launch(None, bt, unaligned, unaligned, 0)  # a new key: the producer's loads
     assert calls[-1][0] == blur.COPY_WARP and calls[-1][2:] == blur.geometry(None, bt, 16)
-    assert sorted(bt.memo) == [(None, 1, True), (None, 16, False), (None, 16, True)]
+    # two sources: the key holds each one's frames and alignment, and an
+    # unaligned one takes the producer's loads for the whole launch
+    blur.launch(None, bt, (aligned[:3], unaligned[:5]), aligned[:8], 0)
+    assert calls[-1][0] == blur.COPY_WARP and calls[-1][2:] == blur.geometry(None, bt, 8)
+    assert sorted(bt.memo) == [(None, (1,), (True,)), (None, (3, 5), (True, False)),
+                               (None, (16,), (False,)), (None, (16,), (True,))]
 
 
 def _chip_smoke():

@@ -27,7 +27,11 @@ in-memory pipes, at 8 and 10 bits.  The plane executors: a replayed CUDA
 graph against the eager program at 0 LSB (batch 1, 2 and 8; uint8,
 10-bit and supersampled 2x2, so K4 in the graph; a banded frame), the
 launch counters at each replay, a call inside a caller's own capture,
-and a capture that fails.
+and a capture that fails.  K1 and K3 on a batch given as two sources
+(separate tensors, strided views of one packed buffer, an unaligned
+frame stride or base; uint8 and 10-bit; K3's frame groups cut at their
+boundary) and the engine on strided U and V
+views, with and without a prefilter.
 Marked ``cuda``: they skip without a GPU.  On the GPU host, which has no
 jax, run them without the suite's conftest.py (which imports jax):
 
@@ -464,6 +468,96 @@ def _rand_u16(shape, maxval, gpu, g):
 
 def _same(a, b):
     return torch.equal(a.int(), b.int())
+
+
+def _two_sources(x, b0, layout):
+    """``x`` ([B, H, W]) as two sources of b0 and B - b0 frames:
+    ``separate`` tensors; ``strided`` views of one packed buffer whose
+    frames hold a plane of each (as U and V of yuv420p frames); the same
+    with 8 bytes of padding a frame (``unaligned stride``: TMA and K3's
+    16-byte copies do not apply); or source 1 one sample off a 16-byte
+    base (``unaligned base``)."""
+    B, h, w = x.shape
+    n, b1 = h * w, B - b0
+    if layout == "separate":
+        return x[:b0].clone(), x[b0:].clone()
+    if layout == "unaligned base":
+        flat = torch.zeros(b1 * n + 1, dtype=x.dtype, device=x.device)
+        s1 = flat[1:].view(b1, h, w)
+        s1.copy_(x[b0:])
+        return x[:b0].clone(), s1
+    pad = 0 if layout == "strided" else 8 // x.element_size()
+    buf = torch.zeros((max(b0, b1), 2 * n + pad), dtype=x.dtype, device=x.device)
+    s0, s1 = buf[:b0, :n].unflatten(1, (h, w)), buf[:b1, n:2 * n].unflatten(1, (h, w))
+    s0.copy_(x[:b0])
+    s1.copy_(x[b0:])
+    return s0, s1
+
+
+SOURCE_LAYOUTS = ("separate", "strided", "unaligned stride", "unaligned base")
+
+
+@pytest.mark.parametrize("depth", [8, 10])
+@pytest.mark.parametrize("layout", SOURCE_LAYOUTS)
+def test_kernels_read_two_sources(layout, depth, gpu):
+    # K1 and K3 on a batch given as two sources (b0 1, 2, odd, even),
+    # against the plain versions on the stacked batch: K1's TMA maps (or
+    # the producer's loads where a source is unaligned) and direct kernel,
+    # K3's frame groups cut at b0 (one and two frames a pass, frames per
+    # CTA 1, 2, 3 and all)
+    g = torch.Generator(device=gpu).manual_seed(21)
+    mx = 255 if depth == 8 else 1023
+    lib, stream = window._lib(), torch.cuda.current_stream().cuda_stream
+    for name in ("cubic-cubemap", "lanczos4-barrel", "wide-y-taps"):
+        cfg, iw, ih, ow, oh = CASES[name]
+        pp = P.build_plan(cfg, iw, ih, ow, oh, "yuv420p" if depth == 8 else "yuv420p10le").chroma
+        t, wt = pp.tables(gpu), pp.window_tables(gpu)
+        for b0, b1 in ((1, 1), (1, 4), (3, 4), (2, 2), (5, 3)):
+            shape = (b0 + b1, pp.in_h, pp.in_w)
+            x = torch.randint(0, 256, shape, dtype=torch.uint8, device=gpu, generator=g) \
+                if depth == 8 else _rand_u16(shape, mx, gpu, g)
+            xs = _two_sources(x, b0, layout)
+            want = round_px(blur_plain(t.blur.plan, x.float()), mx, pp.dtype)
+            got = blur.blur_px(t.blur, xs, mx)
+            assert _same(got, want), ("K1", name, layout, b0, b1)
+            want = round_px(remap_plain(t.remap, x), mx, pp.dtype)
+            assert _same(window.remap_window_px(wt, xs, mx), want), ("K3", name, layout, b0, b1)
+            for frames in (1, 2, 3, 0):
+                for pair in (False, True):
+                    out = torch.zeros((b0 + b1, wt.out_h, wt.out_w), dtype=pp.dtype, device=gpu)
+                    for group in wt.groups:
+                        window.launch_class(lib, wt, xs, out, group,
+                                            min(frames or b0 + b1, b0 + b1),
+                                            pair and window.pairs(group[2]), stream, mx)
+                    assert _same(out, want), (name, layout, b0, b1, frames, pair)
+        if layout in ("unaligned stride", "unaligned base") and t.blur.ring_ry > 0:
+            assert blur.copy_mode(t.blur, xs) == blur.COPY_WARP
+
+
+@pytest.mark.parametrize("prefilter", [1, 0])
+def test_engine_takes_u_and_v_where_they_lie(prefilter, gpu):
+    # U and V as strided views of packed yuv420p frames on the card (and
+    # luma too): the same bytes as the CPU engine, at batch 1 and 2 (a
+    # replayed graph with one static input a plane) and 5 (eager), with
+    # no plane copied; without a prefilter K3 reads them where they lie
+    opts = (f"cube_edge_length=64:interpolation_alg=cubic:enable_low_pass_filter={prefilter}:"
+            "input_stereo_format=mono")
+    rng = np.random.default_rng(5)
+    n, nc = 256 * 512, 128 * 256
+    buf = torch.from_numpy(rng.integers(0, 256, (5, n + 2 * nc), dtype=np.uint8)).to(gpu)
+    y = buf[:, :n].unflatten(1, (256, 512))
+    u, v = (buf[:, n + k * nc:n + (k + 1) * nc].unflatten(1, (128, 256)) for k in (0, 1))
+    eng = P.open_filter(opts, 512, 256, device=gpu)
+    cpu = P.open_filter(opts, 512, 256, device="cpu")
+    from transform360_tpu_torch import pipeline
+
+    for b in (1, 2, 2, 5):
+        copies = pipeline.PLANE_COPIES
+        got = eng.transform(y[:b], u[:b], v[:b])
+        torch.cuda.synchronize()
+        assert pipeline.PLANE_COPIES == copies
+        for a, c in zip(got, cpu.transform(*(p[:b].cpu() for p in (y, u, v)))):
+            assert torch.equal(a.cpu(), c), b
 
 
 @pytest.mark.parametrize("depth", [10, 16])

@@ -15,7 +15,7 @@ import torch
 
 import transform360_tpu_torch as t3
 from transform360_tpu_torch import fidelity, pipeline
-from transform360_tpu_torch.ops import _build, blur, window
+from transform360_tpu_torch.ops import _build, blur, sources, window
 
 ROOT = Path(__file__).resolve().parent.parent
 # every module of the package, found by walking it (a new module cannot
@@ -123,8 +123,9 @@ def test_wrappers_refuse_other_devices_and_bad_inputs(monkeypatch):
     before = (blur.LAUNCHES, window.LAUNCHES)
     calls = []
     real = pipeline.remap_window_px
-    monkeypatch.setattr(pipeline, "remap_window_px",
-                        lambda wt, x, *a: calls.append(x.shape[0]) or real(wt, x, *a))
+    monkeypatch.setattr(pipeline, "remap_window_px",  # x: a plane batch, or its sources
+                        lambda wt, x, *a: calls.append(sources.frames(sources.as_sources(x)))
+                        or real(wt, x, *a))
     x = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (9, 128, 256), np.uint8))
     assert eng.transform_frame_plane(x[:2], 0, 256, 128).shape == (2, 64, 96)
     assert eng.transform_frame_plane(x, 0, 256, 128).shape == (9, 64, 96)

@@ -38,7 +38,7 @@ from transform360_tpu.pipeline import _round_u8
 from transform360_tpu.sampling import fixup_values, partial_fixup
 import transform360_tpu_torch as P
 from transform360_tpu_torch import pipeline
-from transform360_tpu_torch.ops import window
+from transform360_tpu_torch.ops import sources, window
 from transform360_tpu_torch.ops.window import (
     CLASS_BYTES,
     SMEM_MAX,
@@ -272,8 +272,8 @@ def _count_routes(monkeypatch):
     calls = []
     real = pipeline.remap_window_px
 
-    def spy(wt, x, *rest):
-        calls.append(x.shape[0])
+    def spy(wt, x, *rest):  # x: a plane batch, or its sources
+        calls.append(sources.frames(sources.as_sources(x)))
         return real(wt, x, *rest)
 
     monkeypatch.setattr(pipeline, "remap_window_px", spy)

@@ -79,6 +79,11 @@
 //     float's low bits hold floor(s + 0.5) (no F2I; no clamp at 0, as a sum
 //     of non-negative terms is >= +0); one integer min saturates it and
 //     PRMTs pack the outputs into one 16-byte store.
+//   * Sources.  A launch reads its batch where it lies, from up to two
+//     sources (the U and V planes of a chroma batch; ops/sources.py): each
+//     has its own base, frame stride and tensor map, and an item's frame
+//     picks its source once, in the producer; the consumers write one
+//     stacked output and never see which source a slab came from.
 // A plan's y radius is padded up to the ring's RY (1 or 3) with zero taps,
 // which changes no bit (0 * h = +0, and adding +0 leaves a sum as it is).
 // Plans with a larger y radius, taps that are not Gaussian, or rows too
@@ -149,8 +154,15 @@ __device__ __forceinline__ int quot(int n, const Div& d) {
 }
 
 struct Args {
-  const void* src;     // [B, H, W]
-  void* dst;           // [B, H, W]
+  // The logical batch of B frames is read from two sources where they lie
+  // (ops/sources.py): frames [0, b0) are source 0's, the rest source 1's
+  // (U and V of a chroma batch, never stacked by a copy).  Each source's
+  // rows are packed; fs0 and fs1 are its frame strides in samples.
+  const void* src0;
+  const void* src1;
+  long long fs0, fs1;
+  int b0;
+  void* dst;           // [B, H, W], stacked
   const int* tiles;    // [n, 6]: r0, c0, rows, cols, set (-1: zeros), x0
   const float* kx;     // [sets, lx] centred x taps
   const int* rx;       // [sets]
@@ -186,6 +198,13 @@ struct Item {
 
 __device__ __forceinline__ int n_items(const Args& a) { return a.n_tiles * a.B * a.parts; }
 
+// Frame f of the logical batch, in its source.
+template <typename S>
+__device__ __forceinline__ const S* frame_src(const Args& a, int f) {
+  return f < a.b0 ? static_cast<const S*>(a.src0) + f * a.fs0
+                  : static_cast<const S*>(a.src1) + (f - a.b0) * a.fs1;
+}
+
 // Copies the edge samples of a staged row over the columns TMA filled
 // with zeros: columns [x0, 0) take column 0's sample, columns [W, hi) the
 // sample of column W - 1 (hi: the last column a tap of the tile reads,
@@ -198,13 +217,12 @@ __device__ __forceinline__ void clamp_row(S* row, int x0, int W, int hi, int n) 
 
 // The producer warp: fills a stage for each slab of each staged item of
 // its CTA, in order, waiting for the stage's consumers `stages` slabs
-// before.
+// before.  An item's frame picks its source (map0 or map1) once.
 template <typename S, int RY>
-__device__ __forceinline__ void produce(const CUtensorMap* map, const Args& a,
-                                        unsigned char* ring, uint64_t* full, uint64_t* empty,
-                                        uint64_t* aux) {
+__device__ __forceinline__ void produce(const CUtensorMap* map0, const CUtensorMap* map1,
+                                        const Args& a, unsigned char* ring, uint64_t* full,
+                                        uint64_t* empty, uint64_t* aux) {
   const int lane = threadIdx.x & 31;
-  const size_t plane = static_cast<size_t>(a.H) * a.W;
   const int stage_bytes = a.slab * a.pitch;
   const int row_n = a.row_bytes / static_cast<int>(sizeof(S));
   int s = 0;
@@ -218,6 +236,10 @@ __device__ __forceinline__ void produce(const CUtensorMap* map, const Args& a,
     const int hi = c0 + nc + __ldg(a.rx + set);  // past the last column a tap reads
     const bool edge = x0 < 0 || hi > a.W;
     const int y0 = it.p0 - RY, n = it.p1 - it.p0 + 2 * RY;
+    const bool second = it.f >= a.b0;
+    const CUtensorMap* map = second ? map1 : map0;
+    const int fz = second ? it.f - a.b0 : it.f;  // the frame in its source
+    const S* src = frame_src<S>(a, it.f);
     for (int k = 0; k < n; k += a.slab) {
       mbar_wait(&empty[s], phase ^ 1);  // its consumers of `stages` slabs before are done
       unsigned char* buf = ring + s * stage_bytes;
@@ -228,7 +250,7 @@ __device__ __forceinline__ void produce(const CUtensorMap* map, const Args& a,
         for (int i = lane; i < a.slab; i += 32)
           t360::tma_load(buf + i * a.pitch, map, bar,
                          x0 * static_cast<int>(sizeof(S)) / 8,
-                         t360::clamp_idx(y0 + k + i, a.H), it.f);
+                         t360::clamp_idx(y0 + k + i, a.H), fz);
         if (edge) {  // rows landed: clamp their columns, then hand them over
           mbar_wait(bar, (aux_phase >> s) & 1u);
           aux_phase ^= 1u << s;
@@ -239,7 +261,6 @@ __device__ __forceinline__ void produce(const CUtensorMap* map, const Args& a,
           if (lane == 0) mbar_arrive(&full[s]);
         }
       } else {  // samples by clamped loads: any alignment
-        const S* src = static_cast<const S*>(a.src) + it.f * plane;
         for (int e = lane; e < a.slab * row_n; e += 32) {
           const int i = quot(e, a.per_row), c = e - i * row_n;
           reinterpret_cast<S*>(buf + i * a.pitch)[c] =
@@ -466,7 +487,8 @@ __device__ __forceinline__ void consume(const Args& a, const Item& it, const Col
 // per thread.  The last warp produces; the others consume.
 template <typename S, int RY, int V>
 __global__ void __launch_bounds__(kThreads<S, V>, kMinBlocks<RY>)
-    blur_ring_kernel(const __grid_constant__ CUtensorMap map, const Args a) {
+    blur_ring_kernel(const __grid_constant__ CUtensorMap map0,
+                     const __grid_constant__ CUtensorMap map1, const Args a) {
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full[kMaxStages], empty[kMaxStages], aux[kMaxStages];
   // TMA writes 128-byte aligned rows: align the ring itself (no integer
@@ -483,7 +505,7 @@ __global__ void __launch_bounds__(kThreads<S, V>, kMinBlocks<RY>)
   }
   __syncthreads();
   if (warp == kWarps<S, V>) {
-    produce<S, RY>(&map, a, ring, full, empty, aux);
+    produce<S, RY>(&map0, &map1, a, ring, full, empty, aux);
     return;
   }
 
@@ -545,14 +567,15 @@ __global__ void __launch_bounds__(kThreads<S, V>, kMinBlocks<RY>)
 // as the ring kernel's do (one part per tile).
 template <typename S>
 __global__ void __launch_bounds__(kDirectThreads)
-    blur_direct_kernel(const __grid_constant__ CUtensorMap, const Args a) {
+    blur_direct_kernel(const __grid_constant__ CUtensorMap, const __grid_constant__ CUtensorMap,
+                       const Args a) {
   const size_t plane = static_cast<size_t>(a.H) * a.W;
   for (int j = blockIdx.x; j < n_items(a); j += gridDim.x) {
     const Item it(a, j);
     const int* m = a.tiles + 6 * it.tile;
     const int c0 = __ldg(m + 1), ncols = __ldg(m + 3), set = __ldg(m + 4);
     const int nrows = it.p1 - it.p0;
-    const S* frame = static_cast<const S*>(a.src) + it.f * plane;
+    const S* frame = frame_src<S>(a, it.f);
     S* out = static_cast<S*>(a.dst) + it.f * plane;
     const int rx = set < 0 ? 0 : __ldg(a.rx + set), ry = set < 0 ? 0 : __ldg(a.ry + set);
     const float* k = a.kx + static_cast<size_t>(max(set, 0)) * a.lx + (a.lx - 1) / 2 - rx;
@@ -616,10 +639,33 @@ int smem_for(int ring_ry, int pitch, int slab, int stages) {
   return ring_ry < 0 ? 0 : stages * slab * pitch + 128;
 }
 
+// A tensor map of one source, b frames fs samples apart: rows of 8-byte
+// elements, so that one box is one staged row.
+CUresult encode_source(CUtensorMap* map, t360::EncodeTiled encode, const void* x, long long fs,
+                       int b, int sample_bytes, int H, int W, int row_bytes) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(W) * sample_bytes / 8,
+                              static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(W) * sample_bytes,
+                                 static_cast<cuuint64_t>(fs) * sample_bytes};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(row_bytes / 8), 1, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT64, 3, const_cast<void*>(x), dims, strides, box,
+                elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+bool aligned16(const void* x, long long fs, int sample_bytes) {
+  return reinterpret_cast<uintptr_t>(x) % 16 == 0 && (fs * sample_bytes) % 16 == 0;
+}
+
 }  // namespace
 
-// x, out: [B, H, W] samples of sample_bytes each (1: uint8; 2: uint16,
-// rounded and saturated to maxval, the depth's largest sample); tiles:
+// x0, x1: the two sources of the logical batch of B frames, read where
+// they lie (ops/sources.py): frames [0, b0) from x0, [b0, B) from x1 (null
+// when b0 == B), each [b, H, W] with packed rows, frames fs0 and fs1
+// samples apart; out: [B, H, W], stacked.  Samples of sample_bytes each
+// (1: uint8; 2: uint16, rounded and saturated to maxval, the depth's
+// largest sample); tiles:
 // int32 [n_tiles, 6] (r0, c0, rows, cols, set, x0); kx float32 [sets, lx]
 // and ky [sets, ly], each set's taps centred; rx/ry int32 [sets].
 // ring_ry: 1 or 3 for the ring kernel (ly = 2*ring_ry+1; taps Gaussian),
@@ -629,13 +675,15 @@ int smem_for(int ring_ry, int pitch, int slab, int stages) {
 // stages (2 to 8) of `slab` rows (a multiple of 2 ring_ry), each row
 // row_bytes (a multiple of 16, at most 2048) of the plane from sample x0
 // (x0 * sample_bytes a multiple of 16: TMA starts a box 16-byte aligned),
-// pitch bytes apart (a multiple of 128).  copy: 0, TMA (x and its rows
-// 16-byte aligned, and rows of at least row_bytes: a box is no wider than
-// the plane); 1, the producer warp's loads.  vec_out: W a multiple
+// pitch bytes apart (a multiple of 128).  copy: 0, TMA (every source's
+// base, rows and frame stride 16-byte aligned, and rows of at least
+// row_bytes: a box is no wider than the plane; one tensor map a source);
+// 1, the producer warp's loads.  vec_out: W a multiple
 // of 16 and out 16-byte aligned.  Returns 0, a cudaError_t, or
 // -CUresult if the tensor map cannot be encoded.
-extern "C" int t360_blur(const void* x, void* out, int sample_bytes, int maxval, int B, int H,
-                         int W, const int* tiles, int n_tiles, const float* kx, const int* rx,
+extern "C" int t360_blur(const void* x0, long long fs0, int b0, const void* x1, long long fs1,
+                         void* out, int sample_bytes, int maxval, int B, int H, int W,
+                         const int* tiles, int n_tiles, const float* kx, const int* rx,
                          int lx, const float* ky, const int* ry, int ly, int ring_ry, int cols,
                          int row_bytes, int pitch, int slab, int stages, int parts, int copy,
                          int ctas, int vec_out, void* stream) {
@@ -643,41 +691,38 @@ extern "C" int t360_blur(const void* x, void* out, int sample_bytes, int maxval,
   const bool ring = ring_ry > 0;
   const long long items = static_cast<long long>(n_tiles) * B * parts;
   const int smem = smem_for(ring_ry, pitch, slab, stages);
+  const long long plane = static_cast<long long>(H) * W;
   if (k == nullptr || B <= 0 || H <= 0 || W <= 0 || n_tiles <= 0 || parts <= 0 || ctas <= 0 ||
-      items > 0x7fffffffLL || ctas > items ||
+      items > 0x7fffffffLL || ctas > items || b0 <= 0 || b0 > B || x0 == nullptr ||
+      (b0 > 1 && fs0 < plane) || (b0 < B && (x1 == nullptr || (B - b0 > 1 && fs1 < plane))) ||
       (ring && (row_bytes <= 0 || row_bytes % 16 != 0 || row_bytes > 2048 || pitch < row_bytes ||
                 pitch % 128 != 0 || slab <= 0 || slab % (2 * ring_ry) != 0 || stages < 2 ||
                 stages > kMaxStages || ly != 2 * ring_ry + 1 || copy < kTma || copy > kWarp ||
                 (copy == kTma && ((static_cast<long long>(W) * sample_bytes) % 16 != 0 ||
                                   static_cast<long long>(W) * sample_bytes < row_bytes ||
-                                  reinterpret_cast<uintptr_t>(x) % 16 != 0)))) ||
+                                  !aligned16(x0, fs0, sample_bytes) ||
+                                  (b0 < B && !aligned16(x1, fs1, sample_bytes)))))) ||
       smem > 227 * 1024 ||
       (sample_bytes == 1 ? maxval != 255 : !(maxval >= 255 && maxval <= 65535)))
     return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap map = {};
-  if (ring && copy == kTma) {  // rows of 8-byte elements: one box is one staged row
+  CUtensorMap map0 = {}, map1 = {};
+  if (ring && copy == kTma) {
     const t360::EncodeTiled encode = t360::encode_tiled();
     if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
-    const cuuint64_t dims[3] = {static_cast<cuuint64_t>(W) * sample_bytes / 8,
-                                static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
-    const cuuint64_t strides[2] = {static_cast<cuuint64_t>(W) * sample_bytes,
-                                   static_cast<cuuint64_t>(H) * W * sample_bytes};
-    const cuuint32_t box[3] = {static_cast<cuuint32_t>(row_bytes / 8), 1, 1};
-    const cuuint32_t elem[3] = {1, 1, 1};
-    const CUresult r = encode(&map, CU_TENSOR_MAP_DATA_TYPE_UINT64, 3, const_cast<void*>(x), dims,
-                              strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                              CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
-                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    CUresult r = encode_source(&map0, encode, x0, fs0, b0, sample_bytes, H, W, row_bytes);
+    if (r == CUDA_SUCCESS && b0 < B)
+      r = encode_source(&map1, encode, x1, fs1, B - b0, sample_bytes, H, W, row_bytes);
     if (r != CUDA_SUCCESS) return -static_cast<int>(r);
   }
   cudaError_t e = t360::allow_smem(k, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  Args a{x,         out,      tiles, kx,    rx,    ky,   ry,      lx,
-         ly,        B,        H,     W,     n_tiles, parts, row_bytes, pitch,
-         slab,      stages,   copy,  vec_out, static_cast<unsigned>(maxval),
+  Args a{x0,        x1,       fs0,   fs1,   b0,    out,  tiles,   kx,
+         rx,        ky,       ry,    lx,    ly,    B,    H,       W,
+         n_tiles,   parts,    row_bytes, pitch, slab, stages, copy, vec_out,
+         static_cast<unsigned>(maxval),
          make_div(static_cast<unsigned>(B * parts)), make_div(static_cast<unsigned>(parts)),
          make_div(static_cast<unsigned>(ring ? row_bytes / sample_bytes : 1))};
-  void* args[] = {&map, &a};
+  void* args[] = {&map0, &map1, &a};
   e = cudaLaunchKernel(k, dim3(ctas), dim3(threads_for(sample_bytes, ring_ry, cols)), args, smem,
                        static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return static_cast<int>(e);

@@ -44,7 +44,12 @@
 //     float64 taps, the very values the plain version forms -- in 16-byte
 //     loads (no float64 product or conversion runs in K3).
 // A CTA takes `frames` consecutive frames of the batch (blockIdx.y picks
-// which), so that a short batch of few tiles still fills the card.  Per
+// which), so that a short batch of few tiles still fills the card.  The
+// batch is read where it lies, from up to two sources (the U and V planes
+// of a chroma batch without a prefilter; ops/sources.py), each with its
+// own base and frame stride: the frame groups are cut where source 1
+// starts, so that a CTA picks its source once and its frame loop is the
+// one-source loop.  Per
 // frame the CTA issues one 16-byte cp.async per chunk from the table,
 // double-buffered so that the next frames' windows load while these are
 // computed (the counterpart of the TPU kernel's double-buffered window
@@ -89,8 +94,12 @@ constexpr int smem_bytes(int win_bytes, bool pairs) {
 
 template <typename S>
 struct Args {
-  const S* src;         // [B, H, W]
-  S* dst;               // [B, out_h, out_w]
+  const S* src0;        // frames [0, b0) of the batch, [b0, H, W] with packed rows
+  const S* src1;        // frames [b0, B) (null if b0 == B)
+  int fs0, fs1;         // their frame strides in samples (< 2^31)
+  int b0;
+  int g0;               // frame groups of source 0 (grid rows [0, g0)), then source 1's
+  S* dst;               // [B, out_h, out_w], stacked
   const int* meta;      // [n, 6]: out row, out col, y0, x0, wh, pitch (samples)
   const uint32_t* pos;  // [n * 256]: ly | lx << 16, tile rows of 16
   const uint8_t* fy;    // fy | (not valid) << 7
@@ -101,7 +110,7 @@ struct Args {
   int frames;  // per CTA: frames [blockIdx.y * frames, ...) of the batch
   float fill;
   float maxval;  // uint16: the depth's largest sample (uint8: 255)
-  bool vec;    // W and src are 16-byte aligned
+  bool vec;    // W, every source's base and frame stride are 16-byte aligned
   bool pairs;  // two frames per pass
 };
 
@@ -278,12 +287,15 @@ __global__ void __launch_bounds__(kThreads, T * T <= 16 ? 4 : 2)
   const int y0 = m[2], x0 = m[3], wh = m[4], pitch = m[5];
   const bool staged = pitch > 0;  // uniform over the CTA
   const int nchunks = wh * (pitch >> kLogChunk<S>);
-  const size_t plane = static_cast<size_t>(a.H) * a.W;
-  const size_t N = static_cast<size_t>(a.out_h) * a.out_w;
-  const int f0 = blockIdx.y * a.frames;
-  const int nf = min(a.frames, a.B - f0);
-  const S* src = a.src + f0 * plane;
-  S* dst = a.dst + f0 * N;
+  const int N = a.out_h * a.out_w;  // < 2^31; offsets of frames are 64-bit products
+  // this CTA's frames: nf frames of one source from its frame fz (frame
+  // b0 + fz of the batch for source 1)
+  const bool second = static_cast<int>(blockIdx.y) >= a.g0;
+  const int fz = (second ? blockIdx.y - a.g0 : blockIdx.y) * a.frames;
+  const int nf = min(a.frames, (second ? a.B - a.b0 : a.b0) - fz);
+  const int fs = second ? a.fs1 : a.fs0;  // samples from one frame to the next
+  const S* src = (second ? a.src1 : a.src0) + static_cast<long long>(fz) * fs;
+  S* dst = a.dst + static_cast<long long>(second ? a.b0 + fz : fz) * N;
 
   // frame f + j of a pass with parity `half` is staged at
   // bufs + (half * fp + j) * win
@@ -334,7 +346,7 @@ __global__ void __launch_bounds__(kThreads, T * T <= 16 ? 4 : 2)
   const uint32_t fill_px = round_sample<S>(a.fill, a.maxval);
   if (staged) {
     __syncthreads();  // the chunk table is complete
-    if (fp == 2 && nf > 1) stage<S, MODE>(src + plane, bufs + win, tab, nchunks, x0, a.W);
+    if (fp == 2 && nf > 1) stage<S, MODE>(src + fs, bufs + win, tab, nchunks, x0, a.W);
     t360::cp_async_commit();
   }
 
@@ -344,8 +356,8 @@ __global__ void __launch_bounds__(kThreads, T * T <= 16 ? 4 : 2)
     if (staged) {
       for (int j = 0; j < fp; ++j)  // the next pass's frames
         if (f + fp + j < nf)
-          stage<S, MODE>(src + (f + fp + j) * plane, bufs + ((half ^ 1) * fp + j) * win, tab,
-                         nchunks, x0, a.W);
+          stage<S, MODE>(src + static_cast<long long>(f + fp + j) * fs,
+                         bufs + ((half ^ 1) * fp + j) * win, tab, nchunks, x0, a.W);
       t360::cp_async_commit();  // empty past the batch's end
       t360::cp_async_wait<1>();
       __syncthreads();  // this pass's windows are complete
@@ -358,14 +370,15 @@ __global__ void __launch_bounds__(kThreads, T * T <= 16 ? 4 : 2)
       acc0 = sum_staged<S, T>(buf, o, pitch, w);
       if (two) acc1 = sum_staged<S, T>(buf + win, o, pitch, w);
     } else {
-      acc0 = sum_global<S, T, MODE>(src + f * plane, y0 + (o & 0xFFFF), x0 + (o >> 16), a.H,
-                                    a.W, w);
+      const S* frame = src + static_cast<long long>(f) * fs;
+      acc0 = sum_global<S, T, MODE>(frame, y0 + (o & 0xFFFF), x0 + (o >> 16), a.H, a.W, w);
       if (two)
-        acc1 = sum_global<S, T, MODE>(src + (f + 1) * plane, y0 + (o & 0xFFFF), x0 + (o >> 16),
-                                      a.H, a.W, w);
+        acc1 = sum_global<S, T, MODE>(frame + fs, y0 + (o & 0xFFFF), x0 + (o >> 16), a.H,
+                                      a.W, w);
     }
-    put<S, T, MODE>(dst + f * N, acc0, fill_term, invalid, fill_px, a.maxval, oo);
-    if (two) put<S, T, MODE>(dst + (f + 1) * N, acc1, fill_term, invalid, fill_px, a.maxval, oo);
+    S* out = dst + static_cast<long long>(f) * N;
+    put<S, T, MODE>(out, acc0, fill_term, invalid, fill_px, a.maxval, oo);
+    if (two) put<S, T, MODE>(out + N, acc1, fill_term, invalid, fill_px, a.maxval, oo);
     if (staged) __syncthreads();  // this half is free for the pass after next
     half ^= 1;
   }
@@ -408,40 +421,53 @@ cudaError_t allow_smem(const void* k, int smem) {
 }
 
 template <typename S>
-cudaError_t launch(const void* k, const void* src, void* dst, int B, int H, int W, int out_h,
+cudaError_t launch(const void* k, const void* src0, long long fs0, int b0, const void* src1,
+                   long long fs1, int g0, int groups, void* dst, int B, int H, int W, int out_h,
                    int out_w, const int* meta, const uint32_t* pos, const uint8_t* fy,
                    const uint8_t* fx, const float* wtab, int first, int tiles, int win_bytes,
                    float fill, float maxval, int vec, int frames, int pairs, int smem,
                    cudaStream_t stream) {
-  Args<S> a{static_cast<const S*>(src), static_cast<S*>(dst), meta, pos, fy, fx, wtab,
+  Args<S> a{static_cast<const S*>(src0), static_cast<const S*>(src1), static_cast<int>(fs0),
+            static_cast<int>(fs1), b0, g0,
+            static_cast<S*>(dst), meta, pos, fy, fx, wtab,
             B, H, W, out_h, out_w, first, win_bytes, frames, fill, maxval, vec != 0,
             pairs != 0};
   void* args[] = {&a};
-  const dim3 grid(tiles, (B + frames - 1) / frames);
-  return cudaLaunchKernel(k, grid, dim3(kThreads), args, smem, stream);
+  return cudaLaunchKernel(k, dim3(tiles, groups), dim3(kThreads), args, smem, stream);
 }
 
 }  // namespace
 
-// src: [B, H, W] and dst: [B, out_h, out_w] samples of sample_bytes each
+// src0, src1: the batch's two sources, read where they lie
+// (ops/sources.py): frames [0, b0) from src0, [b0, B) from src1 (null when
+// b0 == B), each [b, H, W] with packed rows, frames fs0 and fs1 samples
+// apart; dst: [B, out_h, out_w], stacked.  Samples of sample_bytes each
 // (1: uint8; 2: uint16, rounded and saturated to maxval, the depth's
 // largest sample); meta int32 [n, 6] (out row, out col, y0, x0, wh, pitch
 // in samples; pitch 0: global path); pos uint32, fy/fx uint8 [n * 256],
 // tiles of 16x16; wtab float32 [32 * 32, taps * taps].  Launches tiles
 // first .. first + tiles - 1, each CTA with 2 (pairs: 4) * win_bytes of window buffers and
 // win_bytes / 4 of chunk table (win_bytes a multiple of 16), and `frames`
-// frames of the batch, one (pairs: two) per pass.  vec: W and src are
-// 16-byte aligned.
-extern "C" int t360_window(const void* src, void* dst, int sample_bytes, float maxval, int B,
+// frames of the batch, one (pairs: two) per pass, the groups cut where
+// source 1 starts (a CTA reads one source).  vec: W and every source's
+// base and frame stride are 16-byte aligned.
+extern "C" int t360_window(const void* src0, long long fs0, int b0, const void* src1,
+                           long long fs1, void* dst, int sample_bytes, float maxval, int B,
                            int H, int W, int out_h, int out_w, const int* meta,
                            const uint32_t* pos, const uint8_t* fy, const uint8_t* fx,
                            const float* wtab, int first, int tiles, int win_bytes, int taps,
                            int mode, float fill, int vec, int frames, int pairs,
                            void* stream) {
   const void* k = kernel_for(sample_bytes, taps, mode);
+  const long long plane = static_cast<long long>(H) * W;
+  const int g0 = frames > 0 ? (b0 + frames - 1) / frames : 0;  // source 0's frame groups
+  const int groups = frames > 0 ? g0 + (B - b0 + frames - 1) / frames : 0;
   if (k == nullptr || B <= 0 || H <= 0 || W <= 0 || out_h <= 0 || out_w <= 0 ||
-      tiles <= 0 || first < 0 || win_bytes < 0 || frames <= 0 ||
-      (B + frames - 1) / frames > 65535 || (win_bytes & 15) != 0 ||
+      tiles <= 0 || first < 0 || win_bytes < 0 || frames <= 0 || b0 <= 0 || b0 > B ||
+      src0 == nullptr || (b0 > 1 && fs0 < plane) || fs0 > 0x7fffffffLL || fs1 > 0x7fffffffLL ||
+      (b0 < B && (src1 == nullptr || (B - b0 > 1 && fs1 < plane))) ||
+      static_cast<long long>(out_h) * out_w >= (1LL << 31) ||
+      groups > 65535 || (win_bytes & 15) != 0 ||
       static_cast<long long>(H) * W >= (1LL << 31) || H >= (1 << 16) ||
       smem_bytes(win_bytes, pairs) > 227 * 1024 ||
       (sample_bytes == 1 ? maxval != 255.0f : !(maxval >= 255.0f && maxval <= 65535.0f)))
@@ -451,10 +477,12 @@ extern "C" int t360_window(const void* src, void* dst, int sample_bytes, float m
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   e = sample_bytes == 1
-          ? launch<uint8_t>(k, src, dst, B, H, W, out_h, out_w, meta, pos, fy, fx, wtab, first,
-                            tiles, win_bytes, fill, maxval, vec, frames, pairs, smem, st)
-          : launch<uint16_t>(k, src, dst, B, H, W, out_h, out_w, meta, pos, fy, fx, wtab, first,
-                             tiles, win_bytes, fill, maxval, vec, frames, pairs, smem, st);
+          ? launch<uint8_t>(k, src0, fs0, b0, src1, fs1, g0, groups, dst, B, H, W, out_h, out_w,
+                            meta, pos, fy, fx, wtab, first, tiles, win_bytes, fill, maxval, vec,
+                            frames, pairs, smem, st)
+          : launch<uint16_t>(k, src0, fs0, b0, src1, fs1, g0, groups, dst, B, H, W, out_h,
+                             out_w, meta, pos, fy, fx, wtab, first, tiles, win_bytes, fill,
+                             maxval, vec, frames, pairs, smem, st);
   if (e != cudaSuccess) return static_cast<int>(e);
   T360_CHECK_LAUNCH();
   return 0;

@@ -22,12 +22,17 @@ CTAs resident on the card) over the tile-major (tile, frame, part) items
 (:func:`work_list`), a part being an even share of a tile's rows
 (:func:`part_rows`; :func:`launch_parts` cuts tiles into parts where the
 batch gives too few items) and :func:`launch_cols` picks the columns per
-thread.  A plane whose rows and base are 16-byte aligned and whose rows
-hold a staged row is staged by TMA, any other by the producer warp's
-loads (``COPY_WARP``): the shape chooses, never a failure.  The tables
-memoize each batch size's choices (:func:`geometry`), so that a call
-after the first spends no host time on them.  For a CUDA
-tensor the wrapper launches the kernel or raises; it never falls back.
+thread.  A launch reads its batch where it lies, from one or two sources
+(:mod:`.sources`: the U and V planes of a chroma batch, or slices of a
+packed frame buffer), each through its own tensor map, into one stacked
+output.  A batch whose sources' bases, rows and frame strides are all
+16-byte aligned and whose rows hold a staged row is staged by TMA, any
+other by the producer warp's loads (``COPY_WARP``): the shape chooses,
+never a failure.  The tables memoize each batch's choices
+(:func:`geometry`) by its sources' frame counts and alignment, so that
+a call after the first spends no host time on them.  For CUDA tensors the
+wrapper launches the kernel or raises; it never falls back, and never
+copies a source.
 ``LAUNCHES`` counts the uint8 instantiations' launches and
 ``LAUNCHES_U16`` the uint16 ones' (one per call on a CUDA tensor).
 """
@@ -45,7 +50,8 @@ import torch
 from ..config import StereoFormat
 from ..filtering import BlurPlan, band_radii, blur_plain, plan_radii
 from ..sampling import round_px
-from . import _build
+from . import _build, sources
+from .sources import Planes
 
 LAUNCHES = 0  # uint8 planes
 LAUNCHES_U16 = 0  # uint16 planes
@@ -166,7 +172,8 @@ class BlurTables:
     slab: int  # staged rows per stage
     min_rows: int  # rows of the shortest tile that is not zeros
     sample_bytes: int  # 1: uint8 planes, 2: uint16
-    # (device, B, base 16-byte aligned) -> (copy, stages, cols, parts, ctas) of a launch
+    # (device, sources' frame counts, sources' 16-byte alignment) -> (copy,
+    # stages, cols, parts, ctas) of a launch
     memo: dict = dataclasses.field(default_factory=dict, init=False, repr=False,
                                        compare=False)
 
@@ -290,7 +297,9 @@ def _lib() -> ctypes.CDLL:
     fn = lib.t360_blur
     if fn.argtypes is None:
         fn.argtypes = [
-            _c_void_p, _c_void_p,  # x, out
+            _c_void_p, ctypes.c_longlong, _c_int,  # source 0, its frame stride, its frames
+            _c_void_p, ctypes.c_longlong,  # source 1, its frame stride
+            _c_void_p,  # out
             _c_int, _c_int,  # sample bytes, largest sample
             _c_int, _c_int, _c_int,  # B, H, W
             _c_void_p, _c_int,  # tiles, n_tiles
@@ -315,27 +324,18 @@ def _error(lib: ctypes.CDLL, err: int) -> str:
     return lib.t360_error_string(err).decode()
 
 
-def _check_input(bt: BlurTables, x: torch.Tensor) -> None:
-    if not isinstance(x, torch.Tensor):
-        raise TypeError(f"expected a torch.Tensor, got {type(x).__name__}")
-    if x.dtype != bt.dtype:
-        raise TypeError(f"these blur tables take {bt.dtype} planes, got {x.dtype}")
-    if x.dim() != 3 or tuple(x.shape[1:]) != (bt.H, bt.W):
-        raise ValueError(f"blur expects [B, {bt.H}, {bt.W}], got {tuple(x.shape)}")
-    if x.shape[0] == 0:
-        raise ValueError("empty batch")
-    if not x.is_contiguous():
-        raise ValueError("blur takes contiguous planes")
-    if x.device != bt.kx.device:
-        raise ValueError(f"plane on {x.device} but the blur tables on {bt.kx.device}")
+def _check_input(bt: BlurTables, x: Planes) -> tuple:
+    return sources.check_sources(x, bt.H, bt.W, bt.dtype, bt.kx.device, "blur")
 
 
-def copy_mode(bt: BlurTables, x: torch.Tensor) -> int:
-    """How a launch stages ``x``: by TMA when its rows and base are
-    16-byte aligned (TMA's rule) and a row holds a staged row (a box is no
-    wider than the plane), else by the producer warp's loads."""
+def copy_mode(bt: BlurTables, x: Planes) -> int:
+    """How a launch stages the sources ``x``: by TMA when every source's
+    base and frame stride and the rows are 16-byte aligned (TMA's rule)
+    and a row holds a staged row (a box is no wider than the plane), else
+    by the producer warp's loads."""
     rows = bt.W * bt.sample_bytes
-    tma = rows % 16 == 0 and rows >= bt.row_bytes and x.data_ptr() % 16 == 0
+    tma = (rows % 16 == 0 and rows >= bt.row_bytes
+           and all(s.aligned for s in sources.describe(sources.as_sources(x))))
     return COPY_TMA if tma else COPY_WARP
 
 
@@ -397,38 +397,44 @@ def geometry(lib: ctypes.CDLL, bt: BlurTables, B: int, stages: int = STAGES, *, 
     return cols, parts, ctas or grid_ctas(n * B * parts, resident)
 
 
-def launch(lib: ctypes.CDLL, bt: BlurTables, x: torch.Tensor, out: torch.Tensor, stream: int,
+def launch(lib: ctypes.CDLL, bt: BlurTables, x: Planes, out: torch.Tensor, stream: int,
            maxval: int = 255) -> None:
-    """One launch of K1 from ``lib`` over ``bt``'s tiles into ``out`` on
-    the CUDA stream ``stream``; uint16 samples round and saturate to
-    ``maxval``.  The plane's alignment picks the copy (:func:`copy_mode`)
-    and the batch the rest (:func:`geometry`), memoized in ``bt``.  Raises
-    if the launch fails."""
-    key = (x.device.index, x.shape[0], x.data_ptr() % 16 == 0)
+    """One launch of K1 from ``lib`` over ``bt``'s tiles, reading the
+    sources ``x`` where they lie, into ``out`` (stacked) on the CUDA
+    stream ``stream``; uint16 samples round and saturate to ``maxval``.
+    The sources' alignment picks the copy (:func:`copy_mode`) and the
+    batch the rest (:func:`geometry`), memoized in ``bt``.  Raises if the
+    launch fails."""
+    xs = sources.as_sources(x)
+    src = sources.describe(xs)
+    key = (xs[0].device.index, tuple([s.frames for s in src]), tuple([s.aligned for s in src]))
     g = bt.memo.get(key)
     if g is None:
-        g = bt.memo[key] = (copy_mode(bt, x), STAGES, *geometry(lib, bt, x.shape[0]))
-    _call(lib, bt, x, out, stream, maxval, *g)
+        g = bt.memo[key] = (copy_mode(bt, xs), STAGES, *geometry(lib, bt, sources.frames(xs)))
+    _call(lib, bt, src, out, stream, maxval, *g)
 
 
-def _launch(lib: ctypes.CDLL, bt: BlurTables, x: torch.Tensor, out: torch.Tensor, stream: int,
+def _launch(lib: ctypes.CDLL, bt: BlurTables, x: Planes, out: torch.Tensor, stream: int,
             maxval: int = 255, *, copy: int = -1, stages: int = STAGES, parts: int = 0,
             ctas: int = 0, cols: int = 0) -> None:
     """:func:`launch` with each choice open to the tests and
     ``port_tools/``: the copy (-1: :func:`copy_mode`), the ring's depth,
     and the columns per thread, parts per tile and CTAs (0: as
     :func:`geometry` picks them); nothing memoized."""
-    copy = copy_mode(bt, x) if copy < 0 else copy
-    g = geometry(lib, bt, x.shape[0], stages, cols=cols, parts=parts, ctas=ctas)
-    _call(lib, bt, x, out, stream, maxval, copy, stages, *g)
+    xs = sources.as_sources(x)
+    copy = copy_mode(bt, xs) if copy < 0 else copy
+    g = geometry(lib, bt, sources.frames(xs), stages, cols=cols, parts=parts, ctas=ctas)
+    _call(lib, bt, sources.describe(xs), out, stream, maxval, copy, stages, *g)
 
 
-def _call(lib: ctypes.CDLL, bt: BlurTables, x: torch.Tensor, out: torch.Tensor, stream: int,
+def _call(lib: ctypes.CDLL, bt: BlurTables, src: tuple, out: torch.Tensor, stream: int,
           maxval: int, copy: int, stages: int, cols: int, parts: int, ctas: int) -> None:
-    B = x.shape[0]
+    s0, s1 = src[0], src[-1]
+    B = sum(s.frames for s in src)
     n = bt.tiles.shape[0]
     err = lib.t360_blur(
-        x.data_ptr(), out.data_ptr(), bt.sample_bytes, maxval, B, bt.H, bt.W,
+        s0.ptr, s0.stride, s0.frames, s1.ptr if len(src) > 1 else None, s1.stride,
+        out.data_ptr(), bt.sample_bytes, maxval, B, bt.H, bt.W,
         bt.tiles.data_ptr(), n,
         bt.kx.data_ptr(), bt.rx.data_ptr(), bt.kx.shape[1],
         bt.ky.data_ptr(), bt.ry.data_ptr(), bt.ky.shape[1],
@@ -441,24 +447,27 @@ def _call(lib: ctypes.CDLL, bt: BlurTables, x: torch.Tensor, out: torch.Tensor, 
         raise RuntimeError(f"blur kernel launch failed: {_error(lib, err)}")
 
 
-def blur_px(bt: BlurTables, x: torch.Tensor, maxval: int = 255) -> torch.Tensor:
-    """Prefilter + half-up round: ``[B, H, W]`` samples → same shape and
-    dtype, on ``x``'s device: uint8 (saturated at 255), or uint16
-    saturated at ``maxval`` (the depth's largest sample)."""
+def blur_px(bt: BlurTables, x: Planes, maxval: int = 255) -> torch.Tensor:
+    """Prefilter + half-up round: ``[B, H, W]`` samples, or one or two
+    sources (:mod:`.sources`) read where they lie → ``[B, H, W]`` (the
+    sources' frames stacked) of the same dtype, on their device: uint8
+    (saturated at 255), or uint16 saturated at ``maxval`` (the depth's
+    largest sample)."""
     global LAUNCHES, LAUNCHES_U16
-    _check_input(bt, x)
+    xs = _check_input(bt, x)
     if bt.sample_bytes == 1 and maxval != 255:
         raise ValueError(f"uint8 samples saturate at 255, not {maxval}")
     if not 255 <= maxval <= 65535:
         raise ValueError(f"largest sample {maxval} is not a depth of 8 to 16 bits")
-    if x.device.type == "cpu":
-        return round_px(blur_plain(bt.plan, x.float()), maxval, x.dtype)
-    if x.device.type != "cuda":
-        raise ValueError(f"blur runs on cpu or cuda tensors, not {x.device}")
-    out = torch.empty_like(x)
+    dev = xs[0].device
+    if dev.type == "cpu":
+        return round_px(blur_plain(bt.plan, sources.stacked(xs).float()), maxval, bt.dtype)
+    if dev.type != "cuda":
+        raise ValueError(f"blur runs on cpu or cuda tensors, not {dev}")
+    out = torch.empty((sources.frames(xs), bt.H, bt.W), dtype=bt.dtype, device=dev)
     lib = _lib()
-    with torch.cuda.device(x.device):
-        launch(lib, bt, x, out, torch.cuda.current_stream(x.device).cuda_stream, maxval)
+    with torch.cuda.device(dev):
+        launch(lib, bt, xs, out, torch.cuda.current_stream(dev).cuda_stream, maxval)
     if bt.sample_bytes == 1:
         LAUNCHES += 1
     else:

@@ -22,8 +22,12 @@ Weights come from the float32 table ``wtab`` (:func:`..sampling.weight_table`,
 row ``fy * 32 + fx``): ``float32(w1[fy, ty] * w1[fx, tx])`` of the float64
 taps.
 
-For a CUDA tensor :func:`remap_window_px` launches the kernel or
-raises; it never falls back.  ``LAUNCHES`` counts the uint8
+:func:`remap_window_px` takes a plane batch as one or two sources
+(:mod:`.sources`), read where they lie: K3 reads the U and V planes of a
+plan without a prefilter from their own bases, its frame groups cut where
+the second source starts, so that each CTA reads one source.  For
+CUDA tensors it launches the kernel or raises; it never falls back, and
+never copies a source.  ``LAUNCHES`` counts the uint8
 instantiation's launches and ``LAUNCHES_U16`` the uint16 one's (one per
 class present in the plan).
 """
@@ -50,7 +54,8 @@ from ..sampling import (
     round_px,
     weight_table,
 )
-from . import _build
+from . import _build, sources
+from .sources import Planes
 
 LAUNCHES = 0  # uint8 planes
 LAUNCHES_U16 = 0  # uint16 planes
@@ -337,7 +342,9 @@ def _lib() -> ctypes.CDLL:
     fn = lib.t360_window
     if fn.argtypes is None:
         fn.argtypes = [
-            _c_void_p, _c_void_p,  # src, dst
+            _c_void_p, ctypes.c_longlong, _c_int,  # source 0, its frame stride, its frames
+            _c_void_p, ctypes.c_longlong,  # source 1, its frame stride
+            _c_void_p,  # dst
             _c_int, ctypes.c_float,  # sample bytes, largest sample
             _c_int, _c_int, _c_int, _c_int, _c_int,  # B, H, W, out_h, out_w
             _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,  # meta, pos, fy, fx, wtab
@@ -354,67 +361,71 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_input(wt: WindowTables, x: torch.Tensor) -> None:
-    if not isinstance(x, torch.Tensor):
-        raise TypeError(f"expected a torch.Tensor, got {type(x).__name__}")
-    if x.dtype != wt.dtype:
-        raise TypeError(f"this window plan takes {wt.dtype} planes, got {x.dtype}")
-    if x.dim() != 3 or tuple(x.shape[1:]) != (wt.in_h, wt.in_w):
-        raise ValueError(f"remap expects [B, {wt.in_h}, {wt.in_w}], got {tuple(x.shape)}")
-    if x.shape[0] == 0:
-        raise ValueError("empty batch")
-    if not x.is_contiguous():
-        raise ValueError("remap takes contiguous planes")
-    if x.device != wt.meta.device:
-        raise ValueError(f"plane on {x.device} but the window plan on {wt.meta.device}")
+def _check_input(wt: WindowTables, x: Planes) -> tuple:
+    return sources.check_sources(x, wt.in_h, wt.in_w, wt.dtype, wt.meta.device, "remap")
 
 
-def launch_class(lib: ctypes.CDLL, wt: WindowTables, x: torch.Tensor, out: torch.Tensor,
+def launch_class(lib: ctypes.CDLL, wt: WindowTables, x: Planes, out: torch.Tensor,
                  group: Tuple[int, int, int], frames: int, pair: bool, stream: int,
                  maxval: int = 255) -> None:
     """One launch of K3 from ``lib`` over the tiles of ``group`` (first
-    tile, tiles, window bytes) of ``wt``: ``frames`` frames of ``x`` per
-    CTA, two per pass if ``pair``, into ``out`` on the CUDA stream
+    tile, tiles, window bytes) of ``wt``: up to ``frames`` frames of one
+    source of ``x`` per CTA (the groups cut where source 1 starts), two
+    per pass if ``pair``, into ``out`` (stacked) on the CUDA stream
     ``stream``; uint16 samples round and saturate to ``maxval``.  Raises
     if the launch fails."""
+    _launch_class(lib, wt, sources.describe(sources.as_sources(x)), out, group, frames, pair,
+                  stream, maxval)
+
+
+def _launch_class(lib: ctypes.CDLL, wt: WindowTables, src: tuple, out: torch.Tensor,
+                  group: Tuple[int, int, int], frames: int, pair: bool, stream: int,
+                  maxval: int) -> None:
+    """:func:`launch_class` on sources already described
+    (:func:`.sources.describe`)."""
     first, count, win = group
+    s0, s1 = src[0], src[-1]
     err = lib.t360_window(
-        x.data_ptr(), out.data_ptr(), wt.sample_bytes, float(maxval),
-        x.shape[0], wt.in_h, wt.in_w, wt.out_h, wt.out_w,
+        s0.ptr, s0.stride, s0.frames, s1.ptr if len(src) > 1 else None, s1.stride,
+        out.data_ptr(), wt.sample_bytes, float(maxval),
+        sum(s.frames for s in src), wt.in_h, wt.in_w, wt.out_h, wt.out_w,
         wt.meta.data_ptr(), wt.pos.data_ptr(), wt.fy.data_ptr(),
         wt.fx.data_ptr(), wt.wtab.data_ptr(),
         first, count, win, wt.taps, wt.mode, wt.fill,
-        int(wt.in_w * wt.sample_bytes % VEC == 0 and x.data_ptr() % VEC == 0),
+        int(wt.in_w * wt.sample_bytes % VEC == 0 and all(s.aligned for s in src)),
         frames, int(pair), stream,
     )
     if err:
         raise RuntimeError(f"window kernel launch failed: {lib.t360_error_string(err).decode()}")
 
 
-def remap_window_px(wt: WindowTables, x: torch.Tensor, maxval: int = 255) -> torch.Tensor:
+def remap_window_px(wt: WindowTables, x: Planes, maxval: int = 255) -> torch.Tensor:
     """Remap + half-up round through the tile plan: ``[B, in_h, in_w]``
-    samples → ``[B, out_h, out_w]`` of the same dtype on ``x``'s device:
-    uint8 (saturated at 255), or uint16 saturated at ``maxval`` (the
-    depth's largest sample, 1023 at 10 bits).  Any batch size is
-    accepted."""
+    samples, or one or two sources (:mod:`.sources`) read where they lie
+    → ``[B, out_h, out_w]`` (the sources' frames stacked) of the same
+    dtype on their device: uint8 (saturated at 255), or uint16 saturated
+    at ``maxval`` (the depth's largest sample, 1023 at 10 bits).  Any
+    batch size is accepted."""
     global LAUNCHES, LAUNCHES_U16
-    _check_input(wt, x)
+    xs = _check_input(wt, x)
     if wt.sample_bytes == 1 and maxval != 255:
         raise ValueError(f"uint8 samples saturate at 255, not {maxval}")
     if not 255 <= maxval <= 65535:
         raise ValueError(f"largest sample {maxval} is not a depth of 8 to 16 bits")
-    if x.device.type == "cpu":
-        return round_px(remap_window_plain(wt, x), maxval, x.dtype)
-    if x.device.type != "cuda":
-        raise ValueError(f"remap runs on cpu or cuda tensors, not {x.device}")
-    B = x.shape[0]
-    out = torch.empty((B, wt.out_h, wt.out_w), dtype=x.dtype, device=x.device)
+    dev = xs[0].device
+    if dev.type == "cpu":
+        return round_px(remap_window_plain(wt, sources.stacked(xs)), maxval, wt.dtype)
+    if dev.type != "cuda":
+        raise ValueError(f"remap runs on cpu or cuda tensors, not {dev}")
+    B = sources.frames(xs)
+    out = torch.empty((B, wt.out_h, wt.out_w), dtype=wt.dtype, device=dev)
     lib = _lib()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+    src = sources.describe(xs)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         for group in wt.groups:
-            launch_class(lib, wt, x, out, group, frames_per_cta(B, group[1]), pairs(group[2]),
-                         stream, maxval)
+            _launch_class(lib, wt, src, out, group, frames_per_cta(B, group[1]),
+                          pairs(group[2]), stream, maxval)
             if wt.sample_bytes == 1:
                 LAUNCHES += 1
             else:

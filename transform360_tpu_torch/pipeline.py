@@ -22,20 +22,28 @@ Executors (the JAX package's ``_StagedExecutor`` and ``plane_executor``,
 :class:`PlaneExecutor` per plane plan (by key and content) and device.  On a
 CUDA device, the first call of a batch of at most ``GRAPH_MAX_BATCH``
 frames of a shape runs the program eagerly (its result is that call's)
-and captures it in a ``torch.cuda.CUDAGraph`` that reads a static input
-buffer; every later call of that shape copies its planes into the static
-input (numpy planes host to device, U and V into the two halves of the
-chroma input, in place of a ``torch.cat``), replays the graph once and
-returns a clone of the static output, so that no returned tensor aliases
-a later call's.  Static buffers fix every pointer, so the alignments
-that K1, K3 and K4 read from them and the batch-dependent grids are the
-same at every replay.  The executors of one device share a graph memory
-pool; every call runs on the device's current stream, and calls that
+and captures it in a ``torch.cuda.CUDAGraph`` that reads one static
+input per plane; every later call of that shape copies its planes into
+their static inputs (numpy planes host to device), replays the graph
+once and returns a clone of the static output, so that no returned
+tensor aliases a later call's.  Static buffers fix every pointer, so the
+alignments that K1, K3 and K4 read from them and the batch-dependent
+grids are the same at every replay.  The executors of one device share
+a graph memory pool; every call runs on the device's current stream, and calls that
 overlap on two streams are not supported.  Larger batches, the CPU, and
 a call made while the current stream is being captured by the caller
 (its graph then takes the kernels) run the program eagerly.  A capture
 that fails raises; nothing runs eagerly in its place.  A replay adds the
 launches its graph holds to the kernels' ``LAUNCHES`` counters.
+
+Sources: the program hands a plane batch to K1 (or to K3, for a plan
+without a prefilter) as the planes it was given, one or two sources
+(:mod:`.ops.sources`) read where they lie: the chroma planes U and V are
+never stacked by a copy on the card (the JAX package concatenates them
+for one TPU launch, ``pipeline.py:412`` there).  A plane whose rows are
+not packed is the one input that is copied, by ``.contiguous()``: input
+normalization, counted in ``PLANE_COPIES``.  On the CPU the plain
+versions take the sources stacked (a cat on the host).
 
 Rounding parity: the reference filters into a uint8 plane and remaps it
 with fixed-point arithmetic; every stage rounds with ``floor(x + 0.5)``
@@ -52,9 +60,10 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .ops import area, blur, window
+from .ops import area, blur, sources, window
 from .ops.area import area_px
 from .ops.blur import blur_px
+from .ops.sources import Planes
 from .ops.window import remap_window_px
 from .plan import PlanePlan, TransformPlan
 
@@ -66,6 +75,11 @@ from .plan import PlanePlan, TransformPlan
 # of its static output (about 16% more device time) won at 4 frames on one
 # host and lost on another.
 GRAPH_MAX_BATCH = 2
+
+# Planes the executors copied with ``.contiguous()`` because their rows
+# were not packed (input normalization: a kernel reads any other plane
+# where it lies).  ``chip_smoke.py`` reads it: 0 on every main path.
+PLANE_COPIES = 0
 
 
 def device_of(device) -> torch.device:
@@ -126,13 +140,17 @@ def device_put_plan(plan: TransformPlan, device="cuda") -> TransformPlan:
     return plan
 
 
-def _plane_program(pp: PlanePlan, x: torch.Tensor) -> torch.Tensor:
-    """[B, in_h, in_w] → [B, out_h, out_w] samples of the plan's dtype on
-    ``x``'s device."""
-    t = pp.tables(x.device)
+def _plane_program(pp: PlanePlan, planes: Planes) -> torch.Tensor:
+    """[B, in_h, in_w] planes, or one or two sources (U and V) read where
+    they lie → [B, out_h, out_w] samples of the plan's dtype (the sources'
+    frames stacked) on their device."""
+    xs = sources.as_sources(planes)
+    dev = xs[0].device
+    x = xs[0] if len(xs) == 1 else xs
+    t = pp.tables(dev)
     if t.blur is not None:
         x = blur_px(t.blur, x, pp.maxval)
-    out = remap_window_px(pp.window_tables(x.device), x, pp.maxval)
+    out = remap_window_px(pp.window_tables(dev), x, pp.maxval)
     if t.area is not None:
         out = area_px(t.area, out, pp.maxval)
     return out
@@ -161,28 +179,22 @@ def _add_launches(counts: Sequence[int]) -> None:
         setattr(m, a, getattr(m, a) + n)
 
 
-def _stacked(planes: Sequence[torch.Tensor], device: torch.device) -> torch.Tensor:
-    """The planes as one contiguous batch on ``device`` (a cat when there
-    are several)."""
-    if len(planes) == 1:
-        return planes[0].to(device).contiguous()
-    return torch.cat([p.to(device) for p in planes])
+def _source(p: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A plane on ``device`` as a kernel source: as it is where its rows
+    are packed, a host plane copied to ``device``, any other copied by
+    ``.contiguous()`` (input normalization, counted in ``PLANE_COPIES``)."""
+    global PLANE_COPIES
+    p = p.to(device)
+    if not sources.rows_packed(p):
+        PLANE_COPIES += 1
+        p = p.contiguous()
+    return p
 
 
-def _slots(x: torch.Tensor, planes: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
-    """Views of consecutive frames of ``x``, one per plane, of its batch."""
-    if len(planes) == 1:
-        return (x,)
-    out, off = [], 0
-    for p in planes:
-        out.append(x[off:off + p.shape[0]])
-        off += p.shape[0]
-    return tuple(out)
-
-
-def _fill(slots: Sequence[torch.Tensor], planes: Sequence[torch.Tensor]) -> None:
-    """Copy each plane into its slot (host to device for host planes)."""
-    for s, p in zip(slots, planes):
+def _fill(xs: Sequence[torch.Tensor], planes: Sequence[torch.Tensor]) -> None:
+    """Copy each plane into its static input (host to device for host
+    planes)."""
+    for s, p in zip(xs, planes):
         s.copy_(p)
 
 
@@ -204,38 +216,35 @@ def _graph_state(device: torch.device) -> tuple:
 
 @dataclasses.dataclass(frozen=True)
 class _Graph:
-    """One captured program: its static input, that input's views for
-    the capture's planes, its static output, and the kernel launches that
-    one replay makes (module, counter, count)."""
+    """One captured program: its static inputs (one per plane), its static
+    output, and the kernel launches that one replay makes (module,
+    counter, count)."""
 
     graph: torch.cuda.CUDAGraph
-    x: torch.Tensor
-    slots: Tuple[torch.Tensor, ...]
+    xs: Tuple[torch.Tensor, ...]
     out: torch.Tensor
     launches: Tuple[Tuple[object, str, int], ...]
 
     def __call__(self, planes: Sequence[torch.Tensor]) -> torch.Tensor:
-        same = len(planes) == len(self.slots) and all(
-            p.shape[0] == s.shape[0] for p, s in zip(planes, self.slots))
-        _fill(self.slots if same else _slots(self.x, planes), planes)
+        _fill(self.xs, planes)
         self.graph.replay()
         for m, a, n in self.launches:
             setattr(m, a, getattr(m, a) + n)
         return self.out.clone()
 
 
-def _capture(pp: PlanePlan, planes: Sequence[torch.Tensor], shape: Tuple[int, ...],
+def _capture(pp: PlanePlan, planes: Sequence[torch.Tensor],
              device: torch.device) -> Tuple[_Graph, torch.Tensor]:
-    """(the graph of ``pp``'s program on a static input of ``shape``, the
-    program's output on ``planes``).  The tables are built and the program
-    runs once eagerly (its output is returned; its launches count) before
-    the capture, which only records: its launches are taken off the
-    counters and added back at each replay."""
+    """(the graph of ``pp``'s program on static inputs of the planes'
+    shapes, one per plane, the program's output on ``planes``).  The
+    tables are built and the program runs once eagerly on the static
+    inputs (its output is returned; its launches count) before the
+    capture of the same program, which only records: its launches are
+    taken off the counters and added back at each replay."""
     _plane_put(pp, device)
-    x = torch.empty(shape, dtype=pp.dtype, device=device)
-    slots = _slots(x, planes)
-    _fill(slots, planes)
-    out = _plane_program(pp, x)
+    xs = tuple(torch.empty(tuple(p.shape), dtype=pp.dtype, device=device) for p in planes)
+    _fill(xs, planes)
+    out = _plane_program(pp, xs)
     pool, stream = _graph_state(device)
     graph = torch.cuda.CUDAGraph()
     before = _launch_counts()
@@ -243,30 +252,31 @@ def _capture(pp: PlanePlan, planes: Sequence[torch.Tensor], shape: Tuple[int, ..
         with torch.cuda.stream(stream):
             graph.capture_begin(pool=pool)
             try:
-                static = _plane_program(pp, x)
+                static = _plane_program(pp, xs)
             finally:
                 graph.capture_end()
     except Exception as e:
         _GRAPH_STATE.pop(device, None)  # the next capture starts on a fresh stream and pool
         raise RuntimeError(
-            f"capturing the plane program of {pp.key} at {tuple(shape)} in a CUDA graph "
-            f"failed; nothing ran in its place") from e
+            f"capturing the plane program of {pp.key} at {[tuple(p.shape) for p in planes]} "
+            f"in a CUDA graph failed; nothing ran in its place") from e
     finally:
         launched = [a - b for a, b in zip(_launch_counts(), before)]
         _add_launches([-n for n in launched])
     launches = tuple((m, a, n) for (m, a), n in zip(_COUNTERS, launched) if n)
-    return _Graph(graph, x, slots, static, launches), out
+    return _Graph(graph, xs, static, launches), out
 
 
 class PlaneExecutor:
     """One plane plan's program on one device, by input shape (the JAX
     package's ``_StagedExecutor``).
 
-    ``ex(*planes)``: ``[b, in_h, in_w]`` planes (on the executor's device,
-    or host tensors, copied in) stacked in order on the batch axis →
-    ``[sum b, out_h, out_w]`` on the device.  ``_by_shape`` maps (stacked
-    shape, dtype, device) to the captured :class:`_Graph`, or to ``None``
-    for a shape that runs eagerly (the CPU, or more than
+    ``ex(*planes)``: one or two ``[b, in_h, in_w]`` planes (on the
+    executor's device, or host tensors, copied in), read where they lie as
+    the kernels' sources → ``[sum b, out_h, out_w]`` on the device, their
+    frames stacked in order.  ``_by_shape`` maps (stacked shape, dtype,
+    device, each plane's frames) to the captured :class:`_Graph`, or to
+    ``None`` for a shape that runs eagerly (the CPU, or more than
     ``GRAPH_MAX_BATCH`` frames)."""
 
     def __init__(self, pp: PlanePlan, device: torch.device):
@@ -279,8 +289,9 @@ class PlaneExecutor:
         for i, p in enumerate(planes):  # a replay's copy would convert any dtype
             _check_plane(p, self.pp, f"plane plan {self.pp.key}, input {i}")
         frames = planes[0].shape[0]
-        shape = (sum(p.shape[0] for p in planes),) + tuple(planes[0].shape[1:])
-        key = (shape, self.pp.dtype, str(self.device))
+        counts = tuple(p.shape[0] for p in planes)
+        shape = (sum(counts),) + tuple(planes[0].shape[1:])
+        key = (shape, self.pp.dtype, str(self.device), counts)
         if self.device.type == "cuda" and frames <= GRAPH_MAX_BATCH:
             with torch.cuda.device(self.device):
                 # inside the caller's own capture, its graph takes the launches
@@ -288,13 +299,13 @@ class PlaneExecutor:
                     with self._lock:
                         g = self._by_shape.get(key)
                         if g is None:
-                            g, out = _capture(self.pp, planes, shape, self.device)
+                            g, out = _capture(self.pp, planes, self.device)
                             self._by_shape[key] = g
                             return out
                         return g(planes)
         else:
             self._by_shape.setdefault(key, None)
-        return _plane_program(self.pp, _stacked(planes, self.device))
+        return _plane_program(self.pp, [_source(p, self.device) for p in planes])
 
 
 # (plane plan's key, device) -> its executor, as the JAX package keys its
@@ -353,8 +364,9 @@ def transform_frame_planes(
     layout and dtype out, through the plane executors.
 
     Plane 0 uses the luma map; every other plane shares the chroma map
-    (``vf_transform360.c:372``).  The chroma planes are stacked on the
-    batch axis into one launch of each kernel.  Tensors are transformed
+    (``vf_transform360.c:372``).  The chroma planes take one launch of
+    each kernel as two sources read where they lie (no stacking copy);
+    its output is split into one view per plane.  Tensors are transformed
     on their own device; numpy planes are copied to ``device``.
     """
     placed = [_placed(p, device) for p in planes]
