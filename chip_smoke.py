@@ -131,10 +131,12 @@ nvcc and CUDA PyTorch (no jax needed).  Phases:
     6's [H, W] frame at n = 2, 4 and 8 with uniform and cost-model edges:
     bytes equal the unbanded frame, K1 2n launches and K3 one per class
     of each band; each band's device time, K3 alone per band, max(band),
-    the whole banded frame and the first call's wall (band plans built);
-    the pinned host-to-device rate of one 4K frame (the host term of
-    ``broadcast_ms``) and the one-card projection of N-card banded
-    latency; the supersampled 2x2 flagship in 3 bands (K4 twice per band)
+    the whole banded frame and the first call's wall (band plans built),
+    the replays' copies of the frame (``pipeline.REPLAY_COPIES``, 0: each
+    band reads the frame where it lies) and the device memory the bands'
+    graphs hold once captured (allocated, and the graph pool's reserve); the pinned host-to-device rate of one 4K
+    frame (the host term of ``broadcast_ms``) and the one-card projection
+    of N-card banded latency; the supersampled 2x2 flagship in 3 bands (K4 twice per band)
     and the 10-bit one in 2 equal their unbanded frames;
 16. two processes on the one card: the CLI with ``--distributed
     127.0.0.1:PORT,2,PID`` (gloo; both ranks on cuda:0) in batch mode and
@@ -160,13 +162,24 @@ nvcc and CUDA PyTorch (no jax needed).  Phases:
 19. the plane executors (``pipeline.plane_executor``): their replayed
     CUDA graphs against the eager program (``GRAPH_MAX_BATCH`` 0), 0 LSB,
     on the flagship, the 10-bit and the supersampled 2x2 flagship at
-    batch 1, 2 and 8 and on phase 6's frame in 2, 4 and 8 bands; then,
-    eager and executor in turns: batch 1 by CUDA events, behind a busy
+    batch 1, 2, 8 and ``GRAPH_MAX_BATCH`` and on phase 6's frame in 2, 4
+    and 8 bands, each replayed three times on two sets of planes in turn
+    with every output kept, so that every replay re-points every node of
+    its graphs that touches the caller's memory (``ops.nodes.UPDATES``;
+    fails otherwise); then, eager and executor in turns, each measure
+    calling on two sets of planes in turn with each output kept until the
+    next call (:func:`alternating`: the replays pay their node updates,
+    whose count per call is printed): batch 1 by CUDA events, behind a busy
     card (the call issued while the card spins, so that only its device
     time is read), host wall and numpy in to CPU tensors out; the ladder
     1 ... 32; max(band) and the host's issue per banded frame; the CLI's
     wall per frame at ``--batch 1`` and ``8``; the batch-128 step; the
-    memory a capture takes at batch 1 and at ``GRAPH_MAX_BATCH``.  Phase
+    memory a capture takes at batch 1 and at ``GRAPH_MAX_BATCH`` on planes
+    on the card, what stays allocated after it (fails if as much as its
+    planes: a replay reads the caller's planes where they lie and writes
+    a fresh output, so no static input or output stays) and what the
+    graph pool reserves for the intermediates; ``pipeline.REPLAY_COPIES``
+    (fails if not 0).  Phase
     6's numpy-in-to-CPU-out measure is repeated beside the pageable
     host-to-device rate, and three CLI runs that each build the flagship's
     plan anew must add no executor and no device memory.
@@ -376,6 +389,23 @@ def behind_ms(fn, reps: int = 30) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def alternating(call, *sets):
+    """fn() calling call(*sets[0]), call(*sets[1]), ... in turn, and
+    keeping each result until the next call has returned: a plane
+    executor's replay then reads other planes than its last replay and
+    writes another output block, so that it re-points its graph's nodes
+    (the same planes again, or an output dropped and its block handed back
+    by the caching allocator, would update none)."""
+    state = {"i": -1, "out": None}
+
+    def fn():
+        state["i"] = (state["i"] + 1) % len(sets)
+        state["out"] = call(*sets[state["i"]])
+        return state["out"]
+
+    return fn
 
 
 def pct(xs, q: float) -> float:
@@ -780,7 +810,7 @@ def main() -> int:
         Interpolation, Layout, StereoFormat, TransformConfig,
     )
     from transform360_tpu_torch.filtering import blur_plain
-    from transform360_tpu_torch.ops import _build, area, blur, sources, window
+    from transform360_tpu_torch.ops import _build, area, blur, nodes, sources, window
     from transform360_tpu_torch.parallel import latency
     from transform360_tpu_torch.sampling import AreaTables, DeviceArea, remap_plain, round_px, round_u8
     from transform360_tpu_torch.utils.yuv import write_yuv420_batch
@@ -788,11 +818,13 @@ def main() -> int:
     u16 = torch.uint16
 
     # each kernel's uint8 and uint16 instantiations count their launches
-    # apart; beside them the planes the executors copied by .contiguous()
+    # apart; beside them the planes the executors copied by .contiguous(),
+    # and the copies a graph replay made of a plane already on the card
     counters = {"blur": (blur, "LAUNCHES"), "window": (window, "LAUNCHES"),
                 "area": (area, "LAUNCHES"), "blur_u16": (blur, "LAUNCHES_U16"),
                 "window_u16": (window, "LAUNCHES_U16"), "area_u16": (area, "LAUNCHES_U16"),
-                "plane_copies": (pipeline, "PLANE_COPIES")}
+                "plane_copies": (pipeline, "PLANE_COPIES"),
+                "replay_copies": (pipeline, "REPLAY_COPIES")}
 
     def reset_counts():
         for m, attr in counters.values():
@@ -801,11 +833,13 @@ def main() -> int:
     def read_counts():
         """The counters since reset_counts(), read just after a main path
         ran: a plane copied by .contiguous() there fails (every path's
-        planes have packed rows, so the kernels read them where they lie)."""
+        planes have packed rows, so the kernels read them where they lie),
+        as does a replay's copy of a plane on the card (a replay reads them
+        where they lie too)."""
         c = {k: getattr(m, attr) for k, (m, attr) in counters.items()}
-        if c["plane_copies"]:
-            raise SystemExit(f"FAIL {c['plane_copies']} plane(s) copied by .contiguous() on a "
-                             f"main path: {c}")
+        if c["plane_copies"] or c["replay_copies"]:
+            raise SystemExit(f"FAIL {c['plane_copies']} plane(s) copied by .contiguous(), "
+                             f"{c['replay_copies']} by graph replays on a main path: {c}")
         return c
 
     # -- 1. device -------------------------------------------------------
@@ -1991,7 +2025,8 @@ def main() -> int:
     unbanded = [t.cpu().numpy() for t in (ly, lu, lv)]  # phase 6's unbanded frame
     x1s = [p[None] for p in one_frame]
     frame_graph = graph_ms(lambda: pipeline.transform_frame_planes(plan, x1s))
-    frame_issue = issue_ms(lambda: pipeline.transform_frame_planes(plan, x1s))
+    frame_issue = issue_ms(alternating(lambda *f: pipeline.transform_frame_planes(plan, f), x1s,
+                                       [p[1:2] for p in (yb, ub, vb)]))
     lb1 = blur.blur_px(luma_t.blur, x1s[0])
     cb1 = blur.blur_px(chroma_t.blur, tuple(x1s[1:]))
     k3_graph = graph_ms(lambda: (window.remap_window_px(luma_w, lb1),
@@ -2017,12 +2052,26 @@ def main() -> int:
             if bl["blur"] != 2 * n or bl["window"] != want_k3 or bl["blur_u16"] or bl["window_u16"]:
                 raise SystemExit(f"FAIL {n} bands ({edges}) launches {bl}, not K1 {2 * n} and "
                                  f"K3 {want_k3}")
+            # the device memory that the bands' graphs hold once captured
+            # anew on the frame where it lies (their tables built before)
+            pipeline.clear_executor_cache()
+            for b in bands:
+                pipeline.device_put_plan(b, one_frame[0].device)
+            torch.cuda.synchronize()
+            a0, r0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+            latency.transform_frame_banded(plan, one_frame, n=n, row_costs=costs)
+            torch.cuda.synchronize()
+            band_held = (torch.cuda.memory_allocated() - a0) / 2**20
+            band_pool = (torch.cuda.memory_reserved() - r0) / 2**20
+            read_counts()
             xs = [p[None] for p in one_frame]
+            xs2 = [p[1:2] for p in (yb, ub, vb)]  # another frame, for replays that re-point
             dev = xs[0].device  # the device key the banded path built the tables under
             per_band, k3_band, issue = [], [], []
             for b in bands:
                 per_band.append(graph_ms(lambda: pipeline.transform_frame_planes(b, xs)))
-                issue.append(issue_ms(lambda: pipeline.transform_frame_planes(b, xs)))
+                issue.append(issue_ms(alternating(
+                    lambda *f: pipeline.transform_frame_planes(b, f), xs, xs2)))
                 lb = blur.blur_px(b.luma.tables(dev).blur, xs[0])
                 cbl = blur.blur_px(b.chroma.tables(dev).blur, tuple(xs[1:]))
                 lwt, cwt = b.luma.window_tables(dev), b.chroma.window_tables(dev)
@@ -2044,12 +2093,16 @@ def main() -> int:
                 f"{sum(per_band):.4f} (the unbanded frame {frame_graph:.4f}); K3 alone per band "
                 f"(luma + chroma, graph) {[round(t, 4) for t in k3_band]}, max {max(k3_band):.4f}, "
                 f"sum {sum(k3_band):.4f} (unbanded {k3_graph:.4f}); host issue per band, calls "
-                f"back to back {[round(t, 4) for t in issue]}, sum {sum(issue):.4f} (unbanded "
+                f"back to back on two frames in turn {[round(t, 4) for t in issue]}, sum "
+                f"{sum(issue):.4f} (unbanded "
                 f"{frame_issue:.4f}); whole banded frame as a graph {whole_graph:.4f}, by CUDA "
                 f"events around the dispatch median {statistics.median(whole):.4f} (p90 "
                 f"{pct(whole, 0.9):.4f}, n={len(whole)}; phase 6's unbanded {frame_ms:.4f}); host "
                 f"wall to numpy planes {statistics.median(walls):.4f} ms; first call "
-                f"{first_wall:.3f} s (band plans, tile plans and tables built)  ({smi})")
+                f"{first_wall:.3f} s (band plans, tile plans and tables built); replay copies of "
+                f"the frame {bl['replay_copies']}, device memory after the band graphs' capture: "
+                f"allocated {band_held:.2f} MiB (no static input or output), reserved "
+                f"{band_pool:.1f} MiB (the graph pool's intermediates)  ({smi})")
     # the pinned host-to-device rate of one frame's planes: the host term of broadcast_ms
     pinned = [torch.from_numpy(p).pin_memory() for p in (y, u, v)]
     pageable = [torch.from_numpy(p) for p in (y, u, v)]
@@ -2255,6 +2308,7 @@ def main() -> int:
     import contextlib
 
     gmax = pipeline.GRAPH_MAX_BATCH
+    reset_counts()
 
     @contextlib.contextmanager
     def graphs_upto(n):
@@ -2273,44 +2327,106 @@ def main() -> int:
                        pipeline.plane_executor(pp, "cuda")._by_shape.items())
                    for pp, n in ((plan_.luma, b), (plan_.chroma, 2 * b)))
 
+    def program_nodes(plan_, b):
+        """The nodes that one replay of the plan's graphs for b frames of
+        packed, aligned card planes re-points when its planes and output
+        are new: each program's nodes on the caller's memory."""
+        return sum(len(g.program.nodes)
+                   for pp, n in ((plan_.luma, b), (plan_.chroma, 2 * b))
+                   for k, g in pipeline.plane_executor(pp, "cuda")._by_shape.items()
+                   if type(g).__name__ == "_Graph" and k[0][0] == n and len(k) == 4)
+
     def max_lsb(got, want):
         return max(int((a.int() - w.int()).abs().max()) for a, w in zip(got, want))
 
-    same = []
+    def np_lsb(got, want):
+        return max(int(np.abs(g.astype(int) - w.astype(int)).max()) for g, w in zip(got, want))
+
+    # three replays on two sets of planes in turn (B A B after the capture
+    # on A), every output kept: each replay reads other planes and writes
+    # another block than the last, so every node on the caller's memory is
+    # re-pointed each time; the first output is compared after the later
+    # calls, which must not have touched it
+    same, updated = [], []
     for what, e, planes in (("flagship", eng, (yb, ub, vb)), ("10-bit", deep, (ydb, udb, vdb)),
                             ("supersampled 2x2", ss, (yb, ub, vb))):
-        for b in (1, 2, 8):
-            xs = [t[:b] for t in planes]
+        for b in sorted({1, 2, 8, gmax}):
+            sets = [[t[k * b:(k + 1) * b] for t in planes] for k in (0, 1)]
             with graphs_upto(max(gmax, b)):
-                e.transform(*xs)  # the first call of a shape is eager and captures the graph
-                got = e.transform(*xs)
+                # the first call of a shape is eager and captures the graph; its
+                # output is kept, as are the later ones
+                warm = e.transform(*sets[0])
+                u0 = nodes.UPDATES
+                got = [e.transform(*sets[k]) for k in (1, 0, 1)]
+                upd = nodes.UPDATES - u0
             if not replayed(e.plan, b):
                 raise SystemExit(f"FAIL {what} batch {b} did not replay a captured graph")
+            full = program_nodes(e.plan, b)
+            updated.append(f"{what} b={b} {upd}/{3 * full}")
+            if upd != 3 * full:
+                raise SystemExit(f"FAIL {what} batch {b}: 3 replays on other planes made {upd} "
+                                 f"node updates, not {3 * full}")
             with graphs_upto(0):
-                want = e.transform(*xs)
-            same.append((f"{what} b={b}", max_lsb(got, want)))
+                want = [e.transform(*sets[k]) for k in (1, 0)]
+            same.append((f"{what} b={b}", max(max_lsb(got[0], want[0]), max_lsb(got[1], want[1]),
+                                              max_lsb(got[2], want[0]))))
+            del warm, got, want
+    frames2 = (one_frame, tuple(t[1] for t in (yb, ub, vb)))
     for n in (2, 4, 8):
-        latency.transform_frame_banded(plan, one_frame, n=n)
-        got = latency.transform_frame_banded(plan, one_frame, n=n)
-        if not all(replayed(band, 1) for band in latency.band_plans(plan, n)):
+        warm = latency.transform_frame_banded_async(plan, frames2[0], n=n)  # kept, as are the rest
+        u0 = nodes.UPDATES
+        inflight = [latency.transform_frame_banded_async(plan, frames2[k], n=n) for k in (1, 0, 1)]
+        upd = nodes.UPDATES - u0
+        bands = latency.band_plans(plan, n)
+        if not all(replayed(band, 1) for band in bands):
             raise SystemExit(f"FAIL {n} bands did not replay captured graphs")
+        full = sum(program_nodes(band, 1) for band in bands)
+        updated.append(f"{n} bands {upd}/{3 * full}")
+        if upd != 3 * full:
+            raise SystemExit(f"FAIL {n} bands: 3 replays on other frames made {upd} node "
+                             f"updates, not {3 * full}")
+        got = [f.gather() for f in inflight]
+        del warm
         with graphs_upto(0):
-            want = latency.transform_frame_banded(plan, one_frame, n=n)
-        same.append((f"{n} bands", max(int(np.abs(g.astype(int) - w.astype(int)).max())
-                                       for g, w in zip(got, want))))
-    say(f"[19] executors (GRAPH_MAX_BATCH {gmax}): replayed CUDA graph vs eager program, max "
-        f"|diff| in LSB: " + ", ".join(f"{k} {v}" for k, v in same))
+            want = [latency.transform_frame_banded(plan, frames2[k], n=n) for k in (1, 0)]
+        same.append((f"{n} bands", max(np_lsb(got[0], want[0]), np_lsb(got[1], want[1]),
+                                       np_lsb(got[2], want[0]))))
+    copies = read_counts()["replay_copies"]
+    say(f"[19] executors (GRAPH_MAX_BATCH {gmax}): replayed CUDA graph on two sets of planes in "
+        f"turn vs eager program, max |diff| in LSB: " + ", ".join(f"{k} {v}" for k, v in same)
+        + f"; node updates in 3 replays / the nodes on the caller's memory x 3: "
+        + ", ".join(updated) + f"; replay copies of planes on the card {copies}")
     if any(v for _, v in same):
         raise SystemExit(f"FAIL executor replays differ from the eager program: {same}")
 
-    def both(fn, measure, rounds=4):
+    last_updates = {}
+
+    def both(fn, measure, rounds=4, full=None):
         """(eager, executor) medians of measure(fn) in turns: eager,
-        executor, executor, eager, ..."""
+        executor, executor, eager, ...  With ``full``, the nodes one
+        replay re-points when its planes and output are new, the executor's
+        node updates per call must be at least 0.9 of it (a call whose
+        planes or output block happen to be its graph's last is spared
+        theirs), and last_updates["per_call"] holds them."""
         res = {"eager": [], "executor": []}
+        calls, upd, n = [0], 0, 0
+
+        def counted():
+            calls[0] += 1
+            return fn()
+
         for r in range(rounds):
             for mode in (("eager", "executor") if r % 2 == 0 else ("executor", "eager")):
                 with graphs_upto(0 if mode == "eager" else 32):
-                    res[mode].append(measure(fn))
+                    u0, c0 = nodes.UPDATES, calls[0]
+                    res[mode].append(measure(counted))
+                    if mode == "executor":
+                        upd, n = upd + nodes.UPDATES - u0, n + calls[0] - c0
+        if full is not None:
+            last_updates["per_call"] = upd / n
+            if upd < 0.9 * full * n:
+                raise SystemExit(f"FAIL the executor's timed calls made {upd / n:.2f} node "
+                                 f"updates per call, not about {full}: they did not re-point")
         return statistics.median(res["eager"]), statistics.median(res["executor"])
 
     def ev(fn):
@@ -2322,13 +2438,20 @@ def main() -> int:
     def bh(fn):
         return behind_ms(fn, 15)
 
-    one = lambda: eng.transform(y1, u1, v1)
-    rows = {"device by CUDA events": both(one, ev), "device behind a busy card": both(one, bh),
-            "host wall, planes on the card": both(one, wall),
-            "numpy in to CPU tensors out": both(from_host, lambda f: statistics.median(
-                host_walls(f, 20)))}
-    say("[19] batch 1, flagship, eager / executor in turns (medians of 4 rounds): "
-        + "; ".join(f"{k} {a:.4f} / {b:.4f} ms" for k, (a, b) in rows.items()) + f"  ({smi})")
+    one = alternating(eng.transform, (y1, u1, v1), frames2[1])
+    full1 = program_nodes(plan, 1)
+    rows, upc = {}, []
+    for k, measure in (("device by CUDA events", ev), ("device behind a busy card", bh),
+                       ("host wall, planes on the card", wall)):
+        rows[k] = both(one, measure, full=full1)
+        upc.append(last_updates["per_call"])
+    rows["numpy in to CPU tensors out"] = both(from_host, lambda f: statistics.median(
+        host_walls(f, 20)))
+    say("[19] batch 1, flagship, eager / executor in turns (medians of 4 rounds), on two frames "
+        "in turn, each output kept until the next call: "
+        + "; ".join(f"{k} {a:.4f} / {b:.4f} ms" for k, (a, b) in rows.items())
+        + f"; the executor's node updates per call {[round(u, 2) for u in upc]} of {full1}"
+        + f"  ({smi})")
     e2e19 = host_walls(from_host, 50)
     say(f"[19] numpy in to CPU tensors out, phase 6's measure repeated (executor, 50 calls): "
         f"median {statistics.median(e2e19):.4f} ms (p90 {pct(e2e19, 0.9):.4f}; phase 6 "
@@ -2337,21 +2460,30 @@ def main() -> int:
         f"{pageable6:.2f})  ({smi})")
     ladder = {}
     for b in (1, 2, 4, 8, 16, 32):
-        xs = (yb[:b], ub[:b], vb[:b])
-        step = lambda: eng.transform(*xs)
-        ladder[b] = (both(step, ev, 2), both(step, bh, 2), both(step, wall, 2))
+        with graphs_upto(32):
+            eng.transform(yb[:b], ub[:b], vb[:b])  # captured here if no earlier call was
+        step = alternating(eng.transform, *[[t[k * b:(k + 1) * b] for t in (yb, ub, vb)]
+                                            for k in (0, 1)])
+        full = program_nodes(plan, b)
+        ladder[b] = []
+        for measure in (ev, bh, wall):
+            ladder[b].append(both(step, measure, 2, full=full))
+            upc.append(last_updates["per_call"])
         (ee, ex), (be, bx), (we, wx) = ladder[b]
-        say(f"[19] ladder batch {b:2d}, eager / executor: CUDA events {ee:.4f} / {ex:.4f} ms, "
-            f"behind a busy card {be:.4f} / {bx:.4f} ms, host wall {we:.4f} / {wx:.4f} ms "
-            f"(executor/eager by events {ex / ee:.3f})  ({smi})")
+        say(f"[19] ladder batch {b:2d}, eager / executor, two batches in turn: CUDA events "
+            f"{ee:.4f} / {ex:.4f} ms, behind a busy card {be:.4f} / {bx:.4f} ms, host wall "
+            f"{we:.4f} / {wx:.4f} ms (executor/eager by events {ex / ee:.3f}, behind a busy card "
+            f"{bx / be:.3f}); node updates per executor call {[round(u, 2) for u in upc[-3:]]} "
+            f"of {full}  ({smi})")
     for n in (2, 4, 8):
         bands = latency.band_plans(plan, n)
-        xs = [p[None] for p in one_frame]
+        xs = [[p[None] for p in f] for f in frames2]
         per = []
         for band in bands:
-            fn = lambda: pipeline.transform_frame_planes(band, xs)
-            per.append((both(fn, bh, 2), both(fn, issue_ms, 2)))
-        say(f"[19] {n} bands, eager / executor: max(band) behind a busy card "
+            fn = alternating(lambda *f: pipeline.transform_frame_planes(band, f), *xs)
+            full = program_nodes(band, 1)
+            per.append((both(fn, bh, 2, full=full), both(fn, issue_ms, 2, full=full)))
+        say(f"[19] {n} bands, eager / executor, two frames in turn: max(band) behind a busy card "
             f"{max(p[0][0] for p in per):.4f} / {max(p[0][1] for p in per):.4f} ms; host issue "
             f"summed over the bands {sum(p[1][0] for p in per):.4f} / "
             f"{sum(p[1][1] for p in per):.4f} ms  ({smi})")
@@ -2390,19 +2522,25 @@ def main() -> int:
     e, x = both(lambda: eng.transform(yb, ub, vb), ev, 4)
     say(f"[19] flagship step, batch {BATCH} (eager in both modes: above GRAPH_MAX_BATCH), by "
         f"CUDA events {e:.4f} / {x:.4f} ms  ({smi})")
-    for b in (1, gmax):
+    for b in sorted({1, gmax}):
         xs = (yb[:b], ub[:b], vb[:b])
         pipeline.clear_executor_cache()
         torch.cuda.synchronize()
         a0, r0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
         torch.cuda.reset_peak_memory_stats()
-        eng.transform(*xs)  # eager, then captured
+        eng.transform(*xs)  # eager, then captured; its outputs dropped
         torch.cuda.synchronize()
-        say(f"[19] capture at batch {b} (luma and chroma executors): peak allocated over what "
-            f"was allocated before {(torch.cuda.max_memory_allocated() - a0) / 2**20:.1f} MiB; "
-            f"held after it (static inputs and outputs) "
-            f"{(torch.cuda.memory_allocated() - a0) / 2**20:.1f} MiB, reserved "
-            f"{(torch.cuda.memory_reserved() - r0) / 2**20:.1f} MiB  ({smi})")
+        held = torch.cuda.memory_allocated() - a0
+        say(f"[19] capture at batch {b} on planes on the card (luma and chroma executors): peak "
+            f"allocated over what was allocated before "
+            f"{(torch.cuda.max_memory_allocated() - a0) / 2**20:.1f} MiB; after it, allocated "
+            f"{held / 2**20:.2f} MiB (no static input or output; the planes are "
+            f"{tensor_bytes(*xs) / 2**20:.1f} MiB) and reserved "
+            f"{(torch.cuda.memory_reserved() - r0) / 2**20:.1f} MiB (the graph pool, which keeps "
+            f"the intermediates, and the eager call's blocks)  ({smi})")
+        if held >= tensor_bytes(*xs):  # a graph holds no copy of its planes
+            raise SystemExit(f"FAIL a capture at batch {b} holds {held} B, as much as its planes")
+    read_counts()
 
     say(f"[19] every phase passed in {time.perf_counter() - t_start:.1f} s, the kernels' build "
         f"included")

@@ -14,12 +14,16 @@ the run.  Each argument runs in its own process, in the order given, so
 Each process builds its kernels, makes the flagship's video-like frames
 (``chip_smoke.py``'s generator), and prints one JSON line: the step's
 device median in ms by CUDA events at batch 128 and at batch 1 (one
-[H, W] frame), the sample count, the K1 launches per step, one numpy
+[H, W] frame; frames 0 and 1 in turn, each output kept until the next
+call, so that a graph replayed on the caller's planes pays its node
+updates), the sample count, the K1 launches per step, the
+frame's device time behind a busy card (``behind_ms``: the call issued
+while the card spins, so that events read only its device work), one numpy
 frame in to CPU tensors out (``numpy_to_cpu_ms``: the median host wall
 of 50 calls, synchronized), the 10-bit flagship's step at batch 128
 (``deep_batch128``) and the flagship without its prefilter at batch 128
-and 8 (``nopf_batch128``, ``nopf_batch8``: there K3 reads U and V), each
-by CUDA events, the remap
+and 8 (``nopf_batch128``, ``nopf_batch8``, two batches in turn as at
+batch 1: there K3 reads U and V), each by CUDA events, the remap
 kernel K3 alone at the paths' shapes (16, 1 and 128 luma frames, a
 chroma pair, 256 chroma planes): the median by CUDA events around one
 call (``k3_ms``: the wrapper's host time before the launch included),
@@ -62,6 +66,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def child(label: str, settings: list, supersampled: bool = False) -> None:
     import dataclasses
     import importlib
+    import importlib.util
     import statistics
     import time
 
@@ -70,9 +75,15 @@ def child(label: str, settings: list, supersampled: bool = False) -> None:
     import transform360_tpu_torch as P
     from transform360_tpu_torch.ops import blur, window
 
-    sys.path.append(ROOT)
-    from chip_smoke import (FLAGSHIP, SUPERSAMPLED, batch_of, cuda_times, host_walls,
-                            video_like_planes)
+    # this checkout's chip_smoke.py, whichever tree's package is timed (a
+    # tree's own chip_smoke.py may be older)
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    smoke = sys.modules["chip_smoke"] = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    FLAGSHIP, SUPERSAMPLED, alternating, batch_of, behind_ms, cuda_times, host_walls = (
+        smoke.FLAGSHIP, smoke.SUPERSAMPLED, smoke.alternating, smoke.batch_of, smoke.behind_ms,
+        smoke.cuda_times, smoke.host_walls)
+    video_like_planes = smoke.video_like_planes
 
     # the remap wrapper's name in this tree (remap_window_u8 before it took
     # uint16 planes too)
@@ -90,13 +101,17 @@ def child(label: str, settings: list, supersampled: bool = False) -> None:
     yb, ub, vb = batch_of(y, 128), batch_of(u, 128), batch_of(v, 128)
     res = {"label": label, "package": os.path.dirname(P.__file__), "settings": settings,
            "card": smi}
+    # one frame: frames 0 and 1 in turn, each output kept until the next
+    # call, so that a replay on the caller's planes re-points its nodes
+    one = alternating(eng.transform, *[[t[k] for t in (yb, ub, vb)] for k in (0, 1)])
     for b, reps in ((128, 60), (1, 300)):
-        planes = (yb, ub, vb) if b == 128 else (yb[0], ub[0], vb[0])
-        cuda_times(lambda: eng.transform(*planes), 3)
+        step = (lambda: eng.transform(yb, ub, vb)) if b == 128 else one
+        cuda_times(step, 3)
         n0 = blur.LAUNCHES
-        ts = cuda_times(lambda: eng.transform(*planes), reps)
+        ts = cuda_times(step, reps)
         res[f"batch{b}"] = {"step_ms": statistics.median(ts), "n": len(ts),
                             "k1_launches": (blur.LAUNCHES - n0) / len(ts)}
+    res["batch1"]["behind_ms"] = behind_ms(one, 30)
     from_host = lambda: [o.cpu() for o in eng.transform(y, u, v)]
     host_walls(from_host, 5)
     res["batch1"]["numpy_to_cpu_ms"] = statistics.median(host_walls(from_host, 50))
@@ -108,9 +123,11 @@ def child(label: str, settings: list, supersampled: bool = False) -> None:
         dplanes = [(t.int() * 1023 // 255).to(torch.uint16) for t in (yb, ub, vb)]
         for key, e, planes, reps in (("deep_batch128", deep, dplanes, 30),
                                      ("nopf_batch128", nopf, (yb, ub, vb), 30),
-                                     ("nopf_batch8", nopf, [t[:8] for t in (yb, ub, vb)], 60)):
-            cuda_times(lambda: e.transform(*planes), 3)
-            ts = cuda_times(lambda: e.transform(*planes), reps)
+                                     ("nopf_batch8", nopf, None, 60)):
+            fn = (lambda: e.transform(*planes)) if planes is not None else alternating(
+                e.transform, *[[t[k * 8:(k + 1) * 8] for t in (yb, ub, vb)] for k in (0, 1)])
+            cuda_times(fn, 3)
+            ts = cuda_times(fn, reps)
             res[key] = {"step_ms": statistics.median(ts), "n": len(ts)}
         del dplanes, deep, nopf
     if supersampled:

@@ -23,11 +23,16 @@ depth's maximum), batch 1, 7 and 256, at 2x2, 4x4, 1.5x2, 200x90 ->
 unaligned rows, and an unaligned plane; the flagship's 2x2 luma at batch
 1 and 129; and every copy, ring depth, path and grid of a launch.  The fidelity gate at its size
 against the committed oracle fixture, and the drop-in ffmpeg wrapper on
-in-memory pipes, at 8 and 10 bits.  The plane executors: a replayed CUDA
-graph against the eager program at 0 LSB (batch 1, 2 and 8; uint8,
-10-bit and supersampled 2x2, so K4 in the graph; a banded frame), the
-launch counters at each replay, a call inside a caller's own capture,
-and a capture that fails.  K1 and K3 on a batch given as two sources
+in-memory pipes, at 8 and 10 bits.  The plane executors: a CUDA graph
+replayed on the caller's planes against the eager program at 0 LSB
+(batch 1, 2, 8 and ``GRAPH_MAX_BATCH``; uint8, 10-bit and supersampled
+2x2, so K4 in the graph; numpy planes; strided views of packed yuv420p
+frames, a U base off 16 bytes and a frame stride off 16 bytes, each kind
+its own capture; a banded frame read in place), with the caller's planes
+never written, outputs that never alias, no copy (``REPLAY_COPIES``),
+the launch counters at each replay, a node update that the kernel
+refuses (it raises), a call inside a caller's own capture, and a capture
+that fails.  K1 and K3 on a batch given as two sources
 (separate tensors, strided views of one packed buffer, an unaligned
 frame stride or base; uint8 and 10-bit; K3's frame groups cut at their
 boundary) and the engine on strided U and V
@@ -47,6 +52,7 @@ import torch
 
 import transform360_tpu_torch as P
 from transform360_tpu_torch.config import Interpolation, Layout, StereoFormat, TransformConfig
+from transform360_tpu_torch import pipeline
 from transform360_tpu_torch.filtering import blur_plain
 from transform360_tpu_torch.ops import area, blur, window
 from transform360_tpu_torch.sampling import (
@@ -538,8 +544,8 @@ def test_kernels_read_two_sources(layout, depth, gpu):
 def test_engine_takes_u_and_v_where_they_lie(prefilter, gpu):
     # U and V as strided views of packed yuv420p frames on the card (and
     # luma too): the same bytes as the CPU engine, at batch 1 and 2 (a
-    # replayed graph with one static input a plane) and 5 (eager), with
-    # no plane copied; without a prefilter K3 reads them where they lie
+    # graph replayed on the views where they lie) and 5 (eager), with no
+    # plane copied; without a prefilter K3 reads them where they lie
     opts = (f"cube_edge_length=64:interpolation_alg=cubic:enable_low_pass_filter={prefilter}:"
             "input_stereo_format=mono")
     rng = np.random.default_rng(5)
@@ -841,41 +847,130 @@ def _exec_planes(pf, b, seed):
         rng.integers(0, pf.maxval + 1, (b, ch, cw)).astype(dt) for _ in range(2)]
 
 
-@pytest.mark.parametrize("b", [1, 2, 8])
-@pytest.mark.parametrize("opts, pix_fmt", [
+EXEC_PLANS = [
     ("", "yuv420p"),
     ("", "yuv420p10le"),
     (":width_scale_factor=2:height_scale_factor=2", "yuv420p"),  # K4 in the graph
-])
-def test_executor_replay_equals_eager(opts, pix_fmt, b, gpu, monkeypatch):
-    from transform360_tpu_torch import pipeline
+]
 
+
+@pytest.mark.parametrize("b", sorted({1, 2, 8, pipeline.GRAPH_MAX_BATCH}))
+@pytest.mark.parametrize("opts, pix_fmt", EXEC_PLANS)
+def test_executor_replay_equals_eager(opts, pix_fmt, b, gpu, monkeypatch):
+    # the first call of a kind runs eagerly and captures; replays read the
+    # caller's card planes where they lie (no copy: REPLAY_COPIES, and the
+    # planes are never written), a numpy batch through the buffer its own
+    # graph keeps, and each writes a fresh output
     pf = P.config.get_pixel_format(pix_fmt)
     plan = P.open_filter(EXEC_OPTS + opts, 512, 256, pix_fmt=pix_fmt, device=gpu).plan
     pipeline.clear_executor_cache()
     monkeypatch.setattr(pipeline, "GRAPH_MAX_BATCH", max(pipeline.GRAPH_MAX_BATCH, b))
-    host = [_exec_planes(pf, b, s) for s in (0, 1)]
+    host = [_exec_planes(pf, b, s) for s in (0, 1, 2)]
     dev = [[torch.from_numpy(p).to(gpu) for p in planes] for planes in host]
+    kept = [[p.clone() for p in planes] for planes in dev]
+    copies = pipeline.REPLAY_COPIES
     n0 = _counts()
     first = pipeline.transform_batch(plan, *dev[0])  # eager, then captured
     n1 = _counts()
     ex = pipeline.plane_executor(plan.luma, gpu)
     assert [type(g).__name__ for g in ex._by_shape.values()] == ["_Graph"]
-    replays = [pipeline.transform_batch(plan, *dev[0]),
-               pipeline.transform_batch(plan, *host[1])]  # numpy: host to device
+    # (planes, index of their content): card planes, numpy planes (their
+    # first call captures a graph of their own), numpy again, other card
+    # planes on the first graph
+    calls = [(dev[0], 0), (host[1], 1), (host[2], 2), (dev[2], 2)]
+    replays = [pipeline.transform_batch(plan, *planes) for planes, _ in calls]
     n2 = _counts()
+    torch.cuda.synchronize()
+    assert [type(g).__name__ for g in ex._by_shape.values()] == ["_Graph"] * 2
+    assert pipeline.REPLAY_COPIES == copies
+    assert all(_same(p, k) for planes, keep in zip(dev, kept) for p, k in zip(planes, keep))
     # LAUNCHES counts each replay's kernels, as if they were launched eagerly
-    assert [2 * (a - z) for a, z in zip(n1, n0)] == [c - a for c, a in zip(n2, n1)]
-    monkeypatch.setattr(pipeline, "GRAPH_MAX_BATCH", 0)  # today's eager program
+    assert [4 * (a - z) for a, z in zip(n1, n0)] == [c - a for c, a in zip(n2, n1)]
+    monkeypatch.setattr(pipeline, "GRAPH_MAX_BATCH", 0)  # the eager program
     eager = [pipeline.transform_batch(plan, *planes) for planes in dev]
     torch.cuda.synchronize()
-    assert [c - a for c, a in zip(_counts(), n2)] == [c - a for c, a in zip(n2, n1)]
-    for got, want in ((first, eager[0]), (replays[0], eager[0]), (replays[1], eager[1])):
-        for a, w in zip(got, want):
+    assert [4 * (c - a) for c, a in zip(_counts(), n2)] == [3 * (c - a) for c, a in zip(n2, n1)]
+    for got, i in [(first, 0)] + [(r, i) for r, (_, i) in zip(replays, calls)]:
+        for a, w in zip(got, eager[i]):
             assert a.device.type == "cuda" and a.dtype == w.dtype and _same(a, w)
-    # a returned tensor never aliases a later call's output (replays[0]
-    # was compared after replays[1] was made)
-    assert len({o.data_ptr() for out in [first] + replays for o in out}) == 9
+    # a returned tensor never aliases a later call's output (each was
+    # compared after the later calls were made)
+    assert len({o.data_ptr() for out in [first] + replays for o in out}) == 15
+
+
+def _yuv420p_views(b, seed, u_shift=0, pad=0, w=512, h=256):
+    """``b`` wxh yuv420p frames on the card as views of one packed buffer
+    (each frame Y, U, V and ``pad`` bytes), with U and V ``u_shift`` bytes
+    past their place (1: a U base off 16 bytes)."""
+    rng = np.random.default_rng(seed)
+    n, nc = h * w, h * w // 4
+    buf = torch.from_numpy(rng.integers(0, 256, (b, n + 2 * nc + 16 + pad),
+                                        dtype=np.uint8)).to("cuda")
+    u0 = n + u_shift
+    return (buf[:, :n].unflatten(1, (h, w)),
+            buf[:, u0:u0 + nc].unflatten(1, (h // 2, w // 2)),
+            buf[:, u0 + nc:u0 + 2 * nc].unflatten(1, (h // 2, w // 2)))
+
+
+@pytest.mark.parametrize("b", sorted({1, 2, pipeline.GRAPH_MAX_BATCH}))
+@pytest.mark.parametrize("opts, w, h", [
+    (EXEC_OPTS, 512, 256),
+    (EXEC_OPTS + EXEC_PLANS[2][0], 512, 256),
+    (EXEC_OPTS.replace("=64", "=256"), 2560, 1280),  # K1 stages aligned planes by TMA
+])
+def test_replay_reads_strided_views_where_they_lie(opts, w, h, b, gpu, monkeypatch):
+    # planes as strided views of packed yuv420p frames: replayed where they
+    # lie at 0 LSB against the eager program (K1's tensor maps encoded
+    # anew for each replay's planes); a U base off 16 bytes (and V with
+    # it) takes a capture of its own, as does a frame stride off 16 bytes;
+    # the caller's planes are never written and no plane is copied
+    plan = P.open_filter(opts, w, h, device=gpu).plan
+    pipeline.clear_executor_cache()
+    monkeypatch.setattr(pipeline, "GRAPH_MAX_BATCH", max(pipeline.GRAPH_MAX_BATCH, b))
+    chroma = pipeline.plane_executor(plan.chroma, gpu)
+    layouts = [dict(), dict(), dict(u_shift=1), dict(u_shift=1)] + (
+        [dict(pad=8), dict(pad=8)] if b > 1 else [])
+    copies = pipeline.REPLAY_COPIES, pipeline.PLANE_COPIES
+    calls = []
+    for i, layout in enumerate(layouts):
+        planes = _yuv420p_views(b, i, w=w, h=h, **layout)
+        kept = [p.clone() for p in planes]
+        calls.append((planes, kept, pipeline.transform_batch(plan, *planes)))
+        graphs = len(chroma._by_shape)
+        assert graphs == (i + 2) // 2  # each layout's first call captures
+    torch.cuda.synchronize()
+    assert (pipeline.REPLAY_COPIES, pipeline.PLANE_COPIES) == copies
+    monkeypatch.setattr(pipeline, "GRAPH_MAX_BATCH", 0)
+    for planes, kept, got in calls:
+        assert all(_same(p, k) for p, k in zip(planes, kept))
+        for a, w in zip(got, pipeline.transform_batch(plan, *planes)):
+            assert _same(a, w)
+    assert len({o.data_ptr() for _, _, out in calls for o in out}) == 3 * len(calls)
+
+
+def test_a_failed_node_update_raises(gpu, monkeypatch):
+    # a U base off 16 bytes forced past the key onto a graph captured on
+    # aligned planes that K1 stages by TMA (rows wider than a staged row):
+    # K1's update refuses TMA on it, the call raises, and no kernel runs in
+    # its place
+    opts = EXEC_OPTS.replace("=64", "=256")
+    plan = P.open_filter(opts, 2560, 1280, device=gpu).plan
+    pipeline.clear_executor_cache()
+    real = pipeline.graph_key
+    monkeypatch.setattr(pipeline, "graph_key", lambda *a: real(*a)[:4])
+    aligned = _yuv420p_views(1, 0, w=2560, h=1280)
+    pipeline.transform_batch(plan, *aligned)
+    assert blur.copy_mode(plan.chroma.tables(gpu).blur, aligned[1:]) == blur.COPY_TMA
+    off = _yuv420p_views(1, 1, u_shift=1, w=2560, h=1280)
+    n = _counts()
+    with pytest.raises(RuntimeError, match="blur kernel node update failed"):
+        pipeline.plane_executor(plan.chroma, gpu)(off[1], off[2])
+    torch.cuda.synchronize()
+    assert _counts() == n
+    monkeypatch.setattr(pipeline, "graph_key", real)
+    got = pipeline.transform_batch(plan, *off)  # its own capture
+    monkeypatch.setattr(pipeline, "GRAPH_MAX_BATCH", 0)
+    assert all(_same(a, w) for a, w in zip(got, pipeline.transform_batch(plan, *off)))
 
 
 def test_banded_frame_replays_one_graph_per_band_and_plane(gpu):
@@ -886,6 +981,7 @@ def test_banded_frame_replays_one_graph_per_band_and_plane(gpu):
     eng = P.open_filter(EXEC_OPTS, 512, 256, device=gpu)
     want = [o.cpu().numpy() for o in eng.transform(*planes)]
     latency.clear_band_caches()
+    copies = pipeline.REPLAY_COPIES
     n0 = _counts()
     first = latency.transform_frame_banded(eng.plan, planes, devices=[gpu], n=3)
     n1 = _counts()
@@ -893,12 +989,14 @@ def test_banded_frame_replays_one_graph_per_band_and_plane(gpu):
     n2 = _counts()
     assert [c - a for c, a in zip(n1, n0)] == [c - a for c, a in zip(n2, n1)]
     assert n2[0] - n1[0] == 6  # K1 per band and plane batch
-    from transform360_tpu_torch import pipeline
-
+    # every band reads the frame where it lies on the card: its graphs
+    # keep no buffer of it, and no replay copies it
+    assert pipeline.REPLAY_COPIES == copies
     for band in latency.band_plans(eng.plan, 3):
         for pp in (band.luma, band.chroma):
-            assert [type(g).__name__ for g in
-                    pipeline.plane_executor(pp, gpu)._by_shape.values()] == ["_Graph"]
+            graphs = list(pipeline.plane_executor(pp, gpu)._by_shape.values())
+            assert [type(g).__name__ for g in graphs] == ["_Graph"]
+            assert all(buf is None for g in graphs for buf in g.staged)
     for got in (first, again):
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g, w)

@@ -31,6 +31,8 @@ from transform360_tpu.plan import build_plan as jax_build_plan
 import transform360_tpu_torch as P
 from transform360_tpu_torch import cli, pipeline
 from transform360_tpu_torch.cli import main as cli_main
+from transform360_tpu_torch.ops import nodes
+from transform360_tpu_torch.ops.sources import Source
 from transform360_tpu_torch.plan import _DeviceCache, clear_plan_cache, plan_from_jax
 from transform360_tpu_torch.utils.yuv import read_yuv420_batch, write_yuv420_batch
 
@@ -164,12 +166,16 @@ def test_a_plan_of_other_content_under_one_key_replaces_it(plans):
     assert pipeline._EXEC_CACHE[(tp.luma.key, "cpu")].pp is luma
 
 
+G = pipeline.GRAPH_MAX_BATCH
+
+
 @pytest.mark.parametrize("n, batch, device, backend, shards, want", [
     (1, 2, "cuda", "auto", 1, 2),  # the steady batch replays a graph: padded
     (1, 2, "cuda:1", "auto", 1, 2),
     (3, 4, "cuda", "auto", 2, 4),  # 2 frames a shard replay graphs
-    (3, 8, "cuda", "auto", 1, 3),  # eager above GRAPH_MAX_BATCH: as it is
-    (3, 16, "cuda", "auto", 2, 4),  # eager: a multiple of the mesh's size
+    (3, G, "cuda", "auto", 1, G),  # the largest batch that replays one
+    (3, 2 * G, "cuda", "auto", 1, 3),  # eager above GRAPH_MAX_BATCH: as it is
+    (3, 4 * G, "cuda", "auto", 2, 4),  # eager: a multiple of the mesh's size
     (1, 2, "cpu", "auto", 1, 1),
     (1, 2, "cuda", "native", 1, 1),  # the host's engine has no graphs
 ])
@@ -210,3 +216,108 @@ def test_cli_tail_batch_leaves_one_shape_per_executor(tmp_path, capsys, monkeypa
 
 def test_cli_eager_tail_runs_unpadded(tmp_path, capsys):
     assert _run_cli(tmp_path, 4, 5) == {"p0": [1, 4], "p1": [2, 8]}
+
+
+# -- the graph key and the re-pointing of a captured program's nodes --
+
+H, W = IN_H, IN_W
+
+
+def _src(ptr=1 << 20, frames=2, stride=None, aligned=True):
+    return Source(ptr, frames, H * W if stride is None else stride, aligned)
+
+
+@pytest.mark.parametrize("frames", [(1,), (2,), (2, 2)])
+def test_graph_key_of_packed_aligned_card_planes_is_the_shape_key(frames):
+    # where every plane is packed and 16-byte aligned on the card, the key
+    # is the one an eager call records: (stacked shape, dtype, device,
+    # each plane's frames); a plane's pointer is not in it
+    dev = torch.device("cuda", 0)
+    want = ((sum(frames), H, W), torch.uint8, "cuda:0", frames)
+    for ptr in (1 << 20, 1 << 30):
+        described = tuple(_src(ptr + i * (1 << 24), b) for i, b in enumerate(frames))
+        assert pipeline.graph_key(torch.uint8, dev, H, W, frames, described) == want
+
+
+def test_graph_key_holds_alignment_frame_stride_and_host_planes():
+    dev = torch.device("cuda", 0)
+    key = lambda *d: pipeline.graph_key(torch.uint8, dev, H, W, (2, 2), d)  # noqa: E731
+    packed = key(_src(), _src(1 << 24))
+    # each differs from the packed, aligned pair in one respect of one plane
+    others = [
+        key(_src(), _src(1 << 24, aligned=False)),  # a base off 16 bytes
+        key(_src(), _src(1 << 24, stride=3 * H * W // 2)),  # a frame stride of a packed yuv420p frame
+        key(_src(), _src(1 << 24, stride=3 * H * W // 2 + 8, aligned=False)),  # that stride off 16
+        key(_src(), None),  # a plane from the host
+        key(None, _src(1 << 24)),
+        key(None, None),
+    ]
+    assert len({packed, *others}) == 1 + len(others)
+    assert all(k[:4] == packed for k in others)
+    assert others[3][4:] == ((1, "host"),)
+    assert others[1][4:] == ((1, 3 * H * W // 2, True),)
+    # one frame has no frame stride: only its alignment counts
+    one = lambda s: pipeline.graph_key(torch.uint8, dev, H, W, (1,), (s,))  # noqa: E731
+    assert one(_src(frames=1, stride=5 * H * W)) == one(_src(frames=1))
+    assert one(_src(frames=1, aligned=False)) != one(_src(frames=1))
+
+
+def _program(src, out):
+    """A program of four recorded nodes -- K1 reading ``src``, a node
+    between that touches neither, two K3 launches writing ``out`` -- whose
+    updates log (node, sources, output)."""
+    log = []
+    mid = 7 << 20
+
+    def node(handle, s, o):
+        return nodes.Node(handle, s, o, lambda exec_, h, s_, o_: log.append((h, s_, o_)))
+
+    recorded = [node(1, src, mid), node(2, (_src(mid),), mid + 1), node(3, (_src(mid + 1),), out),
+                node(4, (_src(mid + 1),), out)]
+    return nodes.Program(recorded, src, out), log
+
+
+def test_program_repoints_only_the_nodes_on_the_callers_memory():
+    src, out = (_src(),), 9 << 20
+    prog, log = _program(src, out)
+    assert [(n.handle, r, w) for n, r, w in prog.nodes] == [(1, True, False), (3, False, True),
+                                                           (4, False, True)]
+    u0 = nodes.UPDATES
+    prog.repoint(0, src, out)  # where the capture left them: nothing to update
+    assert log == [] and nodes.UPDATES == u0
+    new_src = (_src(ptr=3 << 20),)
+    prog.repoint(0, new_src, out)
+    assert log == [(1, new_src, 7 << 20)]
+    log.clear()
+    prog.repoint(0, new_src, 10 << 20)  # the output alone: the writers
+    mid = (_src((7 << 20) + 1),)  # node 2's output, which nodes 3 and 4 read
+    assert log == [(3, mid, 10 << 20), (4, mid, 10 << 20)]
+    prog.repoint(0, src, 9 << 20)  # other planes and another output: every node
+    assert nodes.UPDATES - u0 == 1 + 2 + 3
+
+
+def test_program_after_a_failed_update_repoints_every_node():
+    src, out = (_src(),), 9 << 20
+    log = []
+    fail = [True]
+
+    def update(exec_, h, s, o):
+        if h == 3 and fail[0]:
+            raise RuntimeError("refused")
+        log.append(h)
+
+    recorded = [nodes.Node(1, src, 7 << 20, update), nodes.Node(3, (_src(7 << 20),), out, update)]
+    prog = nodes.Program(recorded, src, out)
+    with pytest.raises(RuntimeError, match="refused"):
+        prog.repoint(0, (_src(3 << 20),), 10 << 20)
+    assert log == [1]
+    fail[0] = False
+    prog.repoint(0, src, out)  # the capture's pointers again, but not known to hold
+    assert log == [1, 1, 3]
+
+
+def test_a_program_without_a_node_on_the_callers_memory_is_refused():
+    src, out = (_src(),), 9 << 20
+    other = [nodes.Node(1, (_src(5 << 20),), 6 << 20, None)]
+    with pytest.raises(RuntimeError, match="no node that reads"):
+        nodes.Program(other, src, out)

@@ -87,6 +87,26 @@ def test_descriptor_of_separate_planes_strided_views_and_an_unaligned_source():
     assert sources.rows_packed(u[:1].expand(1, CH, CW))
 
 
+def test_descriptions_are_memoized_and_every_check_still_holds():
+    x = torch.zeros((B, CH, CW), dtype=torch.uint8)
+    (d,) = sources.describe((x,))
+    xs, (c,) = sources.check_sources(x, CH, CW, torch.uint8, x.device, "blur")
+    assert xs == (x,) and c is d and sources.describe((x,))[0] is d
+    # a memoized source is still checked against what each caller expects
+    with pytest.raises(ValueError, match="expects"):
+        sources.check_sources(x, CH, CW + 1, torch.uint8, x.device, "blur")
+    with pytest.raises(TypeError, match="take torch.uint16"):
+        sources.check_sources(x, CH, CW, torch.uint16, x.device, "blur")
+    with pytest.raises(ValueError, match="but the blur tables on meta"):
+        sources.check_sources(x, CH, CW, torch.uint8, torch.device("meta"), "blur")
+    # a view at the same pointer whose rows are not packed is its own key,
+    # and refused
+    odd = x.as_strided((B, CH, CW // 2), (CH * CW, CW, 2))
+    assert sources.describe((odd,))[0] == sources.Source(x.data_ptr(), B, CH * CW, True)
+    with pytest.raises(ValueError, match="packed rows"):
+        sources.check_sources(odd, CH, CW // 2, torch.uint8, x.device, "blur")
+
+
 def test_copy_mode_takes_tma_only_when_every_source_qualifies():
     eng = J.open_filter(OPTS["prefilter"], W, H)
     tp = plan_from_jax(eng.plan)

@@ -167,7 +167,8 @@ class Transform360:
 
     def _on_device(self, p):
         """A tensor moved to the engine's device; a numpy plane as it is
-        (the executor copies it into its static input)."""
+        (the executor copies it to the card once, into the buffer its
+        graph keeps where it replays one)."""
         return p.to(self._device) if isinstance(p, torch.Tensor) else p
 
     def _transform_native(self, y, u, v):

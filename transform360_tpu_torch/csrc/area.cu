@@ -432,26 +432,32 @@ int smem_for(int stage_bytes, int stages) {
 
 }  // namespace
 
-// src: [B, H, W] and dst: [B, OH, OW] samples of sample_bytes each (1:
-// uint8; 2: uint16, rounded and saturated to maxval, the depth's largest
-// sample); row_first int32 [OH], row_w float32 [OH, kr]; col_first int32
-// [OW], col_w float32 [OW, kc]; tiles int32 [n, 8] (r0, c0, rows, cols,
-// y0, x0, span rows, mode: 0 direct, 1 staged, 2 staged with packed
-// taps).  taps: 2 or 4, at least kr and kc if any tile is staged.  A stage
-// holds nbox boxes of box_h rows of box_w samples (box_w a multiple of 16
-// and at most 256, box_h at most 256; 0 0 0 if no tile is staged); the
-// ring has `stages` of them (2 to 8).  copy: 0, TMA (src and its rows
-// 16-byte aligned); 1, 16-byte cp.async by the producer warp (the same
-// alignment); 2, every thread with plain loads, two stages in turn.
-// packed: 0 takes the per-column path on packed tiles too.  ctas: the
-// grid.  order: how a CTA walks the n_tiles x B (tile, frame) items (0: a
-// contiguous run; 1: every ctas-th tile; see Item).  Returns 0, a
-// cudaError_t, or -CUresult if the tensor map cannot be encoded.
-extern "C" int t360_area(const void* src, void* dst, int sample_bytes, int maxval, int B, int H,
-                         int W, int OH, int OW, const int* row_first, const float* row_w, int kr,
-                         const int* col_first, const float* col_w, int kc, int taps,
-                         const int* tiles, int n_tiles, int box_w, int box_h, int nbox,
-                         int stages, int copy, int packed, int ctas, int order, void* stream) {
+// The arguments of a launch of K4 (t360_area) and of a graph node's update
+// (t360_area_update), as ops/area.py's AreaCall lays them out.
+struct AreaCall {
+  const void* src;
+  void* dst;
+  int sample_bytes, maxval, B, H, W, OH, OW;
+  const int* row_first;
+  const float* row_w;
+  int kr;
+  const int* col_first;
+  const float* col_w;
+  int kc, taps;
+  const int* tiles;
+  int n_tiles, box_w, box_h, nbox, stages, copy, packed, ctas, order;
+};
+
+namespace {
+
+// Checks a launch of K4, encodes its tensor map from src and builds its
+// Args, then returns f(kernel, grid, shared memory, kernel arguments): a
+// launch and a graph node's update take theirs from here alike.
+template <typename F>
+int with_launch(F&& f, const AreaCall& c) {
+  const auto& [src, dst, sample_bytes, maxval, B, H, W, OH, OW, row_first, row_w, kr, col_first,
+               col_w, kc, taps, tiles, n_tiles, box_w, box_h, nbox, stages, copy, packed, ctas,
+               order] = c;
   const void* k = kernel_for(sample_bytes, taps);
   const bool staged = box_w > 0;
   const int stage_bytes = (box_w * box_h * nbox * sample_bytes + 127) / 128 * 128;
@@ -485,17 +491,51 @@ extern "C" int t360_area(const void* src, void* dst, int sample_bytes, int maxva
         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
     if (r != CUDA_SUCCESS) return -static_cast<int>(r);
   }
-  cudaError_t e = t360::allow_smem(k, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
   Args a{src,     dst,   tiles, row_first, row_w,       col_first, col_w, B,    H,
          W,       OH,    OW,    kr,        kc,          n_tiles,   box_w, box_h, nbox,
          stage_bytes, stages, copy, packed, order, static_cast<unsigned>(maxval)};
   void* args[] = {&map, &a};
-  e = cudaLaunchKernel(k, dim3(ctas), dim3(kThreads), args, smem,
-                       static_cast<cudaStream_t>(stream));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  T360_CHECK_LAUNCH();
-  return 0;
+  return f(k, dim3(ctas), smem, args);
+}
+
+}  // namespace
+
+// One launch of K4 on stream, with c's fields: src [B, H, W] and dst
+// [B, OH, OW], samples of sample_bytes each (1: uint8; 2: uint16, rounded
+// and saturated to maxval, the depth's largest sample); row_first int32
+// [OH], row_w float32 [OH, kr]; col_first int32 [OW], col_w float32 [OW,
+// kc]; tiles int32 [n, 8] (r0, c0, rows, cols,
+// y0, x0, span rows, mode: 0 direct, 1 staged, 2 staged with packed
+// taps).  taps: 2 or 4, at least kr and kc if any tile is staged.  A stage
+// holds nbox boxes of box_h rows of box_w samples (box_w a multiple of 16
+// and at most 256, box_h at most 256; 0 0 0 if no tile is staged); the
+// ring has `stages` of them (2 to 8).  copy: 0, TMA (src and its rows
+// 16-byte aligned); 1, 16-byte cp.async by the producer warp (the same
+// alignment); 2, every thread with plain loads, two stages in turn.
+// packed: 0 takes the per-column path on packed tiles too.  ctas: the
+// grid.  order: how a CTA walks the n_tiles x B (tile, frame) items (0: a
+// contiguous run; 1: every ctas-th tile; see Item).  Returns 0, a
+// cudaError_t, or -CUresult if the tensor map cannot be encoded.  node: see
+// t360::captured_node (null: not asked for).
+extern "C" int t360_area(const AreaCall* c, void* stream, void** node) {
+  return with_launch(
+      [&](const void* k, dim3 grid, int smem, void** args) {
+        return t360::launch(k, grid, dim3(kThreads), smem, args,
+                            static_cast<cudaStream_t>(stream), node);
+      },
+      *c);
+}
+
+// Re-points kernel node `node` of the instantiated graph `exec`, captured
+// from a t360_area launch, to the arguments c (t360::update_node): checked
+// and built as t360_area's, its tensor map encoded anew.  Returns as
+// t360_area does.
+extern "C" int t360_area_update(void* exec, void* node, const AreaCall* c) {
+  return with_launch(
+      [&](const void* k, dim3 grid, int smem, void** args) {
+        return t360::update_node(exec, node, k, grid, dim3(kThreads), smem, args);
+      },
+      *c);
 }
 
 // One instantiation's registers, local memory bytes (spills and stack),

@@ -660,33 +660,38 @@ bool aligned16(const void* x, long long fs, int sample_bytes) {
 
 }  // namespace
 
-// x0, x1: the two sources of the logical batch of B frames, read where
-// they lie (ops/sources.py): frames [0, b0) from x0, [b0, B) from x1 (null
-// when b0 == B), each [b, H, W] with packed rows, frames fs0 and fs1
-// samples apart; out: [B, H, W], stacked.  Samples of sample_bytes each
-// (1: uint8; 2: uint16, rounded and saturated to maxval, the depth's
-// largest sample); tiles:
-// int32 [n_tiles, 6] (r0, c0, rows, cols, set, x0); kx float32 [sets, lx]
-// and ky [sets, ly], each set's taps centred; rx/ry int32 [sets].
-// ring_ry: 1 or 3 for the ring kernel (ly = 2*ring_ry+1; taps Gaussian),
-// -1 for the direct kernel; cols: a ring thread's adjacent columns (8;
-// uint8 at ring_ry 1: 8 or 16).  Each of the ctas CTAs walks every ctas-th of
-// the n_tiles x B x parts (tile, frame, part) items.  The ring: `stages`
-// stages (2 to 8) of `slab` rows (a multiple of 2 ring_ry), each row
-// row_bytes (a multiple of 16, at most 2048) of the plane from sample x0
-// (x0 * sample_bytes a multiple of 16: TMA starts a box 16-byte aligned),
-// pitch bytes apart (a multiple of 128).  copy: 0, TMA (every source's
-// base, rows and frame stride 16-byte aligned, and rows of at least
-// row_bytes: a box is no wider than the plane; one tensor map a source);
-// 1, the producer warp's loads.  vec_out: W a multiple
-// of 16 and out 16-byte aligned.  Returns 0, a cudaError_t, or
-// -CUresult if the tensor map cannot be encoded.
-extern "C" int t360_blur(const void* x0, long long fs0, int b0, const void* x1, long long fs1,
-                         void* out, int sample_bytes, int maxval, int B, int H, int W,
-                         const int* tiles, int n_tiles, const float* kx, const int* rx,
-                         int lx, const float* ky, const int* ry, int ly, int ring_ry, int cols,
-                         int row_bytes, int pitch, int slab, int stages, int parts, int copy,
-                         int ctas, int vec_out, void* stream) {
+// The arguments of a launch of K1 (t360_blur) and of a graph node's
+// update (t360_blur_update), as ops/blur.py's BlurCall lays them out.
+struct BlurCall {
+  const void* x0;
+  long long fs0;
+  int b0;
+  const void* x1;
+  long long fs1;
+  void* out;
+  int sample_bytes, maxval, B, H, W;
+  const int* tiles;
+  int n_tiles;
+  const float* kx;
+  const int* rx;
+  int lx;
+  const float* ky;
+  const int* ry;
+  int ly;
+  int ring_ry, cols, row_bytes, pitch, slab, stages, parts, copy, ctas, vec_out;
+};
+
+namespace {
+
+// Checks a launch of K1, encodes its tensor maps from the sources'
+// pointers and builds its Args, then returns f(kernel, grid, block, shared
+// memory, kernel arguments): a launch and a graph node's update take
+// theirs from here alike.
+template <typename F>
+int with_launch(F&& f, const BlurCall& c) {
+  const auto& [x0, fs0, b0, x1, fs1, out, sample_bytes, maxval, B, H, W, tiles, n_tiles, kx, rx,
+               lx, ky, ry, ly, ring_ry, cols, row_bytes, pitch, slab, stages, parts, copy, ctas,
+               vec_out] = c;
   const void* k = kernel_for(sample_bytes, ring_ry, cols);
   const bool ring = ring_ry > 0;
   const long long items = static_cast<long long>(n_tiles) * B * parts;
@@ -703,6 +708,7 @@ extern "C" int t360_blur(const void* x0, long long fs0, int b0, const void* x1, 
                                   !aligned16(x0, fs0, sample_bytes) ||
                                   (b0 < B && !aligned16(x1, fs1, sample_bytes)))))) ||
       smem > 227 * 1024 ||
+      (vec_out && (W % 16 != 0 || reinterpret_cast<uintptr_t>(out) % 16 != 0)) ||
       (sample_bytes == 1 ? maxval != 255 : !(maxval >= 255 && maxval <= 65535)))
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap map0 = {}, map1 = {};
@@ -714,8 +720,6 @@ extern "C" int t360_blur(const void* x0, long long fs0, int b0, const void* x1, 
       r = encode_source(&map1, encode, x1, fs1, B - b0, sample_bytes, H, W, row_bytes);
     if (r != CUDA_SUCCESS) return -static_cast<int>(r);
   }
-  cudaError_t e = t360::allow_smem(k, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
   Args a{x0,        x1,       fs0,   fs1,   b0,    out,  tiles,   kx,
          rx,        ky,       ry,    lx,    ly,    B,    H,       W,
          n_tiles,   parts,    row_bytes, pitch, slab, stages, copy, vec_out,
@@ -723,11 +727,53 @@ extern "C" int t360_blur(const void* x0, long long fs0, int b0, const void* x1, 
          make_div(static_cast<unsigned>(B * parts)), make_div(static_cast<unsigned>(parts)),
          make_div(static_cast<unsigned>(ring ? row_bytes / sample_bytes : 1))};
   void* args[] = {&map0, &map1, &a};
-  e = cudaLaunchKernel(k, dim3(ctas), dim3(threads_for(sample_bytes, ring_ry, cols)), args, smem,
-                       static_cast<cudaStream_t>(stream));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  T360_CHECK_LAUNCH();
-  return 0;
+  return f(k, dim3(ctas), dim3(threads_for(sample_bytes, ring_ry, cols)), smem, args);
+}
+
+}  // namespace
+
+// One launch of K1 on stream, with c's fields: x0, x1, the two sources of
+// the logical batch of B frames, read where they lie (ops/sources.py):
+// frames [0, b0) from x0, [b0, B) from x1 (null when b0 == B), each
+// [b, H, W] with packed rows, frames fs0 and fs1 samples apart; out:
+// [B, H, W], stacked.  Samples of sample_bytes each
+// (1: uint8; 2: uint16, rounded and saturated to maxval, the depth's
+// largest sample); tiles:
+// int32 [n_tiles, 6] (r0, c0, rows, cols, set, x0); kx float32 [sets, lx]
+// and ky [sets, ly], each set's taps centred; rx/ry int32 [sets].
+// ring_ry: 1 or 3 for the ring kernel (ly = 2*ring_ry+1; taps Gaussian),
+// -1 for the direct kernel; cols: a ring thread's adjacent columns (8;
+// uint8 at ring_ry 1: 8 or 16).  Each of the ctas CTAs walks every ctas-th of
+// the n_tiles x B x parts (tile, frame, part) items.  The ring: `stages`
+// stages (2 to 8) of `slab` rows (a multiple of 2 ring_ry), each row
+// row_bytes (a multiple of 16, at most 2048) of the plane from sample x0
+// (x0 * sample_bytes a multiple of 16: TMA starts a box 16-byte aligned),
+// pitch bytes apart (a multiple of 128).  copy: 0, TMA (every source's
+// base, rows and frame stride 16-byte aligned, and rows of at least
+// row_bytes: a box is no wider than the plane; one tensor map a source);
+// 1, the producer warp's loads.  vec_out: W a multiple
+// of 16 and out 16-byte aligned.  Returns 0, a cudaError_t, or
+// -CUresult if the tensor map cannot be encoded.  node: see
+// t360::captured_node (null: not asked for).
+extern "C" int t360_blur(const BlurCall* c, void* stream, void** node) {
+  return with_launch(
+      [&](const void* k, dim3 grid, dim3 block, int smem, void** args) {
+        return t360::launch(k, grid, block, smem, args, static_cast<cudaStream_t>(stream), node);
+      },
+      *c);
+}
+
+// Re-points kernel node `node` of the instantiated graph `exec`, captured
+// from a t360_blur launch, to the arguments c (t360::update_node): checked
+// and built as t360_blur's, tensor maps encoded anew, so that a vec_out
+// or a TMA copy that the new pointers do not allow is refused.  Returns
+// as t360_blur does.
+extern "C" int t360_blur_update(void* exec, void* node, const BlurCall* c) {
+  return with_launch(
+      [&](const void* k, dim3 grid, dim3 block, int smem, void** args) {
+        return t360::update_node(exec, node, k, grid, block, smem, args);
+      },
+      *c);
 }
 
 // One instantiation's registers, local memory bytes (spills and stack),

@@ -1,8 +1,13 @@
 // Shared helpers of the transform360_tpu_torch kernels.
 //
 // Every entry point has a plain C interface (no PyTorch headers), takes
-// device pointers and a cudaStream_t as void*, launches on that stream,
-// never synchronises, allocates nothing, and returns cudaGetLastError().
+// device pointers and a cudaStream_t as void*, launches on that stream
+// (launch), never synchronises, allocates nothing, and returns 0 or the
+// launch's cudaError_t.
+// A launch made while its stream is being captured returns the kernel node
+// it added (captured_node); each kernel's update entry re-points that node
+// in the instantiated graph (update_node) with arguments built by the same
+// function as the launch's, so a replay runs what an eager launch would.
 // The mbarrier, TMA and rounding helpers serve the two ring kernels, K1
 // (blur.cu) and K4 (area.cu).
 
@@ -163,13 +168,59 @@ inline cudaError_t allow_smem(const void* k, int smem) {
   return e;
 }
 
-}  // namespace t360
+// The kernel node that the launch just made on `stream` added to the
+// stream's capture, into *node (nullptr when the stream is not capturing);
+// nothing when node is null.  Fails if the capture's one leaf is not a
+// kernel node.
+inline int captured_node(cudaStream_t stream, void** node) {
+  if (node == nullptr) return 0;
+  *node = nullptr;
+  cudaStreamCaptureStatus status;
+  const cudaGraphNode_t* leaves = nullptr;
+  size_t n = 0;
+#if CUDART_VERSION >= 13000
+  cudaError_t e = cudaStreamGetCaptureInfo(stream, &status, nullptr, nullptr, &leaves, nullptr, &n);
+#else
+  cudaError_t e = cudaStreamGetCaptureInfo(stream, &status, nullptr, nullptr, &leaves, &n);
+#endif
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (status != cudaStreamCaptureStatusActive) return 0;
+  cudaGraphNodeType type;
+  if (n != 1 || (e = cudaGraphNodeGetType(leaves[0], &type)) != cudaSuccess ||
+      type != cudaGraphNodeTypeKernel)
+    return static_cast<int>(e != cudaSuccess ? e : cudaErrorInvalidValue);
+  *node = leaves[0];
+  return 0;
+}
 
-#define T360_CHECK_LAUNCH()                 \
-  do {                                      \
-    cudaError_t e_ = cudaGetLastError();    \
-    if (e_ != cudaSuccess) return (int)e_;  \
-  } while (0)
+// Launches kernel k on stream, its shared memory allowed first, and
+// returns 0 or the launch's error, with the node it added when the stream
+// is capturing (captured_node).
+inline int launch(const void* k, dim3 grid, dim3 block, int smem, void** args,
+                  cudaStream_t stream, void** node) {
+  cudaError_t e = allow_smem(k, smem);
+  if (e == cudaSuccess) e = cudaLaunchKernel(k, grid, block, args, smem, stream);
+  if (e == cudaSuccess) e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return captured_node(stream, node);
+}
+
+// Re-points kernel node `node` of the instantiated graph `exec` to kernel
+// k with these arguments: its next launches run them, launches already
+// queued keep theirs.
+inline int update_node(void* exec, void* node, const void* k, dim3 grid, dim3 block, int smem,
+                       void** args) {
+  cudaKernelNodeParams p = {};
+  p.func = const_cast<void*>(k);
+  p.gridDim = grid;
+  p.blockDim = block;
+  p.sharedMemBytes = static_cast<unsigned>(smem);
+  p.kernelParams = args;
+  return static_cast<int>(cudaGraphExecKernelNodeSetParams(
+      static_cast<cudaGraphExec_t>(exec), static_cast<cudaGraphNode_t>(node), &p));
+}
+
+}  // namespace t360
 
 extern "C" const char* t360_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

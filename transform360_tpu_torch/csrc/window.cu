@@ -415,49 +415,54 @@ const void* kernel_for(int sample_bytes, int taps, int mode) {
   }
 }
 
-cudaError_t allow_smem(const void* k, int smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-}
-
-template <typename S>
-cudaError_t launch(const void* k, const void* src0, long long fs0, int b0, const void* src1,
-                   long long fs1, int g0, int groups, void* dst, int B, int H, int W, int out_h,
-                   int out_w, const int* meta, const uint32_t* pos, const uint8_t* fy,
-                   const uint8_t* fx, const float* wtab, int first, int tiles, int win_bytes,
-                   float fill, float maxval, int vec, int frames, int pairs, int smem,
-                   cudaStream_t stream) {
-  Args<S> a{static_cast<const S*>(src0), static_cast<const S*>(src1), static_cast<int>(fs0),
-            static_cast<int>(fs1), b0, g0,
-            static_cast<S*>(dst), meta, pos, fy, fx, wtab,
-            B, H, W, out_h, out_w, first, win_bytes, frames, fill, maxval, vec != 0,
-            pairs != 0};
-  void* args[] = {&a};
-  return cudaLaunchKernel(k, dim3(tiles, groups), dim3(kThreads), args, smem, stream);
-}
-
 }  // namespace
 
-// src0, src1: the batch's two sources, read where they lie
-// (ops/sources.py): frames [0, b0) from src0, [b0, B) from src1 (null when
-// b0 == B), each [b, H, W] with packed rows, frames fs0 and fs1 samples
-// apart; dst: [B, out_h, out_w], stacked.  Samples of sample_bytes each
-// (1: uint8; 2: uint16, rounded and saturated to maxval, the depth's
-// largest sample); meta int32 [n, 6] (out row, out col, y0, x0, wh, pitch
-// in samples; pitch 0: global path); pos uint32, fy/fx uint8 [n * 256],
-// tiles of 16x16; wtab float32 [32 * 32, taps * taps].  Launches tiles
-// first .. first + tiles - 1, each CTA with 2 (pairs: 4) * win_bytes of window buffers and
-// win_bytes / 4 of chunk table (win_bytes a multiple of 16), and `frames`
-// frames of the batch, one (pairs: two) per pass, the groups cut where
-// source 1 starts (a CTA reads one source).  vec: W and every source's
-// base and frame stride are 16-byte aligned.
-extern "C" int t360_window(const void* src0, long long fs0, int b0, const void* src1,
-                           long long fs1, void* dst, int sample_bytes, float maxval, int B,
-                           int H, int W, int out_h, int out_w, const int* meta,
-                           const uint32_t* pos, const uint8_t* fy, const uint8_t* fx,
-                           const float* wtab, int first, int tiles, int win_bytes, int taps,
-                           int mode, float fill, int vec, int frames, int pairs,
-                           void* stream) {
+// The arguments of a launch of K3 (t360_window) and of a graph node's
+// update (t360_window_update), as ops/window.py's WindowCall lays them out.
+struct WindowCall {
+  const void* src0;
+  long long fs0;
+  int b0;
+  const void* src1;
+  long long fs1;
+  void* dst;
+  int sample_bytes;
+  float maxval;
+  int B, H, W, out_h, out_w;
+  const int* meta;
+  const uint32_t* pos;
+  const uint8_t* fy;
+  const uint8_t* fx;
+  const float* wtab;
+  int first, tiles, win_bytes, taps, mode;
+  float fill;
+  int vec, frames, pairs;
+};
+
+namespace {
+
+bool aligned16(const void* x, long long fs, int sample_bytes) {
+  return reinterpret_cast<uintptr_t>(x) % 16 == 0 && (fs * sample_bytes) % 16 == 0;
+}
+
+// The kernel's Args for the call c, source 0's frame groups first.
+template <typename S>
+Args<S> args_of(const WindowCall& c, int g0) {
+  return Args<S>{static_cast<const S*>(c.src0), static_cast<const S*>(c.src1),
+                 static_cast<int>(c.fs0), static_cast<int>(c.fs1), c.b0, g0,
+                 static_cast<S*>(c.dst), c.meta, c.pos, c.fy, c.fx, c.wtab,
+                 c.B, c.H, c.W, c.out_h, c.out_w, c.first, c.win_bytes, c.frames, c.fill,
+                 c.maxval, c.vec != 0, c.pairs != 0};
+}
+
+// Checks a launch of K3 and builds its Args, then returns f(kernel, grid,
+// shared memory, kernel arguments): a launch and a graph node's update
+// take theirs from here alike.
+template <typename F>
+int with_launch(F&& f, const WindowCall& c) {
+  const auto& [src0, fs0, b0, src1, fs1, dst, sample_bytes, maxval, B, H, W, out_h, out_w, meta,
+               pos, fy, fx, wtab, first, tiles, win_bytes, taps, mode, fill, vec, frames,
+               pairs] = c;
   const void* k = kernel_for(sample_bytes, taps, mode);
   const long long plane = static_cast<long long>(H) * W;
   const int g0 = frames > 0 ? (b0 + frames - 1) / frames : 0;  // source 0's frame groups
@@ -470,22 +475,58 @@ extern "C" int t360_window(const void* src0, long long fs0, int b0, const void* 
       groups > 65535 || (win_bytes & 15) != 0 ||
       static_cast<long long>(H) * W >= (1LL << 31) || H >= (1 << 16) ||
       smem_bytes(win_bytes, pairs) > 227 * 1024 ||
+      (vec && ((static_cast<long long>(W) * sample_bytes) % 16 != 0 ||
+               !aligned16(src0, fs0, sample_bytes) ||
+               (b0 < B && !aligned16(src1, fs1, sample_bytes)))) ||
       (sample_bytes == 1 ? maxval != 255.0f : !(maxval >= 255.0f && maxval <= 65535.0f)))
     return static_cast<int>(cudaErrorInvalidValue);
   const int smem = smem_bytes(win_bytes, pairs);
-  cudaError_t e = allow_smem(k, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  e = sample_bytes == 1
-          ? launch<uint8_t>(k, src0, fs0, b0, src1, fs1, g0, groups, dst, B, H, W, out_h, out_w,
-                            meta, pos, fy, fx, wtab, first, tiles, win_bytes, fill, maxval, vec,
-                            frames, pairs, smem, st)
-          : launch<uint16_t>(k, src0, fs0, b0, src1, fs1, g0, groups, dst, B, H, W, out_h,
-                             out_w, meta, pos, fy, fx, wtab, first, tiles, win_bytes, fill,
-                             maxval, vec, frames, pairs, smem, st);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  T360_CHECK_LAUNCH();
-  return 0;
+  const dim3 grid(tiles, groups);
+  if (sample_bytes == 1) {
+    Args<uint8_t> a = args_of<uint8_t>(c, g0);
+    void* args[] = {&a};
+    return f(k, grid, smem, args);
+  }
+  Args<uint16_t> a = args_of<uint16_t>(c, g0);
+  void* args[] = {&a};
+  return f(k, grid, smem, args);
+}
+
+}  // namespace
+
+// One launch of K3 on stream, with c's fields: src0, src1, the batch's
+// two sources, read where they lie (ops/sources.py): frames [0, b0) from
+// src0, [b0, B) from src1 (null when b0 == B), each [b, H, W] with packed rows, frames fs0 and fs1 samples
+// apart; dst: [B, out_h, out_w], stacked.  Samples of sample_bytes each
+// (1: uint8; 2: uint16, rounded and saturated to maxval, the depth's
+// largest sample); meta int32 [n, 6] (out row, out col, y0, x0, wh, pitch
+// in samples; pitch 0: global path); pos uint32, fy/fx uint8 [n * 256],
+// tiles of 16x16; wtab float32 [32 * 32, taps * taps].  Launches tiles
+// first .. first + tiles - 1, each CTA with 2 (pairs: 4) * win_bytes of window buffers and
+// win_bytes / 4 of chunk table (win_bytes a multiple of 16), and `frames`
+// frames of the batch, one (pairs: two) per pass, the groups cut where
+// source 1 starts (a CTA reads one source).  vec: W and every source's
+// base and frame stride are 16-byte aligned.  node: see
+// t360::captured_node (null: not asked for).
+extern "C" int t360_window(const WindowCall* c, void* stream, void** node) {
+  return with_launch(
+      [&](const void* k, dim3 grid, int smem, void** args) {
+        return t360::launch(k, grid, dim3(kThreads), smem, args,
+                            static_cast<cudaStream_t>(stream), node);
+      },
+      *c);
+}
+
+// Re-points kernel node `node` of the instantiated graph `exec`, captured
+// from a t360_window launch, to the arguments c (t360::update_node),
+// checked and built as t360_window's, so that a vec that the new pointers
+// do not allow is refused.  Returns as t360_window does.
+extern "C" int t360_window_update(void* exec, void* node, const WindowCall* c) {
+  return with_launch(
+      [&](const void* k, dim3 grid, int smem, void** args) {
+        return t360::update_node(exec, node, k, grid, dim3(kThreads), smem, args);
+      },
+      *c);
 }
 
 // One instantiation's registers, local memory bytes (spills and stack),
@@ -498,7 +539,7 @@ extern "C" int t360_window_attrs(int sample_bytes, int taps, int mode, int win_b
   cudaFuncAttributes fa;
   cudaError_t e = cudaFuncGetAttributes(&fa, k);
   const int smem = smem_bytes(win_bytes, pairs);
-  if (e == cudaSuccess) e = allow_smem(k, smem);
+  if (e == cudaSuccess) e = t360::allow_smem(k, smem);
   int blocks = 0;
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, kThreads, smem);

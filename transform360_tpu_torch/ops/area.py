@@ -30,13 +30,18 @@ frames in order.  A plane whose rows and base are
 with plain loads (``COPY_SCALAR``): the shape chooses, never a failure.
 
 For a CUDA tensor :func:`area_px` launches the kernel or raises; it never
-falls back.  ``LAUNCHES`` counts the uint8 instantiation's launches and
+falls back.  A launch hands the library one :class:`AreaCall`; one made
+while a capture is recorded (:mod:`.nodes`) keeps it, and a replay
+re-points the captured node at a new output through
+``t360_area_update``, which checks it and encodes the tensor map as a
+launch does.  ``LAUNCHES`` counts the uint8 instantiation's launches and
 ``LAUNCHES_U16`` the uint16 one's (one per call on a CUDA tensor).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 from typing import Dict, List, Tuple
 
@@ -44,7 +49,7 @@ import numpy as np
 import torch
 
 from ..sampling import AreaAxis, AreaTables, DeviceArea, area_resize, round_px
-from . import _build
+from . import _build, nodes, sources
 
 LAUNCHES = 0  # uint8 planes
 LAUNCHES_U16 = 0  # uint16 planes
@@ -195,26 +200,36 @@ def area_plain(da: DeviceArea, x: torch.Tensor, maxval: int = 255) -> torch.Tens
     return round_px(area_resize(da, x), maxval, x.dtype)
 
 
+class AreaCall(ctypes.Structure):
+    """The arguments of a launch of K4 and of a graph node's update, as
+    ``csrc/area.cu``'s ``AreaCall`` lays them out."""
+
+    _fields_ = [
+        ("src", _c_void_p), ("dst", _c_void_p),
+        ("sample_bytes", _c_int), ("maxval", _c_int),  # largest sample
+        ("B", _c_int), ("H", _c_int), ("W", _c_int), ("OH", _c_int), ("OW", _c_int),
+        ("row_first", _c_void_p), ("row_w", _c_void_p), ("kr", _c_int),
+        ("col_first", _c_void_p), ("col_w", _c_void_p), ("kc", _c_int),
+        ("taps", _c_int),  # register taps
+        ("tiles", _c_void_p), ("n_tiles", _c_int),
+        ("box_w", _c_int), ("box_h", _c_int), ("nbox", _c_int), ("stages", _c_int),
+        ("copy", _c_int), ("packed", _c_int), ("ctas", _c_int), ("order", _c_int),
+    ]
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.library("area")
     fn = lib.t360_area
     if fn.argtypes is None:
-        fn.argtypes = [
-            _c_void_p, _c_void_p,  # src, dst
-            _c_int, _c_int,  # sample bytes, largest sample
-            _c_int, _c_int, _c_int, _c_int, _c_int,  # B, H, W, OH, OW
-            _c_void_p, _c_void_p, _c_int,  # row_first, row_w, kr
-            _c_void_p, _c_void_p, _c_int, _c_int,  # col_first, col_w, kc, register taps
-            _c_void_p, _c_int,  # tiles, n_tiles
-            _c_int, _c_int, _c_int, _c_int,  # box width, rows, count; stages
-            _c_int, _c_int, _c_int, _c_int,  # copy, packed, ctas, order
-            _c_void_p,  # stream
-        ]
-        fn.restype = _c_int
+        call = ctypes.POINTER(AreaCall)
+        lib.t360_area_update.argtypes = [_c_void_p, _c_void_p, call]  # graph, node, call
+        lib.t360_area_update.restype = _c_int
         lib.t360_area_attrs.argtypes = [_c_int, _c_int, _c_int, _c_int, _c_void_p]
         lib.t360_area_attrs.restype = _c_int
         lib.t360_error_string.argtypes = [_c_int]
         lib.t360_error_string.restype = ctypes.c_char_p
+        fn.restype = _c_int
+        fn.argtypes = [call, _c_void_p, ctypes.POINTER(_c_void_p)]  # call, stream, node out
     return lib
 
 
@@ -287,21 +302,41 @@ def launch(lib: ctypes.CDLL, da: DeviceArea, x: torch.Tensor, out: torch.Tensor,
     persistent (:func:`grid_ctas`); ``port_tools/k4_check.py`` sets each
     to time its variants.  Raises if the launch fails."""
     sb = x.element_size()
-    kr, kc = da.row_w.shape[1], da.col_w.shape[1]
     copy = copy_mode(da, x) if copy < 0 else copy
     order = walk_order(da, x) if order < 0 else order
     stages = stages or (2 if copy == COPY_SCALAR else ring_stages(da, sb))
     n_items = da.tiles.shape[0] * x.shape[0]
-    ctas = ctas or grid_ctas(n_items, resident_ctas(lib, da, sb, stages))
-    err = lib.t360_area(
-        x.data_ptr(), out.data_ptr(), sb, maxval, x.shape[0], da.in_h, da.in_w,
-        *da.out_shape, da.row_first.data_ptr(), da.row_w.data_ptr(), kr,
-        da.col_first.data_ptr(), da.col_w.data_ptr(), kc, taps(kr, kc),
-        da.tiles.data_ptr(), da.tiles.shape[0], *da.box, stages, copy, int(packed),
-        min(ctas, n_items), order, stream,
-    )
+    kr, kc = da.row_w.shape[1], da.col_w.shape[1]
+    call = AreaCall(
+        src=x.data_ptr(), dst=out.data_ptr(), sample_bytes=sb, maxval=maxval, B=x.shape[0],
+        H=da.in_h, W=da.in_w, OH=da.out_shape[0], OW=da.out_shape[1],
+        row_first=da.row_first.data_ptr(), row_w=da.row_w.data_ptr(), kr=kr,
+        col_first=da.col_first.data_ptr(), col_w=da.col_w.data_ptr(), kc=kc, taps=taps(kr, kc),
+        tiles=da.tiles.data_ptr(), n_tiles=da.tiles.shape[0],
+        box_w=da.box[0], box_h=da.box[1], nbox=da.box[2], stages=stages, copy=copy,
+        packed=int(packed),
+        ctas=min(ctas or grid_ctas(n_items, resident_ctas(lib, da, sb, stages)), n_items),
+        order=order)
+    ref = nodes.handle_ref()
+    err = lib.t360_area(ctypes.byref(call), stream, None if ref is None else ctypes.byref(ref))
     if err:
         raise RuntimeError(f"area kernel launch failed: {_error(lib, err)}")
+    if ref is not None:  # recording a capture
+        nodes.add(ref, sources.describe((x,)), out.data_ptr(),
+                  functools.partial(_update, lib, call))
+
+
+def _update(lib: ctypes.CDLL, call: AreaCall, exec_: int, node: int, src: tuple,
+            out: int) -> None:
+    """Re-point a captured launch's node in the graph ``exec_`` at the
+    source ``src`` (one, described) and the output at ``out``, with the
+    rest of its ``call`` as captured (:class:`..nodes.Node`).  Raises if
+    the library refuses them."""
+    (s,) = src
+    call.src, call.dst = s.ptr, out
+    err = lib.t360_area_update(exec_, node, ctypes.byref(call))
+    if err:
+        raise RuntimeError(f"area kernel node update failed: {_error(lib, err)}")
 
 
 def area_px(da: DeviceArea, x: torch.Tensor, maxval: int = 255) -> torch.Tensor:

@@ -32,7 +32,11 @@ never a failure.  The tables memoize each batch's choices
 (:func:`geometry`) by its sources' frame counts and alignment, so that
 a call after the first spends no host time on them.  For CUDA tensors the
 wrapper launches the kernel or raises; it never falls back, and never
-copies a source.
+copies a source.  A launch hands the library one :class:`BlurCall`; one
+made while a capture is recorded (:mod:`.nodes`) keeps it, and a replay
+re-points the captured node at new sources and a new output through
+``t360_blur_update``, which checks them and encodes the tensor maps as a
+launch does.
 ``LAUNCHES`` counts the uint8 instantiations' launches and
 ``LAUNCHES_U16`` the uint16 ones' (one per call on a CUDA tensor).
 """
@@ -41,6 +45,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import threading
 from typing import Dict, List, Tuple
 
@@ -50,7 +55,7 @@ import torch
 from ..config import StereoFormat
 from ..filtering import BlurPlan, band_radii, blur_plain, plan_radii
 from ..sampling import round_px
-from . import _build, sources
+from . import _build, nodes, sources
 from .sources import Planes
 
 LAUNCHES = 0  # uint8 planes
@@ -292,29 +297,38 @@ def grid_ctas(n_items: int, resident: int) -> int:
     return max(1, min(n_items, resident))
 
 
+class BlurCall(ctypes.Structure):
+    """The arguments of a launch of K1 and of a graph node's update, as
+    ``csrc/blur.cu``'s ``BlurCall`` lays them out."""
+
+    _fields_ = [
+        ("x0", _c_void_p), ("fs0", ctypes.c_longlong), ("b0", _c_int),  # source 0, its frames
+        ("x1", _c_void_p), ("fs1", ctypes.c_longlong),  # source 1
+        ("out", _c_void_p),
+        ("sample_bytes", _c_int), ("maxval", _c_int),  # largest sample
+        ("B", _c_int), ("H", _c_int), ("W", _c_int),
+        ("tiles", _c_void_p), ("n_tiles", _c_int),
+        ("kx", _c_void_p), ("rx", _c_void_p), ("lx", _c_int),
+        ("ky", _c_void_p), ("ry", _c_void_p), ("ly", _c_int),
+        ("ring_ry", _c_int), ("cols", _c_int),  # columns per thread
+        ("row_bytes", _c_int), ("pitch", _c_int), ("slab", _c_int), ("stages", _c_int),
+        ("parts", _c_int), ("copy", _c_int), ("ctas", _c_int), ("vec_out", _c_int),
+    ]
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.library("blur")
     fn = lib.t360_blur
     if fn.argtypes is None:
-        fn.argtypes = [
-            _c_void_p, ctypes.c_longlong, _c_int,  # source 0, its frame stride, its frames
-            _c_void_p, ctypes.c_longlong,  # source 1, its frame stride
-            _c_void_p,  # out
-            _c_int, _c_int,  # sample bytes, largest sample
-            _c_int, _c_int, _c_int,  # B, H, W
-            _c_void_p, _c_int,  # tiles, n_tiles
-            _c_void_p, _c_void_p, _c_int,  # kx, rx, lx
-            _c_void_p, _c_void_p, _c_int,  # ky, ry, ly
-            _c_int, _c_int,  # ring_ry, columns per thread
-            _c_int, _c_int, _c_int, _c_int,  # row bytes, pitch, slab, stages
-            _c_int, _c_int, _c_int, _c_int,  # parts, copy, ctas, vec_out
-            _c_void_p,  # stream
-        ]
-        fn.restype = _c_int
+        call = ctypes.POINTER(BlurCall)
+        lib.t360_blur_update.argtypes = [_c_void_p, _c_void_p, call]  # graph, node, call
+        lib.t360_blur_update.restype = _c_int
         lib.t360_blur_attrs.argtypes = [_c_int] * 6 + [_c_void_p]
         lib.t360_blur_attrs.restype = _c_int
         lib.t360_error_string.argtypes = [_c_int]
         lib.t360_error_string.restype = ctypes.c_char_p
+        fn.restype = _c_int
+        fn.argtypes = [call, _c_void_p, ctypes.POINTER(_c_void_p)]  # call, stream, node out
     return lib
 
 
@@ -325,6 +339,7 @@ def _error(lib: ctypes.CDLL, err: int) -> str:
 
 
 def _check_input(bt: BlurTables, x: Planes) -> tuple:
+    """(sources, their descriptions) of ``x``, checked."""
     return sources.check_sources(x, bt.H, bt.W, bt.dtype, bt.kx.device, "blur")
 
 
@@ -398,15 +413,15 @@ def geometry(lib: ctypes.CDLL, bt: BlurTables, B: int, stages: int = STAGES, *, 
 
 
 def launch(lib: ctypes.CDLL, bt: BlurTables, x: Planes, out: torch.Tensor, stream: int,
-           maxval: int = 255) -> None:
+           maxval: int = 255, src: tuple = None) -> None:
     """One launch of K1 from ``lib`` over ``bt``'s tiles, reading the
-    sources ``x`` where they lie, into ``out`` (stacked) on the CUDA
-    stream ``stream``; uint16 samples round and saturate to ``maxval``.
-    The sources' alignment picks the copy (:func:`copy_mode`) and the
-    batch the rest (:func:`geometry`), memoized in ``bt``.  Raises if the
-    launch fails."""
+    sources ``x`` (described by ``src``, or here) where they lie, into
+    ``out`` (stacked) on the CUDA stream ``stream``; uint16 samples round
+    and saturate to ``maxval``.  The sources' alignment picks the copy
+    (:func:`copy_mode`) and the batch the rest (:func:`geometry`),
+    memoized in ``bt``.  Raises if the launch fails."""
     xs = sources.as_sources(x)
-    src = sources.describe(xs)
+    src = src or sources.describe(xs)
     key = (xs[0].device.index, tuple([s.frames for s in src]), tuple([s.aligned for s in src]))
     g = bt.memo.get(key)
     if g is None:
@@ -429,22 +444,54 @@ def _launch(lib: ctypes.CDLL, bt: BlurTables, x: Planes, out: torch.Tensor, stre
 
 def _call(lib: ctypes.CDLL, bt: BlurTables, src: tuple, out: torch.Tensor, stream: int,
           maxval: int, copy: int, stages: int, cols: int, parts: int, ctas: int) -> None:
-    s0, s1 = src[0], src[-1]
-    B = sum(s.frames for s in src)
-    n = bt.tiles.shape[0]
-    err = lib.t360_blur(
-        s0.ptr, s0.stride, s0.frames, s1.ptr if len(src) > 1 else None, s1.stride,
-        out.data_ptr(), bt.sample_bytes, maxval, B, bt.H, bt.W,
-        bt.tiles.data_ptr(), n,
-        bt.kx.data_ptr(), bt.rx.data_ptr(), bt.kx.shape[1],
-        bt.ky.data_ptr(), bt.ry.data_ptr(), bt.ky.shape[1],
-        bt.ring_ry, cols, bt.row_bytes, bt.pitch, bt.slab, stages, parts, copy,
-        min(ctas, n * B * parts),
-        int(bt.W % 16 == 0 and out.data_ptr() % 16 == 0),
-        stream,
-    )
+    """A launch with its choices made; while a capture is recorded
+    (:mod:`.nodes`), its node and its update are recorded too."""
+    call = _call_of(bt, src, out.data_ptr(), maxval, copy, stages, cols, parts, ctas)
+    ref = nodes.handle_ref()
+    err = lib.t360_blur(ctypes.byref(call), stream, None if ref is None else ctypes.byref(ref))
     if err:
         raise RuntimeError(f"blur kernel launch failed: {_error(lib, err)}")
+    if ref is not None:
+        nodes.add(ref, src, out.data_ptr(), functools.partial(_update, lib, call))
+
+
+def _update(lib: ctypes.CDLL, call: BlurCall, exec_: int, node: int, src: tuple,
+            out: int) -> None:
+    """Re-point a captured launch's node in the graph ``exec_`` at the
+    sources ``src`` and the output at ``out``, with the rest of its
+    ``call`` as captured (:class:`..nodes.Node`).  Raises if the library
+    refuses them: a TMA copy or vector stores that the new pointers do not
+    allow."""
+    _point(call, src, out)
+    err = lib.t360_blur_update(exec_, node, ctypes.byref(call))
+    if err:
+        raise RuntimeError(f"blur kernel node update failed: {_error(lib, err)}")
+
+
+def _point(call: BlurCall, src: tuple, out: int) -> None:
+    """Set ``call``'s sources (described) and output: what a replay
+    re-points."""
+    s0, s1 = src[0], src[-1]
+    call.x0, call.fs0, call.b0 = s0.ptr, s0.stride, s0.frames
+    call.x1, call.fs1 = s1.ptr if len(src) > 1 else None, s1.stride
+    call.out = out
+
+
+def _call_of(bt: BlurTables, src: tuple, out: int, maxval: int, copy: int, stages: int,
+             cols: int, parts: int, ctas: int) -> BlurCall:
+    """The arguments of a launch over ``bt``'s tiles with these choices."""
+    B = sum(s.frames for s in src)
+    n = bt.tiles.shape[0]
+    call = BlurCall(
+        sample_bytes=bt.sample_bytes, maxval=maxval, B=B, H=bt.H, W=bt.W,
+        tiles=bt.tiles.data_ptr(), n_tiles=n,
+        kx=bt.kx.data_ptr(), rx=bt.rx.data_ptr(), lx=bt.kx.shape[1],
+        ky=bt.ky.data_ptr(), ry=bt.ry.data_ptr(), ly=bt.ky.shape[1],
+        ring_ry=bt.ring_ry, cols=cols, row_bytes=bt.row_bytes, pitch=bt.pitch, slab=bt.slab,
+        stages=stages, parts=parts, copy=copy, ctas=min(ctas, n * B * parts),
+        vec_out=int(bt.W % 16 == 0 and out % 16 == 0))
+    _point(call, src, out)
+    return call
 
 
 def blur_px(bt: BlurTables, x: Planes, maxval: int = 255) -> torch.Tensor:
@@ -454,7 +501,7 @@ def blur_px(bt: BlurTables, x: Planes, maxval: int = 255) -> torch.Tensor:
     (saturated at 255), or uint16 saturated at ``maxval`` (the depth's
     largest sample)."""
     global LAUNCHES, LAUNCHES_U16
-    xs = _check_input(bt, x)
+    xs, src = _check_input(bt, x)
     if bt.sample_bytes == 1 and maxval != 255:
         raise ValueError(f"uint8 samples saturate at 255, not {maxval}")
     if not 255 <= maxval <= 65535:
@@ -467,7 +514,7 @@ def blur_px(bt: BlurTables, x: Planes, maxval: int = 255) -> torch.Tensor:
     out = torch.empty((sources.frames(xs), bt.H, bt.W), dtype=bt.dtype, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
-        launch(lib, bt, xs, out, torch.cuda.current_stream(dev).cuda_stream, maxval)
+        launch(lib, bt, xs, out, torch.cuda.current_stream(dev).cuda_stream, maxval, src)
     if bt.sample_bytes == 1:
         LAUNCHES += 1
     else:

@@ -16,12 +16,14 @@ stacked output.
 :func:`describe` gives what a kernel launch takes of each source: its
 base pointer, frame count, frame stride in samples, and whether the base
 and the frame stride are 16-byte aligned (TMA's rule, and that of K3's
-16-byte ``cp.async``).
+16-byte ``cp.async``), memoized by pointer, shape, strides, dtype and
+device, so that planes described (and checked) before cost a dict
+lookup.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence, Tuple, Union
+from typing import Dict, NamedTuple, Sequence, Tuple, Union
 
 import torch
 
@@ -70,39 +72,70 @@ def frame_stride(x: torch.Tensor) -> int:
 
 
 def check_sources(x: Planes, H: int, W: int, dtype: torch.dtype, device: torch.device,
-                  what: str) -> Tuple[torch.Tensor, ...]:
-    """The sources of ``x``, each checked: a tensor of ``dtype`` samples,
-    ``[b, H, W]`` with ``b > 0``, packed rows (:func:`rows_packed`), on
-    ``device``.  Raises ``TypeError`` or ``ValueError``; nothing is
+                  what: str) -> Tuple[Tuple[torch.Tensor, ...], Tuple[Source, ...]]:
+    """The sources of ``x``, each checked -- a tensor of ``dtype``
+    samples, ``[b, H, W]`` with ``b > 0``, packed rows
+    (:func:`rows_packed`), on ``device`` -- and their descriptions
+    (:func:`describe`).  A source described before is checked against
+    its memoized key.  Raises ``TypeError`` or ``ValueError``; nothing is
     copied."""
     xs = as_sources(x)
+    src = []
     for s in xs:
         if not isinstance(s, torch.Tensor):
             raise TypeError(f"expected a torch.Tensor, got {type(s).__name__}")
-        if s.dtype != dtype:
-            raise TypeError(f"these {what} tables take {dtype} planes, got {s.dtype}")
-        shape = s.shape
-        if len(shape) != 3 or shape[1] != H or shape[2] != W:
-            raise ValueError(f"{what} expects [B, {H}, {W}], got {tuple(shape)}")
-        if shape[0] == 0:
-            raise ValueError("empty batch")
-        if not rows_packed(s):
-            raise ValueError(f"{what} takes planes with packed rows, frames at least a plane "
-                             f"apart; got strides {s.stride()}")
-        if s.device != device:
-            raise ValueError(f"plane on {s.device} but the {what} tables on {device}")
-    return xs
+        key = _key(s)
+        d = _MEMO.get(key)
+        if d is None or key[1][1:] != (H, W) or key[3] != dtype or key[4] != device:
+            _check(s, H, W, dtype, device, what)
+            d = _describe(s, key)
+        src.append(d)
+    return xs, tuple(src)
+
+
+def _check(s: torch.Tensor, H: int, W: int, dtype: torch.dtype, device: torch.device,
+           what: str) -> None:
+    if s.dtype != dtype:
+        raise TypeError(f"these {what} tables take {dtype} planes, got {s.dtype}")
+    shape = s.shape
+    if len(shape) != 3 or shape[1] != H or shape[2] != W:
+        raise ValueError(f"{what} expects [B, {H}, {W}], got {tuple(shape)}")
+    if shape[0] == 0:
+        raise ValueError("empty batch")
+    if not rows_packed(s):
+        raise ValueError(f"{what} takes planes with packed rows, frames at least a plane "
+                         f"apart; got strides {s.stride()}")
+    if s.device != device:
+        raise ValueError(f"plane on {s.device} but the {what} tables on {device}")
 
 
 def describe(xs: Sequence[torch.Tensor]) -> Tuple[Source, ...]:
     """Each source's base pointer, frame count, frame stride in samples
-    and alignment."""
-    out = []
-    for s in xs:
-        b, ptr = s.shape[0], s.data_ptr()
-        fs = s.stride(0) if b > 1 else frame_stride(s)
-        out.append(Source(ptr, b, fs, ptr % ALIGN == 0 and fs * s.element_size() % ALIGN == 0))
-    return tuple(out)
+    and alignment.  The description of a source with packed rows is
+    memoized by its pointer, shape, strides, dtype and device, so that a
+    batch described before costs a dict lookup."""
+    return tuple([_describe(s, _key(s)) for s in xs])
+
+
+_MEMO: Dict[tuple, Source] = {}
+MEMO_MAX = 4096  # descriptions kept; the memo starts anew past this many
+
+
+def _key(s: torch.Tensor) -> tuple:
+    return s.data_ptr(), s.shape, s.stride(), s.dtype, s.device
+
+
+def _describe(s: torch.Tensor, key: tuple) -> Source:
+    d = _MEMO.get(key)
+    if d is None:
+        ptr, b = key[0], key[1][0]
+        fs = key[2][0] if b > 1 else frame_stride(s)
+        d = Source(ptr, b, fs, ptr % ALIGN == 0 and fs * s.element_size() % ALIGN == 0)
+        if len(key[1]) == 3 and b > 0 and rows_packed(s):  # a memoized source is one
+            if len(_MEMO) >= MEMO_MAX:
+                _MEMO.clear()
+            _MEMO[key] = d
+    return d
 
 
 def frames(xs: Sequence[torch.Tensor]) -> int:

@@ -27,7 +27,11 @@ taps.
 plan without a prefilter from their own bases, its frame groups cut where
 the second source starts, so that each CTA reads one source.  For
 CUDA tensors it launches the kernel or raises; it never falls back, and
-never copies a source.  ``LAUNCHES`` counts the uint8
+never copies a source.  A launch hands the library one
+:class:`WindowCall`; one made while a capture is recorded
+(:mod:`.nodes`) keeps it, and a replay re-points the captured node at new
+sources and a new output through ``t360_window_update``, which checks
+them as a launch does.  ``LAUNCHES`` counts the uint8
 instantiation's launches and ``LAUNCHES_U16`` the uint16 one's (one per
 class present in the plan).
 """
@@ -36,6 +40,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -54,7 +59,7 @@ from ..sampling import (
     round_px,
     weight_table,
 )
-from . import _build, sources
+from . import _build, nodes, sources
 from .sources import Planes
 
 LAUNCHES = 0  # uint8 planes
@@ -337,31 +342,42 @@ def remap_window_plain(wt: WindowTables, x: torch.Tensor) -> torch.Tensor:
     return out.reshape(B, wt.out_h, wt.out_w)
 
 
+class WindowCall(ctypes.Structure):
+    """The arguments of a launch of K3 and of a graph node's update, as
+    ``csrc/window.cu``'s ``WindowCall`` lays them out."""
+
+    _fields_ = [
+        ("src0", _c_void_p), ("fs0", ctypes.c_longlong), ("b0", _c_int),  # source 0, its frames
+        ("src1", _c_void_p), ("fs1", ctypes.c_longlong),  # source 1
+        ("dst", _c_void_p),
+        ("sample_bytes", _c_int), ("maxval", ctypes.c_float),  # largest sample
+        ("B", _c_int), ("H", _c_int), ("W", _c_int), ("out_h", _c_int), ("out_w", _c_int),
+        ("meta", _c_void_p), ("pos", _c_void_p), ("fy", _c_void_p), ("fx", _c_void_p),
+        ("wtab", _c_void_p),
+        ("first", _c_int), ("tiles", _c_int), ("win_bytes", _c_int),  # the class's tiles
+        ("taps", _c_int), ("mode", _c_int), ("fill", ctypes.c_float), ("vec", _c_int),
+        ("frames", _c_int), ("pairs", _c_int),  # frames per CTA, two a pass
+    ]
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.library("window")
     fn = lib.t360_window
     if fn.argtypes is None:
-        fn.argtypes = [
-            _c_void_p, ctypes.c_longlong, _c_int,  # source 0, its frame stride, its frames
-            _c_void_p, ctypes.c_longlong,  # source 1, its frame stride
-            _c_void_p,  # dst
-            _c_int, ctypes.c_float,  # sample bytes, largest sample
-            _c_int, _c_int, _c_int, _c_int, _c_int,  # B, H, W, out_h, out_w
-            _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,  # meta, pos, fy, fx, wtab
-            _c_int, _c_int, _c_int,  # first tile, tiles, window bytes
-            _c_int, _c_int,  # taps, mode
-            ctypes.c_float, _c_int,  # fill, vec
-            _c_int, _c_int, _c_void_p,  # frames per CTA, pairs, stream
-        ]
-        fn.restype = _c_int
+        call = ctypes.POINTER(WindowCall)
+        lib.t360_window_update.argtypes = [_c_void_p, _c_void_p, call]  # graph, node, call
+        lib.t360_window_update.restype = _c_int
         lib.t360_window_attrs.argtypes = [_c_int, _c_int, _c_int, _c_int, _c_int, _c_void_p]
         lib.t360_window_attrs.restype = _c_int
         lib.t360_error_string.argtypes = [_c_int]
         lib.t360_error_string.restype = ctypes.c_char_p
+        fn.restype = _c_int
+        fn.argtypes = [call, _c_void_p, ctypes.POINTER(_c_void_p)]  # call, stream, node out
     return lib
 
 
 def _check_input(wt: WindowTables, x: Planes) -> tuple:
+    """(sources, their descriptions) of ``x``, checked."""
     return sources.check_sources(x, wt.in_h, wt.in_w, wt.dtype, wt.meta.device, "remap")
 
 
@@ -382,21 +398,53 @@ def _launch_class(lib: ctypes.CDLL, wt: WindowTables, src: tuple, out: torch.Ten
                   group: Tuple[int, int, int], frames: int, pair: bool, stream: int,
                   maxval: int) -> None:
     """:func:`launch_class` on sources already described
-    (:func:`.sources.describe`)."""
-    first, count, win = group
-    s0, s1 = src[0], src[-1]
-    err = lib.t360_window(
-        s0.ptr, s0.stride, s0.frames, s1.ptr if len(src) > 1 else None, s1.stride,
-        out.data_ptr(), wt.sample_bytes, float(maxval),
-        sum(s.frames for s in src), wt.in_h, wt.in_w, wt.out_h, wt.out_w,
-        wt.meta.data_ptr(), wt.pos.data_ptr(), wt.fy.data_ptr(),
-        wt.fx.data_ptr(), wt.wtab.data_ptr(),
-        first, count, win, wt.taps, wt.mode, wt.fill,
-        int(wt.in_w * wt.sample_bytes % VEC == 0 and all(s.aligned for s in src)),
-        frames, int(pair), stream,
-    )
+    (:func:`.sources.describe`); while a capture is recorded
+    (:mod:`.nodes`), its node and its update are recorded too."""
+    call = _call_of(wt, src, out.data_ptr(), group, frames, pair, maxval)
+    ref = nodes.handle_ref()
+    err = lib.t360_window(ctypes.byref(call), stream, None if ref is None else ctypes.byref(ref))
     if err:
         raise RuntimeError(f"window kernel launch failed: {lib.t360_error_string(err).decode()}")
+    if ref is not None:
+        nodes.add(ref, src, out.data_ptr(), functools.partial(_update, lib, call))
+
+
+def _update(lib: ctypes.CDLL, call: WindowCall, exec_: int, node: int, src: tuple,
+            out: int) -> None:
+    """Re-point a captured launch's node in the graph ``exec_`` at the
+    sources ``src`` and the output at ``out``, with the rest of its
+    ``call`` as captured (:class:`..nodes.Node`).  Raises if the library
+    refuses them: 16-byte copies that the new pointers do not allow."""
+    _point(call, src, out)
+    err = lib.t360_window_update(exec_, node, ctypes.byref(call))
+    if err:
+        raise RuntimeError(f"window kernel node update failed: "
+                           f"{lib.t360_error_string(err).decode()}")
+
+
+def _point(call: WindowCall, src: tuple, out: int) -> None:
+    """Set ``call``'s sources (described) and output: what a replay
+    re-points."""
+    s0, s1 = src[0], src[-1]
+    call.src0, call.fs0, call.b0 = s0.ptr, s0.stride, s0.frames
+    call.src1, call.fs1 = s1.ptr if len(src) > 1 else None, s1.stride
+    call.dst = out
+
+
+def _call_of(wt: WindowTables, src: tuple, out: int, group: Tuple[int, int, int], frames: int,
+             pair: bool, maxval: int) -> WindowCall:
+    """The arguments of a launch over the tiles of ``group`` of ``wt``."""
+    first, count, win = group
+    call = WindowCall(
+        sample_bytes=wt.sample_bytes, maxval=float(maxval),
+        B=sum(s.frames for s in src), H=wt.in_h, W=wt.in_w, out_h=wt.out_h, out_w=wt.out_w,
+        meta=wt.meta.data_ptr(), pos=wt.pos.data_ptr(), fy=wt.fy.data_ptr(),
+        fx=wt.fx.data_ptr(), wtab=wt.wtab.data_ptr(),
+        first=first, tiles=count, win_bytes=win, taps=wt.taps, mode=wt.mode, fill=wt.fill,
+        vec=int(wt.in_w * wt.sample_bytes % VEC == 0 and all(s.aligned for s in src)),
+        frames=frames, pairs=int(pair))
+    _point(call, src, out)
+    return call
 
 
 def remap_window_px(wt: WindowTables, x: Planes, maxval: int = 255) -> torch.Tensor:
@@ -407,7 +455,7 @@ def remap_window_px(wt: WindowTables, x: Planes, maxval: int = 255) -> torch.Ten
     at ``maxval`` (the depth's largest sample, 1023 at 10 bits).  Any
     batch size is accepted."""
     global LAUNCHES, LAUNCHES_U16
-    xs = _check_input(wt, x)
+    xs, src = _check_input(wt, x)
     if wt.sample_bytes == 1 and maxval != 255:
         raise ValueError(f"uint8 samples saturate at 255, not {maxval}")
     if not 255 <= maxval <= 65535:
@@ -420,7 +468,6 @@ def remap_window_px(wt: WindowTables, x: Planes, maxval: int = 255) -> torch.Ten
     B = sources.frames(xs)
     out = torch.empty((B, wt.out_h, wt.out_w), dtype=wt.dtype, device=dev)
     lib = _lib()
-    src = sources.describe(xs)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         for group in wt.groups:

@@ -7,11 +7,13 @@ device.  Every plan array (first taps, fractions, masks, INTER_AREA rows)
 is indexed by output pixel, so a row slice of a plane plan is itself a
 plane plan (:func:`band_plans`).  Each band runs the plan's frame path,
 K1 and then K3 (:func:`..pipeline.transform_frame_planes`), on its device
-against its own copy of the input planes: no collective, one input copy
-per device and small band outputs back.  Its plane plans have executors
-of their own per device and shape (the JAX package's ``_band_executor``):
-a banded frame replays one captured CUDA graph per band and plane, each
-copying the frame's planes into its static input.
+against the input planes there: no collective, the planes copied to a
+device once (none where they already lie on it) and small band outputs
+back.  Its plane plans have executors of their own per device and shape
+(the JAX package's ``_band_executor``): a banded frame replays one
+captured CUDA graph per band and plane, each reading the frame's planes
+where they lie on the card, so a banded frame makes no copy of the frame
+there.
 
 Trade-off (the JAX package's): the prefilter works on the input plane, so
 every band blurs the whole input plane: duplicated work that bounds the

@@ -21,20 +21,34 @@ Executors (the JAX package's ``_StagedExecutor`` and ``plane_executor``,
 ``pipeline.py:317-366`` there): :func:`plane_executor` gives one
 :class:`PlaneExecutor` per plane plan (by key and content) and device.  On a
 CUDA device, the first call of a batch of at most ``GRAPH_MAX_BATCH``
-frames of a shape runs the program eagerly (its result is that call's)
-and captures it in a ``torch.cuda.CUDAGraph`` that reads one static
-input per plane; every later call of that shape copies its planes into
-their static inputs (numpy planes host to device), replays the graph
-once and returns a clone of the static output, so that no returned
-tensor aliases a later call's.  Static buffers fix every pointer, so the
-alignments that K1, K3 and K4 read from them and the batch-dependent
-grids are the same at every replay.  The executors of one device share
-a graph memory pool; every call runs on the device's current stream, and calls that
-overlap on two streams are not supported.  Larger batches, the CPU, and
-a call made while the current stream is being captured by the caller
-(its graph then takes the kernels) run the program eagerly.  A capture
-that fails raises; nothing runs eagerly in its place.  A replay adds the
-launches its graph holds to the kernels' ``LAUNCHES`` counters.
+frames of a kind (:func:`graph_key`) runs the program eagerly (its result
+is that call's) and captures it in a ``torch.cuda.CUDAGraph``; every later
+call of that kind replays the graph on the caller's own planes, as the
+JAX package's executor hands the caller's array to its jitted program.
+Before each replay the graph's kernel nodes that touch the caller's
+memory are re-pointed (:mod:`.ops.nodes`): the first kernel's (K1, or K3
+without a prefilter) at the planes where they lie, K1's tensor maps
+encoded anew, and the last kernel's (K3, or K4 in a supersampled plan) at
+a fresh output, allocated by the caching allocator on the current stream
+outside the graph's pool, so that no returned tensor aliases a later
+call's.  Nothing is copied into the graph or cloned out of it
+(``REPLAY_COPIES``); only a plane that is not on the card (numpy, a CPU
+tensor) is copied, once, into a buffer that its graph keeps.  The
+intermediates (K1's blurred plane, K3's scaled plane before K4) stay in
+the graph's pool.  The key holds each plane's frames, and the frame
+stride and 16-byte alignment of any plane that is not a packed, aligned
+card plane, so that a graph never replays in a copy mode, a vector path
+or a grid it was not captured for; the kernels check each update as they
+check a launch.  The caller's planes must outlive the replay on the
+current stream, as they must outlive an eager launch.  The executors of
+one device share a graph memory pool; every call runs on the device's
+current stream, and calls that overlap on two streams are not supported.
+Larger batches, the CPU, and a call made while the current stream is
+being captured by the caller (its graph then takes the kernels) run the
+program eagerly.  A capture or a node update that fails raises (as does
+a torch without ``CUDAGraph(keep_graph=True)`` and its raw graph
+handles); nothing runs eagerly in its place.  A replay adds the launches
+its graph holds to the kernels' ``LAUNCHES`` counters.
 
 Sources: the program hands a plane batch to K1 (or to K3, for a plan
 without a prefilter) as the planes it was given, one or two sources
@@ -60,7 +74,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .ops import area, blur, sources, window
+from .ops import area, blur, nodes, sources, window
 from .ops.area import area_px
 from .ops.blur import blur_px
 from .ops.sources import Planes
@@ -68,18 +82,33 @@ from .ops.window import remap_window_px
 from .plan import PlanePlan, TransformPlan
 
 # Plane batches of at most this many frames replay a captured CUDA graph;
-# larger ones run eagerly.  On an H100 (chip_smoke.py phase 19, PERF.md
-# §5) a replay beat the eager launches at 1 and 2 4K frames, where the
-# host's issue of them outlasts the card's work; from 4 frames on the card
-# hides that issue, and the replay's copies into its static input and out
-# of its static output (about 16% more device time) won at 4 frames on one
-# host and lost on another.
-GRAPH_MAX_BATCH = 2
+# larger ones run eagerly.  The largest batch of chip_smoke.py phase 19's
+# ladder (1, 2, 4, 8, 16, 32 frames, two batches in turn so that every
+# replay re-points its nodes) at which the executor was no slower than the
+# eager program both by CUDA events and behind a busy card, in two runs on
+# an H100 80GB HBM3 at a 700 W power limit (PERF.md §6); eager / executor,
+# ms:
+#   frames   run 1: events, behind      run 2: events, behind
+#      8     0.4633 / 0.4596,           0.4577 / 0.4444,
+#            0.3667 / 0.3652            0.3656 / 0.3633
+#     16     0.6913 / 0.6750,           0.7509 / 0.7526 (slower),
+#            0.6173 / 0.6158            0.6151 / 0.6110
+#     32     1.1464 / 1.1375,           1.1708 / 1.1557,
+#            1.0635 / 1.0597            1.0588 / 1.0613 (slower)
+# A replay reads the caller's planes where they lie and writes a fresh
+# output, so from 16 frames on the two differ by noise on the card.
+GRAPH_MAX_BATCH = 8
 
 # Planes the executors copied with ``.contiguous()`` because their rows
 # were not packed (input normalization: a kernel reads any other plane
 # where it lies).  ``chip_smoke.py`` reads it: 0 on every main path.
 PLANE_COPIES = 0
+
+# Copies that the graph path made of a plane already on a card (a replay
+# reads the caller's card planes where they lie, and clones no output;
+# only a plane off the card is copied in).  ``chip_smoke.py`` reads it: 0
+# on every path.
+REPLAY_COPIES = 0
 
 
 def device_of(device) -> torch.device:
@@ -179,23 +208,45 @@ def _add_launches(counts: Sequence[int]) -> None:
         setattr(m, a, getattr(m, a) + n)
 
 
-def _source(p: torch.Tensor, device: torch.device) -> torch.Tensor:
-    """A plane on ``device`` as a kernel source: as it is where its rows
-    are packed, a host plane copied to ``device``, any other copied by
-    ``.contiguous()`` (input normalization, counted in ``PLANE_COPIES``)."""
+def _packed(p: torch.Tensor) -> torch.Tensor:
+    """A plane as a kernel source: as it is where its rows are packed,
+    else copied by ``.contiguous()`` (input normalization, counted in
+    ``PLANE_COPIES``)."""
     global PLANE_COPIES
-    p = p.to(device)
     if not sources.rows_packed(p):
         PLANE_COPIES += 1
         p = p.contiguous()
     return p
 
 
-def _fill(xs: Sequence[torch.Tensor], planes: Sequence[torch.Tensor]) -> None:
-    """Copy each plane into its static input (host to device for host
-    planes)."""
-    for s, p in zip(xs, planes):
-        s.copy_(p)
+def _stage(buf: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """``p``, a plane that is not on ``buf``'s device, copied into the
+    buffer its graph reads it from; a plane on another card counts in
+    ``REPLAY_COPIES``."""
+    global REPLAY_COPIES
+    if p.is_cuda:
+        REPLAY_COPIES += 1
+    return buf.copy_(p)
+
+
+def graph_key(dtype: torch.dtype, device: torch.device, H: int, W: int,
+              frames: Sequence[int], described: Sequence[Optional[sources.Source]]) -> Tuple:
+    """The key of the graph that replays planes of ``frames`` frames each
+    (``[b, H, W]``, ``dtype`` samples) on ``device``, ``described`` per
+    plane by its :class:`.ops.sources.Source` where it lies on the device,
+    or ``None`` for a plane copied in from the host: (stacked shape,
+    dtype, device, each plane's frames), and after it, for each plane that
+    is not a packed, 16-byte aligned card plane, its index with ``"host"``
+    or with its frame stride and alignment.  The alignment decides K1's
+    copy mode and K3's vector path; no launch choice reads the stride
+    itself (K1's tensor maps are encoded anew from it at each update), so
+    planes that differ only in an aligned stride get graphs of their own
+    that replay the same launches."""
+    key = ((sum(frames), H, W), dtype, str(device), tuple(frames))
+    return key + tuple(
+        (i, "host") if s is None else (i, s.stride, s.aligned)
+        for i, (b, s) in enumerate(zip(frames, described))
+        if s is None or not s.aligned or (b > 1 and s.stride != H * W))
 
 
 # per CUDA device: the graph memory pool its executors share, and the
@@ -216,45 +267,72 @@ def _graph_state(device: torch.device) -> tuple:
 
 @dataclasses.dataclass(frozen=True)
 class _Graph:
-    """One captured program: its static inputs (one per plane), its static
-    output, and the kernel launches that one replay makes (module,
-    counter, count)."""
+    """One captured program: the graph (kept, and its instantiation
+    ``exec_``), the nodes that touch the caller's memory, per plane the
+    device buffer a plane from the host is copied into (``None``: a card
+    plane, read where it lies) and its description, the output's shape,
+    dtype and device, and the kernel launches that one replay makes
+    (module, counter, count)."""
 
     graph: torch.cuda.CUDAGraph
-    xs: Tuple[torch.Tensor, ...]
-    out: torch.Tensor
+    exec_: int
+    program: nodes.Program
+    staged: Tuple[Optional[torch.Tensor], ...]
+    staged_src: Tuple[Optional[sources.Source], ...]
+    out_shape: Tuple[int, ...]
+    dtype: torch.dtype
+    device: torch.device
     launches: Tuple[Tuple[object, str, int], ...]
 
-    def __call__(self, planes: Sequence[torch.Tensor]) -> torch.Tensor:
-        _fill(self.xs, planes)
+    def __call__(self, planes: Sequence[torch.Tensor],
+                 described: Sequence[Optional[sources.Source]]) -> torch.Tensor:
+        """Replay on ``planes`` (their descriptions, ``None`` for a plane
+        from the host) into a fresh output."""
+        src = []
+        for p, d, buf, bd in zip(planes, described, self.staged, self.staged_src):
+            if buf is not None:
+                _stage(buf, p)
+                d = bd
+            src.append(d)
+        out = torch.empty(self.out_shape, dtype=self.dtype, device=self.device)
+        self.program.repoint(self.exec_, tuple(src), out.data_ptr())
         self.graph.replay()
         for m, a, n in self.launches:
             setattr(m, a, getattr(m, a) + n)
-        return self.out.clone()
+        return out
 
 
-def _capture(pp: PlanePlan, planes: Sequence[torch.Tensor],
-             device: torch.device) -> Tuple[_Graph, torch.Tensor]:
-    """(the graph of ``pp``'s program on static inputs of the planes'
-    shapes, one per plane, the program's output on ``planes``).  The
-    tables are built and the program runs once eagerly on the static
-    inputs (its output is returned; its launches count) before the
-    capture of the same program, which only records: its launches are
-    taken off the counters and added back at each replay."""
+def _capture(pp: PlanePlan, planes: Sequence[torch.Tensor], device: torch.device
+             ) -> Tuple[_Graph, torch.Tensor]:
+    """(the graph of ``pp``'s program on ``planes``, its output on them).
+    A plane that is not on ``device`` is copied into a buffer the graph
+    keeps.  The tables are built and the program runs once eagerly (its
+    output is returned; its launches count) before the capture of the
+    same program, which only records: its launches are taken off the
+    counters and added back at each replay, and its output is dropped
+    (every replay re-points the last kernel at a fresh one)."""
     _plane_put(pp, device)
-    xs = tuple(torch.empty(tuple(p.shape), dtype=pp.dtype, device=device) for p in planes)
-    _fill(xs, planes)
+    staged = tuple(None if p.device == device
+                   else torch.empty(tuple(p.shape), dtype=pp.dtype, device=device) for p in planes)
+    xs = [p if buf is None else _stage(buf, p) for p, buf in zip(planes, staged)]
     out = _plane_program(pp, xs)
+    src = sources.describe(xs)
     pool, stream = _graph_state(device)
-    graph = torch.cuda.CUDAGraph()
     before = _launch_counts()
     try:
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
         with torch.cuda.stream(stream):
             graph.capture_begin(pool=pool)
             try:
-                static = _plane_program(pp, xs)
+                with nodes.recording() as recorded:
+                    static = _plane_program(pp, xs)
             finally:
                 graph.capture_end()
+        program = nodes.Program(recorded, src, static.data_ptr())
+        out_shape = tuple(static.shape)
+        del static
+        graph.instantiate()
+        exec_ = graph.raw_cuda_graph_exec()
     except Exception as e:
         _GRAPH_STATE.pop(device, None)  # the next capture starts on a fresh stream and pool
         raise RuntimeError(
@@ -264,20 +342,24 @@ def _capture(pp: PlanePlan, planes: Sequence[torch.Tensor],
         launched = [a - b for a, b in zip(_launch_counts(), before)]
         _add_launches([-n for n in launched])
     launches = tuple((m, a, n) for (m, a), n in zip(_COUNTERS, launched) if n)
-    return _Graph(graph, xs, static, launches), out
+    staged_src = tuple(None if buf is None else s for buf, s in zip(staged, src))
+    return _Graph(graph, exec_, program, staged, staged_src, out_shape, pp.dtype, device,
+                  launches), out
 
 
 class PlaneExecutor:
-    """One plane plan's program on one device, by input shape (the JAX
+    """One plane plan's program on one device, by input kind (the JAX
     package's ``_StagedExecutor``).
 
     ``ex(*planes)``: one or two ``[b, in_h, in_w]`` planes (on the
-    executor's device, or host tensors, copied in), read where they lie as
-    the kernels' sources → ``[sum b, out_h, out_w]`` on the device, their
-    frames stacked in order.  ``_by_shape`` maps (stacked shape, dtype,
-    device, each plane's frames) to the captured :class:`_Graph`, or to
-    ``None`` for a shape that runs eagerly (the CPU, or more than
-    ``GRAPH_MAX_BATCH`` frames)."""
+    executor's device, read where they lie as the kernels' sources, or
+    host tensors, copied in) → ``[sum b, out_h, out_w]`` on the device,
+    their frames stacked in order, in a tensor of its own.  ``_by_shape``
+    maps each kind of call (:func:`graph_key`; for an eager call its first
+    four entries: stacked shape, dtype, device, each plane's frames) to
+    the captured :class:`_Graph`, or to ``None`` for a shape that runs
+    eagerly (the CPU, or more than ``GRAPH_MAX_BATCH`` frames).  The
+    planes must outlive the work queued on the current stream."""
 
     def __init__(self, pp: PlanePlan, device: torch.device):
         self.pp = pp
@@ -286,26 +368,30 @@ class PlaneExecutor:
         self._lock = threading.Lock()
 
     def __call__(self, *planes: torch.Tensor) -> torch.Tensor:
-        for i, p in enumerate(planes):  # a replay's copy would convert any dtype
-            _check_plane(p, self.pp, f"plane plan {self.pp.key}, input {i}")
-        frames = planes[0].shape[0]
-        counts = tuple(p.shape[0] for p in planes)
-        shape = (sum(counts),) + tuple(planes[0].shape[1:])
-        key = (shape, self.pp.dtype, str(self.device), counts)
-        if self.device.type == "cuda" and frames <= GRAPH_MAX_BATCH:
-            with torch.cuda.device(self.device):
+        pp, dev = self.pp, self.device
+        for i, p in enumerate(planes):  # a host plane's copy would convert any dtype
+            _check_plane(p, pp, f"plane plan {pp.key}, input {i}")
+        frames = tuple(p.shape[0] for p in planes)
+        if dev.type == "cuda" and frames[0] <= GRAPH_MAX_BATCH:
+            with torch.cuda.device(dev):
                 # inside the caller's own capture, its graph takes the launches
                 if not torch.cuda.is_current_stream_capturing():
+                    on = [p.device == dev for p in planes]
+                    xs = [_packed(p) if o else p for p, o in zip(planes, on)]
+                    described = tuple(d if o else None
+                                      for d, o in zip(sources.describe(xs), on))
+                    key = graph_key(pp.dtype, dev, pp.in_h, pp.in_w, frames, described)
                     with self._lock:
                         g = self._by_shape.get(key)
                         if g is None:
-                            g, out = _capture(self.pp, planes, self.device)
+                            g, out = _capture(pp, xs, dev)
                             self._by_shape[key] = g
                             return out
-                        return g(planes)
+                        return g(xs, described)
         else:
-            self._by_shape.setdefault(key, None)
-        return _plane_program(self.pp, [_source(p, self.device) for p in planes])
+            self._by_shape.setdefault(
+                ((sum(frames), pp.in_h, pp.in_w), pp.dtype, str(dev), frames), None)
+        return _plane_program(pp, [_packed(p.to(dev)) for p in planes])
 
 
 # (plane plan's key, device) -> its executor, as the JAX package keys its
@@ -395,10 +481,12 @@ def transform_batch(plan: TransformPlan, y, u=None, v=None, device="cuda"):
 
     ``y``: [B, H, W] (or [H, W] for one frame), uint8 or, for deep
     formats, uint16; ``u``/``v``: the chroma planes (omit for single-plane
-    formats).  Tensors are transformed on their own device; numpy planes
-    are copied to ``device`` (straight into an executor's static input).
-    Returns planes of the same dtype at the negotiated output size on the
-    planes' device (a bare tensor for single-plane formats).
+    formats).  Tensors are transformed on their own device, read where
+    they lie (they must outlive the work queued on the current stream);
+    numpy planes are copied to ``device`` (where a graph replays, into the
+    buffer it keeps for them).  Returns new planes of the same dtype at the
+    negotiated output size on the planes' device (a bare tensor for
+    single-plane formats).
     """
     planes = [p for p in (y, u, v) if p is not None]
     squeeze = len(planes[0].shape) == 2
