@@ -132,8 +132,7 @@ nvcc and CUDA PyTorch (no jax needed).  Phases:
     bytes equal the unbanded frame, K1 2n launches and K3 one per class
     of each band; each band's device time, K3 alone per band, max(band),
     the whole banded frame and the first call's wall (band plans built),
-    the replays' copies of the frame (``pipeline.REPLAY_COPIES``, 0: each
-    band reads the frame where it lies) and the device memory the bands'
+    and the device memory the bands'
     graphs hold once captured (allocated, and the graph pool's reserve); the pinned host-to-device rate of one 4K
     frame (the host term of ``broadcast_ms``) and the one-card projection
     of N-card banded latency; the supersampled 2x2 flagship in 3 bands (K4 twice per band)
@@ -155,7 +154,7 @@ nvcc and CUDA PyTorch (no jax needed).  Phases:
 18. profiling the card: ``utils.profiling.device_trace`` (torch.profiler,
     CPU and CUDA activity) around one batch-128 flagship step, whose
     trace must hold K1's kernels exactly 2 times and K3's exactly 4, as
-    ``LAUNCHES`` reads them, with their summed device times beside phase
+    the launch counters read them, with their summed device times beside phase
     5's stages; ``time_frame_step`` (the chain-difference timer) at batch
     128 and 1 beside phase 5's step median, phase 6's events time and
     the frame's replayed CUDA graph (phase 15);
@@ -165,7 +164,7 @@ nvcc and CUDA PyTorch (no jax needed).  Phases:
     batch 1, 2, 8 and ``GRAPH_MAX_BATCH`` and on phase 6's frame in 2, 4
     and 8 bands, each replayed three times on two sets of planes in turn
     with every output kept, so that every replay re-points every node of
-    its graphs that touches the caller's memory (``ops.nodes.UPDATES``;
+    its graphs that touches the caller's memory (the counter ``nodes.updates``;
     fails otherwise); then, eager and executor in turns, each measure
     calling on two sets of planes in turn with each output kept until the
     next call (:func:`alternating`: the replays pay their node updates,
@@ -178,8 +177,7 @@ nvcc and CUDA PyTorch (no jax needed).  Phases:
     on the card, what stays allocated after it (fails if as much as its
     planes: a replay reads the caller's planes where they lie and writes
     a fresh output, so no static input or output stays) and what the
-    graph pool reserves for the intermediates; ``pipeline.REPLAY_COPIES``
-    (fails if not 0).  Phase
+    graph pool reserves for the intermediates.  Phase
     6's numpy-in-to-CPU-out measure is repeated beside the pageable
     host-to-device rate, and three CLI runs that each build the flagship's
     plan anew must add no executor and no device memory.
@@ -810,7 +808,8 @@ def main() -> int:
         Interpolation, Layout, StereoFormat, TransformConfig,
     )
     from transform360_tpu_torch.filtering import blur_plain
-    from transform360_tpu_torch.ops import _build, area, blur, nodes, sources, window
+    from transform360_tpu_torch.ops import _build, area, blur, sources, window
+    from transform360_tpu_torch.utils.profiling import COUNTERS
     from transform360_tpu_torch.parallel import latency
     from transform360_tpu_torch.sampling import AreaTables, DeviceArea, remap_plain, round_px, round_u8
     from transform360_tpu_torch.utils.yuv import write_yuv420_batch
@@ -818,28 +817,23 @@ def main() -> int:
     u16 = torch.uint16
 
     # each kernel's uint8 and uint16 instantiations count their launches
-    # apart; beside them the planes the executors copied by .contiguous(),
-    # and the copies a graph replay made of a plane already on the card
-    counters = {"blur": (blur, "LAUNCHES"), "window": (window, "LAUNCHES"),
-                "area": (area, "LAUNCHES"), "blur_u16": (blur, "LAUNCHES_U16"),
-                "window_u16": (window, "LAUNCHES_U16"), "area_u16": (area, "LAUNCHES_U16"),
-                "plane_copies": (pipeline, "PLANE_COPIES"),
-                "replay_copies": (pipeline, "REPLAY_COPIES")}
+    # apart; beside them the planes the executors copied by .contiguous()
+    counters = {"blur": "blur.launches", "window": "window.launches", "area": "area.launches",
+                "blur_u16": "blur.launches_u16", "window_u16": "window.launches_u16",
+                "area_u16": "area.launches_u16", "plane_copies": "pipeline.plane_copies"}
 
     def reset_counts():
-        for m, attr in counters.values():
-            setattr(m, attr, 0)
+        for name in counters.values():
+            COUNTERS[name] = 0
 
     def read_counts():
         """The counters since reset_counts(), read just after a main path
         ran: a plane copied by .contiguous() there fails (every path's
-        planes have packed rows, so the kernels read them where they lie),
-        as does a replay's copy of a plane on the card (a replay reads them
-        where they lie too)."""
-        c = {k: getattr(m, attr) for k, (m, attr) in counters.items()}
-        if c["plane_copies"] or c["replay_copies"]:
-            raise SystemExit(f"FAIL {c['plane_copies']} plane(s) copied by .contiguous(), "
-                             f"{c['replay_copies']} by graph replays on a main path: {c}")
+        planes have packed rows, so the kernels read them where they lie)."""
+        c = {k: COUNTERS[name] for k, name in counters.items()}
+        if c["plane_copies"]:
+            raise SystemExit(f"FAIL {c['plane_copies']} plane(s) copied by .contiguous() on a "
+                             f"main path: {c}")
         return c
 
     # -- 1. device -------------------------------------------------------
@@ -2099,8 +2093,8 @@ def main() -> int:
                 f"events around the dispatch median {statistics.median(whole):.4f} (p90 "
                 f"{pct(whole, 0.9):.4f}, n={len(whole)}; phase 6's unbanded {frame_ms:.4f}); host "
                 f"wall to numpy planes {statistics.median(walls):.4f} ms; first call "
-                f"{first_wall:.3f} s (band plans, tile plans and tables built); replay copies of "
-                f"the frame {bl['replay_copies']}, device memory after the band graphs' capture: "
+                f"{first_wall:.3f} s (band plans, tile plans and tables built); device memory "
+                f"after the band graphs' capture: "
                 f"allocated {band_held:.2f} MiB (no static input or output), reserved "
                 f"{band_pool:.1f} MiB (the graph pool's intermediates)  ({smi})")
     # the pinned host-to-device rate of one frame's planes: the host term of broadcast_ms
@@ -2284,14 +2278,14 @@ def main() -> int:
     n1, ms1 = sum(c for c, _ in k1), sum(m for _, m in k1)
     n3, ms3 = sum(c for c, _ in k3), sum(m for _, m in k3)
     say(f"[18] torch.profiler trace of one batch-{BATCH} flagship step ({size} B): K1 {n1} "
-        f"launches, {ms1:.4f} ms; K3 {n3} launches, {ms3:.4f} ms; LAUNCHES read {traced}; "
+        f"launches, {ms1:.4f} ms; K3 {n3} launches, {ms3:.4f} ms; the counters read {traced}; "
         f"every kernel in it: "
         + ", ".join(f"{n[:90]} x{c} {m:.4f} ms" for n, (c, m) in sorted(found.items()))
         + f"; phase 5's stages by CUDA events: K1 {stages_b128['K1 luma'] + stages_b128['K1 chroma (U, V in place)']:.4f}"
         f" ms, K3 {stages_b128['K3 luma'] + stages_b128['K3 chroma (U+V)']:.4f} ms  ({smi})")
     if n1 != 2 or n3 != 4 or (traced["blur"], traced["window"]) != (n1, n3):
         raise SystemExit(f"FAIL the trace holds K1 {n1} and K3 {n3} launches (want 2 and 4, "
-                         f"as LAUNCHES reads: {traced})")
+                         f"as the counters read: {traced})")
     others = sorted(n for n in found if not any(
         k in n for k in ("blur_ring_kernel", "blur_direct_kernel", "window_kernel")))
     if others:  # no cat of U and V, no elementwise copy
@@ -2356,9 +2350,9 @@ def main() -> int:
                 # the first call of a shape is eager and captures the graph; its
                 # output is kept, as are the later ones
                 warm = e.transform(*sets[0])
-                u0 = nodes.UPDATES
+                u0 = COUNTERS["nodes.updates"]
                 got = [e.transform(*sets[k]) for k in (1, 0, 1)]
-                upd = nodes.UPDATES - u0
+                upd = COUNTERS["nodes.updates"] - u0
             if not replayed(e.plan, b):
                 raise SystemExit(f"FAIL {what} batch {b} did not replay a captured graph")
             full = program_nodes(e.plan, b)
@@ -2374,9 +2368,9 @@ def main() -> int:
     frames2 = (one_frame, tuple(t[1] for t in (yb, ub, vb)))
     for n in (2, 4, 8):
         warm = latency.transform_frame_banded_async(plan, frames2[0], n=n)  # kept, as are the rest
-        u0 = nodes.UPDATES
+        u0 = COUNTERS["nodes.updates"]
         inflight = [latency.transform_frame_banded_async(plan, frames2[k], n=n) for k in (1, 0, 1)]
-        upd = nodes.UPDATES - u0
+        upd = COUNTERS["nodes.updates"] - u0
         bands = latency.band_plans(plan, n)
         if not all(replayed(band, 1) for band in bands):
             raise SystemExit(f"FAIL {n} bands did not replay captured graphs")
@@ -2391,11 +2385,10 @@ def main() -> int:
             want = [latency.transform_frame_banded(plan, frames2[k], n=n) for k in (1, 0)]
         same.append((f"{n} bands", max(np_lsb(got[0], want[0]), np_lsb(got[1], want[1]),
                                        np_lsb(got[2], want[0]))))
-    copies = read_counts()["replay_copies"]
     say(f"[19] executors (GRAPH_MAX_BATCH {gmax}): replayed CUDA graph on two sets of planes in "
         f"turn vs eager program, max |diff| in LSB: " + ", ".join(f"{k} {v}" for k, v in same)
         + f"; node updates in 3 replays / the nodes on the caller's memory x 3: "
-        + ", ".join(updated) + f"; replay copies of planes on the card {copies}")
+        + ", ".join(updated))
     if any(v for _, v in same):
         raise SystemExit(f"FAIL executor replays differ from the eager program: {same}")
 
@@ -2418,10 +2411,10 @@ def main() -> int:
         for r in range(rounds):
             for mode in (("eager", "executor") if r % 2 == 0 else ("executor", "eager")):
                 with graphs_upto(0 if mode == "eager" else 32):
-                    u0, c0 = nodes.UPDATES, calls[0]
+                    u0, c0 = COUNTERS["nodes.updates"], calls[0]
                     res[mode].append(measure(counted))
                     if mode == "executor":
-                        upd, n = upd + nodes.UPDATES - u0, n + calls[0] - c0
+                        upd, n = upd + COUNTERS["nodes.updates"] - u0, n + calls[0] - c0
         if full is not None:
             last_updates["per_call"] = upd / n
             if upd < 0.9 * full * n:

@@ -88,6 +88,15 @@ def child(label: str, settings: list, supersampled: bool = False) -> None:
     # the remap wrapper's name in this tree (remap_window_u8 before it took
     # uint16 planes too)
     remap = getattr(window, "remap_window_px", None) or window.remap_window_u8
+
+    def k1_launches() -> int:
+        """K1's uint8 launches so far: the counter table's, or in an older
+        tree the module's ``LAUNCHES``."""
+        if hasattr(blur, "LAUNCHES"):
+            return blur.LAUNCHES
+        from transform360_tpu_torch.utils.profiling import COUNTERS
+
+        return COUNTERS["blur.launches"]
     for s in settings:
         name, value = s.split("=", 1)
         mod, attr = name.rsplit(".", 1)
@@ -107,10 +116,10 @@ def child(label: str, settings: list, supersampled: bool = False) -> None:
     for b, reps in ((128, 60), (1, 300)):
         step = (lambda: eng.transform(yb, ub, vb)) if b == 128 else one
         cuda_times(step, 3)
-        n0 = blur.LAUNCHES
+        n0 = k1_launches()
         ts = cuda_times(step, reps)
         res[f"batch{b}"] = {"step_ms": statistics.median(ts), "n": len(ts),
-                            "k1_launches": (blur.LAUNCHES - n0) / len(ts)}
+                            "k1_launches": (k1_launches() - n0) / len(ts)}
     res["batch1"]["behind_ms"] = behind_ms(one, 30)
     from_host = lambda: [o.cpu() for o in eng.transform(y, u, v)]
     host_walls(from_host, 5)

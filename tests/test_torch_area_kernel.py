@@ -42,6 +42,7 @@ import transform360_tpu_torch as P
 from transform360_tpu_torch.ops import area, blur, window
 from transform360_tpu_torch.parallel.latency import _slice_area_rows
 from transform360_tpu_torch.sampling import AreaTables, DeviceArea, area_resize, round_px
+from transform360_tpu_torch.utils.profiling import COUNTERS
 
 CASES = {  # (scaled w, h), (out w, h)
     "2x2": ((384, 256), (192, 128)),
@@ -300,11 +301,17 @@ def test_area_px_on_the_cpu_is_the_plain_version(dtype, maxval):
     da = DeviceArea.from_tables(at, "cpu")
     x = torch.from_numpy(np.random.default_rng(1).integers(0, 1024 if maxval > 255 else 256,
                                                            (3, 64, 72)).astype(np.int32)).to(dtype)
-    n = (area.LAUNCHES, area.LAUNCHES_U16)
+    n = (COUNTERS["area.launches"], COUNTERS["area.launches_u16"])
     got = area.area_px(da, x, maxval)
     assert got.dtype == dtype and tuple(got.shape) == (3, 32, 48)
     assert torch.equal(got, round_px(area_resize(da, x), maxval, dtype))
-    assert (area.LAUNCHES, area.LAUNCHES_U16) == n
+    assert (COUNTERS["area.launches"], COUNTERS["area.launches_u16"]) == n
+
+
+def _launches():
+    """Each kernel's uint8 and uint16 launches so far."""
+    return [(COUNTERS[f"{m}.launches"], COUNTERS[f"{m}.launches_u16"])
+            for m in ("area", "blur", "window")]
 
 
 def test_area_px_refuses_what_the_kernel_does_not_take():
@@ -348,9 +355,9 @@ def test_supersampled_cpu_batch_launches_nothing():
     y = torch.from_numpy(rng.integers(0, 256, (2, 128, 256), dtype=np.uint8))
     u, v = (torch.from_numpy(rng.integers(0, 256, (2, 64, 128), dtype=np.uint8))
             for _ in range(2))
-    counts = [(m.LAUNCHES, m.LAUNCHES_U16) for m in (area, blur, window)]
+    counts = _launches()
     oy, ou, ov = P.transform_batch(eng.plan, y, u, v)
-    assert [(m.LAUNCHES, m.LAUNCHES_U16) for m in (area, blur, window)] == counts
+    assert _launches() == counts
     pp = eng.plan.luma
     t = pp.tables("cpu")
     k3 = window.remap_window_px(pp.window_tables("cpu"), blur.blur_px(t.blur, y))

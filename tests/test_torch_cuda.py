@@ -29,7 +29,8 @@ replayed on the caller's planes against the eager program at 0 LSB
 2x2, so K4 in the graph; numpy planes; strided views of packed yuv420p
 frames, a U base off 16 bytes and a frame stride off 16 bytes, each kind
 its own capture; a banded frame read in place), with the caller's planes
-never written, outputs that never alias, no copy (``REPLAY_COPIES``),
+never written, outputs that never alias, no copy (a graph of card planes
+keeps no buffer of them),
 the launch counters at each replay, a node update that the kernel
 refuses (it raises), a call inside a caller's own capture, and a capture
 that fails.  K1 and K3 on a batch given as two sources
@@ -45,6 +46,7 @@ jax, run them without the suite's conftest.py (which imports jax):
 
 import dataclasses
 import io
+import json
 
 import numpy as np
 import pytest
@@ -59,6 +61,7 @@ from transform360_tpu_torch.sampling import (
     BORDER_FILL, BORDER_REFLECT, BORDER_WRAP, AreaTables, DeviceArea, remap_plain, round_px,
     round_u8,
 )
+from transform360_tpu_torch.utils.profiling import COUNTERS
 
 pytestmark = pytest.mark.cuda
 
@@ -113,16 +116,16 @@ def test_kernels_match_plain(name, gpu):
         x = torch.randint(0, 256, (5, pp.in_h, pp.in_w), dtype=torch.uint8,
                           device=gpu, generator=g)
         if t.blur is not None:
-            n = blur.LAUNCHES
+            n = COUNTERS["blur.launches"]
             got = blur.blur_px(t.blur, x)
             torch.cuda.synchronize()
-            assert blur.LAUNCHES == n + 1
+            assert COUNTERS["blur.launches"] == n + 1
             _assert_close(got, round_u8(blur_plain(t.blur.plan, x.float())), f"K1 {name}")
         wt = pp.window_tables(gpu)
-        n = window.LAUNCHES
+        n = COUNTERS["window.launches"]
         got = window.remap_window_px(wt, x)
         torch.cuda.synchronize()
-        assert window.LAUNCHES == n + len(wt.groups)
+        assert COUNTERS["window.launches"] == n + len(wt.groups)
         _assert_close(got, round_u8(remap_plain(t.remap, x)), f"K3 {name}")
 
 
@@ -140,10 +143,10 @@ def test_blur_frame_loops_match_one_frame_at_a_time(gpu, monkeypatch):
         torch.cuda.synchronize()
         assert torch.equal(out, want), (parts, ctas)
     monkeypatch.setattr(blur, "ITEMS_PER_CTA", 1)  # parts: 1 per tile
-    n = blur.LAUNCHES
+    n = COUNTERS["blur.launches"]
     got = blur.blur_px(t.blur, x)
     torch.cuda.synchronize()
-    assert blur.LAUNCHES == n + 1 and torch.equal(got, want)
+    assert COUNTERS["blur.launches"] == n + 1 and torch.equal(got, want)
 
 
 def _flagship_pp(plane, pix_fmt="yuv420p", scale=1):
@@ -245,10 +248,10 @@ def test_blur_kernel_in_a_captured_graph(gpu):
         g.manual_seed(100 + seed)
         static.copy_(torch.randint(0, 256, static.shape, dtype=torch.uint8, device=gpu,
                                    generator=g))
-        n = blur.LAUNCHES
+        n = COUNTERS["blur.launches"]
         graph.replay()
         torch.cuda.synchronize()
-        assert blur.LAUNCHES == n  # a replay is no call of the wrapper
+        assert COUNTERS["blur.launches"] == n  # a replay is no call of the wrapper
         assert torch.equal(out, round_u8(blur_plain(t.blur.plan, static.float()))), seed
 
 
@@ -316,10 +319,10 @@ def test_window_kernel_matches_plain(name, gpu):
         for B in (1, 3, 8, 128, 256):
             x = torch.randint(0, 256, (B, pp.in_h, pp.in_w), dtype=torch.uint8,
                               device=gpu, generator=g)
-            n = window.LAUNCHES
+            n = COUNTERS["window.launches"]
             got = window.remap_window_px(wt, x)
             torch.cuda.synchronize()
-            assert window.LAUNCHES == n + len(wt.groups)
+            assert COUNTERS["window.launches"] == n + len(wt.groups)
             want = round_u8(remap_plain(pp.tables(gpu).remap, x))
             assert torch.equal(got, want), f"K3 {name} B={B}"
     if name == "decimated-global":
@@ -455,12 +458,12 @@ def test_engine_routes_by_batch_on_the_card(gpu):
     cpu = P.open_filter(opts, 512, 256, device="cpu")
     for b in (1, 130):
         planes = (y[0], uv[0][0], uv[1][0]) if b == 1 else (y, *uv)
-        n1, n3 = blur.LAUNCHES, window.LAUNCHES
+        n1, n3 = COUNTERS["blur.launches"], COUNTERS["window.launches"]
         got = eng.transform(*planes)
         torch.cuda.synchronize()
         wt = (eng.plan.luma.window_tables(gpu), eng.plan.chroma.window_tables(gpu))
-        assert blur.LAUNCHES - n1 == 2
-        assert window.LAUNCHES - n3 == len(wt[0].groups) + len(wt[1].groups)
+        assert COUNTERS["blur.launches"] - n1 == 2
+        assert COUNTERS["window.launches"] - n3 == len(wt[0].groups) + len(wt[1].groups)
         for a, c in zip(got, cpu.transform(*planes)):
             assert torch.equal(a.cpu(), c)
 
@@ -474,6 +477,12 @@ def _rand_u16(shape, maxval, gpu, g):
 
 def _same(a, b):
     return torch.equal(a.int(), b.int())
+
+
+def _k13_counts():
+    """K1's and K3's launches so far: uint8, then uint16."""
+    return tuple(COUNTERS[k] for k in ("blur.launches", "window.launches", "blur.launches_u16",
+                                       "window.launches_u16"))
 
 
 def _two_sources(x, b0, layout):
@@ -558,10 +567,10 @@ def test_engine_takes_u_and_v_where_they_lie(prefilter, gpu):
     from transform360_tpu_torch import pipeline
 
     for b in (1, 2, 2, 5):
-        copies = pipeline.PLANE_COPIES
+        copies = COUNTERS["pipeline.plane_copies"]
         got = eng.transform(y[:b], u[:b], v[:b])
         torch.cuda.synchronize()
-        assert pipeline.PLANE_COPIES == copies
+        assert COUNTERS["pipeline.plane_copies"] == copies
         for a, c in zip(got, cpu.transform(*(p[:b].cpu() for p in (y, u, v)))):
             assert torch.equal(a.cpu(), c), b
 
@@ -578,21 +587,21 @@ def test_uint16_kernels_match_plain(name, depth, gpu):
         t = pp.tables(gpu)
         x = _rand_u16((5, pp.in_h, pp.in_w), mx, gpu, g)
         x[2] = mx  # a saturated frame
-        n8 = (blur.LAUNCHES, window.LAUNCHES)
+        n8 = (COUNTERS["blur.launches"], COUNTERS["window.launches"])
         if t.blur is not None:
-            n = blur.LAUNCHES_U16
+            n = COUNTERS["blur.launches_u16"]
             got = blur.blur_px(t.blur, x, mx)
             torch.cuda.synchronize()
-            assert blur.LAUNCHES_U16 == n + 1 and got.dtype == torch.uint16
+            assert COUNTERS["blur.launches_u16"] == n + 1 and got.dtype == torch.uint16
             want = round_px(blur_plain(t.blur.plan, x.float()), mx, torch.uint16)
             _assert_close(got, want, f"K1 u16 {name}")
         wt = pp.window_tables(gpu)
         assert wt.sample_bytes == 2
-        n = window.LAUNCHES_U16
+        n = COUNTERS["window.launches_u16"]
         got = window.remap_window_px(wt, x, mx)
         torch.cuda.synchronize()
-        assert window.LAUNCHES_U16 == n + len(wt.groups) and got.dtype == torch.uint16
-        assert (blur.LAUNCHES, window.LAUNCHES) == n8  # no uint8 launch
+        assert COUNTERS["window.launches_u16"] == n + len(wt.groups) and got.dtype == torch.uint16
+        assert (COUNTERS["blur.launches"], COUNTERS["window.launches"]) == n8  # no uint8 launch
         want = round_px(remap_plain(t.remap, x), mx, torch.uint16)
         _assert_close(got, want, f"K3 u16 {name}")
         assert int(got.int().max()) <= mx
@@ -662,10 +671,11 @@ def test_area_kernel_matches_plain(name, depth, gpu):
     g = torch.Generator(device=gpu).manual_seed(depth)
     for b in (1, 7, 256):
         x = _area_input(b, sw, sh, depth, gpu, g)
-        n = (area.LAUNCHES, area.LAUNCHES_U16)
+        n = (COUNTERS["area.launches"], COUNTERS["area.launches_u16"])
         got = area.area_px(da, x, mx)
         torch.cuda.synchronize()
-        assert (area.LAUNCHES, area.LAUNCHES_U16) == (n[0] + (depth == 8), n[1] + (depth > 8))
+        assert (COUNTERS["area.launches"], COUNTERS["area.launches_u16"]) == (
+            n[0] + (depth == 8), n[1] + (depth > 8))
         assert got.dtype == x.dtype and tuple(got.shape) == (b, oh, ow)
         assert _same(got, area.area_plain(da, x, mx)), (name, depth, b)
 
@@ -743,18 +753,18 @@ def test_deep_and_supersampled_engines_match_the_cpu_engine(opts, pix_fmt, gpu, 
     eng.save_plan(str(tmp_path / "p.npz"))
     loaded = P.Transform360(eng.config, pix_fmt=pix_fmt, device=gpu)
     loaded.load_plan(str(tmp_path / "p.npz"))
-    n8 = (blur.LAUNCHES, window.LAUNCHES)
-    n16 = (blur.LAUNCHES_U16, window.LAUNCHES_U16)
-    na = (area.LAUNCHES, area.LAUNCHES_U16)
+    n8 = (COUNTERS["blur.launches"], COUNTERS["window.launches"])
+    n16 = (COUNTERS["blur.launches_u16"], COUNTERS["window.launches_u16"])
+    na = (COUNTERS["area.launches"], COUNTERS["area.launches_u16"])
     got = eng.transform(*planes)
     again = loaded.transform(*planes)
     want = cpu.transform(*planes)
     torch.cuda.synchronize()
     if pf.depth > 8:
-        assert (blur.LAUNCHES, window.LAUNCHES) == n8
-        assert blur.LAUNCHES_U16 > n16[0] and window.LAUNCHES_U16 > n16[1]
+        assert (COUNTERS["blur.launches"], COUNTERS["window.launches"]) == n8
+        assert COUNTERS["blur.launches_u16"] > n16[0] and COUNTERS["window.launches_u16"] > n16[1]
     if "scale" in opts:  # K4 for luma and the stacked chroma, in both engines
-        assert (area.LAUNCHES - na[0], area.LAUNCHES_U16 - na[1]) == (
+        assert (COUNTERS["area.launches"] - na[0], COUNTERS["area.launches_u16"] - na[1]) == (
             (4, 0) if pf.depth == 8 else (0, 4))
     got, again, want = ((o,) if isinstance(o, torch.Tensor) else o for o in (got, again, want))
     for a, b, c in zip(got, again, want):
@@ -772,11 +782,11 @@ def test_fidelity_gate_on_the_card(gpu):
     fx = fidelity.load_fixture()
     cpu = fidelity.bench_fidelity(device="cpu", batch=1)
     for batch in (12, 1):
-        n = (blur.LAUNCHES, window.LAUNCHES, blur.LAUNCHES_U16, window.LAUNCHES_U16)
+        n = _k13_counts()
         res = fidelity.bench_fidelity(device=gpu, batch=batch)
         torch.cuda.synchronize()
-        assert blur.LAUNCHES > n[0] and window.LAUNCHES > n[1]
-        assert (blur.LAUNCHES_U16, window.LAUNCHES_U16) == n[2:]
+        assert COUNTERS["blur.launches"] > n[0] and COUNTERS["window.launches"] > n[1]
+        assert (COUNTERS["blur.launches_u16"], COUNTERS["window.launches_u16"]) == n[2:]
         assert res == cpu and res["worst_db"] >= 50.0
         dbs = dict(res["configs"], flagship=min(res[p] for p in "YUV"))
         for name, db in dbs.items():
@@ -816,11 +826,10 @@ def test_ffmpeg_wrapper_fake_pipes_on_the_card(pix_fmt, gpu, monkeypatch):
         _FakeProc(stdout=io.BytesIO(raw)) if stdout is not None else _FakeProc(stdin=sink)))
     monkeypatch.setattr(video, "have_ffmpeg", lambda: True)
     monkeypatch.setattr(video, "_probe_ffmpeg", lambda path: (w, h, 30.0, pix_fmt))
-    n8 = (blur.LAUNCHES, window.LAUNCHES, blur.LAUNCHES_U16, window.LAUNCHES_U16)
+    n8 = _k13_counts()
     assert wrap.main(["--t360-batch", "2", "-y", "-i", "in.mp4", "-vf", f"transform360={vf}",
                       "out.mp4"]) == 0
-    launched = [a > b for a, b in zip(
-        (blur.LAUNCHES, window.LAUNCHES, blur.LAUNCHES_U16, window.LAUNCHES_U16), n8)]
+    launched = [a > b for a, b in zip(_k13_counts(), n8)]
     assert launched == ([True, True, False, False] if pf.depth == 8 else
                         [False, False, True, True])
     out = P.open_filter(vf, w, h, pix_fmt=pix_fmt, device=gpu).transform(*planes)
@@ -835,8 +844,8 @@ EXEC_OPTS = ("cube_edge_length=64:interpolation_alg=cubic:enable_low_pass_filter
 
 
 def _counts():
-    return (blur.LAUNCHES, blur.LAUNCHES_U16, window.LAUNCHES, window.LAUNCHES_U16,
-            area.LAUNCHES, area.LAUNCHES_U16)
+    return tuple(COUNTERS[f"{k}.launches{w}"] for k in ("blur", "window", "area")
+                 for w in ("", "_u16"))
 
 
 def _exec_planes(pf, b, seed):
@@ -858,8 +867,8 @@ EXEC_PLANS = [
 @pytest.mark.parametrize("opts, pix_fmt", EXEC_PLANS)
 def test_executor_replay_equals_eager(opts, pix_fmt, b, gpu, monkeypatch):
     # the first call of a kind runs eagerly and captures; replays read the
-    # caller's card planes where they lie (no copy: REPLAY_COPIES, and the
-    # planes are never written), a numpy batch through the buffer its own
+    # caller's card planes where they lie (no copy: their graph keeps no
+    # buffer of them, and the planes are never written), a numpy batch through the buffer its own
     # graph keeps, and each writes a fresh output
     pf = P.config.get_pixel_format(pix_fmt)
     plan = P.open_filter(EXEC_OPTS + opts, 512, 256, pix_fmt=pix_fmt, device=gpu).plan
@@ -868,7 +877,6 @@ def test_executor_replay_equals_eager(opts, pix_fmt, b, gpu, monkeypatch):
     host = [_exec_planes(pf, b, s) for s in (0, 1, 2)]
     dev = [[torch.from_numpy(p).to(gpu) for p in planes] for planes in host]
     kept = [[p.clone() for p in planes] for planes in dev]
-    copies = pipeline.REPLAY_COPIES
     n0 = _counts()
     first = pipeline.transform_batch(plan, *dev[0])  # eager, then captured
     n1 = _counts()
@@ -882,9 +890,9 @@ def test_executor_replay_equals_eager(opts, pix_fmt, b, gpu, monkeypatch):
     n2 = _counts()
     torch.cuda.synchronize()
     assert [type(g).__name__ for g in ex._by_shape.values()] == ["_Graph"] * 2
-    assert pipeline.REPLAY_COPIES == copies
+    assert all(buf is None for buf in next(iter(ex._by_shape.values())).staged)
     assert all(_same(p, k) for planes, keep in zip(dev, kept) for p, k in zip(planes, keep))
-    # LAUNCHES counts each replay's kernels, as if they were launched eagerly
+    # the launch counters count each replay's kernels, as if they were launched eagerly
     assert [4 * (a - z) for a, z in zip(n1, n0)] == [c - a for c, a in zip(n2, n1)]
     monkeypatch.setattr(pipeline, "GRAPH_MAX_BATCH", 0)  # the eager program
     eager = [pipeline.transform_batch(plan, *planes) for planes in dev]
@@ -930,7 +938,7 @@ def test_replay_reads_strided_views_where_they_lie(opts, w, h, b, gpu, monkeypat
     chroma = pipeline.plane_executor(plan.chroma, gpu)
     layouts = [dict(), dict(), dict(u_shift=1), dict(u_shift=1)] + (
         [dict(pad=8), dict(pad=8)] if b > 1 else [])
-    copies = pipeline.REPLAY_COPIES, pipeline.PLANE_COPIES
+    copies = COUNTERS["pipeline.plane_copies"]
     calls = []
     for i, layout in enumerate(layouts):
         planes = _yuv420p_views(b, i, w=w, h=h, **layout)
@@ -939,7 +947,8 @@ def test_replay_reads_strided_views_where_they_lie(opts, w, h, b, gpu, monkeypat
         graphs = len(chroma._by_shape)
         assert graphs == (i + 2) // 2  # each layout's first call captures
     torch.cuda.synchronize()
-    assert (pipeline.REPLAY_COPIES, pipeline.PLANE_COPIES) == copies
+    assert COUNTERS["pipeline.plane_copies"] == copies
+    assert all(buf is None for g in chroma._by_shape.values() for buf in g.staged)
     monkeypatch.setattr(pipeline, "GRAPH_MAX_BATCH", 0)
     for planes, kept, got in calls:
         assert all(_same(p, k) for p, k in zip(planes, kept))
@@ -981,7 +990,6 @@ def test_banded_frame_replays_one_graph_per_band_and_plane(gpu):
     eng = P.open_filter(EXEC_OPTS, 512, 256, device=gpu)
     want = [o.cpu().numpy() for o in eng.transform(*planes)]
     latency.clear_band_caches()
-    copies = pipeline.REPLAY_COPIES
     n0 = _counts()
     first = latency.transform_frame_banded(eng.plan, planes, devices=[gpu], n=3)
     n1 = _counts()
@@ -991,7 +999,6 @@ def test_banded_frame_replays_one_graph_per_band_and_plane(gpu):
     assert n2[0] - n1[0] == 6  # K1 per band and plane batch
     # every band reads the frame where it lies on the card: its graphs
     # keep no buffer of it, and no replay copies it
-    assert pipeline.REPLAY_COPIES == copies
     for band in latency.band_plans(eng.plan, 3):
         for pp in (band.luma, band.chroma):
             graphs = list(pipeline.plane_executor(pp, gpu)._by_shape.values())
@@ -1083,9 +1090,55 @@ def test_failed_capture_raises_and_never_runs_eagerly(gpu, monkeypatch):
             pipeline.transform_batch(plan, *planes)
         torch.cuda.synchronize()
         # only the luma warm-up ran: K1 once and K3 once per luma class
-        assert blur.LAUNCHES - n[0] == 1
-        assert window.LAUNCHES - n[2] == len(plan.luma.window_tables(gpu).groups)
+        assert COUNTERS["blur.launches"] - n[0] == 1
+        assert COUNTERS["window.launches"] - n[2] == len(plan.luma.window_tables(gpu).groups)
         assert not pipeline.plane_executor(plan.luma, gpu)._by_shape
     monkeypatch.setattr(pipeline, "_plane_program", real)
     got = pipeline.transform_batch(plan, *planes)  # the device is still usable
     assert all(o.shape[0] == 2 for o in got)
+
+
+def test_spans_hold_the_launches_cupti_traces(gpu, tmp_path):
+    # the program's spans and CUPTI's runtime events share the profiler's
+    # clock: in a trace of one-frame calls (graph replays on two frames in
+    # turn, each output kept) every cudaGraphLaunch lies inside a
+    # t360.executor.replay span, and in an eager batch every K1 and K3
+    # kernel's launch (its host event, by correlation) inside its wrapper's
+    # t360.k1.launch or t360.k3.launch
+    from transform360_tpu_torch.utils.profiling import device_trace, traced
+
+    pf = P.config.get_pixel_format("yuv420p")
+    eng = P.open_filter(EXEC_OPTS, 512, 256, device=gpu)
+    frames = [[torch.from_numpy(p[0]).to(gpu) for p in _exec_planes(pf, 1, s)] for s in (0, 1)]
+    batch = [torch.from_numpy(p).to(gpu) for p in _exec_planes(pf, 16, 2)]
+    kept = [eng.transform(*frames[0]), eng.transform(*frames[1]), eng.transform(*batch)]
+    torch.cuda.synchronize()
+
+    def within(t, spans):
+        return any(a <= t <= b for a, b in spans)
+
+    with device_trace(str(tmp_path / "live")) as path:
+        for k in range(6):
+            kept[k % 2] = eng.transform(*frames[k % 2])
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    replay = [(e["ts"], e["ts"] + e["dur"]) for e in events if e["name"] == "t360.executor.replay"]
+    launches = [e["ts"] for e in events if e["name"] == "cudaGraphLaunch"]
+    assert len(replay) == 12 and len(launches) == 12
+    assert all(within(t, replay) for t in launches)
+    assert [s.name for s in traced().spans].count("t360.executor.replay") == 12
+
+    with device_trace(str(tmp_path / "batch")) as path:
+        kept[2] = eng.transform(*batch)
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    wrappers = [(e["ts"], e["ts"] + e["dur"]) for e in events
+                if e["name"] in ("t360.k1.launch", "t360.k3.launch")]
+    host = {e["args"]["correlation"]: e["ts"] for e in events
+            if e.get("cat") in ("cuda_runtime", "cuda_driver")
+            and "correlation" in e.get("args", {})}
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and ("blur" in e["name"] or "window_kernel" in e["name"])]
+    groups = sum(len(pp.window_tables(gpu).groups) for pp in (eng.plan.luma, eng.plan.chroma))
+    assert len(wrappers) == 4 and len(kernels) == 2 + groups
+    assert all(within(host[k["args"]["correlation"]], wrappers) for k in kernels)

@@ -34,6 +34,7 @@ from transform360_tpu_torch.cli import main as cli_main
 from transform360_tpu_torch.ops import nodes
 from transform360_tpu_torch.ops.sources import Source
 from transform360_tpu_torch.plan import _DeviceCache, clear_plan_cache, plan_from_jax
+from transform360_tpu_torch.utils.profiling import COUNTERS
 from transform360_tpu_torch.utils.yuv import read_yuv420_batch, write_yuv420_batch
 
 IN_W, IN_H, OUT_W, OUT_H = 256, 128, 96, 64
@@ -282,9 +283,9 @@ def test_program_repoints_only_the_nodes_on_the_callers_memory():
     prog, log = _program(src, out)
     assert [(n.handle, r, w) for n, r, w in prog.nodes] == [(1, True, False), (3, False, True),
                                                            (4, False, True)]
-    u0 = nodes.UPDATES
+    u0 = COUNTERS["nodes.updates"]
     prog.repoint(0, src, out)  # where the capture left them: nothing to update
-    assert log == [] and nodes.UPDATES == u0
+    assert log == [] and COUNTERS["nodes.updates"] == u0
     new_src = (_src(ptr=3 << 20),)
     prog.repoint(0, new_src, out)
     assert log == [(1, new_src, 7 << 20)]
@@ -293,7 +294,7 @@ def test_program_repoints_only_the_nodes_on_the_callers_memory():
     mid = (_src((7 << 20) + 1),)  # node 2's output, which nodes 3 and 4 read
     assert log == [(3, mid, 10 << 20), (4, mid, 10 << 20)]
     prog.repoint(0, src, 9 << 20)  # other planes and another output: every node
-    assert nodes.UPDATES - u0 == 1 + 2 + 3
+    assert COUNTERS["nodes.updates"] - u0 == 1 + 2 + 3
 
 
 def test_program_after_a_failed_update_repoints_every_node():

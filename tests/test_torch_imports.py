@@ -16,6 +16,7 @@ import torch
 import transform360_tpu_torch as t3
 from transform360_tpu_torch import fidelity, pipeline
 from transform360_tpu_torch.ops import _build, blur, sources, window
+from transform360_tpu_torch.utils.profiling import COUNTERS
 
 ROOT = Path(__file__).resolve().parent.parent
 # every module of the package, found by walking it (a new module cannot
@@ -120,7 +121,7 @@ def test_wrappers_refuse_other_devices_and_bad_inputs(monkeypatch):
         with pytest.raises(ValueError):
             fn(tab, torch.zeros((1, 256, 128), dtype=torch.uint8).transpose(1, 2))
     # CPU tensors run the plain versions and never count as kernel launches
-    before = (blur.LAUNCHES, window.LAUNCHES)
+    before = (COUNTERS["blur.launches"], COUNTERS["window.launches"])
     calls = []
     real = pipeline.remap_window_px
     monkeypatch.setattr(pipeline, "remap_window_px",  # x: a plane batch, or its sources
@@ -130,7 +131,7 @@ def test_wrappers_refuse_other_devices_and_bad_inputs(monkeypatch):
     assert eng.transform_frame_plane(x[:2], 0, 256, 128).shape == (2, 64, 96)
     assert eng.transform_frame_plane(x, 0, 256, 128).shape == (9, 64, 96)
     assert calls == [2, 9]  # K3's route at every batch size
-    assert (blur.LAUNCHES, window.LAUNCHES) == before
+    assert (COUNTERS["blur.launches"], COUNTERS["window.launches"]) == before
 
 
 @pytest.mark.parametrize(

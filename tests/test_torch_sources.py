@@ -24,6 +24,7 @@ from transform360_tpu.fidelity import _video_like_planes
 from transform360_tpu_torch import pipeline
 from transform360_tpu_torch.ops import blur, sources, window
 from transform360_tpu_torch.plan import plan_from_jax
+from transform360_tpu_torch.utils.profiling import COUNTERS
 
 W, H, B = 256, 128, 3
 CW, CH = W // 2, H // 2
@@ -174,9 +175,9 @@ def test_slice_with_u_and_v_where_they_lie_against_jax(opts, layout):
     else:
         planes = list(_packed_buffer(y, u, v))
     pipeline.clear_executor_cache()
-    copies = pipeline.PLANE_COPIES
+    copies = COUNTERS["pipeline.plane_copies"]
     got = pipeline.transform_frame_planes(tp, planes, device="cpu")
-    assert pipeline.PLANE_COPIES == copies  # packed rows: nothing copied
+    assert COUNTERS["pipeline.plane_copies"] == copies  # packed rows: nothing copied
     for a, b, name in zip(got, want, "YUV"):
         assert tuple(a.shape) == b.shape and a.dtype == torch.uint8
         d = np.abs(a.numpy().astype(int) - b.astype(int))
@@ -198,10 +199,10 @@ def test_planes_whose_rows_are_not_packed_are_copied_and_counted():
                                            device="cpu")
     ut = torch.from_numpy(np.ascontiguousarray(u.transpose(0, 2, 1))).transpose(1, 2)
     assert not sources.rows_packed(ut) and torch.equal(ut, torch.from_numpy(u))
-    copies = pipeline.PLANE_COPIES
+    copies = COUNTERS["pipeline.plane_copies"]
     got = pipeline.transform_frame_planes(
         tp, [torch.from_numpy(y), ut, torch.from_numpy(v)], device="cpu")
-    assert pipeline.PLANE_COPIES == copies + 1
+    assert COUNTERS["pipeline.plane_copies"] == copies + 1
     for a, b in zip(got, want):
         assert torch.equal(a, b)
 

@@ -37,6 +37,7 @@ from .config import (
 from .parallel.mesh import as_mesh, transform_batch_sharded
 from .pipeline import device_of, drop_executors, transform_batch, transform_plane
 from .plan import TransformPlan, build_plan, load_plan, save_plan
+from .utils.profiling import span
 
 
 class Transform360:
@@ -148,22 +149,25 @@ class Transform360:
         .transform_async``).  Returns device tensors whose work is queued
         on the current stream; ``.cpu()`` waits for it.  Batches retire
         in submission order because one stream runs them in order.  On
-        the native backend this is synchronous (CPU tensors out)."""
-        if self._backend == "native":
-            return self._transform_native(y, u, v)
-        if self._mesh is not None and getattr(y, "ndim", None) == 3:
-            n = self._mesh.size
-            if y.shape[0] % n:
-                raise ValueError(
-                    f"batch {y.shape[0]} is not divisible by the mesh size {n}"
-                )
-            in_h, in_w = y.shape[-2:]
+        the native backend this is synchronous (CPU tensors out).  While
+        a torch profiler records, the call is the span ``t360.transform``
+        (:func:`.utils.profiling.span`)."""
+        with span("transform"):
+            if self._backend == "native":
+                return self._transform_native(y, u, v)
+            if self._mesh is not None and getattr(y, "ndim", None) == 3:
+                n = self._mesh.size
+                if y.shape[0] % n:
+                    raise ValueError(
+                        f"batch {y.shape[0]} is not divisible by the mesh size {n}"
+                    )
+                in_h, in_w = y.shape[-2:]
+                plan = self._ensure_plan(int(in_w), int(in_h))
+                return transform_batch_sharded(self._mesh, plan, y, u, v)
+            planes = [self._on_device(p) for p in (y, u, v)]
+            in_h, in_w = planes[0].shape[-2:]
             plan = self._ensure_plan(int(in_w), int(in_h))
-            return transform_batch_sharded(self._mesh, plan, y, u, v)
-        planes = [self._on_device(p) for p in (y, u, v)]
-        in_h, in_w = planes[0].shape[-2:]
-        plan = self._ensure_plan(int(in_w), int(in_h))
-        return transform_batch(plan, *planes, device=self._device)
+            return transform_batch(plan, *planes, device=self._device)
 
     def _on_device(self, p):
         """A tensor moved to the engine's device; a numpy plane as it is

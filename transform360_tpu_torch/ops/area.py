@@ -34,8 +34,10 @@ falls back.  A launch hands the library one :class:`AreaCall`; one made
 while a capture is recorded (:mod:`.nodes`) keeps it, and a replay
 re-points the captured node at a new output through
 ``t360_area_update``, which checks it and encodes the tensor map as a
-launch does.  ``LAUNCHES`` counts the uint8 instantiation's launches and
-``LAUNCHES_U16`` the uint16 one's (one per call on a CUDA tensor).
+launch does.  The counters ``area.launches`` and ``area.launches_u16``
+(:data:`..utils.profiling.COUNTERS`) count the uint8 and the uint16
+instantiations' launches (one per call on a CUDA tensor); the span
+``t360.k4.launch`` times :func:`area_px`.
 """
 
 from __future__ import annotations
@@ -49,10 +51,8 @@ import numpy as np
 import torch
 
 from ..sampling import AreaAxis, AreaTables, DeviceArea, area_resize, round_px
+from ..utils.profiling import count, span
 from . import _build, nodes, sources
-
-LAUNCHES = 0  # uint8 planes
-LAUNCHES_U16 = 0  # uint16 planes
 
 TR, TC = 8, 128  # output tile: a warp per row, 4 columns per thread
 ALIGN = 16  # span origin, in samples: whole 16-byte chunks at either size
@@ -344,26 +344,23 @@ def area_px(da: DeviceArea, x: torch.Tensor, maxval: int = 255) -> torch.Tensor:
     out_h, out_w]`` of the same dtype on ``x``'s device: uint8 (saturated
     at 255), or uint16 saturated at ``maxval`` (the depth's largest
     sample)."""
-    global LAUNCHES, LAUNCHES_U16
-    _check_input(da, x)
-    sb = x.element_size()
-    if sb == 1 and maxval != 255:
-        raise ValueError(f"uint8 samples saturate at 255, not {maxval}")
-    if not 255 <= maxval <= 65535:
-        raise ValueError(f"largest sample {maxval} is not a depth of 8 to 16 bits")
-    if x.device.type == "cpu":
-        return area_plain(da, x, maxval)
-    if x.device.type != "cuda":
-        raise ValueError(f"INTER_AREA runs on cpu or cuda tensors, not {x.device}")
-    out = torch.empty((x.shape[0],) + da.out_shape, dtype=x.dtype, device=x.device)
-    lib = _lib()
-    with torch.cuda.device(x.device):
-        launch(lib, da, x, out, torch.cuda.current_stream(x.device).cuda_stream, maxval)
-    if sb == 1:
-        LAUNCHES += 1
-    else:
-        LAUNCHES_U16 += 1
-    return out
+    with span("k4.launch"):
+        _check_input(da, x)
+        sb = x.element_size()
+        if sb == 1 and maxval != 255:
+            raise ValueError(f"uint8 samples saturate at 255, not {maxval}")
+        if not 255 <= maxval <= 65535:
+            raise ValueError(f"largest sample {maxval} is not a depth of 8 to 16 bits")
+        if x.device.type == "cpu":
+            return area_plain(da, x, maxval)
+        if x.device.type != "cuda":
+            raise ValueError(f"INTER_AREA runs on cpu or cuda tensors, not {x.device}")
+        out = torch.empty((x.shape[0],) + da.out_shape, dtype=x.dtype, device=x.device)
+        lib = _lib()
+        with torch.cuda.device(x.device):
+            launch(lib, da, x, out, torch.cuda.current_stream(x.device).cuda_stream, maxval)
+        count("area.launches" if sb == 1 else "area.launches_u16")
+        return out
 
 
 def kernel_attrs(da: DeviceArea, sample_bytes: int = 1, stages: int = 0,

@@ -37,8 +37,10 @@ made while a capture is recorded (:mod:`.nodes`) keeps it, and a replay
 re-points the captured node at new sources and a new output through
 ``t360_blur_update``, which checks them and encodes the tensor maps as a
 launch does.
-``LAUNCHES`` counts the uint8 instantiations' launches and
-``LAUNCHES_U16`` the uint16 ones' (one per call on a CUDA tensor).
+The counters ``blur.launches`` and ``blur.launches_u16``
+(:data:`..utils.profiling.COUNTERS`) count the uint8 and the uint16
+instantiations' launches (one per call on a CUDA tensor); the span
+``t360.k1.launch`` times :func:`blur_px`.
 """
 
 from __future__ import annotations
@@ -55,11 +57,9 @@ import torch
 from ..config import StereoFormat
 from ..filtering import BlurPlan, band_radii, blur_plain, plan_radii
 from ..sampling import round_px
+from ..utils.profiling import count, span
 from . import _build, nodes, sources
 from .sources import Planes
-
-LAUNCHES = 0  # uint8 planes
-LAUNCHES_U16 = 0  # uint16 planes
 
 TILE_COLS = {1: 1024, 2: 768}  # a tile's columns by sample bytes (csrc/blur.cu: kTW)
 GROUP = 16  # tiles are cut, and their threads start, at columns aligned to this
@@ -500,23 +500,20 @@ def blur_px(bt: BlurTables, x: Planes, maxval: int = 255) -> torch.Tensor:
     sources' frames stacked) of the same dtype, on their device: uint8
     (saturated at 255), or uint16 saturated at ``maxval`` (the depth's
     largest sample)."""
-    global LAUNCHES, LAUNCHES_U16
-    xs, src = _check_input(bt, x)
-    if bt.sample_bytes == 1 and maxval != 255:
-        raise ValueError(f"uint8 samples saturate at 255, not {maxval}")
-    if not 255 <= maxval <= 65535:
-        raise ValueError(f"largest sample {maxval} is not a depth of 8 to 16 bits")
-    dev = xs[0].device
-    if dev.type == "cpu":
-        return round_px(blur_plain(bt.plan, sources.stacked(xs).float()), maxval, bt.dtype)
-    if dev.type != "cuda":
-        raise ValueError(f"blur runs on cpu or cuda tensors, not {dev}")
-    out = torch.empty((sources.frames(xs), bt.H, bt.W), dtype=bt.dtype, device=dev)
-    lib = _lib()
-    with torch.cuda.device(dev):
-        launch(lib, bt, xs, out, torch.cuda.current_stream(dev).cuda_stream, maxval, src)
-    if bt.sample_bytes == 1:
-        LAUNCHES += 1
-    else:
-        LAUNCHES_U16 += 1
-    return out
+    with span("k1.launch"):
+        xs, src = _check_input(bt, x)
+        if bt.sample_bytes == 1 and maxval != 255:
+            raise ValueError(f"uint8 samples saturate at 255, not {maxval}")
+        if not 255 <= maxval <= 65535:
+            raise ValueError(f"largest sample {maxval} is not a depth of 8 to 16 bits")
+        dev = xs[0].device
+        if dev.type == "cpu":
+            return round_px(blur_plain(bt.plan, sources.stacked(xs).float()), maxval, bt.dtype)
+        if dev.type != "cuda":
+            raise ValueError(f"blur runs on cpu or cuda tensors, not {dev}")
+        out = torch.empty((sources.frames(xs), bt.H, bt.W), dtype=bt.dtype, device=dev)
+        lib = _lib()
+        with torch.cuda.device(dev):
+            launch(lib, bt, xs, out, torch.cuda.current_stream(dev).cuda_stream, maxval, src)
+        count("blur.launches" if bt.sample_bytes == 1 else "blur.launches_u16")
+        return out

@@ -18,7 +18,9 @@ supersampled plan).  The nodes between them read and write the graph's
 own intermediates, which stay where they were captured.  A node is
 updated only where its pointers change: a caller that hands the same
 planes again, or gets an output block back from the caching allocator,
-pays for no update of it.  ``UPDATES`` counts the updates made.
+pays for no update of it.  The counter ``nodes.updates``
+(:data:`..utils.profiling.COUNTERS`) counts the updates made; the span
+``t360.executor.repoint`` times :meth:`Program.repoint`.
 """
 
 from __future__ import annotations
@@ -28,13 +30,10 @@ import ctypes
 import threading
 from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
+from ..utils.profiling import COUNTERS, span
 from .sources import Source
 
 _LOCAL = threading.local()
-
-# node updates made by Program.repoint (chip_smoke.py reads it: a replay on
-# other planes and into another output updates every node of its program)
-UPDATES = 0
 
 
 class Node(NamedTuple):
@@ -94,12 +93,14 @@ class Program:
         """Point the program's nodes in the instantiated graph ``exec_`` at
         the sources ``src`` and the output at ``out``; a node that already
         points there keeps its arguments."""
-        global UPDATES
-        at, self._at = self._at, None  # known again once every update is made
-        new_src = at is None or at[0] != src
-        new_out = at is None or at[1] != out
-        for n, reads, writes in self.nodes:
-            if (reads and new_src) or (writes and new_out):
-                n.update(exec_, n.handle, src if reads else n.src, out if writes else n.out)
-                UPDATES += 1
-        self._at = (src, out)
+        with span("executor.repoint"):
+            at, self._at = self._at, None  # known again once every update is made
+            new_src = at is None or at[0] != src
+            new_out = at is None or at[1] != out
+            updated = 0
+            for n, reads, writes in self.nodes:
+                if (reads and new_src) or (writes and new_out):
+                    n.update(exec_, n.handle, src if reads else n.src, out if writes else n.out)
+                    updated += 1
+            COUNTERS["nodes.updates"] += updated  # a dict increment on every replay
+            self._at = (src, out)

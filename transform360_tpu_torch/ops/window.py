@@ -31,9 +31,10 @@ never copies a source.  A launch hands the library one
 :class:`WindowCall`; one made while a capture is recorded
 (:mod:`.nodes`) keeps it, and a replay re-points the captured node at new
 sources and a new output through ``t360_window_update``, which checks
-them as a launch does.  ``LAUNCHES`` counts the uint8
-instantiation's launches and ``LAUNCHES_U16`` the uint16 one's (one per
-class present in the plan).
+them as a launch does.  The counters ``window.launches`` and
+``window.launches_u16`` (:data:`..utils.profiling.COUNTERS`) count the
+uint8 and the uint16 instantiations' launches (one per class present in
+the plan); the span ``t360.k3.launch`` times :func:`remap_window_px`.
 """
 
 from __future__ import annotations
@@ -59,11 +60,9 @@ from ..sampling import (
     round_px,
     weight_table,
 )
+from ..utils.profiling import count, span
 from . import _build, nodes, sources
 from .sources import Planes
-
-LAUNCHES = 0  # uint8 planes
-LAUNCHES_U16 = 0  # uint16 planes
 
 # Output tile (rows, columns): one CTA of 256 threads, a pixel each.  2 or
 # 4 pixels per thread (more weight registers, fewer CTAs per SM) measured
@@ -454,30 +453,28 @@ def remap_window_px(wt: WindowTables, x: Planes, maxval: int = 255) -> torch.Ten
     dtype on their device: uint8 (saturated at 255), or uint16 saturated
     at ``maxval`` (the depth's largest sample, 1023 at 10 bits).  Any
     batch size is accepted."""
-    global LAUNCHES, LAUNCHES_U16
-    xs, src = _check_input(wt, x)
-    if wt.sample_bytes == 1 and maxval != 255:
-        raise ValueError(f"uint8 samples saturate at 255, not {maxval}")
-    if not 255 <= maxval <= 65535:
-        raise ValueError(f"largest sample {maxval} is not a depth of 8 to 16 bits")
-    dev = xs[0].device
-    if dev.type == "cpu":
-        return round_px(remap_window_plain(wt, sources.stacked(xs)), maxval, wt.dtype)
-    if dev.type != "cuda":
-        raise ValueError(f"remap runs on cpu or cuda tensors, not {dev}")
-    B = sources.frames(xs)
-    out = torch.empty((B, wt.out_h, wt.out_w), dtype=wt.dtype, device=dev)
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        for group in wt.groups:
-            _launch_class(lib, wt, src, out, group, frames_per_cta(B, group[1]),
-                          pairs(group[2]), stream, maxval)
-            if wt.sample_bytes == 1:
-                LAUNCHES += 1
-            else:
-                LAUNCHES_U16 += 1
-    return out
+    with span("k3.launch"):
+        xs, src = _check_input(wt, x)
+        if wt.sample_bytes == 1 and maxval != 255:
+            raise ValueError(f"uint8 samples saturate at 255, not {maxval}")
+        if not 255 <= maxval <= 65535:
+            raise ValueError(f"largest sample {maxval} is not a depth of 8 to 16 bits")
+        dev = xs[0].device
+        if dev.type == "cpu":
+            return round_px(remap_window_plain(wt, sources.stacked(xs)), maxval, wt.dtype)
+        if dev.type != "cuda":
+            raise ValueError(f"remap runs on cpu or cuda tensors, not {dev}")
+        B = sources.frames(xs)
+        out = torch.empty((B, wt.out_h, wt.out_w), dtype=wt.dtype, device=dev)
+        lib = _lib()
+        counter = "window.launches" if wt.sample_bytes == 1 else "window.launches_u16"
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            for group in wt.groups:
+                _launch_class(lib, wt, src, out, group, frames_per_cta(B, group[1]),
+                              pairs(group[2]), stream, maxval)
+                count(counter)
+        return out
 
 
 def kernel_attrs(taps: int, mode: int, win_bytes: int, sample_bytes: int = 1) -> dict:

@@ -31,9 +31,9 @@ without a prefilter) at the planes where they lie, K1's tensor maps
 encoded anew, and the last kernel's (K3, or K4 in a supersampled plan) at
 a fresh output, allocated by the caching allocator on the current stream
 outside the graph's pool, so that no returned tensor aliases a later
-call's.  Nothing is copied into the graph or cloned out of it
-(``REPLAY_COPIES``); only a plane that is not on the card (numpy, a CPU
-tensor) is copied, once, into a buffer that its graph keeps.  The
+call's.  Nothing is copied into the graph or cloned out of it; only a
+plane that is not on the card (numpy, a CPU tensor) is copied, once,
+into a buffer that its graph keeps (the span ``t360.executor.stage``).  The
 intermediates (K1's blurred plane, K3's scaled plane before K4) stay in
 the graph's pool.  The key holds each plane's frames, and the frame
 stride and 16-byte alignment of any plane that is not a packed, aligned
@@ -48,7 +48,9 @@ being captured by the caller (its graph then takes the kernels) run the
 program eagerly.  A capture or a node update that fails raises (as does
 a torch without ``CUDAGraph(keep_graph=True)`` and its raw graph
 handles); nothing runs eagerly in its place.  A replay adds the launches
-its graph holds to the kernels' ``LAUNCHES`` counters.
+its graph holds to the kernels' launch counters
+(:data:`.utils.profiling.COUNTERS`).  Each call is traced in spans while
+a torch profiler records (:func:`.utils.profiling.span`).
 
 Sources: the program hands a plane batch to K1 (or to K3, for a plan
 without a prefilter) as the planes it was given, one or two sources
@@ -56,7 +58,7 @@ without a prefilter) as the planes it was given, one or two sources
 never stacked by a copy on the card (the JAX package concatenates them
 for one TPU launch, ``pipeline.py:412`` there).  A plane whose rows are
 not packed is the one input that is copied, by ``.contiguous()``: input
-normalization, counted in ``PLANE_COPIES``.  On the CPU the plain
+normalization, counted in ``pipeline.plane_copies``.  On the CPU the plain
 versions take the sources stacked (a cat on the host).
 
 Rounding parity: the reference filters into a uint8 plane and remaps it
@@ -74,12 +76,13 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .ops import area, blur, nodes, sources, window
+from .ops import nodes, sources
 from .ops.area import area_px
 from .ops.blur import blur_px
 from .ops.sources import Planes
 from .ops.window import remap_window_px
 from .plan import PlanePlan, TransformPlan
+from .utils.profiling import COUNTERS, count, span
 
 # Plane batches of at most this many frames replay a captured CUDA graph;
 # larger ones run eagerly.  The largest batch of chip_smoke.py phase 19's
@@ -98,17 +101,6 @@ from .plan import PlanePlan, TransformPlan
 # A replay reads the caller's planes where they lie and writes a fresh
 # output, so from 16 frames on the two differ by noise on the card.
 GRAPH_MAX_BATCH = 8
-
-# Planes the executors copied with ``.contiguous()`` because their rows
-# were not packed (input normalization: a kernel reads any other plane
-# where it lies).  ``chip_smoke.py`` reads it: 0 on every main path.
-PLANE_COPIES = 0
-
-# Copies that the graph path made of a plane already on a card (a replay
-# reads the caller's card planes where they lie, and clones no output;
-# only a plane off the card is copied in).  ``chip_smoke.py`` reads it: 0
-# on every path.
-REPLAY_COPIES = 0
 
 
 def device_of(device) -> torch.device:
@@ -195,38 +187,21 @@ def _check_plane(x, pp: PlanePlan, what: str) -> None:
         raise ValueError(f"{what}: expected [B, {h}, {w}], got {tuple(x.shape)}")
 
 
-# every kernel's launch counters, in the order a graph records them
-_COUNTERS = tuple((m, a) for m in (blur, window, area) for a in ("LAUNCHES", "LAUNCHES_U16"))
-
-
-def _launch_counts() -> Tuple[int, ...]:
-    return tuple(getattr(m, a) for m, a in _COUNTERS)
-
-
-def _add_launches(counts: Sequence[int]) -> None:
-    for (m, a), n in zip(_COUNTERS, counts):
-        setattr(m, a, getattr(m, a) + n)
-
-
 def _packed(p: torch.Tensor) -> torch.Tensor:
     """A plane as a kernel source: as it is where its rows are packed,
     else copied by ``.contiguous()`` (input normalization, counted in
-    ``PLANE_COPIES``)."""
-    global PLANE_COPIES
+    ``pipeline.plane_copies``: 0 on every main path)."""
     if not sources.rows_packed(p):
-        PLANE_COPIES += 1
+        count("pipeline.plane_copies")
         p = p.contiguous()
     return p
 
 
 def _stage(buf: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     """``p``, a plane that is not on ``buf``'s device, copied into the
-    buffer its graph reads it from; a plane on another card counts in
-    ``REPLAY_COPIES``."""
-    global REPLAY_COPIES
-    if p.is_cuda:
-        REPLAY_COPIES += 1
-    return buf.copy_(p)
+    buffer its graph reads it from."""
+    with span("executor.stage"):
+        return buf.copy_(p)
 
 
 def graph_key(dtype: torch.dtype, device: torch.device, H: int, W: int,
@@ -272,7 +247,7 @@ class _Graph:
     device buffer a plane from the host is copied into (``None``: a card
     plane, read where it lies) and its description, the output's shape,
     dtype and device, and the kernel launches that one replay makes
-    (module, counter, count)."""
+    (counter, count)."""
 
     graph: torch.cuda.CUDAGraph
     exec_: int
@@ -282,7 +257,7 @@ class _Graph:
     out_shape: Tuple[int, ...]
     dtype: torch.dtype
     device: torch.device
-    launches: Tuple[Tuple[object, str, int], ...]
+    launches: Tuple[Tuple[str, int], ...]
 
     def __call__(self, planes: Sequence[torch.Tensor],
                  described: Sequence[Optional[sources.Source]]) -> torch.Tensor:
@@ -296,9 +271,10 @@ class _Graph:
             src.append(d)
         out = torch.empty(self.out_shape, dtype=self.dtype, device=self.device)
         self.program.repoint(self.exec_, tuple(src), out.data_ptr())
-        self.graph.replay()
-        for m, a, n in self.launches:
-            setattr(m, a, getattr(m, a) + n)
+        with span("executor.replay"):
+            self.graph.replay()
+        for name, n in self.launches:  # a dict increment on every replay
+            COUNTERS[name] += n
         return out
 
 
@@ -318,7 +294,7 @@ def _capture(pp: PlanePlan, planes: Sequence[torch.Tensor], device: torch.device
     out = _plane_program(pp, xs)
     src = sources.describe(xs)
     pool, stream = _graph_state(device)
-    before = _launch_counts()
+    before = dict(COUNTERS)
     try:
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         with torch.cuda.stream(stream):
@@ -339,12 +315,13 @@ def _capture(pp: PlanePlan, planes: Sequence[torch.Tensor], device: torch.device
             f"capturing the plane program of {pp.key} at {[tuple(p.shape) for p in planes]} "
             f"in a CUDA graph failed; nothing ran in its place") from e
     finally:
-        launched = [a - b for a, b in zip(_launch_counts(), before)]
-        _add_launches([-n for n in launched])
-    launches = tuple((m, a, n) for (m, a), n in zip(_COUNTERS, launched) if n)
+        launched = tuple((k, n - before.get(k, 0)) for k, n in COUNTERS.items()
+                         if n != before.get(k, 0))
+        for k, n in launched:
+            count(k, -n)
     staged_src = tuple(None if buf is None else s for buf, s in zip(staged, src))
     return _Graph(graph, exec_, program, staged, staged_src, out_shape, pp.dtype, device,
-                  launches), out
+                  launched), out
 
 
 class PlaneExecutor:
@@ -368,30 +345,44 @@ class PlaneExecutor:
         self._lock = threading.Lock()
 
     def __call__(self, *planes: torch.Tensor) -> torch.Tensor:
-        pp, dev = self.pp, self.device
-        for i, p in enumerate(planes):  # a host plane's copy would convert any dtype
-            _check_plane(p, pp, f"plane plan {pp.key}, input {i}")
-        frames = tuple(p.shape[0] for p in planes)
-        if dev.type == "cuda" and frames[0] <= GRAPH_MAX_BATCH:
+        with span("executor"):
+            dev = self.device
+            # switching to the executor's card costs microseconds a call: only
+            # where it is not the current one
+            if dev.type != "cuda" or dev.index == torch.cuda.current_device():
+                return self._run(planes)
             with torch.cuda.device(dev):
-                # inside the caller's own capture, its graph takes the launches
-                if not torch.cuda.is_current_stream_capturing():
-                    on = [p.device == dev for p in planes]
-                    xs = [_packed(p) if o else p for p, o in zip(planes, on)]
-                    described = tuple(d if o else None
-                                      for d, o in zip(sources.describe(xs), on))
-                    key = graph_key(pp.dtype, dev, pp.in_h, pp.in_w, frames, described)
-                    with self._lock:
-                        g = self._by_shape.get(key)
-                        if g is None:
-                            g, out = _capture(pp, xs, dev)
-                            self._by_shape[key] = g
-                            return out
-                        return g(xs, described)
-        else:
-            self._by_shape.setdefault(
-                ((sum(frames), pp.in_h, pp.in_w), pp.dtype, str(dev), frames), None)
-        return _plane_program(pp, [_packed(p.to(dev)) for p in planes])
+                return self._run(planes)
+
+    def _run(self, planes: Sequence[torch.Tensor]) -> torch.Tensor:
+        pp, dev = self.pp, self.device
+        with span("executor.key"):
+            for i, p in enumerate(planes):  # a host plane's copy would convert any dtype
+                _check_plane(p, pp, f"plane plan {pp.key}, input {i}")
+            frames = tuple(p.shape[0] for p in planes)
+            small = dev.type == "cuda" and frames[0] <= GRAPH_MAX_BATCH
+            # inside the caller's own capture, its graph takes the launches
+            graphed = small and not torch.cuda.is_current_stream_capturing()
+            if graphed:
+                on = [p.device == dev for p in planes]
+                xs = [_packed(p) if o else p for p, o in zip(planes, on)]
+                described = tuple(d if o else None for d, o in zip(sources.describe(xs), on))
+                key = graph_key(pp.dtype, dev, pp.in_h, pp.in_w, frames, described)
+                g = self._by_shape.get(key)
+            elif not small:
+                self._by_shape.setdefault(
+                    ((sum(frames), pp.in_h, pp.in_w), pp.dtype, str(dev), frames), None)
+        if not graphed:
+            return _plane_program(pp, [_packed(p.to(dev)) for p in planes])
+        with self._lock:
+            if g is None:
+                g = self._by_shape.get(key)  # another thread may have captured it
+            if g is None:
+                with span("executor.capture"):
+                    g, out = _capture(pp, xs, dev)
+                self._by_shape[key] = g
+                return out
+            return g(xs, described)
 
 
 # (plane plan's key, device) -> its executor, as the JAX package keys its
