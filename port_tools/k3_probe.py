@@ -1,7 +1,7 @@
 """Where K3's cycles go: a clock64 probe build of a tree's remap kernel
 (``csrc/window.cu``), and its frame loop's SASS per output pixel.
 
-    python3 port_tools/k3_probe.py [DIR ...]
+    python3 port_tools/k3_probe.py [--supersampled] [DIR ...]
 
 Run from the root of a checkout on a machine with an NVIDIA Hopper GPU.
 Each DIR holds a ``transform360_tpu_torch/`` package (default: this
@@ -14,7 +14,8 @@ per kernel design, the first whose anchors all match once is taken): one
 thread of each CTA reads ``%clock64`` at the edges of the kernel's phases
 and adds the cycles of each phase, summed over the CTAs, to a device
 array that ``t360_window_probe`` copies out.  Each class launch of the
-flagship (``chip_smoke.FLAGSHIP``) runs once alone on 128 luma frames and
+flagship (``chip_smoke.FLAGSHIP``; with ``--supersampled`` its 2x2
+supersampled twin, K3 to 3072x2048) runs once alone on 128 luma frames and
 on one luma frame (after a warm-up launch); printed per launch: the
 CTAs, the frames each walks, and the cycles per CTA of each phase with
 their shares.  The clock reads cost a few instructions each and order
@@ -121,7 +122,7 @@ def probe_source(src: str):
     raise SystemExit("FAIL no probe edit set matches this window.cu")
 
 
-def child(tree: str) -> None:
+def child(tree: str, supersampled: bool) -> None:
     import ctypes
     from pathlib import Path
 
@@ -131,8 +132,8 @@ def child(tree: str) -> None:
     from transform360_tpu_torch.ops import _build, window
 
     sys.path.append(ROOT)
-    from chip_smoke import (FLAGSHIP, LANES_PER_SM, PIPES, SMS, batch_of, k3_loop_counts,
-                            k3_loop_source, video_like_planes)
+    from chip_smoke import (FLAGSHIP, LANES_PER_SM, PIPES, SMS, SUPERSAMPLED, batch_of,
+                            k3_loop_counts, k3_loop_source, video_like_planes)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -158,13 +159,14 @@ def child(tree: str) -> None:
     lib.t360_window_probe.argtypes = [ctypes.c_void_p, ctypes.c_int]
     lib.t360_window_probe.restype = ctypes.c_int
 
-    plan = P.open_filter(FLAGSHIP, 3840, 2160, device="cuda").plan
+    plan = P.open_filter(SUPERSAMPLED if supersampled else FLAGSHIP, 3840, 2160,
+                         device="cuda").plan
     wt = plan.luma.window_tables("cuda")
     y, _, _ = video_like_planes(3840, 2160)
     yb = batch_of(y, 128)
     stream = torch.cuda.current_stream().cuda_stream
     res = {"tree": tree, "card": smi, "design": design, "phases": list(phases),
-           "launches": {}}
+           "plan": "supersampled" if supersampled else "flagship", "launches": {}}
     buf = (ctypes.c_ulonglong * 16)()
     for B in (128, 1):
         x = yb[:B].contiguous()
@@ -197,13 +199,14 @@ def child(tree: str) -> None:
 
 def main(argv) -> int:
     if argv and argv[0] == "--child":
-        child(argv[1])
+        child(argv[1], argv[2] == "1")
         return 0
+    supersampled = "--supersampled" in argv
     rc = 0
-    for tree in argv or ["."]:
+    for tree in [a for a in argv if a != "--supersampled"] or ["."]:
         env = dict(os.environ, PYTHONPATH=os.path.abspath(tree))
-        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", tree],
-                             env=env, capture_output=True, text=True)
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", tree,
+                              str(int(supersampled))], env=env, capture_output=True, text=True)
         if out.returncode:
             print(f"{tree}: exit {out.returncode}\n{out.stderr[-3000:]}", flush=True)
             rc = 1

@@ -1,7 +1,8 @@
 """Time variants of K3 (``csrc/window.cu``) against each other, in turns.
 
     python3 port_tools/k3_variants.py [--pairs on off] [--frames auto all 1]
-        [--source other=path/to/window.cu ...]
+        [--source other=path/to/window.cu ...] [--supersampled] [--depth 8]
+        [--shapes "128 luma" ...]
 
 Run from the root of a checkout on a machine with an NVIDIA Hopper GPU.
 A variant is a build of K3 and the way each class launch is issued:
@@ -16,6 +17,11 @@ A variant is a build of K3 and the way each class launch is issued:
   the package's ``frames_per_cta`` (frame groups on the grid's y axis for
   launches with few tiles), ``all`` the whole batch (no groups), an
   integer that many (at most the batch).
+
+The plan is the flagship's (``chip_smoke.FLAGSHIP``), or with
+``--supersampled`` its 2x2 supersampled twin (K3 to 3072x2048);
+``--depth 10`` runs the uint16 instantiations on 10-bit planes, and
+``--shapes`` keeps the named shapes below (default: all).
 
 Every combination is a variant.  Printed per variant: the registers,
 local bytes, resident CTAs per SM and shared memory of each class launch
@@ -56,6 +62,9 @@ def main() -> int:
     ap.add_argument("--pairs", nargs="+", default=["on"], choices=["on", "off"])
     ap.add_argument("--frames", nargs="+", default=["auto"])
     ap.add_argument("--source", nargs="*", default=[])
+    ap.add_argument("--supersampled", action="store_true")
+    ap.add_argument("--depth", type=int, default=8, choices=[8, 10])
+    ap.add_argument("--shapes", nargs="+", default=None)
     args = ap.parse_args()
     for fr in args.frames:
         if fr not in ("auto", "all") and not (fr.isdigit() and int(fr) > 0):
@@ -64,9 +73,10 @@ def main() -> int:
     import torch
 
     import transform360_tpu_torch as P
-    from chip_smoke import FLAGSHIP, batch_of, cuda_times, video_like_planes
+    from chip_smoke import (FLAGSHIP, SUPERSAMPLED, batch_of, cuda_times, to_depth,
+                            video_like_planes)
     from transform360_tpu_torch.ops import _build, sources, window
-    from transform360_tpu_torch.sampling import remap_plain, round_u8
+    from transform360_tpu_torch.sampling import remap_plain, round_px
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -98,7 +108,10 @@ def main() -> int:
         with ThreadPoolExecutor(max_workers=len(trials)) as ex:
             libs.update(zip((lb for lb, _ in trials), ex.map(lambda t: build(*t), trials)))
 
-    plan = P.open_filter(FLAGSHIP, 3840, 2160, device="cuda").plan
+    opts = SUPERSAMPLED if args.supersampled else FLAGSHIP
+    pix_fmt = "yuv420p" if args.depth == 8 else "yuv420p10le"
+    plan = P.open_filter(opts, 3840, 2160, pix_fmt=pix_fmt, device="cuda").plan
+    maxval = plan.luma.maxval
     tabs = (plan.luma.window_tables("cuda"), plan.chroma.window_tables("cuda"))
 
     def choices(var, B, group):
@@ -110,10 +123,11 @@ def main() -> int:
     def run(var, x, wt):
         xs = sources.as_sources(x)
         B = sources.frames(xs)
-        out = torch.empty((B, wt.out_h, wt.out_w), dtype=torch.uint8, device=xs[0].device)
+        out = torch.empty((B, wt.out_h, wt.out_w), dtype=wt.dtype, device=xs[0].device)
         stream = torch.cuda.current_stream(xs[0].device).cuda_stream
         for g in wt.groups:
-            window.launch_class(libs[var[0]], wt, xs, out, g, *choices(var, B, g), stream)
+            window.launch_class(libs[var[0]], wt, xs, out, g, *choices(var, B, g), stream,
+                                maxval)
         return out
 
     variants = {}
@@ -133,12 +147,14 @@ def main() -> int:
             print(f"{name} {pname} batch {B}: tiles per launch {[g[1] for g in wt.groups]}, "
                   f"(registers, local bytes, CTAs per SM, smem) per launch {occ}", flush=True)
 
-    y, u, v = video_like_planes(3840, 2160)
-    yb, ub, vb = batch_of(y, 128), batch_of(u, 128), batch_of(v, 128)
+    yb, ub, vb = (batch_of(p, 128) if args.depth == 8 else to_depth(batch_of(p, 128), args.depth)
+                  for p in video_like_planes(3840, 2160))
     cb = torch.cat([ub, vb])
     lt, ct = plan.luma.tables("cuda"), plan.chroma.tables("cuda")
-    want = (round_u8(remap_plain(lt.remap, yb[:3])), round_u8(remap_plain(ct.remap, cb[:3])),
-            round_u8(remap_plain(ct.remap, torch.cat([ub[:1], vb[:2]]))))
+    dt = plan.luma.dtype
+    want = (round_px(remap_plain(lt.remap, yb[:3]), maxval, dt),
+            round_px(remap_plain(ct.remap, cb[:3]), maxval, dt),
+            round_px(remap_plain(ct.remap, torch.cat([ub[:1], vb[:2]])), maxval, dt))
     for name, var in variants.items():
         if not (torch.equal(run(var, yb[:3].contiguous(), tabs[0]), want[0])
                 and torch.equal(run(var, cb[:3].contiguous(), tabs[1]), want[1])
@@ -151,6 +167,8 @@ def main() -> int:
               "256 chroma": (1, cb), "U, V 1 + 1": (1, (ub[:1], vb[:1])),
               "U, V 8 + 8": (1, (ub[:8], vb[:8])), "U, V 63 + 65": (1, (ub[:63], vb[:65])),
               "U, V 128 + 128": (1, (ub, vb))}
+    if args.shapes:
+        shapes = {k: shapes[k] for k in args.shapes}
     order = list(variants.items())
 
     def sampler(var, x, wt, reps):
@@ -179,6 +197,8 @@ def main() -> int:
                           "median_ms": {k: statistics.median(v) for k, v in times.items()}}),
               flush=True)
     for shape in ("1 luma", "128 luma", "256 chroma"):
+        if shape not in shapes:
+            continue
         plane, x = shapes[shape]
         per_launch = {}
         for name, var in order:

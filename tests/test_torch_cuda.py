@@ -38,6 +38,9 @@ that fails.  K1 and K3 on a batch given as two sources
 frame stride or base; uint8 and 10-bit; K3's frame groups cut at their
 boundary) and the engine on strided U and V
 views, with and without a prefilter.
+K3 on the 4K flagship's plans and its 2x2 supersampled twin's (3072x2048
+windows of a few samples a pixel) at uint8 and 10 bits, batch 1 to 128,
+with U and V in place.
 Marked ``cuda``: they skip without a GPU.  On the GPU host, which has no
 jax, run them without the suite's conftest.py (which imports jax):
 
@@ -573,6 +576,38 @@ def test_engine_takes_u_and_v_where_they_lie(prefilter, gpu):
         assert COUNTERS["pipeline.plane_copies"] == copies
         for a, c in zip(got, cpu.transform(*(p[:b].cpu() for p in (y, u, v)))):
             assert torch.equal(a.cpu(), c), b
+
+
+FLAGSHIP = ("cube_edge_length=512:interpolation_alg=cubic:enable_low_pass_filter=1:"
+            "input_stereo_format=mono")
+K3_4K = {"flagship": FLAGSHIP, "ss2x2": FLAGSHIP + ":width_scale_factor=2:height_scale_factor=2"}
+
+
+@pytest.mark.parametrize("depth", [8, 10])
+@pytest.mark.parametrize("name", sorted(K3_4K))
+def test_window_kernel_at_4k(name, depth, gpu):
+    # K3 at 0 LSB on the 4K plans' luma and chroma: the flagship's
+    # (1536x1024 and 768x512) and its 2x2 supersampled twin's (3072x2048
+    # and 1536x1024: windows of a few samples a pixel), at batch 1, 16 and
+    # 128 (two frames a pass, batches that end mid-pass), and the chroma
+    # as U and V in place: two separate sources and strided views of
+    # packed frames
+    pix_fmt = "yuv420p" if depth == 8 else "yuv420p10le"
+    plan = P.open_filter(K3_4K[name], 3840, 2160, pix_fmt=pix_fmt, device=gpu).plan
+    g = torch.Generator(device=gpu).manual_seed(depth)
+    for pp in (plan.luma, plan.chroma):
+        wt, t, mx = pp.window_tables(gpu), pp.tables(gpu), pp.maxval
+        shape = (128, pp.in_h, pp.in_w)
+        x = torch.randint(0, 256, shape, dtype=torch.uint8, device=gpu, generator=g) \
+            if depth == 8 else _rand_u16(shape, mx, gpu, g)
+        want = torch.cat([round_px(remap_plain(t.remap, x[k:k + 16]), mx, pp.dtype)
+                          for k in range(0, 128, 16)])
+        for b in (1, 16, 127, 128):
+            assert _same(window.remap_window_px(wt, x[:b], mx), want[:b]), (name, depth, b)
+        if pp is plan.chroma:
+            for layout in ("separate", "strided"):
+                xs = _two_sources(x[:33], 16, layout)
+                assert _same(window.remap_window_px(wt, xs, mx), want[:33]), (name, layout)
 
 
 @pytest.mark.parametrize("depth", [10, 16])

@@ -56,10 +56,14 @@ __device__ __forceinline__ float sample_to_float(uint32_t w, int j) {
   return half_to_float(w, j);
 }
 
-// 16-byte asynchronous copy from device to shared memory (both 16-aligned).
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+// 16-byte asynchronous copy from device memory to the shared-space
+// address s (both 16-aligned).
+__device__ __forceinline__ void cp_async16(unsigned s, const void* gmem) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+// The same to a generic pointer into shared memory.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  cp_async16(static_cast<unsigned>(__cvta_generic_to_shared(smem)), gmem);
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);

@@ -53,15 +53,26 @@
 // frame the CTA issues one 16-byte cp.async per chunk from the table,
 // double-buffered so that the next frames' windows load while these are
 // computed (the counterpart of the TPU kernel's double-buffered window
-// DMA).  The plan's window budgets are in bytes, so a uint16 window holds
-// half the samples of a uint8 one.  Where the launch asks for it (windows of class 0), a pass takes
+// DMA); a pass's two frames are copied in one walk of the table, each
+// entry read once.  The windows' shared-space address and the thread's
+// index are made once per CTA, opaque to the compiler: left to itself it
+// read the CTA's id (SR_CgaCtaId) twice a pass to rebuild the address,
+// and the thread's index once.  Together these took K3 about 10% faster
+// at 3072x2048 (PERF.md §6).  The plan's window budgets are in bytes, so
+// a uint16 window holds half the samples of a uint8 one.  Where the
+// launch asks for it (windows of class 0), a pass takes
 // two frames: their sums share the weights and interleave, and the
 // barriers and the copies' bookkeeping are paid once.  A thread reads each
 // tap row as the aligned 32-bit words that hold it (4 samples a word at
 // uint8, 2 at uint16; 2 words for T = 4 at uint8, never a word past the
 // row's last tap), funnel-shifts them into place and turns each sample
 // into a float with two full-rate instructions (PRMT to 0x4B0000bb or
-// 0x4B00hhll, then one subtract; no I2F); the sum runs ty-major,
+// 0x4B00hhll, then one subtract; no I2F).  Converting each staged sample
+// once per frame instead, into a float window that the taps read with one
+// shared load each, measured slower at uint8 even where a window holds
+// few samples a pixel (PERF.md §6): a float tap moves four bytes through
+// the shared-memory pipe where one word of bytes serves four taps and
+// several lanes, and that pipe is the tighter limit.  The sum runs ty-major,
 // tx-minor, each product and each sum rounded on its own (-fmad=false;
 // __fmul_rn/__fadd_rn), the fill term last; the round, saturated at 255 or
 // at the depth's maximum, is full-rate too.  Tiles whose window exceeds
@@ -153,12 +164,13 @@ __device__ __forceinline__ uint32_t round_sample(float x, float maxval) {
   return __float_as_uint(__fadd_rd(c, 8388608.0f)) & (sizeof(S) == 1 ? 0xFFu : 0xFFFFu);
 }
 
-// Copy one 16-byte chunk of a frame's window to d; e is its table entry.
+// Copy one 16-byte chunk of a frame's window to d, at the shared-space
+// address ds; e is its table entry.
 template <typename S, int MODE>
-__device__ __forceinline__ void copy_chunk(const S* __restrict__ frame, S* d, uint32_t e,
-                                           int x0, int W) {
+__device__ __forceinline__ void copy_chunk(const S* __restrict__ frame, S* d, unsigned ds,
+                                           uint32_t e, int x0, int W) {
   if (!(e & kBytewise)) {
-    t360::cp_async16(d, frame + e);
+    t360::cp_async16(ds, frame + e);
   } else {
     constexpr int n = 1 << kLogChunk<S>;
     const S* row = frame + static_cast<size_t>(e & 0xFFFFu) * W;
@@ -171,7 +183,7 @@ __device__ __forceinline__ void copy_chunk(const S* __restrict__ frame, S* d, ui
 // Once per tile: the table entry of every chunk of the window (chunk
 // i = r * cpr + c lands at 16 i bytes into buf), and frame 0's copy of it.
 template <typename S, int MODE>
-__device__ __forceinline__ void chunk_table(const S* __restrict__ frame0, S* buf,
+__device__ __forceinline__ void chunk_table(const S* __restrict__ frame0, S* buf, unsigned sbuf,
                                             uint32_t* tab, int y0, int x0, int wh,
                                             int cpr, int H, int W, bool vec) {
   constexpr int lc = kLogChunk<S>;
@@ -187,17 +199,25 @@ __device__ __forceinline__ void chunk_table(const S* __restrict__ frame0, S* buf
                                    static_cast<uint32_t>(rr);
       const int i = r * cpr + c;
       tab[i] = e;
-      copy_chunk<S, MODE>(frame0, buf + (i << lc), e, x0, W);
+      copy_chunk<S, MODE>(frame0, buf + (i << lc), sbuf + (i << 4), e, x0, W);
     }
   }
 }
 
-// One frame's window from the chunk table.
+// The window of frame `frame` into buf and, if two, that of frame + fs
+// into buf + step, from the chunk table, each entry read once for both;
+// sbuf is buf's shared-space address, tid the thread's index.
 template <typename S, int MODE>
-__device__ __forceinline__ void stage(const S* __restrict__ frame, S* buf,
-                                      const uint32_t* tab, int n, int x0, int W) {
-  for (int i = threadIdx.x; i < n; i += kThreads)
-    copy_chunk<S, MODE>(frame, buf + (i << kLogChunk<S>), tab[i], x0, W);
+__device__ __forceinline__ void stage(const S* __restrict__ frame, long long fs, bool two,
+                                      S* buf, unsigned sbuf, int step, const uint32_t* tab,
+                                      int n, int x0, int W, int tid) {
+  for (int i = tid; i < n; i += kThreads) {
+    const uint32_t e = tab[i];
+    copy_chunk<S, MODE>(frame, buf + (i << kLogChunk<S>), sbuf + (i << 4), e, x0, W);
+    if (two)
+      copy_chunk<S, MODE>(frame + fs, buf + step + (i << kLogChunk<S>),
+                          sbuf + step * sizeof(S) + (i << 4), e, x0, W);
+  }
 }
 
 // One pixel's sum over its T x T taps in the staged window, whose first
@@ -280,6 +300,13 @@ __global__ void __launch_bounds__(kThreads, T * T <= 16 ? 4 : 2)
   const int fp = a.pairs ? 2 : 1;
   uint32_t* tab = reinterpret_cast<uint32_t*>(smem + 2 * fp * a.win_bytes);
   S* const bufs = reinterpret_cast<S*>(smem);
+  // bufs' shared-space address and this thread's index, made once and
+  // opaque to the compiler, which would otherwise read the special
+  // registers again at every pass
+  unsigned sbufs;
+  asm("mov.b32 %0, %1;" : "=r"(sbufs) : "r"(t360::smem_u32(smem)));
+  int tid;
+  asm("mov.u32 %0, %%tid.x;" : "=r"(tid));
   const int win = a.win_bytes / static_cast<int>(sizeof(S));  // samples per window
 
   const int t = a.first + blockIdx.x;
@@ -306,7 +333,7 @@ __global__ void __launch_bounds__(kThreads, T * T <= 16 ? 4 : 2)
   const int fyb = __ldg(a.fy + ip);
   const int fx = __ldg(a.fx + ip);
   if (staged)
-    chunk_table<S, MODE>(src, bufs, tab, y0, x0, wh, pitch >> kLogChunk<S>, a.H, a.W,
+    chunk_table<S, MODE>(src, bufs, sbufs, tab, y0, x0, wh, pitch >> kLogChunk<S>, a.H, a.W,
                          a.vec);
 
   const int oy = m[0] + threadIdx.x / kTW;
@@ -346,7 +373,9 @@ __global__ void __launch_bounds__(kThreads, T * T <= 16 ? 4 : 2)
   const uint32_t fill_px = round_sample<S>(a.fill, a.maxval);
   if (staged) {
     __syncthreads();  // the chunk table is complete
-    if (fp == 2 && nf > 1) stage<S, MODE>(src + fs, bufs + win, tab, nchunks, x0, a.W);
+    if (fp == 2 && nf > 1)
+      stage<S, MODE>(src + fs, 0, false, bufs + win, sbufs + win * sizeof(S), 0, tab, nchunks,
+                     x0, a.W, tid);
     t360::cp_async_commit();
   }
 
@@ -354,10 +383,10 @@ __global__ void __launch_bounds__(kThreads, T * T <= 16 ? 4 : 2)
   for (int f = 0; f < nf; f += fp) {
     const bool two = fp == 2 && f + 1 < nf;
     if (staged) {
-      for (int j = 0; j < fp; ++j)  // the next pass's frames
-        if (f + fp + j < nf)
-          stage<S, MODE>(src + static_cast<long long>(f + fp + j) * fs,
-                         bufs + ((half ^ 1) * fp + j) * win, tab, nchunks, x0, a.W);
+      if (f + fp < nf)  // the next pass's frames
+        stage<S, MODE>(src + static_cast<long long>(f + fp) * fs, fs, fp == 2 && f + fp + 1 < nf,
+                       bufs + (half ^ 1) * fp * win, sbufs + (half ^ 1) * fp * win * sizeof(S),
+                       win, tab, nchunks, x0, a.W, tid);
       t360::cp_async_commit();  // empty past the batch's end
       t360::cp_async_wait<1>();
       __syncthreads();  // this pass's windows are complete

@@ -66,7 +66,10 @@ from .sources import Planes
 
 # Output tile (rows, columns): one CTA of 256 threads, a pixel each.  2 or
 # 4 pixels per thread (more weight registers, fewer CTAs per SM) measured
-# slower at every batch size.
+# slower at every batch size.  So did turning each staged sample into a
+# float once per frame for the tile's taps to share, even on the 2x2
+# supersampled cubemap's small windows (3.6 samples a pixel): 9-26% slower
+# at uint8 (PERF.md §6), the shared-memory pipe being the tighter limit.
 TH, TW = 16, 16
 VEC = 16  # window rows are staged in 16-byte chunks from a 16-byte-aligned column
 # Window bytes (height x pitch) of each class, one frame.  Class 0 (12 KB)
