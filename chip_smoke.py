@@ -12,8 +12,9 @@ nvcc and CUDA PyTorch (no jax needed).  Phases:
    at once, and print ptxas's registers, spills and shared memory, and
    K4's SASS counts (instructions, shared, generic and local loads and
    stores) per instantiation; for every instantiation of K3 (uint8 and
-   uint16 samples) its registers and local (spill) bytes as the runtime
-   reports them, its resident CTAs per SM at class 0's window bytes, and
+   uint16 samples, one or two frames a pass and WIDE) its registers and
+   local (spill) bytes as the runtime reports them, its resident CTAs per
+   SM at class 0's window bytes (WIDE: at ``SMALL_BYTES``), and
    the counts of int-to-float conversions
    (``I2F``, ``I2FP``), float64 products (``DMUL``) and float64-to-float32
    conversions (``F2F.F32.F64``) in its SASS (``cuobjdump -sass``; K3
@@ -125,12 +126,14 @@ nvcc and CUDA PyTorch (no jax needed).  Phases:
 14. batch sharding: ``transform_batch_sharded`` over ``make_mesh()`` (every
     visible card) and over ``["cuda:0"] * 2`` at batch 128, and
     ``open_filter(mesh=...)``: every shard equals its frames of phase 4's
-    unsharded batch, K1 launches 2 and K3 once per class per shard; the
+    unsharded batch, K1 launches 2 and K3 once per launch of
+    ``ops.window.launches`` per shard; the
     step's device time beside phase 5's;
 15. latency bands: ``parallel.latency.transform_frame_banded`` on phase
     6's [H, W] frame at n = 2, 4 and 8 with uniform and cost-model edges:
-    bytes equal the unbanded frame, K1 2n launches and K3 one per class
-    of each band; each band's device time, K3 alone per band, max(band),
+    bytes equal the unbanded frame, K1 2n launches and K3 one per launch
+    of each band (one per class at one frame); each band's device time,
+    K3 alone per band, max(band),
     the whole banded frame and the first call's wall (band plans built),
     and the device memory the bands'
     graphs hold once captured (allocated, and the graph pool's reserve); the pinned host-to-device rate of one 4K
@@ -153,9 +156,10 @@ nvcc and CUDA PyTorch (no jax needed).  Phases:
     native engine refused with ``ValueError``;
 18. profiling the card: ``utils.profiling.device_trace`` (torch.profiler,
     CPU and CUDA activity) around one batch-128 flagship step, whose
-    trace must hold K1's kernels exactly 2 times and K3's exactly 4, as
-    the launch counters read them, with their summed device times beside phase
-    5's stages; ``time_frame_step`` (the chain-difference timer) at batch
+    trace must hold K1's kernels exactly 2 times and K3's once per launch
+    of ``ops.window.launches`` (4: one per window class, luma and chroma),
+    as the launch counters read them, with their summed device times
+    beside phase 5's stages; ``time_frame_step`` (the chain-difference timer) at batch
     128 and 1 beside phase 5's step median, phase 6's events time and
     the frame's replayed CUDA graph (phase 15);
 19. the plane executors (``pipeline.plane_executor``): their replayed
@@ -567,10 +571,28 @@ def sass_counts(lib_path, pattern: str) -> dict:
     return res
 
 
+def k3_launches(plan, B: int) -> int:
+    """K3's launches in a plan's step of B frames: luma's, and chroma's on
+    U and V as two sources of B (``ops.window.launches``)."""
+    from transform360_tpu_torch.ops import window
+
+    return (len(window.launches(plan.luma.window_plan().groups, B))
+            + len(window.launches(plan.chroma.window_plan().groups, 2 * B, B)))
+
+
+# K3's kernels by sample, T and MODE, and its WIDE flag (an earlier K3 has
+# none): keys (sample, T, MODE), and (sample, T, MODE, "wide") for the
+# instantiations of more than two frames a pass
+K3_NAME = r"window_kernelI([ht])Li(\d+)ELi(\d+)E(Lb1E)?"
+
+
+def _k3_key(s, t, m, wide):
+    return (SAMPLE[s], int(t), int(m)) + (("wide",) if wide else ())
+
+
 def k3_sass(lib_path) -> dict:
-    """{(sample, T, MODE): counts} for each K3 instantiation."""
-    raw = sass_counts(lib_path, r"window_kernelI([ht])Li(\d+)ELi(\d+)E")
-    return {(SAMPLE[s], int(t), int(m)): c for (s, t, m), c in raw.items()}
+    """{(sample, T, MODE[, "wide"]): counts} for each K3 instantiation."""
+    return {_k3_key(*k): c for k, c in sass_counts(lib_path, K3_NAME).items()}
 
 
 def k4_sass(lib_path) -> dict:
@@ -729,16 +751,14 @@ def k3_loop_source(src: str) -> str:
 
 
 def k3_loop_counts(lib_path) -> dict:
-    """{(sample, T, MODE): counts per output pixel} of each K3
+    """{(sample, T, MODE[, "wide"]): counts per output pixel} of each K3
     instantiation's frame loop in a loop build (``k3_loop_source``;
     ``loop_counts`` with ``innermost`` False), with ``own``: ``total``
     without the loops the frame loop holds (its copy loops, whose trips
     per frame follow the window, about 0.6 chunks a thread at the
     flagship)."""
-    raw = loop_counts(lib_path, r"window_kernelI([ht])Li(\d+)ELi(\d+)E", {"h": 1, "t": 2},
-                      innermost=False)
-    return {(SAMPLE[s], int(t), int(m)): dict(c, own=c["total"] - c["nested"])
-            for (s, t, m), c in raw.items()}
+    raw = loop_counts(lib_path, K3_NAME, {"h": 1, "t": 2}, innermost=False)
+    return {_k3_key(*k): dict(c, own=c["total"] - c["nested"]) for k, c in raw.items()}
 
 
 STUB_FFPROBE = """import os, sys
@@ -867,38 +887,44 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 say(f"    ptxas {name}: {line.strip()}")
-    say(f"    K3 dynamic shared memory per CTA: 4 (class 0: two frames per pass) or 2 x the "
-        f"class's window bytes + a 4-byte chunk-table entry per 16 of them (classes "
-        f"{window.CLASS_BYTES} B)")
+    say(f"    K3 dynamic shared memory per CTA: 2 x the frames a pass ({window.WIDE_FRAMES} for "
+        f"class 0's windows up to {window.SMALL_BYTES} B, 2 for its others, 1 for the larger "
+        f"class) x the launch's window bytes + a 4-byte chunk-table entry per 16 of them "
+        f"(classes {window.CLASS_BYTES} B)")
     sass = k3_sass(_build._build("window"))
     modes = ("wrap", "fill", "reflect")
     spills = []
-    win0 = window.CLASS_BYTES[0]
+    win0, wins = window.CLASS_BYTES[0], window.SMALL_BYTES
     for sb, sname in ((1, "u8"), (2, "u16")):
         for taps in (1, 2, 4, 8):
             parts = []
             for mode, mname in enumerate(modes):
-                at = window.kernel_attrs(taps, mode, win0, sb)
-                c = sass[(sname, taps, mode)]
-                if sb == 1 and taps <= 4 and (at["local_bytes"] or c["LDL"] or c["STL"]):
-                    spills.append((sname, taps, mname))
-                parts.append(f"{mname} {at['registers']} registers, {at['local_bytes']} B "
-                             f"local, {at['ctas_per_sm']} CTAs per SM at {win0} B windows; "
-                             f"{c['instructions']} instructions, {c['LDS']} LDS, {c['I2F']} "
-                             f"I2F, {c['F2I']} F2I, {c['DMUL']} DMUL, {c['F2F64']} "
-                             f"F2F.F32.F64, {c['LDL']} LDL, {c['STL']} STL")
+                for key, win, fp in (((sname, taps, mode), win0, 2),
+                                     ((sname, taps, mode, "wide"), wins, window.WIDE_FRAMES)):
+                    at = window.kernel_attrs(taps, mode, win, fp, sb)
+                    c = sass[key]
+                    if sb == 1 and taps <= 4 and (at["local_bytes"] or c["LDL"] or c["STL"]):
+                        spills.append(key)
+                    parts.append(f"{mname} ({fp} frames a pass) {at['registers']} registers, "
+                                 f"{at['local_bytes']} B local, {at['ctas_per_sm']} CTAs per SM "
+                                 f"at {win} B windows; {c['instructions']} instructions, "
+                                 f"{c['LDS']} LDS, {c['I2F']} I2F, {c['F2I']} F2I, {c['DMUL']} "
+                                 f"DMUL, {c['F2F64']} F2F.F32.F64, {c['LDL']} LDL, {c['STL']} STL")
             say(f"    K3 {sname} T={taps}: " + "; ".join(parts))
     n_bad = {k: sum(c[k] for c in sass.values()) for k in ("I2F", "DMUL", "F2F64")}
     say(f"    K3 SASS: {n_bad['I2F']} int-to-float conversions (I2F, I2FP), {n_bad['DMUL']} "
         f"DMUL and {n_bad['F2F64']} F2F.F32.F64 in {len(sass)} instantiations (uint8 and "
         f"uint16); spills in the uint8 instantiations with T <= 4: {spills}")
-    if any(n_bad.values()) or len(sass) != 24 or spills:
+    if any(n_bad.values()) or len(sass) != 48 or spills:
         raise SystemExit(f"FAIL K3's SASS holds {n_bad} in {len(sass)} instantiations, or "
                          f"its uint8 instantiations with T <= 4 spill: {spills}")
-    k3_px = k3_loop_counts(k3_loop_lib)  # {(sample, T, MODE): counts per output pixel}
-    for (sname, taps, mode), c in sorted(k3_px.items()):
+    # {(sample, T, MODE[, "wide"]): counts per output pixel}
+    k3_px = k3_loop_counts(k3_loop_lib)
+    for key, c in sorted(k3_px.items()):
+        sname, taps, mode = key[:3]
         if taps == 4 or mode == 0:
-            say(f"    K3 {sname} T={taps} {modes[mode]}, frame loop per output pixel "
+            say(f"    K3 {sname} T={taps} {modes[mode]}{' wide' if len(key) > 3 else ''}, "
+                f"frame loop per output pixel "
                 f"({c['px_per_iteration']:.0f} pixels an iteration): {c['own']:.3f} "
                 f"instructions without the copy loops it holds ({c['total']:.3f} with them, "
                 f"counted once); "
@@ -906,7 +932,8 @@ def main() -> int:
                 + "; " + ", ".join(f"{o} {c[o]:.3f}" for o in sorted(c)
                                    if o.isupper() and c[o] >= 0.1))
     # T = 1 has no product to find its frame loop by
-    want_px = {(sn, taps, mode) for sn in ("u8", "u16") for taps in (2, 4, 8) for mode in range(3)}
+    want_px = {(sn, taps, mode) + wide for sn in ("u8", "u16") for taps in (2, 4, 8)
+               for mode in range(3) for wide in ((), ("wide",))}
     if not want_px <= set(k3_px):
         raise SystemExit(f"FAIL K3's loop build gave no frame loop for {sorted(want_px - set(k3_px))}")
     k1 = k1_sass(_build._build("blur"))
@@ -963,12 +990,12 @@ def main() -> int:
     for pname, wp in zip(("luma", "chroma"), wplans):
         staged = wp.meta[:, 5] > 0
         halo = float((wp.meta[:, 4] * wp.meta[:, 5])[staged].sum()) / (wp.in_h * wp.in_w)
-        occ = [window.kernel_attrs(wp.taps, wp.mode, win) for _, _, win in wp.groups]
+        occ = [window.kernel_attrs(wp.taps, wp.mode, win, fp) for _, _, win, fp in wp.groups]
         say(f"    K3 tile plan {pname}: {wp.meta.shape[0]} tiles of {window.TH}x{window.TW}, "
             f"per class "
             f"{[int((wp.tile_class == c).sum()) for c in range(len(window.CLASS_BYTES))]}"
             f", {int((~staged).sum())} global-path tiles; launches (first, tiles, window "
-            f"bytes) {wp.groups}, resident CTAs per SM "
+            f"bytes, frames a pass) {wp.groups}, resident CTAs per SM "
             f"{[a['ctas_per_sm'] for a in occ]} at {[a['smem_bytes'] for a in occ]} B of "
             f"shared memory and {occ[0]['registers']} registers; windows stage "
             f"{halo:.3f}x the plane's bytes per frame")
@@ -977,7 +1004,7 @@ def main() -> int:
     deep = open_filter(FLAGSHIP, IN_W, IN_H, pix_fmt="yuv420p10le", device="cuda")
     for pname, pp in (("luma", deep.plan.luma), ("chroma", deep.plan.chroma)):
         wp = window.build_window_plan(pp.spec, pp.fill, 2)
-        occ = [window.kernel_attrs(wp.taps, wp.mode, win, 2) for _, _, win in wp.groups]
+        occ = [window.kernel_attrs(wp.taps, wp.mode, win, fp, 2) for _, _, win, fp in wp.groups]
         say(f"    K3 uint16 tile plan, 10-bit {pname}: per class "
             f"{[int((wp.tile_class == c).sum()) for c in range(len(window.CLASS_BYTES))]}, "
             f"{int((wp.meta[:, 5] == 0).sum())} global-path tiles; launches {wp.groups}, "
@@ -1258,8 +1285,7 @@ def main() -> int:
         outs = nopf.transform(*planes)
         torch.cuda.synchronize()
         nl = read_counts()
-        if nl["blur"] or nl["window"] != len(nopf.plan.luma.window_tables("cuda").groups) + len(
-                nopf.plan.chroma.window_tables("cuda").groups):
+        if nl["blur"] or nl["window"] != k3_launches(nopf.plan, BATCH):
             raise SystemExit(f"FAIL the flagship without a prefilter launched {nl}")
         for o, xin, pp in zip(outs, planes, (nopf.plan.luma, nopf.plan.chroma, nopf.plan.chroma)):
             for f0 in range(0, BATCH, 32):
@@ -1977,9 +2003,9 @@ def main() -> int:
     from transform360_tpu_torch import pipeline
     from transform360_tpu_torch.parallel import make_mesh, transform_batch_sharded
 
-    k3_per_frame = len(luma_w.groups) + len(chroma_w.groups)
     for mname, mesh in (("make_mesh()", make_mesh()), ('["cuda:0"] * 2', make_mesh(["cuda:0"] * 2))):
         d = len(mesh.devices)
+        k3_per_frame = k3_launches(plan, BATCH // d)
         torch.cuda.synchronize()
         reset_counts()
         outs = transform_batch_sharded(mesh, plan, yb, ub, vb)
@@ -2036,8 +2062,7 @@ def main() -> int:
             bands = latency.band_plans(plan, n, costs)
             if len(bands) != n or any(not np.array_equal(g, w) for g, w in zip(got, unbanded)):
                 raise SystemExit(f"FAIL {n} bands ({edges}) differ from the unbanded frame")
-            want_k3 = sum(len(b.luma.window_plan().groups) + len(b.chroma.window_plan().groups)
-                          for b in bands)
+            want_k3 = sum(k3_launches(b, 1) for b in bands)
             torch.cuda.synchronize()
             reset_counts()
             latency.transform_frame_banded_async(plan, one_frame, n=n, row_costs=costs)
@@ -2283,9 +2308,9 @@ def main() -> int:
         + ", ".join(f"{n[:90]} x{c} {m:.4f} ms" for n, (c, m) in sorted(found.items()))
         + f"; phase 5's stages by CUDA events: K1 {stages_b128['K1 luma'] + stages_b128['K1 chroma (U, V in place)']:.4f}"
         f" ms, K3 {stages_b128['K3 luma'] + stages_b128['K3 chroma (U+V)']:.4f} ms  ({smi})")
-    if n1 != 2 or n3 != 4 or (traced["blur"], traced["window"]) != (n1, n3):
-        raise SystemExit(f"FAIL the trace holds K1 {n1} and K3 {n3} launches (want 2 and 4, "
-                         f"as the counters read: {traced})")
+    if n1 != 2 or n3 != k3_launches(plan, BATCH) or (traced["blur"], traced["window"]) != (n1, n3):
+        raise SystemExit(f"FAIL the trace holds K1 {n1} and K3 {n3} launches (want 2 and "
+                         f"{k3_launches(plan, BATCH)}, as the counters read: {traced})")
     others = sorted(n for n in found if not any(
         k in n for k in ("blur_ring_kernel", "blur_direct_kernel", "window_kernel")))
     if others:  # no cat of U and V, no elementwise copy

@@ -1,20 +1,26 @@
 """Time variants of K3 (``csrc/window.cu``) against each other, in turns.
 
-    python3 port_tools/k3_variants.py [--pairs on off] [--frames auto all 1]
-        [--source other=path/to/window.cu ...] [--supersampled] [--depth 8]
-        [--shapes "128 luma" ...]
+    python3 port_tools/k3_variants.py [--small 3072:8 2048:8:0 6144:4 ...]
+        [--frames auto all 1] [--source other=path/to/window.cu ...]
+        [--supersampled] [--depth 8] [--shapes "128 luma" ...]
 
 Run from the root of a checkout on a machine with an NVIDIA Hopper GPU.
-A variant is a build of K3 and the way each class launch is issued:
+A variant is a build of K3, a tile plan and the way each launch is issued:
 
 * ``--source label=path`` builds that copy of ``window.cu`` (the same C
   interface; a trial edit, timed against the shipping source in one call)
-  beside the shipping one, one nvcc per copy, all at once;
-* ``--pairs``: ``on`` takes two frames per pass where the package does
-  (class 0's launches, ``ops.window.pairs``), ``off`` one frame per pass
-  in every launch;
+  beside the shipping one, one nvcc per copy, all at once; a copy without
+  ``pass_frames`` (an earlier K3, whose last call field is a flag for two
+  frames a pass) is given 1 for two or more frames a pass, else 0;
+* ``--small BYTES:FRAMES[:SHARE]``: the plan's small windows, class 0's
+  windows of at most BYTES staged FRAMES frames a pass in a range of
+  their own where they are SHARE of its tiles or more
+  (``build_window_plan``'s ``small``; default the package's
+  ``SMALL_BYTES:WIDE_FRAMES:SMALL_SHARE``; SHARE 0 splits any plan that
+  has such windows), their launches as the package makes them
+  (``ops.window.launches``);
 * ``--frames``: the frames of the batch one CTA loops over: ``auto`` is
-  the package's ``frames_per_cta`` (frame groups on the grid's y axis for
+  the package's (``launches``: frame groups on the grid's y axis for
   launches with few tiles), ``all`` the whole batch (no groups), an
   integer that many (at most the batch).
 
@@ -33,9 +39,9 @@ frames, a chroma pair and 256 chroma planes stacked, and U and V as two
 sources (1 + 1, 8 + 8, 63 + 65, 128 + 128); one JSON line of medians
 (ms per call) per shape.  Under 100 frames a sample is a replay of 20
 calls captured in a CUDA graph (device time: one call, or calls issued
-back to back, wait there on the host).  Last, each class launch of
-every variant alone on one and 128 luma frames and 256 chroma planes
-(one JSON line each).
+back to back, wait there on the host).  Last, each plan range of
+every variant launched alone on one and 128 luma frames and 256 chroma
+planes (one JSON line each).
 The trial builds go to ``transform360_tpu_torch/build/`` (gitignored).
 """
 
@@ -59,7 +65,7 @@ sys.path.insert(0, ROOT)
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--pairs", nargs="+", default=["on"], choices=["on", "off"])
+    ap.add_argument("--small", nargs="+", default=None)
     ap.add_argument("--frames", nargs="+", default=["auto"])
     ap.add_argument("--source", nargs="*", default=[])
     ap.add_argument("--supersampled", action="store_true")
@@ -107,45 +113,66 @@ def main() -> int:
     if trials:
         with ThreadPoolExecutor(max_workers=len(trials)) as ex:
             libs.update(zip((lb for lb, _ in trials), ex.map(lambda t: build(*t), trials)))
+    # the copies whose kernels take a flag for two frames a pass
+    flagged = {lb for lb, path in trials if "pass_frames" not in open(path).read()}
+
+    def per_pass(var, fp):
+        """The call's frames a pass for the build of ``var``."""
+        return int(fp >= 2) if var[0] in flagged else fp
 
     opts = SUPERSAMPLED if args.supersampled else FLAGSHIP
     pix_fmt = "yuv420p" if args.depth == 8 else "yuv420p10le"
     plan = P.open_filter(opts, 3840, 2160, pix_fmt=pix_fmt, device="cuda").plan
     maxval = plan.luma.maxval
-    tabs = (plan.luma.window_tables("cuda"), plan.chroma.window_tables("cuda"))
+    smalls = args.small or [f"{window.SMALL_BYTES}:{window.WIDE_FRAMES}:{window.SMALL_SHARE}"]
+    tables = {}  # --small setting: (luma, chroma) tables of its plan
+    for sm in smalls:
+        small = tuple(float(v) if i == 2 else int(v) for i, v in enumerate(sm.split(":")))
+        small += (window.SMALL_SHARE,)[len(small) - 2:]
+        tables[sm] = tuple(window.WindowTables.from_plan(
+            window.build_window_plan(pp.spec, pp.fill, pp.window_plan().sample_bytes, small),
+            "cuda") for pp in (plan.luma, plan.chroma))
 
-    def choices(var, B, group):
-        _, pair, frames = var
-        f = (window.frames_per_cta(B, group[1]) if frames == "auto"
-             else B if frames == "all" else min(B, int(frames)))
-        return f, pair == "on" and window.pairs(group[2])
+    def choices(var, counts, wt):
+        """(group, frames per CTA, frames a pass) of each launch on sources
+        of ``counts`` frames."""
+        frames, B = var[2], sum(counts)
+        return [((f, n, w), fr if frames == "auto" else B if frames == "all"
+                 else min(B, int(frames)), fp)
+                for f, n, w, fp, fr in window.launches(wt.groups, B, max(counts))]
 
-    def run(var, x, wt):
+    def run(var, x, plane, fresh=False):
+        """The variant's launches on x; ``fresh``: into an output filled
+        with 90 first (a frame no launch wrote shows)."""
+        wt = tables[var[1]][plane]
         xs = sources.as_sources(x)
         B = sources.frames(xs)
         out = torch.empty((B, wt.out_h, wt.out_w), dtype=wt.dtype, device=xs[0].device)
+        if fresh:
+            out.fill_(90)
         stream = torch.cuda.current_stream(xs[0].device).cuda_stream
-        for g in wt.groups:
-            window.launch_class(libs[var[0]], wt, xs, out, g, *choices(var, B, g), stream,
+        for g, frames, fp in choices(var, [s.shape[0] for s in xs], wt):
+            window.launch_class(libs[var[0]], wt, xs, out, g, frames, per_pass(var, fp), stream,
                                 maxval)
         return out
 
     variants = {}
-    for var in itertools.product(libs, args.pairs, args.frames):
-        name = f"{var[0]}: pairs {var[1]}, frames {var[2]}"
+    for var in itertools.product(libs, smalls, args.frames):
+        name = f"{var[0]}: small {var[1]}, frames {var[2]}"
         variants[name] = var
-        for (pname, wt), B in itertools.product(zip(("luma", "chroma"), tabs), (128, 1)):
+        for (plane, pname), B in itertools.product(enumerate(("luma", "chroma")), (128, 1)):
             occ = []
-            for g in wt.groups:
+            wt = tables[var[1]][plane]
+            for g, _, fp in choices(var, [B], wt):
                 out = (ctypes.c_int * 4)()
-                pair = choices(var, B, g)[1]
                 err = libs[var[0]].t360_window_attrs(wt.sample_bytes, wt.taps, wt.mode, g[2],
-                                                     int(pair), out)
+                                                     per_pass(var, fp), out)
                 if err:
                     raise SystemExit(f"attrs {name}: {shipping.t360_error_string(err).decode()}")
                 occ.append(tuple(out))
-            print(f"{name} {pname} batch {B}: tiles per launch {[g[1] for g in wt.groups]}, "
-                  f"(registers, local bytes, CTAs per SM, smem) per launch {occ}", flush=True)
+            print(f"{name} {pname} batch {B}: (tiles, frames a pass) per launch "
+                  f"{[(g[1], fp) for g, _, fp in choices(var, [B], wt)]}, (registers, local "
+                  f"bytes, CTAs per SM, smem) per launch {occ}", flush=True)
 
     yb, ub, vb = (batch_of(p, 128) if args.depth == 8 else to_depth(batch_of(p, 128), args.depth)
                   for p in video_like_planes(3840, 2160))
@@ -155,13 +182,15 @@ def main() -> int:
     want = (round_px(remap_plain(lt.remap, yb[:3]), maxval, dt),
             round_px(remap_plain(ct.remap, cb[:3]), maxval, dt),
             round_px(remap_plain(ct.remap, torch.cat([ub[:1], vb[:2]])), maxval, dt))
+    want17 = round_px(remap_plain(lt.remap, yb[:17]), maxval, dt)
     for name, var in variants.items():
-        if not (torch.equal(run(var, yb[:3].contiguous(), tabs[0]), want[0])
-                and torch.equal(run(var, cb[:3].contiguous(), tabs[1]), want[1])
-                and torch.equal(run(var, (ub[:1], vb[:2]), tabs[1]), want[2])):
+        if not (torch.equal(run(var, yb[:3].contiguous(), 0, True), want[0])
+                and torch.equal(run(var, cb[:3].contiguous(), 1, True), want[1])
+                and torch.equal(run(var, (ub[:1], vb[:2]), 1, True), want[2])
+                and torch.equal(run(var, yb[:17].contiguous(), 0, True), want17)):
             raise SystemExit(f"FAIL variant {name} differs from remap_plain")
-    print(f"all {len(variants)} variants equal remap_plain on 3 luma frames and 3 chroma "
-          f"planes, stacked and as two sources", flush=True)
+    print(f"all {len(variants)} variants equal remap_plain on 3 and 17 luma frames and 3 "
+          f"chroma planes, stacked and as two sources", flush=True)
     shapes = {"16 luma": (0, yb[:16].contiguous()), "1 luma": (0, yb[:1].contiguous()),
               "2 chroma": (1, cb[:2].contiguous()), "128 luma": (0, yb),
               "256 chroma": (1, cb), "U, V 1 + 1": (1, (ub[:1], vb[:1])),
@@ -171,23 +200,23 @@ def main() -> int:
         shapes = {k: shapes[k] for k in args.shapes}
     order = list(variants.items())
 
-    def sampler(var, x, wt, reps):
+    def sampler(var, x, plane, reps):
         """A function returning reps samples of a variant's device ms per
         call: under 100 frames each a replay of 20 calls captured in a CUDA
         graph, else one call."""
-        run(var, x, wt)
+        run(var, x, plane)
         if sources.frames(sources.as_sources(x)) >= 100:
-            return lambda: cuda_times(lambda: run(var, x, wt), reps)
+            return lambda: cuda_times(lambda: run(var, x, plane), reps)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             for _ in range(20):
-                run(var, x, wt)
+                run(var, x, plane)
         graph.replay()
         return lambda: [t / 20 for t in cuda_times(graph.replay, reps)]
 
     for shape, (plane, x) in shapes.items():
         reps = 3 if sources.frames(sources.as_sources(x)) >= 100 else 10
-        samplers = {name: sampler(var, x, tabs[plane], reps) for name, var in order}
+        samplers = {name: sampler(var, x, plane, reps) for name, var in order}
         times = {k: [] for k in variants}
         for rnd in range(4):
             for name, _ in (order if rnd % 2 == 0 else order[::-1]):
@@ -203,11 +232,14 @@ def main() -> int:
         per_launch = {}
         for name, var in order:
             per_launch[name] = []
-            for g in tabs[plane].groups:
-                one = dataclasses.replace(tabs[plane], groups=(g,))
-                ts = sampler(var, x, one, 5)()
+            full = tables[var[1]]
+            for g in full[plane].groups:
+                tables[var[1]] = tuple(dataclasses.replace(t, groups=(g,)) if i == plane else t
+                                       for i, t in enumerate(full))
+                ts = sampler(var, x, plane, 5)()
                 per_launch[name].append((g[1], statistics.median(ts)))
-        print(json.dumps({"shape": f"{shape}, each class launch alone: (tiles, median ms)",
+            tables[var[1]] = full
+        print(json.dumps({"shape": f"{shape}, each plan range alone: (tiles, median ms)",
                           "card": smi, "n": 5, "launches": per_launch}), flush=True)
     return 0
 

@@ -40,7 +40,11 @@ boundary) and the engine on strided U and V
 views, with and without a prefilter.
 K3 on the 4K flagship's plans and its 2x2 supersampled twin's (3072x2048
 windows of a few samples a pixel) at uint8 and 10 bits, batch 1 to 128,
-with U and V in place.
+with U and V in place.  K3's small windows at WIDE_FRAMES frames a pass
+(batch 1, 7, 9, 17, 128, 129; T = 4 and 8, a transparent border with
+global-path tiles, uint8 and 10 bits, TF32 on and off; U and V cut inside
+a pass), and a batch-8 replay of the 2x2 supersampled 4K cubemap with
+one K3 node per window class, as before class 0 was split.
 Marked ``cuda``: they skip without a GPU.  On the GPU host, which has no
 jax, run them without the suite's conftest.py (which imports jax):
 
@@ -128,7 +132,7 @@ def test_kernels_match_plain(name, gpu):
         n = COUNTERS["window.launches"]
         got = window.remap_window_px(wt, x)
         torch.cuda.synchronize()
-        assert COUNTERS["window.launches"] == n + len(wt.groups)
+        assert COUNTERS["window.launches"] == n + len(window.launches(wt.groups, 5))
         _assert_close(got, round_u8(remap_plain(t.remap, x)), f"K3 {name}")
 
 
@@ -325,7 +329,7 @@ def test_window_kernel_matches_plain(name, gpu):
             n = COUNTERS["window.launches"]
             got = window.remap_window_px(wt, x)
             torch.cuda.synchronize()
-            assert COUNTERS["window.launches"] == n + len(wt.groups)
+            assert COUNTERS["window.launches"] == n + len(window.launches(wt.groups, B))
             want = round_u8(remap_plain(pp.tables(gpu).remap, x))
             assert torch.equal(got, want), f"K3 {name} B={B}"
     if name == "decimated-global":
@@ -390,11 +394,11 @@ def test_window_kernel_ragged_width_and_every_word_offset(gpu):
 
 @pytest.mark.parametrize("frames", [1, 2, 3, 5, 0])
 def test_window_kernel_frame_groups_and_passes(frames, gpu):
-    # a launch's frames per CTA (0: the whole batch) with one and two
-    # frames a pass, on batches that end mid-pass and mid-group (1, 2, 5,
-    # 17 frames), on the wrapping cubemap (windows across the seam), the
-    # barrel's clamp-with-fill and REFLECT_101 (lanczos4) and the global
-    # path (pole tiles)
+    # a launch's frames per CTA (0: the whole batch) with one frame a pass
+    # and with each plan range's own (up to WIDE_FRAMES), on batches that
+    # end mid-pass and mid-group (1, 2, 5, 17 frames), on the wrapping
+    # cubemap (windows across the seam), the barrel's clamp-with-fill and
+    # REFLECT_101 (lanczos4) and the global path (pole tiles)
     g = torch.Generator(device=gpu).manual_seed(7)
     lib, stream = window._lib(), torch.cuda.current_stream().cuda_stream
     cases = [CASES[n] for n in ("cubic-cubemap", "linear-barrel", "lanczos4-barrel")]
@@ -409,7 +413,7 @@ def test_window_kernel_frame_groups_and_passes(frames, gpu):
                 out = torch.zeros((b, wt.out_h, wt.out_w), dtype=torch.uint8, device=gpu)
                 for group in wt.groups:
                     window.launch_class(lib, wt, x[:b], out, group, min(frames or b, b),
-                                        pair and window.pairs(group[2]), stream)
+                                        group[3] if pair else 1, stream)
                 assert torch.equal(out, want[:b]), (frames, iw, b, pair)
 
 
@@ -466,7 +470,8 @@ def test_engine_routes_by_batch_on_the_card(gpu):
         torch.cuda.synchronize()
         wt = (eng.plan.luma.window_tables(gpu), eng.plan.chroma.window_tables(gpu))
         assert COUNTERS["blur.launches"] - n1 == 2
-        assert COUNTERS["window.launches"] - n3 == len(wt[0].groups) + len(wt[1].groups)
+        assert COUNTERS["window.launches"] - n3 == (len(window.launches(wt[0].groups, b))
+                                                    + len(window.launches(wt[1].groups, 2 * b, b)))
         for a, c in zip(got, cpu.transform(*planes)):
             assert torch.equal(a.cpu(), c)
 
@@ -521,8 +526,8 @@ def test_kernels_read_two_sources(layout, depth, gpu):
     # K1 and K3 on a batch given as two sources (b0 1, 2, odd, even),
     # against the plain versions on the stacked batch: K1's TMA maps (or
     # the producer's loads where a source is unaligned) and direct kernel,
-    # K3's frame groups cut at b0 (one and two frames a pass, frames per
-    # CTA 1, 2, 3 and all)
+    # K3's frame groups cut at b0 (one frame a pass and each plan range's
+    # own, frames per CTA 1, 2, 3 and all)
     g = torch.Generator(device=gpu).manual_seed(21)
     mx = 255 if depth == 8 else 1023
     lib, stream = window._lib(), torch.cuda.current_stream().cuda_stream
@@ -546,7 +551,7 @@ def test_kernels_read_two_sources(layout, depth, gpu):
                     for group in wt.groups:
                         window.launch_class(lib, wt, xs, out, group,
                                             min(frames or b0 + b1, b0 + b1),
-                                            pair and window.pairs(group[2]), stream, mx)
+                                            group[3] if pair else 1, stream, mx)
                     assert _same(out, want), (name, layout, b0, b1, frames, pair)
         if layout in ("unaligned stride", "unaligned base") and t.blur.ring_ry > 0:
             assert blur.copy_mode(t.blur, xs) == blur.COPY_WARP
@@ -589,7 +594,8 @@ def test_window_kernel_at_4k(name, depth, gpu):
     # K3 at 0 LSB on the 4K plans' luma and chroma: the flagship's
     # (1536x1024 and 768x512) and its 2x2 supersampled twin's (3072x2048
     # and 1536x1024: windows of a few samples a pixel), at batch 1, 16 and
-    # 128 (two frames a pass, batches that end mid-pass), and the chroma
+    # 128 (small windows WIDE_FRAMES frames a pass from 16 frames on, the
+    # others two; batches that end mid-pass), and the chroma
     # as U and V in place: two separate sources and strided views of
     # packed frames
     pix_fmt = "yuv420p" if depth == 8 else "yuv420p10le"
@@ -608,6 +614,132 @@ def test_window_kernel_at_4k(name, depth, gpu):
             for layout in ("separate", "strided"):
                 xs = _two_sources(x[:33], 16, layout)
                 assert _same(window.remap_window_px(wt, xs, mx), want[:33]), (name, layout)
+
+
+# plans whose class 0 has small windows (WIDE_FRAMES frames a pass, in a
+# range of their own whatever their share: WIDE_PLAN) and others (two),
+# and a larger class: a wrapping cubemap at T = 4 and at T = 8, and a
+# barrel (transparent border: clamp with fill and a valid mask) whose
+# global-path tiles lead the small windows' launch
+WIDE_PLAN = (window.SMALL_BYTES, window.WIDE_FRAMES, 0.0)
+WIDE_CASES = {
+    "cubic-cubemap": (TransformConfig(**MONO), 1024, 512, 384, 256),
+    "lanczos4-cubemap": (TransformConfig(interpolation_alg=Interpolation.LANCZOS4, **MONO),
+                         1024, 512, 384, 256),
+    "cubic-barrel-global": (TransformConfig(output_layout=Layout.BARREL, **MONO),
+                            2048, 1024, 640, 256),
+}
+
+
+def _wide_tables(pp, gpu):
+    """``pp``'s K3 tables with class 0's small windows in a range of their
+    own (``WIDE_PLAN``)."""
+    sb = 1 if pp.dtype == torch.uint8 else 2
+    return window.WindowTables.from_plan(window.build_window_plan(pp.spec, pp.fill, sb, WIDE_PLAN),
+                                         gpu)
+
+
+def _plain_in_chunks(pp, t, x, mx):
+    """``remap_plain`` rounded, 16 frames at a time."""
+    return torch.cat([round_px(remap_plain(t.remap, x[k:k + 16]), mx, pp.dtype)
+                      for k in range(0, x.shape[0], 16)])
+
+
+@pytest.mark.parametrize("depth", [8, 10])
+@pytest.mark.parametrize("name", sorted(WIDE_CASES))
+def test_window_kernel_wide_passes(name, depth, gpu):
+    # small windows staged WIDE_FRAMES frames a pass, the pass's copies
+    # dealt over every thread, 0 LSB against remap_plain with TF32 on and
+    # off: the package's launches at batch 1, 7, 9, 17, 128 and 129 (one
+    # class-0 launch at two frames a pass on CTA_FRAMES_MIN frames or
+    # fewer), and each plan range at its own frames a pass on the whole
+    # batch and on 3 and 11 frames a CTA (passes cut short, odd counts)
+    cfg, iw, ih, ow, oh = WIDE_CASES[name]
+    pp = P.build_plan(cfg, iw, ih, ow, oh, "gray" if depth == 8 else "gray10le").luma
+    wt, t, mx = _wide_tables(pp, gpu), pp.tables(gpu), pp.maxval
+    assert [g[3] for g in wt.groups] == [window.WIDE_FRAMES, 2, 1]
+    g = torch.Generator(device=gpu).manual_seed(depth + 22)
+    shape = (129, ih, iw)
+    x = torch.randint(0, 256, shape, dtype=torch.uint8, device=gpu, generator=g) \
+        if depth == 8 else _rand_u16(shape, mx, gpu, g)
+    want = _plain_in_chunks(pp, t, x, mx)
+    lib, stream = window._lib(), torch.cuda.current_stream().cuda_stream
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    try:
+        for on in (True, False):
+            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = on
+            for b in (1, 7, 9, 17, 128, 129):
+                got = window.remap_window_px(wt, x[:b], mx)
+                assert _same(got, want[:b]), (name, depth, b, on)
+                for frames in (b, 3, 11):
+                    out = torch.zeros((b, wt.out_h, wt.out_w), dtype=pp.dtype, device=gpu)
+                    for group in wt.groups:
+                        window.launch_class(lib, wt, x[:b], out, group, min(frames, b), group[3],
+                                            stream, mx)
+                    assert _same(out, want[:b]), (name, depth, b, frames, on)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+
+@pytest.mark.parametrize("layout", ["separate", "strided"])
+def test_window_kernel_wide_passes_two_sources(layout, gpu):
+    # U and V as two sources whose cut falls inside a pass of WIDE_FRAMES
+    # frames (b0 13, 21: a CTA of source 0 ends mid-pass), at uint8 and
+    # 10 bits, through the package's launches and each range on its own
+    for pix_fmt, mx in (("yuv420p", 255), ("yuv420p10le", 1023)):
+        cfg, iw, ih, ow, oh = WIDE_CASES["cubic-cubemap"]
+        pp = P.build_plan(cfg, 2 * iw, 2 * ih, 2 * ow, 2 * oh, pix_fmt).chroma
+        wt, t = _wide_tables(pp, gpu), pp.tables(gpu)
+        assert wt.groups[0][3] == window.WIDE_FRAMES
+        g = torch.Generator(device=gpu).manual_seed(mx)
+        lib, stream = window._lib(), torch.cuda.current_stream().cuda_stream
+        for b0, b1 in ((13, 16), (21, 19), (1, 16)):
+            shape = (b0 + b1, pp.in_h, pp.in_w)
+            x = torch.randint(0, 256, shape, dtype=torch.uint8, device=gpu, generator=g) \
+                if mx == 255 else _rand_u16(shape, mx, gpu, g)
+            xs = _two_sources(x, b0, layout)
+            want = _plain_in_chunks(pp, t, x, mx)
+            assert _same(window.remap_window_px(wt, xs, mx), want), (pix_fmt, b0, b1)
+            for frames in (b0 + b1, 5, 16):
+                out = torch.zeros((b0 + b1, wt.out_h, wt.out_w), dtype=pp.dtype, device=gpu)
+                for group in wt.groups:
+                    window.launch_class(lib, wt, xs, out, group, frames, group[3], stream, mx)
+                assert _same(out, want), (pix_fmt, b0, b1, frames)
+
+
+def test_replay_at_batch_8_keeps_one_node_per_window_class(gpu, monkeypatch):
+    # the 2x2 supersampled 4K cubemap's class 0 is launched in two ranges
+    # (its small windows WIDE_FRAMES frames a pass) on long batches; at
+    # GRAPH_MAX_BATCH frames (8; 16 chroma planes, no more than
+    # CTA_FRAMES_MIN) they go out as one launch: each plane's graph holds
+    # one K3 node per window class present, as before class 0 was split,
+    # a replay re-points the nodes that touch the caller's planes (K1's
+    # and K4's, 4), and replays equal the eager program at 0 LSB
+    assert pipeline.GRAPH_MAX_BATCH == 8
+    eng = P.open_filter(K3_4K["ss2x2"], 3840, 2160, device=gpu)
+    pipeline.clear_executor_cache()
+    g = torch.Generator(device=gpu).manual_seed(8)
+    sets = [[torch.randint(0, 256, (8, h, w), dtype=torch.uint8, device=gpu, generator=g)
+             for h, w in ((2160, 3840), (1080, 1920), (1080, 1920))] for _ in range(3)]
+    outs = [eng.transform(*sets[0])]  # eager, then captured
+    want_nodes = 0
+    for pp in (eng.plan.luma, eng.plan.chroma):
+        wp = pp.window_plan()
+        classes = len({int(c) for c in wp.tile_class if c >= 0})
+        assert len(wp.groups) == classes + 1  # class 0 in two ranges
+        (graph,) = pipeline.plane_executor(pp, gpu)._by_shape.values()
+        assert dict(graph.launches)["window.launches"] == classes
+        assert "window.tiles_wide" not in dict(graph.launches)
+        want_nodes += len(graph.program.nodes)
+    assert want_nodes == 4
+    for k in (1, 2):
+        n = COUNTERS["nodes.updates"]
+        outs.append(eng.transform(*sets[k]))
+        assert COUNTERS["nodes.updates"] - n == want_nodes
+    monkeypatch.setattr(pipeline, "GRAPH_MAX_BATCH", 0)  # the eager program
+    for k in range(3):
+        for a, w in zip(outs[k], eng.transform(*sets[k])):
+            assert _same(a, w), k
 
 
 @pytest.mark.parametrize("depth", [10, 16])
@@ -635,7 +767,8 @@ def test_uint16_kernels_match_plain(name, depth, gpu):
         n = COUNTERS["window.launches_u16"]
         got = window.remap_window_px(wt, x, mx)
         torch.cuda.synchronize()
-        assert COUNTERS["window.launches_u16"] == n + len(wt.groups) and got.dtype == torch.uint16
+        assert COUNTERS["window.launches_u16"] == n + len(window.launches(wt.groups, 5))
+        assert got.dtype == torch.uint16
         assert (COUNTERS["blur.launches"], COUNTERS["window.launches"]) == n8  # no uint8 launch
         want = round_px(remap_plain(t.remap, x), mx, torch.uint16)
         _assert_close(got, want, f"K3 u16 {name}")
@@ -1124,9 +1257,10 @@ def test_failed_capture_raises_and_never_runs_eagerly(gpu, monkeypatch):
         with pytest.raises(RuntimeError, match="CUDA graph"):
             pipeline.transform_batch(plan, *planes)
         torch.cuda.synchronize()
-        # only the luma warm-up ran: K1 once and K3 once per luma class
+        # only the luma warm-up ran: K1 once and K3 once per luma launch
         assert COUNTERS["blur.launches"] - n[0] == 1
-        assert COUNTERS["window.launches"] - n[2] == len(plan.luma.window_tables(gpu).groups)
+        assert COUNTERS["window.launches"] - n[2] == len(
+            window.launches(plan.luma.window_tables(gpu).groups, 2))
         assert not pipeline.plane_executor(plan.luma, gpu)._by_shape
     monkeypatch.setattr(pipeline, "_plane_program", real)
     got = pipeline.transform_batch(plan, *planes)  # the device is still usable
@@ -1174,6 +1308,7 @@ def test_spans_hold_the_launches_cupti_traces(gpu, tmp_path):
             and "correlation" in e.get("args", {})}
     kernels = [e for e in events if e.get("cat") == "kernel"
                and ("blur" in e["name"] or "window_kernel" in e["name"])]
-    groups = sum(len(pp.window_tables(gpu).groups) for pp in (eng.plan.luma, eng.plan.chroma))
+    groups = sum(len(window.launches(pp.window_tables(gpu).groups, *b))
+                 for pp, b in ((eng.plan.luma, (16,)), (eng.plan.chroma, (32, 16))))
     assert len(wrappers) == 4 and len(kernels) == 2 + groups
     assert all(within(host[k["args"]["correlation"]], wrappers) for k in kernels)

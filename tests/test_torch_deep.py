@@ -38,6 +38,7 @@ from transform360_tpu_torch.filtering import blur_plain
 from transform360_tpu_torch.ops import blur, window
 from transform360_tpu_torch.plan import config_from_jax, plan_from_jax
 from transform360_tpu_torch.sampling import DeviceSpec, remap_plain, round_px
+from tests.test_torch_window_plan import check_launch_ranges
 
 MONO = dict(input_stereo_format=StereoFormat.MONO, output_stereo_format=StereoFormat.MONO)
 
@@ -160,9 +161,10 @@ def _check_u16_window_plan(wp):
         assert (nbytes[sel] <= budget).all()
         if c:
             assert (nbytes[sel] > window.CLASS_BYTES[c - 1]).all()
-    for first, count, win in wp.groups:
-        assert win % window.VEC == 0 and window.smem_bytes(win) <= window.SMEM_MAX
+    for first, count, win, fp in wp.groups:
+        assert win % window.VEC == 0 and window.smem_bytes(win, fp) <= window.SMEM_MAX
         assert (nbytes[first:first + count] <= win).all()
+    check_launch_ranges(wp, 2)
     need = (ly.max(axis=1) + T) * (-(-(lx.max(axis=1) + T) // cs) * cs) * 2
     assert (need[~staged] > window.CLASS_BYTES[-1]).all()
     return staged

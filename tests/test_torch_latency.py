@@ -152,7 +152,9 @@ def test_plan_row_costs_model():
     luma = L._plane_row_costs(plan.luma)
     wp = plan.luma.window_plan()
     assert plan.luma.window_plan() is wp  # built once, shared with window_tables
-    win = {int(wp.tile_class[f + c - 1]): w for f, c, w in wp.groups}
+    win = {}  # a class's largest launch window: class 0 has two launches
+    for f, c, w, _ in wp.groups:
+        win[int(wp.tile_class[f + c - 1])] = max(w, win.get(int(wp.tile_class[f + c - 1]), 0))
     weight = np.array([win[c] if c >= 0 else CLASS_BYTES[-1] for c in wp.tile_class.tolist()])
     rows = np.minimum(TH, wp.out_h - wp.meta[:, 0]) / TH  # a ragged last tile row
     assert luma.sum() == pytest.approx(float((weight * rows).sum()))

@@ -5,8 +5,10 @@ remap and the JAX package's window-gather kernel B5.
   windowed tile lies in its window, and so does every 32-bit word the
   kernel loads for a tap row; each class fits its budget and each launch
   its shared memory; tiles whose window exceeds the largest class are
-  flagged for the global path.  How a launch splits the batch among CTAs
-  and which launches take two frames per pass.
+  flagged for the global path; the launch ranges (class 0's small
+  windows, its others, the larger class: tests/test_torch_window_plan.py).
+  How a launch splits the batch among CTAs and the frames a pass of each
+  launch's shared memory.
 * ``remap_window_plain`` walks that plan and equals ``remap_plain`` byte
   for byte (the unrounded floats too): every interpolator on a wrapping
   cubemap, and the barrel's clamp-with-fill (linear) and REFLECT_101
@@ -52,6 +54,7 @@ from transform360_tpu_torch.ops.window import (
 )
 from transform360_tpu_torch.plan import plan_from_jax
 from transform360_tpu_torch.sampling import DeviceSpec, remap_plain, round_u8
+from tests.test_torch_window_plan import check_launch_ranges
 
 MONO = dict(input_stereo_format=StereoFormat.MONO, output_stereo_format=StereoFormat.MONO)
 FMA_TIE_FRAC = 0.002  # the bound of tests/test_torch_pipeline.py
@@ -103,8 +106,9 @@ def _check_plan(wp):
     hits = np.bincount(oy[inside] * wp.out_w + ox[inside], minlength=wp.out_h * wp.out_w)
     assert (hits == 1).all()
     # launch groups cover the tiles in order
-    assert sum(c for _, c, _ in wp.groups) == n
-    assert [f for f, _, _ in wp.groups] == list(np.cumsum([0] + [c for _, c, _ in wp.groups])[:-1])
+    assert sum(g[1] for g in wp.groups) == n
+    assert [g[0] for g in wp.groups] == list(np.cumsum([0] + [g[1] for g in wp.groups])[:-1])
+    check_launch_ranges(wp)
     ly = (wp.pos & 0xFFFF).reshape(n, -1).astype(np.int64)
     lx = (wp.pos >> 16).reshape(n, -1).astype(np.int64)
     assert (x0 % window.VEC == 0).all() and (lx >= 0).all()
@@ -130,9 +134,9 @@ def _check_plan(wp):
         assert (nbytes[sel] <= budget).all()
         if c:
             assert (nbytes[sel] > CLASS_BYTES[c - 1]).all()
-    for first, count, win in wp.groups:
-        assert win % window.VEC == 0 and smem_bytes(win) <= SMEM_MAX
-        assert smem_bytes(win) == (4 if window.pairs(win) else 2) * win + win // 4
+    for first, count, win, fp in wp.groups:
+        assert win % window.VEC == 0 and smem_bytes(win, fp) <= SMEM_MAX
+        assert smem_bytes(win, fp) == 2 * fp * win + win // 4
         assert (nbytes[first:first + count] <= win).all()
     # oversized tiles are flagged: the window they would need exceeds the
     # largest class
@@ -157,12 +161,25 @@ def test_frames_per_cta_and_pairs():
     assert window.frames_per_cta(1, 80) == 1
     assert window.frames_per_cta(256, 1512) == 128  # two groups
     assert window.frames_per_cta(256, 384) == 43  # six groups
-    # class 0's launches take two frames per pass: four windows and the
-    # chunk table; the larger class's take one
-    assert window.pairs(0) and window.pairs(CLASS_BYTES[0])
-    assert not window.pairs(CLASS_BYTES[0] + window.VEC) and not window.pairs(CLASS_BYTES[1])
-    assert smem_bytes(12 * 1024) == 4 * 12 * 1024 + 3 * 1024
-    assert smem_bytes(64 * 1024) == 2 * 64 * 1024 + 16 * 1024
+    # a launch's shared memory: two passes of its frames' windows and the
+    # chunk table; class 0's small windows take WIDE_FRAMES frames a pass
+    # on batches of more than CTA_FRAMES_MIN frames, its others two, the
+    # larger class one
+    assert smem_bytes(12 * 1024, 2) == 4 * 12 * 1024 + 3 * 1024
+    assert smem_bytes(64 * 1024, 1) == 2 * 64 * 1024 + 16 * 1024
+    assert smem_bytes(3 * 1024, 8) == 16 * 3 * 1024 + 768
+    groups = ((0, 100, 2048, 8), (100, 20, 9216, 2), (120, 4, 40960, 1))
+    assert window.launches(groups, 17) == [(0, 100, 2048, 8, 17), (100, 20, 9216, 2, 17),
+                                           (120, 4, 40960, 1, 17)]
+    assert window.launches(groups, 16) == [(0, 120, 9216, 2, 16), (120, 4, 40960, 1, 16)]
+    # a CTA walks one source's frames: U and V of 16 frames each, not 32;
+    # a launch of few tiles splits a long batch into CTAs of 16 frames
+    assert window.launches(groups, 32, 16) == [(0, 120, 9216, 2, 16), (120, 4, 40960, 1, 16)]
+    assert window.launches(groups, 34, 17) == [
+        (0, 100, 2048, 8, 17), (100, 20, 9216, 2, 17), (120, 4, 40960, 1, 17)]
+    assert window.launches(groups, 128)[0] == (0, 100, 2048, 8, 16)
+    assert window.launches(groups[:1] + groups[2:], 1) == [(0, 100, 2048, 2, 1),
+                                                           (120, 4, 40960, 1, 1)]
 
 
 @pytest.mark.parametrize("B, n_tiles", [

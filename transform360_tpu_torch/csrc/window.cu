@@ -51,18 +51,29 @@
 // starts, so that a CTA picks its source once and its frame loop is the
 // one-source loop.  Per
 // frame the CTA issues one 16-byte cp.async per chunk from the table,
-// double-buffered so that the next frames' windows load while these are
-// computed (the counterpart of the TPU kernel's double-buffered window
-// DMA); a pass's two frames are copied in one walk of the table, each
-// entry read once.  The windows' shared-space address and the thread's
+// double-buffered so that the next pass's windows load while this pass's
+// are computed (the counterpart of the TPU kernel's double-buffered window
+// DMA).  A launch gives its frames a pass (ops/window.py): one in the
+// larger class; two in class 0, each thread copying its chunks of both
+// frames (each table entry read once); or, in the WIDE instantiations,
+// for class 0's small windows (3 KB at most) where they are nearly all
+// of it and a CTA walks more than 16 frames, 8.  A wide pass's 8 x n
+// copies, for a window of n chunks, are dealt over all 256 threads (item
+// k: chunk k mod n of frame k / n, stepped by subtraction), so that every
+// warp issues a share: with n under 256, as on the 2x2 supersampled
+// cubemap's small windows (44 chunks a frame), a chunk-per-thread walk
+// left the copies to the first warp or two, and the other warps waited for
+// them at the pass's barrier; the 8 frames share the pass's two barriers
+// and are summed two at a time.  K3 at 3072x2048 runs about 4% faster so
+// (PERF.md §6).  Kept apart from the two-frame loop: a runtime switch, or
+// wide and two-frame tiles in one launch, measured slower.  The windows'
+// shared-space address and the thread's
 // index are made once per CTA, opaque to the compiler: left to itself it
 // read the CTA's id (SR_CgaCtaId) twice a pass to rebuild the address,
 // and the thread's index once.  Together these took K3 about 10% faster
 // at 3072x2048 (PERF.md §6).  The plan's window budgets are in bytes, so
-// a uint16 window holds half the samples of a uint8 one.  Where the
-// launch asks for it (windows of class 0), a pass takes
-// two frames: their sums share the weights and interleave, and the
-// barriers and the copies' bookkeeping are paid once.  A thread reads each
+// a uint16 window holds half the samples of a uint8 one.  Two frames'
+// sums share the weights and interleave.  A thread reads each
 // tap row as the aligned 32-bit words that hold it (4 samples a word at
 // uint8, 2 at uint16; 2 words for T = 4 at uint8, never a word past the
 // row's last tap), funnel-shifts them into place and turns each sample
@@ -97,10 +108,18 @@ constexpr int kLogWord = sizeof(S) == 1 ? 2 : 1;
 template <typename S>
 constexpr int kLogChunk = kLogWord<S> + 2;
 
-// A CTA's dynamic shared memory: two passes of one or two frames' windows
+constexpr int kMaxPass = 8;  // frames per pass, at most
+
+// A launch's frames per pass: 1, or an even count up to kMaxPass (the wide
+// loop sums them two at a time).
+constexpr bool pass_ok(int pass_frames) {
+  return pass_frames == 1 || (pass_frames % 2 == 0 && pass_frames > 0 && pass_frames <= kMaxPass);
+}
+
+// A CTA's dynamic shared memory: two passes of pass_frames frames' windows
 // and the chunk table.
-constexpr int smem_bytes(int win_bytes, bool pairs) {
-  return (pairs ? 4 : 2) * win_bytes + win_bytes / 4;
+constexpr int smem_bytes(int win_bytes, int pass_frames) {
+  return 2 * pass_frames * win_bytes + win_bytes / 4;
 }
 
 template <typename S>
@@ -121,8 +140,8 @@ struct Args {
   int frames;  // per CTA: frames [blockIdx.y * frames, ...) of the batch
   float fill;
   float maxval;  // uint16: the depth's largest sample (uint8: 255)
-  bool vec;    // W, every source's base and frame stride are 16-byte aligned
-  bool pairs;  // two frames per pass
+  bool vec;         // W, every source's base and frame stride are 16-byte aligned
+  int pass_frames;  // frames per pass: 1, or even up to kMaxPass
 };
 
 // i mod n for 0 <= i < 2^31 by shift and subtract: the division unit's
@@ -131,6 +150,17 @@ __device__ __noinline__ int rem(int i, int n) {
   for (int d = n << (__clz(n) - 1); d >= n; d >>= 1)
     if (i >= d) i -= d;
   return i;
+}
+
+// (i mod n) | (i / n) << 16 for 0 <= i <= 256 and n >= 1, by shift and
+// subtract: a thread's first item of a pass's copies, and the step from
+// one of its items to the next.
+__device__ __forceinline__ uint32_t item_of(int i, int n) {
+  int q = 0;
+#pragma unroll
+  for (int s = 8; s >= 0; --s)
+    if (i >= (n << s)) i -= n << s, q |= 1 << s;
+  return static_cast<uint32_t>(i) | static_cast<uint32_t>(q) << 16;
 }
 
 // The border rule on one index.  K3's indices lie within a period of the
@@ -208,15 +238,37 @@ __device__ __forceinline__ void chunk_table(const S* __restrict__ frame0, S* buf
 // into buf + step, from the chunk table, each entry read once for both;
 // sbuf is buf's shared-space address, tid the thread's index.
 template <typename S, int MODE>
-__device__ __forceinline__ void stage(const S* __restrict__ frame, long long fs, bool two,
-                                      S* buf, unsigned sbuf, int step, const uint32_t* tab,
-                                      int n, int x0, int W, int tid) {
+__device__ __forceinline__ void stage_pair(const S* __restrict__ frame, long long fs, bool two,
+                                           S* buf, unsigned sbuf, int step, const uint32_t* tab,
+                                           int n, int x0, int W, int tid) {
   for (int i = tid; i < n; i += kThreads) {
     const uint32_t e = tab[i];
     copy_chunk<S, MODE>(frame, buf + (i << kLogChunk<S>), sbuf + (i << 4), e, x0, W);
     if (two)
       copy_chunk<S, MODE>(frame + fs, buf + step + (i << kLogChunk<S>),
                           sbuf + step * sizeof(S) + (i << 4), e, x0, W);
+  }
+}
+
+// The windows of `count` frames from `frame` on, fs samples apart, into
+// buf, win samples apart, from the chunk table of n chunks a window: item
+// k of the count x n copies is chunk k mod n of frame k / n.  This thread
+// takes items first, first + 256, ..., each held as (chunk) | (frame) <<
+// 16 (item_of), the next one `step` on, less n chunks where the chunk
+// passes n.  sbuf is buf's shared-space address.
+template <typename S, int MODE>
+__device__ __forceinline__ void stage(const S* __restrict__ frame, int fs, int count, S* buf,
+                                      unsigned sbuf, int win, const uint32_t* tab, int n,
+                                      uint32_t first, uint32_t step, int x0, int W) {
+  constexpr int lc = kLogChunk<S>;
+  for (uint32_t k = first; static_cast<int>(k >> 16) < count;) {
+    const int i = k & 0xFFFFu;
+    const int j = k >> 16;
+    const int off = j * win + (i << lc);  // samples into buf
+    copy_chunk<S, MODE>(frame + static_cast<long long>(j) * fs, buf + off,
+                        sbuf + off * static_cast<int>(sizeof(S)), tab[i], x0, W);
+    k += step;
+    if (static_cast<int>(k & 0xFFFFu) >= n) k += 0x10000u - n;
   }
 }
 
@@ -290,14 +342,16 @@ __device__ __forceinline__ void put(S* out, float acc, float fill_term, bool inv
 }
 
 // Four CTAs per SM where a thread's weights are 16 registers or fewer (at
-// most 64 registers), else two.
-template <typename S, int T, int MODE>
+// most 64 registers), else two.  WIDE: more than two frames a pass, their
+// copies dealt over every thread; else one or two, each thread copying its
+// chunks of both.
+template <typename S, int T, int MODE, bool WIDE>
 __global__ void __launch_bounds__(kThreads, T * T <= 16 ? 4 : 2)
     window_kernel(const Args<S> a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  // frames per pass: two where the launch holds four windows (two passes
-  // in flight), else one
-  const int fp = a.pairs ? 2 : 1;
+  // frames per pass, two passes in flight: 1 or 2 unless WIDE (the
+  // compiler knows as much)
+  const int fp = WIDE ? a.pass_frames : a.pass_frames == 2 ? 2 : 1;
   uint32_t* tab = reinterpret_cast<uint32_t*>(smem + 2 * fp * a.win_bytes);
   S* const bufs = reinterpret_cast<S*>(smem);
   // bufs' shared-space address and this thread's index, made once and
@@ -324,8 +378,8 @@ __global__ void __launch_bounds__(kThreads, T * T <= 16 ? 4 : 2)
   const S* src = (second ? a.src1 : a.src0) + static_cast<long long>(fz) * fs;
   S* dst = a.dst + static_cast<long long>(second ? a.b0 + fz : fz) * N;
 
-  // frame f + j of a pass with parity `half` is staged at
-  // bufs + (half * fp + j) * win
+  // frame f + j of a pass with parity `half` (frame f its first) is
+  // staged at bufs + (half * fp + j) * win
   // the pixel's plan entry is in flight while the chunk table is built,
   // and frame 0's window while the pixel is set up
   const size_t ip = static_cast<size_t>(t) * kThreads + threadIdx.x;
@@ -371,30 +425,80 @@ __global__ void __launch_bounds__(kThreads, T * T <= 16 ? 4 : 2)
   }
   const float fill_term = __fmul_rn(fill_w, a.fill);
   const uint32_t fill_px = round_sample<S>(a.fill, a.maxval);
-  if (staged) {
-    __syncthreads();  // the chunk table is complete
-    if (fp == 2 && nf > 1)
-      stage<S, MODE>(src + fs, 0, false, bufs + win, sbufs + win * sizeof(S), 0, tab, nchunks,
-                     x0, a.W, tid);
-    t360::cp_async_commit();
+  // Each frame loop below sums frame f and, if two, f + 1, staged at buf
+  // and buf + win, then rounds and stores them; the branches stay outside
+  // the sums, so the two frames' sums interleave.  (One helper for both
+  // loops took the two-frame loop from 62 registers to 64, and slower.)
+  if (!WIDE) {  // one or two frames a pass
+    if (staged) {
+      __syncthreads();  // the chunk table is complete
+      if (fp == 2 && nf > 1)
+        stage_pair<S, MODE>(src + fs, 0, false, bufs + win, sbufs + win * sizeof(S), 0, tab,
+                            nchunks, x0, a.W, tid);
+      t360::cp_async_commit();
+    }
+    int half = 0;
+    for (int f = 0; f < nf; f += fp) {
+      const bool two = fp == 2 && f + 1 < nf;
+      if (staged) {
+        if (f + fp < nf)  // the next pass's frames
+          stage_pair<S, MODE>(src + static_cast<long long>(f + fp) * fs, fs,
+                              fp == 2 && f + fp + 1 < nf, bufs + (half ^ 1) * fp * win,
+                              sbufs + (half ^ 1) * fp * win * sizeof(S), win, tab, nchunks, x0,
+                              a.W, tid);
+        t360::cp_async_commit();  // empty past the batch's end
+        t360::cp_async_wait<1>();
+        __syncthreads();  // this pass's windows are complete
+      }
+      float acc0, acc1 = 0.0f;
+      const S* buf = bufs + half * fp * win;
+      if (staged) {
+        acc0 = sum_staged<S, T>(buf, o, pitch, w);
+        if (two) acc1 = sum_staged<S, T>(buf + win, o, pitch, w);
+      } else {
+        const S* frame = src + static_cast<long long>(f) * fs;
+        acc0 = sum_global<S, T, MODE>(frame, y0 + (o & 0xFFFF), x0 + (o >> 16), a.H, a.W, w);
+        if (two)
+          acc1 = sum_global<S, T, MODE>(frame + fs, y0 + (o & 0xFFFF), x0 + (o >> 16), a.H,
+                                        a.W, w);
+      }
+      S* out = dst + static_cast<long long>(f) * N;
+      put<S, T, MODE>(out, acc0, fill_term, invalid, fill_px, a.maxval, oo);
+      if (two) put<S, T, MODE>(out + N, acc1, fill_term, invalid, fill_px, a.maxval, oo);
+      if (staged) __syncthreads();  // this half is free for the pass after next
+      half ^= 1;
+    }
+    return;
   }
 
-  int half = 0;
-  for (int f = 0; f < nf; f += fp) {
-    const bool two = fp == 2 && f + 1 < nf;
-    if (staged) {
-      if (f + fp < nf)  // the next pass's frames
-        stage<S, MODE>(src + static_cast<long long>(f + fp) * fs, fs, fp == 2 && f + fp + 1 < nf,
-                       bufs + (half ^ 1) * fp * win, sbufs + (half ^ 1) * fp * win * sizeof(S),
-                       win, tab, nchunks, x0, a.W, tid);
+  // fp (even) frames a pass, their copies dealt over every thread: this
+  // thread's first item of a pass's copies, and the step to its next
+  uint32_t first = 0, step = 0;
+  if (staged) {
+    first = item_of(tid, nchunks);
+    step = item_of(kThreads, nchunks);
+    __syncthreads();  // the chunk table is complete
+    // the first pass's other frames (chunk_table copied frame 0)
+    stage<S, MODE>(src + fs, fs, min(fp, nf) - 1, bufs + win, sbufs + win * sizeof(S), win, tab,
+                   nchunks, first, step, x0, a.W);
+    t360::cp_async_commit();
+  }
+  // two frames a trip: frame f is frame j of its pass, whose windows are
+  // staged at its first frame and freed after its last
+  int half = 0, j = 0;
+  for (int f = 0; f < nf; f += 2) {
+    if (staged && j == 0) {
+      // the next pass's frames (none past the batch's end)
+      stage<S, MODE>(src + static_cast<long long>(f + fp) * fs, fs, min(fp, nf - f - fp),
+                     bufs + (half ^ 1) * fp * win, sbufs + (half ^ 1) * fp * win * sizeof(S),
+                     win, tab, nchunks, first, step, x0, a.W);
       t360::cp_async_commit();  // empty past the batch's end
       t360::cp_async_wait<1>();
       __syncthreads();  // this pass's windows are complete
     }
-    // the branches stay outside the sums, so the two frames' sums
-    // interleave
+    const bool two = f + 1 < nf;
     float acc0, acc1 = 0.0f;
-    const S* buf = bufs + half * fp * win;
+    const S* buf = bufs + (half * fp + j) * win;
     if (staged) {
       acc0 = sum_staged<S, T>(buf, o, pitch, w);
       if (two) acc1 = sum_staged<S, T>(buf + win, o, pitch, w);
@@ -408,38 +512,45 @@ __global__ void __launch_bounds__(kThreads, T * T <= 16 ? 4 : 2)
     S* out = dst + static_cast<long long>(f) * N;
     put<S, T, MODE>(out, acc0, fill_term, invalid, fill_px, a.maxval, oo);
     if (two) put<S, T, MODE>(out + N, acc1, fill_term, invalid, fill_px, a.maxval, oo);
-    if (staged) __syncthreads();  // this half is free for the pass after next
-    half ^= 1;
+    j += 2;
+    if (j == fp) {  // the pass's last frames (a batch's last pass may end before)
+      if (staged) __syncthreads();  // this half is free for the pass after next
+      half ^= 1;
+      j = 0;
+    }
   }
 }
 
-template <typename S, int T>
+template <typename S, int T, bool WIDE>
 const void* with_mode(int mode) {
   switch (mode) {
-    case 0: return reinterpret_cast<const void*>(window_kernel<S, T, 0>);
-    case 1: return reinterpret_cast<const void*>(window_kernel<S, T, 1>);
-    case 2: return reinterpret_cast<const void*>(window_kernel<S, T, 2>);
+    case 0: return reinterpret_cast<const void*>(window_kernel<S, T, 0, WIDE>);
+    case 1: return reinterpret_cast<const void*>(window_kernel<S, T, 1, WIDE>);
+    case 2: return reinterpret_cast<const void*>(window_kernel<S, T, 2, WIDE>);
     default: return nullptr;
   }
 }
 
-template <typename S>
+template <typename S, bool WIDE>
 const void* with_taps(int taps, int mode) {
   switch (taps) {
-    case 1: return with_mode<S, 1>(mode);
-    case 2: return with_mode<S, 2>(mode);
-    case 4: return with_mode<S, 4>(mode);
-    case 8: return with_mode<S, 8>(mode);
+    case 1: return with_mode<S, 1, WIDE>(mode);
+    case 2: return with_mode<S, 2, WIDE>(mode);
+    case 4: return with_mode<S, 4, WIDE>(mode);
+    case 8: return with_mode<S, 8, WIDE>(mode);
     default: return nullptr;
   }
 }
 
-// The instantiation for a sample size (1: uint8, 2: uint16), T taps and a
-// border mode.
-const void* kernel_for(int sample_bytes, int taps, int mode) {
+// The instantiation for a sample size (1: uint8, 2: uint16), T taps, a
+// border mode and frames a pass (1 or 2; more: WIDE).
+const void* kernel_for(int sample_bytes, int taps, int mode, int pass_frames) {
+  const bool wide = pass_frames > 2;
   switch (sample_bytes) {
-    case 1: return with_taps<uint8_t>(taps, mode);
-    case 2: return with_taps<uint16_t>(taps, mode);
+    case 1:
+      return wide ? with_taps<uint8_t, true>(taps, mode) : with_taps<uint8_t, false>(taps, mode);
+    case 2:
+      return wide ? with_taps<uint16_t, true>(taps, mode) : with_taps<uint16_t, false>(taps, mode);
     default: return nullptr;
   }
 }
@@ -465,7 +576,7 @@ struct WindowCall {
   const float* wtab;
   int first, tiles, win_bytes, taps, mode;
   float fill;
-  int vec, frames, pairs;
+  int vec, frames, pass_frames;
 };
 
 namespace {
@@ -481,7 +592,7 @@ Args<S> args_of(const WindowCall& c, int g0) {
                  static_cast<int>(c.fs0), static_cast<int>(c.fs1), c.b0, g0,
                  static_cast<S*>(c.dst), c.meta, c.pos, c.fy, c.fx, c.wtab,
                  c.B, c.H, c.W, c.out_h, c.out_w, c.first, c.win_bytes, c.frames, c.fill,
-                 c.maxval, c.vec != 0, c.pairs != 0};
+                 c.maxval, c.vec != 0, c.pass_frames};
 }
 
 // Checks a launch of K3 and builds its Args, then returns f(kernel, grid,
@@ -491,8 +602,8 @@ template <typename F>
 int with_launch(F&& f, const WindowCall& c) {
   const auto& [src0, fs0, b0, src1, fs1, dst, sample_bytes, maxval, B, H, W, out_h, out_w, meta,
                pos, fy, fx, wtab, first, tiles, win_bytes, taps, mode, fill, vec, frames,
-               pairs] = c;
-  const void* k = kernel_for(sample_bytes, taps, mode);
+               pass_frames] = c;
+  const void* k = kernel_for(sample_bytes, taps, mode, pass_frames);
   const long long plane = static_cast<long long>(H) * W;
   const int g0 = frames > 0 ? (b0 + frames - 1) / frames : 0;  // source 0's frame groups
   const int groups = frames > 0 ? g0 + (B - b0 + frames - 1) / frames : 0;
@@ -503,13 +614,13 @@ int with_launch(F&& f, const WindowCall& c) {
       static_cast<long long>(out_h) * out_w >= (1LL << 31) ||
       groups > 65535 || (win_bytes & 15) != 0 ||
       static_cast<long long>(H) * W >= (1LL << 31) || H >= (1 << 16) ||
-      smem_bytes(win_bytes, pairs) > 227 * 1024 ||
+      !pass_ok(pass_frames) || smem_bytes(win_bytes, pass_frames) > 227 * 1024 ||
       (vec && ((static_cast<long long>(W) * sample_bytes) % 16 != 0 ||
                !aligned16(src0, fs0, sample_bytes) ||
                (b0 < B && !aligned16(src1, fs1, sample_bytes)))) ||
       (sample_bytes == 1 ? maxval != 255.0f : !(maxval >= 255.0f && maxval <= 65535.0f)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = smem_bytes(win_bytes, pairs);
+  const int smem = smem_bytes(win_bytes, pass_frames);
   const dim3 grid(tiles, groups);
   if (sample_bytes == 1) {
     Args<uint8_t> a = args_of<uint8_t>(c, g0);
@@ -531,11 +642,12 @@ int with_launch(F&& f, const WindowCall& c) {
 // largest sample); meta int32 [n, 6] (out row, out col, y0, x0, wh, pitch
 // in samples; pitch 0: global path); pos uint32, fy/fx uint8 [n * 256],
 // tiles of 16x16; wtab float32 [32 * 32, taps * taps].  Launches tiles
-// first .. first + tiles - 1, each CTA with 2 (pairs: 4) * win_bytes of window buffers and
-// win_bytes / 4 of chunk table (win_bytes a multiple of 16), and `frames`
-// frames of the batch, one (pairs: two) per pass, the groups cut where
-// source 1 starts (a CTA reads one source).  vec: W and every source's
-// base and frame stride are 16-byte aligned.  node: see
+// first .. first + tiles - 1, each CTA with 2 * pass_frames * win_bytes of
+// window buffers and win_bytes / 4 of chunk table (win_bytes a multiple of
+// 16), and `frames` frames of the batch, pass_frames (1, or even up to
+// kMaxPass) a pass, the groups cut where source 1 starts (a CTA reads one
+// source).  vec: W and every source's base and frame stride are 16-byte
+// aligned.  node: see
 // t360::captured_node (null: not asked for).
 extern "C" int t360_window(const WindowCall* c, void* stream, void** node) {
   return with_launch(
@@ -560,14 +672,15 @@ extern "C" int t360_window_update(void* exec, void* node, const WindowCall* c) {
 
 // One instantiation's registers, local memory bytes (spills and stack),
 // resident CTAs per SM and dynamic shared memory for a launch with
-// win_bytes of window, with two frames per pass or one: out[0..3].
+// win_bytes of window and pass_frames frames per pass: out[0..3].
 extern "C" int t360_window_attrs(int sample_bytes, int taps, int mode, int win_bytes,
-                                 int pairs, int* out) {
-  const void* k = kernel_for(sample_bytes, taps, mode);
-  if (k == nullptr || win_bytes < 0) return static_cast<int>(cudaErrorInvalidValue);
+                                 int pass_frames, int* out) {
+  const void* k = kernel_for(sample_bytes, taps, mode, pass_frames);
+  if (k == nullptr || win_bytes < 0 || !pass_ok(pass_frames))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaFuncAttributes fa;
   cudaError_t e = cudaFuncGetAttributes(&fa, k);
-  const int smem = smem_bytes(win_bytes, pairs);
+  const int smem = smem_bytes(win_bytes, pass_frames);
   if (e == cudaSuccess) e = t360::allow_smem(k, smem);
   int blocks = 0;
   if (e == cudaSuccess)

@@ -12,9 +12,13 @@ Plan time (numpy, vectorized): :func:`build_window_plan` cuts the output
 into tiles and gives each its source window -- origin, height, row
 pitch, in samples -- and a class by the window's bytes (``CLASS_BYTES``:
 one kernel launch per class, with that class's shared memory; a uint16
-window takes twice the bytes of a uint8 one).  Tiles whose window
-exceeds the largest class are flagged (pitch 0) and gather straight
-from device memory inside the same kernel.  Per pixel the plan keeps the
+window takes twice the bytes of a uint8 one).  Where nearly all of class
+0's windows are small (``SMALL_SHARE`` of them at most ``SMALL_BYTES``),
+it is launched in two ranges: the small windows take ``WIDE_FRAMES``
+frames a pass, the rest two; else class 0 takes two, and the larger
+class one.  Tiles whose window exceeds the largest class are flagged
+(pitch 0) and gather straight from device memory inside the same
+kernel.  Per pixel the plan keeps the
 window-relative first tap ``ly``/``lx`` (packed in one int32) and the
 1/32 fraction indices ``fy``/``fx`` (one byte each; bit 7 of ``fy``
 marks a pixel outside the transparent ``valid`` mask): 6 B per pixel.
@@ -26,15 +30,19 @@ taps.
 (:mod:`.sources`), read where they lie: K3 reads the U and V planes of a
 plan without a prefilter from their own bases, its frame groups cut where
 the second source starts, so that each CTA reads one source.  For
-CUDA tensors it launches the kernel or raises; it never falls back, and
-never copies a source.  A launch hands the library one
+CUDA tensors it launches the kernel (:func:`launches`: the plan's
+launches, class 0's two ranges as one at two frames a pass on batches
+of ``CTA_FRAMES_MIN`` frames or fewer) or raises; it never falls
+back, and never copies a source.  A launch hands the library one
 :class:`WindowCall`; one made while a capture is recorded
 (:mod:`.nodes`) keeps it, and a replay re-points the captured node at new
 sources and a new output through ``t360_window_update``, which checks
 them as a launch does.  The counters ``window.launches`` and
 ``window.launches_u16`` (:data:`..utils.profiling.COUNTERS`) count the
-uint8 and the uint16 instantiations' launches (one per class present in
-the plan); the span ``t360.k3.launch`` times :func:`remap_window_px`.
+uint8 and the uint16 instantiations' launches, ``window.tiles`` and
+``window.tiles_u16`` their tiles, and ``window.tiles_wide`` and
+``window.tiles_wide_u16`` the tiles of those that take more than two
+frames a pass; the span ``t360.k3.launch`` times :func:`remap_window_px`.
 """
 
 from __future__ import annotations
@@ -76,6 +84,21 @@ VEC = 16  # window rows are staged in 16-byte chunks from a 16-byte-aligned colu
 # holds nearly every tile with four CTAs per SM; 64 KB takes the pole
 # tiles of a 4K cubemap off the global path.
 CLASS_BYTES = (12 * 1024, 64 * 1024)
+# Class 0's windows of at most SMALL_BYTES are staged WIDE_FRAMES frames a
+# pass (two passes and the chunk table, 49.9 KB, keep four CTAs on an SM),
+# each pass's copies dealt over all of a CTA's threads, where they are
+# SMALL_SHARE of class 0's tiles or more; the rest of class 0 takes two
+# frames a pass, in a launch of its own, the larger class one.  83.5% of
+# the 2x2 supersampled cubemap's luma tiles have windows of 1 KB or less,
+# 44 chunks a frame, whose copies a chunk-per-thread walk left to the
+# first warp or two; 98.3% have 3 KB or less, and K3 runs 4% faster (the
+# 2 and 6 KB budgets and 4 frames a pass measured slower; PERF.md §6).  The
+# 4K cubemap's windows are larger (86.7% of 3 KB or less): its split
+# launch measured no faster on the small windows and 3-5% slower on the
+# rest (another launch's tail, and its frames cut in more groups).
+SMALL_BYTES = 3 * 1024
+WIDE_FRAMES = 8
+SMALL_SHARE = 15 / 16
 # A CTA's dynamic shared memory (smem_bytes) is at most SMEM_MAX, the
 # most one CTA may use on Hopper.
 SMEM_MAX = 227 * 1024
@@ -99,18 +122,36 @@ def frames_per_cta(B: int, n_tiles: int) -> int:
     return max(-(-B // groups), -(-B // 65535))
 
 
-def pairs(win_bytes: int) -> bool:
-    """Whether a launch with windows of ``win_bytes`` takes two frames per
-    pass: class 0's launches do (four windows and the chunk table, 51 KB,
-    keep four CTAs on an SM); the larger class's do not."""
-    return win_bytes <= CLASS_BYTES[0]
-
-
-def smem_bytes(win_bytes: int) -> int:
+def smem_bytes(win_bytes: int, pass_frames: int) -> int:
     """A CTA's dynamic shared memory for windows of ``win_bytes``: two
-    passes' windows (double buffer) of two frames (``pairs``) or one, and
-    a 4-byte chunk-table entry per 16 bytes of window."""
-    return (4 if pairs(win_bytes) else 2) * win_bytes + win_bytes // 4
+    passes' windows (double buffer) of ``pass_frames`` frames, and a
+    4-byte chunk-table entry per 16 bytes of window."""
+    return 2 * pass_frames * win_bytes + win_bytes // 4
+
+
+def launches(groups, B: int, longest: int = 0) -> list:
+    """The launches of a batch of ``B`` frames over a plan's ``groups``,
+    ``longest`` of them (default: all) in its longest source:
+    ``(first tile, tiles, window bytes, frames a pass, frames per CTA)``
+    each.  Where the longest source holds no more than ``CTA_FRAMES_MIN``
+    frames (a replayed graph's 8 frames, and the 16 planes of their
+    chroma; a live frame), a group of more than two frames a pass goes out
+    with the group after it (class 0's other range, where there is one)
+    as one launch at two frames a pass over both, with the larger window:
+    the launches of a short batch are the same in number whatever the
+    windows.  Above it, a CTA walks at least ``CTA_FRAMES_MIN`` frames of
+    one source (``frames_per_cta``), unless its source is shorter."""
+    out, i = [], 0
+    while i < len(groups):
+        first, tiles, win, fp = groups[i]
+        i += 1
+        if fp > 2 and (longest or B) <= CTA_FRAMES_MIN:
+            fp = 2
+            if i < len(groups) and groups[i][3] == 2:
+                tiles, win = tiles + groups[i][1], max(win, groups[i][2])
+                i += 1
+        out.append((first, tiles, win, fp, frames_per_cta(B, tiles)))
+    return out
 
 
 def _circular_origin_rows(vals: np.ndarray, n: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -142,7 +183,8 @@ class WindowPlan:
     fy: np.ndarray  # uint8 [n * TH * TW]: fy | (not valid) << 7
     fx: np.ndarray  # uint8 [n * TH * TW]
     wtab: np.ndarray  # float32 [32 * 32, T * T]: sampling.weight_table
-    groups: Tuple[Tuple[int, int, int], ...]  # launches: (first tile, tiles, window bytes)
+    # launches: (first tile, tiles, window bytes, frames a pass)
+    groups: Tuple[Tuple[int, int, int, int], ...]
     in_h: int
     in_w: int
     out_h: int
@@ -153,11 +195,16 @@ class WindowPlan:
     sample_bytes: int  # 1: uint8 planes, 2: uint16
 
 
-def build_window_plan(spec: SampleSpec, fill: float, sample_bytes: int = 1) -> WindowPlan:
+def build_window_plan(spec: SampleSpec, fill: float, sample_bytes: int = 1,
+                      small: Tuple[int, int, float] = (SMALL_BYTES, WIDE_FRAMES, SMALL_SHARE)
+                      ) -> WindowPlan:
     """The tile plan of a sample spec for samples of ``sample_bytes`` (the
     Hopper counterpart of the JAX package's ``build_pallas_remap``, sized
     for shared memory).  Offsets and pitches are in samples; a window's
-    size, which picks its class, is in bytes."""
+    size, which picks its class, is in bytes.  ``small``: class 0's
+    windows of at most ``small[0]`` bytes take ``small[1]`` frames a pass
+    where they are at least a share ``small[2]`` of its tiles (other
+    values for measurements)."""
     if sample_bytes not in (1, 2):
         raise ValueError(f"samples of {sample_bytes} bytes: 1 (uint8) or 2 (uint16)")
     T = _TAPS[spec.interp]
@@ -216,18 +263,24 @@ def build_window_plan(spec: SampleSpec, fill: float, sample_bytes: int = 1) -> W
         raise AssertionError("a tap row's words reach past its window")
     pitch = np.where(glob, 0, pitch)
 
-    # launch order: global-path tiles first (the longest CTAs start
-    # early) within class 0's launch, then each class in raster order
+    # launch order: class 0's small windows (``small``), its others, then
+    # each larger class, each a range of tiles in raster order launched
+    # with its own frames a pass; the global-path tiles lead class 0's
+    # first range (the longest CTAs start early)
+    wide = (cls == 0) & (nbytes <= small[0])
+    if not wide.any() or wide.sum() < small[2] * (cls == 0).sum():
+        wide[:] = False
+    ranges = [[np.flatnonzero(wide), small[1]], [np.flatnonzero((cls == 0) & ~wide), 2]]
+    ranges += [[np.flatnonzero(cls == c), 1] for c in range(1, len(CLASS_BYTES))]
+    lead = 0 if ranges[0][0].size else 1
+    ranges[lead][0] = np.concatenate([np.flatnonzero(glob), ranges[lead][0]])
     order, groups, start = [], [], 0
-    for c in range(len(CLASS_BYTES)):
-        ids = np.flatnonzero(cls == c)
-        if c == 0:
-            ids = np.concatenate([np.flatnonzero(glob), ids])
+    for ids, fp in ranges:
         if ids.size:
-            win = int(nbytes[ids][cls[ids] == c].max(initial=0))
-            if smem_bytes(win) > SMEM_MAX:
+            win = int(nbytes[ids][~glob[ids]].max(initial=0))
+            if smem_bytes(win, fp) > SMEM_MAX:
                 raise ValueError(f"window class of {win} B exceeds a CTA's shared memory")
-            groups.append((start, int(ids.size), win))
+            groups.append((start, int(ids.size), win, fp))
             order.append(ids)
             start += ids.size
     order = np.concatenate(order)
@@ -358,7 +411,7 @@ class WindowCall(ctypes.Structure):
         ("wtab", _c_void_p),
         ("first", _c_int), ("tiles", _c_int), ("win_bytes", _c_int),  # the class's tiles
         ("taps", _c_int), ("mode", _c_int), ("fill", ctypes.c_float), ("vec", _c_int),
-        ("frames", _c_int), ("pairs", _c_int),  # frames per CTA, two a pass
+        ("frames", _c_int), ("pass_frames", _c_int),  # frames per CTA, per pass
     ]
 
 
@@ -384,25 +437,25 @@ def _check_input(wt: WindowTables, x: Planes) -> tuple:
 
 
 def launch_class(lib: ctypes.CDLL, wt: WindowTables, x: Planes, out: torch.Tensor,
-                 group: Tuple[int, int, int], frames: int, pair: bool, stream: int,
+                 group: Tuple[int, ...], frames: int, pass_frames: int, stream: int,
                  maxval: int = 255) -> None:
     """One launch of K3 from ``lib`` over the tiles of ``group`` (first
-    tile, tiles, window bytes) of ``wt``: up to ``frames`` frames of one
-    source of ``x`` per CTA (the groups cut where source 1 starts), two
-    per pass if ``pair``, into ``out`` (stacked) on the CUDA stream
-    ``stream``; uint16 samples round and saturate to ``maxval``.  Raises
-    if the launch fails."""
-    _launch_class(lib, wt, sources.describe(sources.as_sources(x)), out, group, frames, pair,
-                  stream, maxval)
+    tile, tiles, window bytes, ...) of ``wt``: up to ``frames`` frames of
+    one source of ``x`` per CTA (the groups cut where source 1 starts),
+    ``pass_frames`` (1, or even up to 8) a pass, into ``out`` (stacked) on
+    the CUDA stream ``stream``; uint16 samples round and saturate to
+    ``maxval``.  Raises if the launch fails."""
+    _launch_class(lib, wt, sources.describe(sources.as_sources(x)), out, group, frames,
+                  pass_frames, stream, maxval)
 
 
 def _launch_class(lib: ctypes.CDLL, wt: WindowTables, src: tuple, out: torch.Tensor,
-                  group: Tuple[int, int, int], frames: int, pair: bool, stream: int,
+                  group: Tuple[int, ...], frames: int, pass_frames: int, stream: int,
                   maxval: int) -> None:
     """:func:`launch_class` on sources already described
     (:func:`.sources.describe`); while a capture is recorded
     (:mod:`.nodes`), its node and its update are recorded too."""
-    call = _call_of(wt, src, out.data_ptr(), group, frames, pair, maxval)
+    call = _call_of(wt, src, out.data_ptr(), group, frames, pass_frames, maxval)
     ref = nodes.handle_ref()
     err = lib.t360_window(ctypes.byref(call), stream, None if ref is None else ctypes.byref(ref))
     if err:
@@ -433,10 +486,10 @@ def _point(call: WindowCall, src: tuple, out: int) -> None:
     call.dst = out
 
 
-def _call_of(wt: WindowTables, src: tuple, out: int, group: Tuple[int, int, int], frames: int,
-             pair: bool, maxval: int) -> WindowCall:
+def _call_of(wt: WindowTables, src: tuple, out: int, group: Tuple[int, ...], frames: int,
+             pass_frames: int, maxval: int) -> WindowCall:
     """The arguments of a launch over the tiles of ``group`` of ``wt``."""
-    first, count, win = group
+    first, count, win = group[:3]
     call = WindowCall(
         sample_bytes=wt.sample_bytes, maxval=float(maxval),
         B=sum(s.frames for s in src), H=wt.in_h, W=wt.in_w, out_h=wt.out_h, out_w=wt.out_w,
@@ -444,7 +497,7 @@ def _call_of(wt: WindowTables, src: tuple, out: int, group: Tuple[int, int, int]
         fx=wt.fx.data_ptr(), wtab=wt.wtab.data_ptr(),
         first=first, tiles=count, win_bytes=win, taps=wt.taps, mode=wt.mode, fill=wt.fill,
         vec=int(wt.in_w * wt.sample_bytes % VEC == 0 and all(s.aligned for s in src)),
-        frames=frames, pairs=int(pair))
+        frames=frames, pass_frames=pass_frames)
     _point(call, src, out)
     return call
 
@@ -467,26 +520,38 @@ def remap_window_px(wt: WindowTables, x: Planes, maxval: int = 255) -> torch.Ten
             return round_px(remap_window_plain(wt, sources.stacked(xs)), maxval, wt.dtype)
         if dev.type != "cuda":
             raise ValueError(f"remap runs on cpu or cuda tensors, not {dev}")
-        B = sources.frames(xs)
-        out = torch.empty((B, wt.out_h, wt.out_w), dtype=wt.dtype, device=dev)
-        lib = _lib()
-        counter = "window.launches" if wt.sample_bytes == 1 else "window.launches_u16"
+        out = torch.empty((sources.frames(xs), wt.out_h, wt.out_w), dtype=wt.dtype, device=dev)
         with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            for group in wt.groups:
-                _launch_class(lib, wt, src, out, group, frames_per_cta(B, group[1]),
-                              pairs(group[2]), stream, maxval)
-                count(counter)
+            _launch_plan(_lib(), wt, src, out, torch.cuda.current_stream(dev).cuda_stream,
+                         maxval)
         return out
 
 
-def kernel_attrs(taps: int, mode: int, win_bytes: int, sample_bytes: int = 1) -> dict:
+def _launch_plan(lib: ctypes.CDLL, wt: WindowTables, src: tuple, out: torch.Tensor,
+                 stream: int, maxval: int) -> None:
+    """Every launch of K3 (:func:`launches`) on the described sources
+    ``src`` into ``out``, each counted: ``window.launches``, its tiles in
+    ``window.tiles`` and, where it takes more than two frames a pass, in
+    ``window.tiles_wide`` (``_u16`` for uint16 samples)."""
+    u16 = "" if wt.sample_bytes == 1 else "_u16"
+    counts = [s.frames for s in src]
+    for first, tiles, win, fp, frames in launches(wt.groups, sum(counts), max(counts)):
+        _launch_class(lib, wt, src, out, (first, tiles, win), frames, fp, stream, maxval)
+        count("window.launches" + u16)
+        count("window.tiles" + u16, tiles)
+        if fp > 2:
+            count("window.tiles_wide" + u16, tiles)
+
+
+def kernel_attrs(taps: int, mode: int, win_bytes: int, pass_frames: int,
+                 sample_bytes: int = 1) -> dict:
     """One instantiation of K3 on the current GPU: its registers, local
     memory bytes (spills and stack), resident CTAs per SM for a launch with
-    ``win_bytes`` of window, and that launch's dynamic shared memory."""
+    ``win_bytes`` of window and ``pass_frames`` frames a pass, and that
+    launch's dynamic shared memory."""
     lib = _lib()
     out = (_c_int * 4)()
-    err = lib.t360_window_attrs(sample_bytes, taps, mode, win_bytes, int(pairs(win_bytes)), out)
+    err = lib.t360_window_attrs(sample_bytes, taps, mode, win_bytes, pass_frames, out)
     if err:
         raise RuntimeError(f"window kernel attributes: {lib.t360_error_string(err).decode()}")
     return dict(zip(("registers", "local_bytes", "ctas_per_sm", "smem_bytes"), out))

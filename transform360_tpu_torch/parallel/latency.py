@@ -100,16 +100,19 @@ def _slice_plane(pp: PlanePlan, y0: int, y1: int) -> PlanePlan:
 def _plane_row_costs(pp: PlanePlan) -> np.ndarray:
     """[out_h] modelled K3 cost of each output row of one plane: each tile
     of the remap's tile plan weighs the window bytes its launch stages
-    per frame (a global-path tile, whose window exceeds the largest
-    class, weighs the largest class), spread evenly over its rows; the
+    per frame at one frame (its class's largest: class 0's two ranges go
+    out as one launch there; a global-path tile, whose window exceeds the
+    largest class, weighs the largest class), spread evenly over its rows; the
     rows of a supersampled plan's scaled size fold onto the output rows
     they are resized into."""
     wp = pp.window_plan()
     win = {c: CLASS_BYTES[c] for c in range(len(CLASS_BYTES))}
-    for first, count, nbytes in wp.groups:
+    launched = {}  # a class's largest launch window (class 0 has two launches)
+    for first, count, nbytes, _ in wp.groups:
         c = int(wp.tile_class[first + count - 1])
         if c >= 0:
-            win[c] = nbytes
+            launched[c] = max(launched.get(c, 0), nbytes)
+    win.update(launched)
     cost = np.array([win[c] if c >= 0 else CLASS_BYTES[-1] for c in wp.tile_class.tolist()],
                     np.float64)
     per_tile_row = np.bincount(wp.meta[:, 0] // TH, weights=cost, minlength=-(-wp.out_h // TH))

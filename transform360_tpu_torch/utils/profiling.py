@@ -34,8 +34,10 @@ re-pointed at the caller's planes and a fresh output),
 ``t360.k1.launch``, ``t360.k3.launch``, ``t360.k4.launch`` (the kernel
 wrappers ``blur_px``, ``remap_window_px``, ``area_px``: checks, output
 allocation and launch, or the plain version on the CPU).  The counters:
-``blur.launches``, ``window.launches``, ``area.launches`` (uint8) and
-their ``_u16`` twins, ``nodes.updates`` and ``pipeline.plane_copies``.
+``blur.launches``, ``window.launches``, ``area.launches`` (uint8),
+``window.tiles`` and ``window.tiles_wide`` (K3's tiles, and those of its
+launches of more than two frames a pass), their ``_u16`` twins,
+``nodes.updates`` and ``pipeline.plane_copies``.
 """
 
 from __future__ import annotations
