@@ -438,6 +438,20 @@ def bound(nbytes: float, ops: float):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
+_REMAP_REFS: dict = {}
+
+
+def remap_ref(pp, device="cuda"):
+    """The reference remap's input for the plane plan ``pp``
+    (``remap_plain``: its sample spec on ``device``), built once per plan."""
+    from transform360_tpu_torch.sampling import DeviceSpec
+
+    key = (id(pp), str(device))
+    if key not in _REMAP_REFS:  # the plan is kept with it: its id stays its own
+        _REMAP_REFS[key] = pp, DeviceSpec.from_spec(pp.spec, pp.fill, device)
+    return _REMAP_REFS[key][1]
+
+
 def remap_bound(ds, B: int, plan_bytes: int, sample_bytes: int = 1):
     """The remap's compulsory bytes (plane in, plane out, its plan once)
     and its multiply-adds (T*T taps per output pixel and frame)."""
@@ -688,7 +702,7 @@ def k1_cols(bt, B: int) -> int:
     """K1's columns per thread on a launch of B frames of bt."""
     from transform360_tpu_torch.ops import blur
 
-    return blur.launch_cols(blur._lib(), bt, B)
+    return blur.launch_cols(blur.KERNEL.library(), bt, B)
 
 
 K1_PROBE_RX = (1, 2, 6)  # the flagship's x radii
@@ -1015,7 +1029,7 @@ def main() -> int:
         tl = t.blur.tiles.cpu().numpy()
         cols = k1_cols(t.blur, b)
         at = blur.kernel_attrs(t.blur, cols=cols)
-        resident = blur.resident_ctas(blur._lib(), t.blur, cols=cols)
+        resident = blur.resident_ctas(blur.KERNEL.library(), t.blur, cols=cols)
         say(f"    K1 tile plan {pname}: {tl.shape[0]} tiles of {sorted(set(tl[:, 2].tolist()))} "
             f"rows x {sorted(set(tl[:, 3].tolist()))} columns, x radii "
             f"{sorted(set(t.blur.rx.cpu().tolist()))}, ring kernel y radius {t.blur.ring_ry} "
@@ -1064,7 +1078,8 @@ def main() -> int:
 
     def k1_cols8(bt, xs):
         out = torch.empty((sources.frames(xs), bt.H, bt.W), dtype=bt.dtype, device="cuda")
-        blur._launch(blur._lib(), bt, xs, out, torch.cuda.current_stream().cuda_stream, cols=8)
+        blur.launch(blur.KERNEL.library(), bt, xs, out, torch.cuda.current_stream().cuda_stream,
+                    cols=8)
         return out
 
     for tf32 in (True, False):
@@ -1086,12 +1101,12 @@ def main() -> int:
                         got[f0:f0 + 32], want, f"K1 flagship {what} b={b}, {ncols} columns"))
                 del got, want
             del ref
-        for pname, t, pp in (("luma", luma_t, plan.luma), ("chroma", chroma_t, plan.chroma)):
+        for pname, pp in (("luma", plan.luma), ("chroma", plan.chroma)):
             x = torch.randint(0, 256, (7, pp.in_h, pp.in_w), dtype=torch.uint8,
                               device="cuda", generator=rng)
             for b in (1, 2, 7):
                 got = window.remap_window_px(pp.window_tables("cuda"), x[:b].contiguous())
-                want = round_u8(remap_plain(t.remap, x[:b]))
+                want = round_u8(remap_plain(remap_ref(pp), x[:b]))
                 torch.cuda.synchronize()
                 err["window"] = max(err["window"], compare(got, want, f"K3 {pname} b={b}"))
     torch.backends.cudnn.allow_tf32 = False
@@ -1122,7 +1137,7 @@ def main() -> int:
                 x = torch.randint(0, 256, (b, pp.in_h, pp.in_w), dtype=torch.uint8,
                                   device="cuda", generator=rng)
                 got = window.remap_window_px(pp.window_tables("cuda"), x)
-                want = round_u8(remap_plain(pp.tables("cuda").remap, x))
+                want = round_u8(remap_plain(remap_ref(pp), x))
                 torch.cuda.synchronize()
                 err["window"] = max(err["window"], compare(got, want, f"K3 {what}"))
         say(f"[3] K3 vs remap_plain, {what} {iw}x{ih} -> {ow}x{oh}, luma and chroma, "
@@ -1130,16 +1145,16 @@ def main() -> int:
     # K3 on the main path's frames at the batches it is given there (1, 16
     # and 128 luma frames, 2 and 256 stacked chroma planes) and through the
     # JAX package's B2-B4 range (8 ... 128)
-    k3_path = (("luma", yb, luma_t, luma_w, (1, 8, 16, 32, 64, 128)),
-               ("chroma", cb, chroma_t, chroma_w, (2, 2 * BATCH)))
+    k3_path = (("luma", yb, plan.luma, luma_w, (1, 8, 16, 32, 64, 128)),
+               ("chroma", cb, plan.chroma, chroma_w, (2, 2 * BATCH)))
     for tf32 in (True, False):
         torch.backends.cudnn.allow_tf32 = tf32
         torch.backends.cuda.matmul.allow_tf32 = tf32
-        for pname, xs, t, wt, sizes in k3_path:
+        for pname, xs, pp, wt, sizes in k3_path:
             for b in sizes:
                 got = window.remap_window_px(wt, xs[:b])
                 for f0 in range(0, b, 32):  # the plain version in slices of 32 frames
-                    want = round_u8(remap_plain(t.remap, xs[f0:min(b, f0 + 32)]))
+                    want = round_u8(remap_plain(remap_ref(pp), xs[f0:min(b, f0 + 32)]))
                     err["window"] = max(err["window"], compare(
                         got[f0:f0 + 32], want, f"K3 {pname} b={b}"))
                 del got, want
@@ -1165,7 +1180,7 @@ def main() -> int:
                 if t.blur is not None:
                     want = round_px(blur_plain(t.blur.plan, x[sl].float()), pp.maxval, u16)
                     err["blur_u16"] = max(err["blur_u16"], compare(b[sl], want, f"K1 u16 {what}"))
-                want = round_px(remap_plain(t.remap, b[sl]), pp.maxval, u16)
+                want = round_px(remap_plain(remap_ref(pp), b[sl]), pp.maxval, u16)
                 err["window_u16"] = max(err["window_u16"],
                                         compare(got[sl], want, f"K3 u16 {what}"))
         torch.backends.cudnn.allow_tf32 = False
@@ -1236,7 +1251,7 @@ def main() -> int:
             torch.backends.cudnn.allow_tf32 = tf32
             torch.backends.cuda.matmul.allow_tf32 = tf32
             outs = [(names[1], window.remap_window_px(wt, xs, pp.maxval),
-                     lambda x: remap_plain(t.remap, x))]
+                     lambda x: remap_plain(remap_ref(pp), x))]
             if k1 and t.blur is not None:
                 outs.append((names[0], blur.blur_px(t.blur, xs, pp.maxval),
                              lambda x: blur_plain(t.blur.plan, x.float())))
@@ -1289,7 +1304,7 @@ def main() -> int:
             raise SystemExit(f"FAIL the flagship without a prefilter launched {nl}")
         for o, xin, pp in zip(outs, planes, (nopf.plan.luma, nopf.plan.chroma, nopf.plan.chroma)):
             for f0 in range(0, BATCH, 32):
-                want = round_u8(remap_plain(pp.tables("cuda").remap, xin[f0:f0 + 32]))
+                want = round_u8(remap_plain(remap_ref(pp), xin[f0:f0 + 32]))
                 d = int((o[f0:f0 + 32].int() - want.int()).abs().max())
                 err["window"] = max(err["window"], d)
                 if d:
@@ -1315,7 +1330,7 @@ def main() -> int:
         for pp, xs in ((sp.luma, yb), (sp.chroma, cb)):
             got = window.remap_window_px(pp.window_tables("cuda"), xs)
             for f0 in range(0, xs.shape[0], 16):
-                want = round_u8(remap_plain(pp.tables("cuda").remap, xs[f0:f0 + 16]))
+                want = round_u8(remap_plain(remap_ref(pp), xs[f0:f0 + 16]))
                 err["window"] = max(err["window"], compare(
                     got[f0:f0 + 16], want, f"K3 supersampled b={xs.shape[0]}"))
             del got, want
@@ -1392,7 +1407,7 @@ def main() -> int:
         ("V", vb, ov, plan.chroma, chroma_t),
     ):
         x = xin[frames]
-        want = round_u8(remap_plain(t.remap, round_u8(blur_plain(t.blur.plan, x.float()))))
+        want = round_u8(remap_plain(remap_ref(pp), round_u8(blur_plain(t.blur.plan, x.float()))))
         compare(o[frames], want, f"batch path {pname} vs plain")
     small_opts = FLAGSHIP.replace("=512", "=64")
     sy, su, sv = video_like_planes(512, 256)
@@ -1414,11 +1429,11 @@ def main() -> int:
         "blur": (lambda: blur.blur_px(luma_t.blur, xl),
                  lambda: round_u8(blur_plain(luma_t.blur.plan, xlf))),
         "window": (lambda: window.remap_window_px(luma_w, bl),
-                   lambda: round_u8(remap_plain(luma_t.remap, bl))),
+                   lambda: round_u8(remap_plain(remap_ref(plan.luma), bl))),
     }
     wplan_bytes = tensor_bytes(luma_w.meta, luma_w.pos, luma_w.fy, luma_w.fx, luma_w.wtab)
     bounds = {"blur": blur_bound(luma_t.blur, tb),
-              "window": remap_bound(luma_t.remap, tb, wplan_bytes)}
+              "window": remap_bound(remap_ref(plan.luma), tb, wplan_bytes)}
     for name, (kern, plain_fn) in runs.items():
         km, pm, ks = in_turns(kern, plain_fn)
         times[name] = (km, pm)
@@ -1461,8 +1476,8 @@ def main() -> int:
 
     k3_issue = {"window": k3_issue_bound("u8", [(luma_w, tb)])}
     k3_step = {"issue_bound_ms": k3_issue_bound("u8", [(luma_w, BATCH), (chroma_w, 2 * BATCH)]),
-               "bound_ms": remap_bound(luma_t.remap, BATCH, 0)[0] + remap_bound(
-                   chroma_t.remap, 2 * BATCH, 0)[0]}
+               "bound_ms": remap_bound(remap_ref(plan.luma), BATCH, 0)[0] + remap_bound(
+                   remap_ref(plan.chroma), 2 * BATCH, 0)[0]}
     say(f"[5] K3's issue bound: its frame loop's SASS instructions per output pixel "
         f"({k3_px[('u8', luma_w.taps, luma_w.mode)]['own']:.3f}, uint8 T={luma_w.taps}, the copy "
         f"loops apart), "
@@ -1471,9 +1486,10 @@ def main() -> int:
         f"(luma and stacked chroma): issue {k3_step['issue_bound_ms']:.4f} ms, bytes or "
         f"float operations {k3_step['bound_ms']:.4f}  ({smi})")
     cplan_bytes = tensor_bytes(chroma_w.meta, chroma_w.pos, chroma_w.fy, chroma_w.fx, chroma_w.wtab)
-    cbound = remap_bound(chroma_t.remap, 2 * BATCH, cplan_bytes)
+    cbound = remap_bound(remap_ref(plan.chroma), 2 * BATCH, cplan_bytes)
     km, pm, ks = in_turns(lambda: window.remap_window_px(chroma_w, cb),
-                          lambda: round_u8(remap_plain(chroma_t.remap, cb)), rounds=5, per_round=4)
+                          lambda: round_u8(remap_plain(remap_ref(plan.chroma), cb)), rounds=5,
+                          per_round=4)
     chroma_k3 = {"shape": f"{2 * BATCH} chroma planes", "ms": km, "plain_ms": pm,
                  "bound_ms": cbound[0], "bound_by": cbound[1]}
     say(f"[5] window chroma: kernel median {km:.4f} ms (p75 {pct(ks, 0.75):.4f}, "
@@ -1525,9 +1541,10 @@ def main() -> int:
     lat_launches = read_counts()
     if lat_launches["blur"] != 2 or lat_launches["window"] <= 0:
         raise SystemExit(f"FAIL latency path did not launch K1 and K3: {lat_launches}")
-    for pname, xin, o, t in (("Y", y1, ly, luma_t), ("U", u1, lu, chroma_t),
-                             ("V", v1, lv, chroma_t)):
-        want = round_u8(remap_plain(t.remap, round_u8(blur_plain(t.blur.plan, xin[None].float()))))
+    for pname, xin, o, pp in (("Y", y1, ly, plan.luma), ("U", u1, lu, plan.chroma),
+                              ("V", v1, lv, plan.chroma)):
+        pre = round_u8(blur_plain(pp.tables("cuda").blur.plan, xin[None].float()))
+        want = round_u8(remap_plain(remap_ref(pp), pre))
         if tuple(o.shape) != tuple(want.shape[1:]):
             raise SystemExit(f"FAIL latency path {pname} shape {tuple(o.shape)}")
         compare(o[None], want, f"latency path {pname} vs plain")
@@ -1571,8 +1588,8 @@ def main() -> int:
         ("blur", lambda: blur.blur_px(luma_t.blur, x1),
          lambda: round_u8(blur_plain(luma_t.blur.plan, x1.float())), blur_bound(luma_t.blur, 1)),
         ("window", lambda: window.remap_window_px(luma_w, x1),
-         lambda: round_u8(remap_plain(luma_t.remap, x1)),
-         remap_bound(luma_t.remap, 1, wplan_bytes)),
+         lambda: round_u8(remap_plain(remap_ref(plan.luma), x1)),
+         remap_bound(remap_ref(plan.luma), 1, wplan_bytes)),
     ):
         km, pm, ks = in_turns(kern, plain_fn, rounds=20)
         say(f"[6] {name}: kernel median {km:.4f} ms (p75 {pct(ks, 0.75):.4f}, n={len(ks)}), "
@@ -1631,8 +1648,8 @@ def main() -> int:
             raise SystemExit(f"FAIL 10-bit {pname}: {o.dtype} {tuple(o.shape)}")
         t = pp.tables("cuda")
         x = frames_of(xin, frames)
-        want = round_px(remap_plain(t.remap, round_px(blur_plain(t.blur.plan, x.float()), 1023,
-                                                      u16)), 1023, u16)
+        pre = round_px(blur_plain(t.blur.plan, x.float()), 1023, u16)
+        want = round_px(remap_plain(remap_ref(pp), pre), 1023, u16)
         compare(frames_of(o, frames), want, f"10-bit batch path {pname} vs plain")
     reset_counts()
     one = deep.transform(ydb[0], udb[0], vdb[0])
@@ -1677,8 +1694,8 @@ def main() -> int:
         ("blur_u16", lambda: blur.blur_px(dlt.blur, xd, 1023),
          lambda: round_px(blur_plain(dlt.blur.plan, xdf), 1023, u16), blur_bound(dlt.blur, tb)),
         ("window_u16", lambda: window.remap_window_px(dlw, xd, 1023),
-         lambda: round_px(remap_plain(dlt.remap, xd), 1023, u16),
-         remap_bound(dlt.remap, tb, dplan_bytes, 2)),
+         lambda: round_px(remap_plain(remap_ref(dp.luma), xd), 1023, u16),
+         remap_bound(remap_ref(dp.luma), tb, dplan_bytes, 2)),
     ):
         km, pm, ks = in_turns(kern, plain_fn, rounds=5)
         times[name] = (km, pm)
@@ -1714,7 +1731,7 @@ def main() -> int:
             raise SystemExit(f"FAIL supersampled {pname} shape {tuple(o.shape)}")
         t = pp.tables("cuda")
         x = xin[frames]
-        k3 = round_u8(remap_plain(t.remap, round_u8(blur_plain(t.blur.plan, x.float()))))
+        k3 = round_u8(remap_plain(remap_ref(pp), round_u8(blur_plain(t.blur.plan, x.float()))))
         compare(o[frames], area.area_plain(t.area, k3), f"supersampled {pname} vs plain")
     reset_counts()
     one = ss.transform(yb[0], ub[0], vb[0])
@@ -1744,8 +1761,8 @@ def main() -> int:
                               ("V", vdb, dso[2], dsp.chroma)):
         t = pp.tables("cuda")
         x = frames_of(xin, frames)
-        k3 = round_px(remap_plain(t.remap, round_px(blur_plain(t.blur.plan, x.float()), 1023,
-                                                    u16)), 1023, u16)
+        pre = round_px(blur_plain(t.blur.plan, x.float()), 1023, u16)
+        k3 = round_px(remap_plain(remap_ref(pp), pre), 1023, u16)
         compare(frames_of(o, frames), area.area_plain(t.area, k3, 1023),
                 f"10-bit supersampled {pname} vs plain")
     del dso
@@ -1795,8 +1812,8 @@ def main() -> int:
             d[name] = statistics.median(cuda_times(fn, 10 if b > 1 else 50))
         k4b = area_bound(slt.area, b, 1)[0] + area_bound(sct.area, 2 * b, 1)[0]
         k4 = parts["K4 luma"] + parts["K4 chroma (U+V)"]
-        k3b = [remap_bound(t.remap, n, tensor_bytes(w.meta, w.pos, w.fy, w.fx, w.wtab))
-               for t, w, n in ((slt, slw, b), (sct, scw, 2 * b))]
+        k3b = [remap_bound(remap_ref(pp), n, tensor_bytes(w.meta, w.pos, w.fy, w.fx, w.wtab))
+               for pp, w, n in ((sp.luma, slw, b), (sp.chroma, scw, 2 * b))]
         k3 = parts["K3 luma (to the scaled size)"] + parts["K3 chroma (U+V)"]
         say(f"[10] supersampled batch-{b} stages, device medians: "
             + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items())

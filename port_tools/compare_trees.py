@@ -35,9 +35,8 @@ tiles, ms), the host's time to issue one call (``k3_host_ms``: 200 calls
 issued, then one synchronize), K3 by CUDA events on 128 10-bit luma
 frames and on the supersampled 2x2 plan's 128 luma frames and 256 chroma
 planes (``k3_more_ms``), the prefilter kernel K1 alone at the same
-shapes, its chroma as the tree's path gives it (U and V in place as two
-sources where the tree's K1 takes them, ``k1_chroma_input``, else
-stacked) (``k1_ms``: the median by CUDA events around one call;
+shapes, its chroma U and V in place as two sources (``k1_ms``: the
+median by CUDA events around one call;
 ``k1_ms_graph``: the device time per call of 20 calls replayed as a CUDA
 graph; ``k1_host_ms``: the host's time to issue one call, the median of
 9 rounds of 100 calls issued, each round then synchronized), and the
@@ -74,6 +73,7 @@ def child(label: str, settings: list, supersampled: bool = False) -> None:
 
     import transform360_tpu_torch as P
     from transform360_tpu_torch.ops import blur, window
+    from transform360_tpu_torch.utils.profiling import COUNTERS
 
     # this checkout's chip_smoke.py, whichever tree's package is timed (a
     # tree's own chip_smoke.py may be older)
@@ -85,18 +85,7 @@ def child(label: str, settings: list, supersampled: bool = False) -> None:
         smoke.cuda_times, smoke.host_walls)
     video_like_planes = smoke.video_like_planes
 
-    # the remap wrapper's name in this tree (remap_window_u8 before it took
-    # uint16 planes too)
-    remap = getattr(window, "remap_window_px", None) or window.remap_window_u8
-
-    def k1_launches() -> int:
-        """K1's uint8 launches so far: the counter table's, or in an older
-        tree the module's ``LAUNCHES``."""
-        if hasattr(blur, "LAUNCHES"):
-            return blur.LAUNCHES
-        from transform360_tpu_torch.utils.profiling import COUNTERS
-
-        return COUNTERS["blur.launches"]
+    remap = window.remap_window_px
     for s in settings:
         name, value = s.split("=", 1)
         mod, attr = name.rsplit(".", 1)
@@ -116,10 +105,10 @@ def child(label: str, settings: list, supersampled: bool = False) -> None:
     for b, reps in ((128, 60), (1, 300)):
         step = (lambda: eng.transform(yb, ub, vb)) if b == 128 else one
         cuda_times(step, 3)
-        n0 = k1_launches()
+        n0 = COUNTERS["blur.launches"]
         ts = cuda_times(step, reps)
         res[f"batch{b}"] = {"step_ms": statistics.median(ts), "n": len(ts),
-                            "k1_launches": (k1_launches() - n0) / len(ts)}
+                            "k1_launches": (COUNTERS["blur.launches"] - n0) / len(ts)}
     res["batch1"]["behind_ms"] = behind_ms(one, 30)
     from_host = lambda: [o.cpu() for o in eng.transform(y, u, v)]
     host_walls(from_host, 5)
@@ -226,13 +215,9 @@ def child(label: str, settings: list, supersampled: bool = False) -> None:
     del yd
     lb, cbt = (pp.tables("cuda").blur for pp in (eng.plan.luma, eng.plan.chroma))
     res["k1_ms"], res["k1_ms_graph"], res["k1_host_ms"] = {}, {}, {}
-    try:  # the tree's K1 reads U and V where they lie
-        from transform360_tpu_torch.ops import sources  # noqa: F401
-        c2, c256, res["k1_chroma_input"] = (ub[:1], vb[:1]), (ub, vb), "U, V in place"
-    except ImportError:
-        c2, c256, res["k1_chroma_input"] = cb[:2].contiguous(), cb, "stacked"
     for shape, bt, x in (("16 luma", lb, yb[:16].contiguous()), ("1 luma", lb, yb[:1].contiguous()),
-                         ("2 chroma", cbt, c2), ("128 luma", lb, yb), ("256 chroma", cbt, c256)):
+                         ("2 chroma", cbt, (ub[:1], vb[:1])), ("128 luma", lb, yb),
+                         ("256 chroma", cbt, (ub, vb))):
         big = (x[0].shape[0] if isinstance(x, tuple) else x.shape[0]) >= 100
         fn = lambda: blur.blur_px(bt, x)
         cuda_times(fn, 3)

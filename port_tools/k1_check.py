@@ -108,7 +108,7 @@ def main() -> int:
     t = P.open_filter(half, 1920, 1080, device="cuda").plan.luma.tables("cuda")
     x = rand((7, 1080, 1920))
     want = round_px(blur_plain(t.blur.plan, x.float()), 255, torch.uint8)
-    lib, stream = blur._lib(), torch.cuda.current_stream().cuda_stream
+    lib, stream = blur.KERNEL.library(), torch.cuda.current_stream().cuda_stream
     n_items = t.blur.tiles.shape[0] * 7
     for copy in (blur.COPY_TMA, blur.COPY_WARP):
         for stages in (2, 3, 8):
@@ -116,8 +116,8 @@ def main() -> int:
                 for ctas in (1, 0, n_items * parts):
                     for cols in (8, 16):
                         out = torch.zeros_like(want)
-                        blur._launch(lib, t.blur, x, out, stream, copy=copy, stages=stages,
-                                     parts=parts, ctas=ctas, cols=cols)
+                        blur.launch(lib, t.blur, x, out, stream, copy=copy, stages=stages,
+                                    parts=parts, ctas=ctas, cols=cols)
                         torch.cuda.synchronize()
                         if not torch.equal(out, want):
                             bad += 1

@@ -65,7 +65,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
-    shipping = blur._lib()
+    shipping = blur.KERNEL.library()
     src = (_build.CSRC / "blur.cu").read_text()
     mb_line = "constexpr int kMinBlocks = RY == 1 ? 4 : 2;"
     if args.min_blocks and src.count(mb_line) != 1:
@@ -74,11 +74,8 @@ def main() -> int:
     for mb in args.min_blocks:
         label = f"min_blocks {mb}"
         text = src.replace(mb_line, f"constexpr int kMinBlocks = RY == 1 ? {mb} : 2;")
-        lib = ctypes.CDLL(str(_build._build("blur", (), text, label=label)))
-        for name in ("t360_blur", "t360_blur_attrs", "t360_error_string"):
-            getattr(lib, name).argtypes = getattr(shipping, name).argtypes
-            getattr(lib, name).restype = getattr(shipping, name).restype
-        libs[label] = lib
+        path = _build._build("blur", (), text, label=label)
+        libs[label] = blur.KERNEL.bind(ctypes.CDLL(str(path)))
         for line in _build.BUILD_LOG.get(f"blur {label}", "").splitlines():
             if "registers" in line or "spill" in line:
                 print(f"{label}: {line.strip()}", flush=True)
@@ -120,7 +117,7 @@ def main() -> int:
                              min(resident, bt.tiles.shape[0] * x.shape[0] * parts), copy)
         lib, bt, stages, parts, cols, ctas, copy = launches[key]
         out = torch.empty_like(x) if out is None else out
-        blur._launch(lib, bt, x, out, torch.cuda.current_stream().cuda_stream, copy=copy,
+        blur.launch(lib, bt, x, out, torch.cuda.current_stream().cuda_stream, copy=copy,
                      stages=stages, parts=parts, ctas=ctas, cols=cols)
         return out
 

@@ -5,9 +5,10 @@ pixel.
     python3 port_tools/k3_probe.py [--supersampled] [DIR ...]
 
 Run from the root of a checkout on a machine with an NVIDIA Hopper GPU.
-Each DIR holds a ``transform360_tpu_torch/`` package (default: this
-checkout; an earlier commit unpacked with ``git archive <commit>
-transform360_tpu_torch | tar -x -C DIR``) and runs in its own process.
+Each DIR holds a ``transform360_tpu_torch/`` package with the kernels'
+C ABI seam, ``ops.nodes.Kernel`` (default: this checkout; a commit unpacked
+with ``git archive <commit> transform360_tpu_torch | tar -x -C DIR``),
+and runs in its own process.
 
 The probe build is a rewritten copy of that tree's ``window.cu`` under
 ``transform360_tpu_torch/build/variants/`` (``PROBES``: one set of edits
@@ -154,12 +155,8 @@ def probe_source(src: str):
 
 def tree_launches(window, wt, B):
     """(group, frames per CTA, frames a pass) of each launch the tree's
-    package makes at batch B: ``window.launches`` where the tree has it,
-    else its parent's class launches (``window.pairs``: two frames a
-    pass in class 0)."""
-    if hasattr(window, "launches"):
-        return [((f, n, w), fr, fp) for f, n, w, fp, fr in window.launches(wt.groups, B)]
-    return [(g, window.frames_per_cta(B, g[1]), window.pairs(g[2])) for g in wt.groups]
+    package makes at batch B (``window.launches``)."""
+    return [((f, n, w), fr, fp) for f, n, w, fp, fr in window.launches(wt.groups, B)]
 
 
 def child(tree: str, supersampled: bool) -> None:
@@ -191,11 +188,7 @@ def child(tree: str, supersampled: bool) -> None:
         fp = ex.submit(_build._build, "window", (), text, csrc, "clock probe")
         fl = ex.submit(_build._build, "window", (), k3_loop_source(src), csrc, "loop build")
         probe_path, loop_path = fp.result(), fl.result()
-    shipping = window._lib()
-    lib = ctypes.CDLL(str(probe_path))
-    for fn in ("t360_window", "t360_window_attrs", "t360_error_string"):
-        getattr(lib, fn).argtypes = getattr(shipping, fn).argtypes
-        getattr(lib, fn).restype = getattr(shipping, fn).restype
+    lib = window.KERNEL.bind(ctypes.CDLL(str(probe_path)))
     lib.t360_window_probe.argtypes = [ctypes.c_void_p, ctypes.c_int]
     lib.t360_window_probe.restype = ctypes.c_int
 

@@ -88,7 +88,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
-    shipping = window._lib()
+    shipping = window.KERNEL.library()
 
     def build(label, path):
         d = _build.BUILD_DIR / "variants" / f"k3_{label}"
@@ -102,11 +102,7 @@ def main() -> int:
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode:
             raise SystemExit(f"nvcc failed for {label}:\n{res.stderr}")
-        lib = ctypes.CDLL(str(lib_path))
-        for fn in ("t360_window", "t360_window_attrs", "t360_error_string"):
-            getattr(lib, fn).argtypes = getattr(shipping, fn).argtypes
-            getattr(lib, fn).restype = getattr(shipping, fn).restype
-        return lib
+        return window.KERNEL.bind(ctypes.CDLL(str(lib_path)))
 
     trials = [spec.split("=", 1) for spec in args.source]
     libs = {"window.cu": shipping}

@@ -134,7 +134,7 @@ def main() -> int:
 
     def build(label):
         if label == ship:  # built first
-            return (area._lib(), _build.BUILD_LOG.get("area", ""),
+            return (area.KERNEL.library(), _build.BUILD_LOG.get("area", ""),
                     _build.BUILD_SECONDS.get("area", 0.0))
         d = _build.BUILD_DIR / "variants" / f"k4_{label.replace(' ', '_')}"
         d.mkdir(parents=True, exist_ok=True)
@@ -150,14 +150,9 @@ def main() -> int:
             raise SystemExit(f"nvcc failed for {label}:\n{res.stderr}")
         import ctypes
 
-        lib = ctypes.CDLL(str(lib_path))
-        shipped = area._lib()
-        for fn in ("t360_area", "t360_area_attrs", "t360_error_string"):
-            getattr(lib, fn).argtypes = getattr(shipped, fn).argtypes
-            getattr(lib, fn).restype = getattr(shipped, fn).restype
+        lib = area.KERNEL.bind(ctypes.CDLL(str(lib_path)))
         return lib, res.stdout + res.stderr, time.perf_counter() - t0
 
-    area._lib()  # the shipping build first: the others copy its argtypes
     with ThreadPoolExecutor(max_workers=len(builds)) as ex:
         libs = dict(zip(builds, ex.map(build, builds)))
     for label, (lib, log, secs) in libs.items():

@@ -31,7 +31,7 @@ from transform360_tpu.filtering import apply_blur
 from transform360_tpu.ops.blur_lane import blur_lane, build_blur_lane
 from transform360_tpu.pipeline import _round_u8
 from transform360_tpu_torch.filtering import blur_plain
-from transform360_tpu_torch.ops import blur
+from transform360_tpu_torch.ops import _build, blur
 from transform360_tpu_torch.ops.blur import BlurTables, blur_px, part_rows, work_list
 from transform360_tpu_torch.plan import plan_from_jax
 from transform360_tpu_torch.sampling import round_px, round_u8
@@ -313,19 +313,22 @@ def test_thread_cols_by_batch():
 
 def test_launch_memoizes_its_choices(monkeypatch):
     # a launch picks its copy, columns, parts and grid once per batch size
-    # and base alignment of its tables, as the unmemoized launch picks
-    # them; later calls of that batch only launch
+    # and base alignment of its tables, as a launch with a choice given
+    # (which memoizes nothing) picks the others; later calls of that batch
+    # only launch
     _, tb, h, w = _blur_plan("edges-rx6")
     bt = BlurTables.from_plan(tb, h, w, "cpu")
     lookups, calls = [], []
     monkeypatch.setattr(blur, "resident_ctas",
                         lambda lib, bt, stages=blur.STAGES, cols=8: lookups.append(cols) or 528)
-    monkeypatch.setattr(blur, "_call", lambda *a: calls.append(a[6:]))
+    monkeypatch.setattr(blur.KERNEL, "launch", lambda lib, c, src, out, stream: calls.append(
+        (c.copy, c.stages, c.cols, c.parts, c.ctas)))
     buf = torch.zeros(16 * h * w + 16, dtype=torch.uint8)
     aligned = buf[: 16 * h * w].view(16, h, w)
     unaligned = buf[1 : 16 * h * w + 1].view(16, h, w)
     for B in (1, 16):
-        blur._launch(None, bt, aligned[:B], aligned[:B], 0)
+        blur.launch(None, bt, aligned[:B], aligned[:B], 0, copy=blur.copy_mode(bt, aligned))
+        assert (None, (B,), (True,)) not in bt.memo
         want, calls[:] = calls[:], []
         assert want[0][:2] == (blur.copy_mode(bt, aligned), blur.STAGES)
         assert want[0][2:] == blur.geometry(None, bt, B)
@@ -361,7 +364,7 @@ def test_probe_source_fixes_one_x_radius():
     # scalar stores of partial groups out of the row loop; a source with
     # neither hook is refused
     cs = _chip_smoke()
-    src = (blur._build.CSRC / "blur.cu").read_text()
+    src = (_build.CSRC / "blur.cu").read_text()
     probe = cs.k1_probe_source(src, 6)
     assert probe.count("switch (6) {") == 1 and "switch (rx) {" not in probe
     assert probe.count("if (true) {") == 1 and "if (cl.whole) {" not in probe

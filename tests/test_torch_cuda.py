@@ -65,8 +65,8 @@ from transform360_tpu_torch import pipeline
 from transform360_tpu_torch.filtering import blur_plain
 from transform360_tpu_torch.ops import area, blur, window
 from transform360_tpu_torch.sampling import (
-    BORDER_FILL, BORDER_REFLECT, BORDER_WRAP, AreaTables, DeviceArea, remap_plain, round_px,
-    round_u8,
+    BORDER_FILL, BORDER_REFLECT, BORDER_WRAP, AreaTables, DeviceArea, DeviceSpec, remap_plain,
+    round_px, round_u8,
 )
 from transform360_tpu_torch.utils.profiling import COUNTERS
 
@@ -133,7 +133,8 @@ def test_kernels_match_plain(name, gpu):
         got = window.remap_window_px(wt, x)
         torch.cuda.synchronize()
         assert COUNTERS["window.launches"] == n + len(window.launches(wt.groups, 5))
-        _assert_close(got, round_u8(remap_plain(t.remap, x)), f"K3 {name}")
+        ds = DeviceSpec.from_spec(pp.spec, pp.fill, gpu)
+        _assert_close(got, round_u8(remap_plain(ds, x)), f"K3 {name}")
 
 
 def test_blur_frame_loops_match_one_frame_at_a_time(gpu, monkeypatch):
@@ -143,10 +144,10 @@ def test_blur_frame_loops_match_one_frame_at_a_time(gpu, monkeypatch):
     want = torch.cat([blur.blur_px(t.blur, x[i : i + 1].contiguous()) for i in range(19)])
     # one persistent CTA walks every (tile, frame, part) item of the 19
     # frames through the ring, then two CTAs, then one per item
-    lib, stream = blur._lib(), torch.cuda.current_stream().cuda_stream
+    lib, stream = blur.KERNEL.library(), torch.cuda.current_stream().cuda_stream
     for parts, ctas in ((1, 1), (3, 2), (2, 0), (1, t.blur.tiles.shape[0] * 19)):
         out = torch.zeros_like(x)
-        blur._launch(lib, t.blur, x, out, stream, parts=parts, ctas=ctas)
+        blur.launch(lib, t.blur, x, out, stream, parts=parts, ctas=ctas)
         torch.cuda.synchronize()
         assert torch.equal(out, want), (parts, ctas)
     monkeypatch.setattr(blur, "ITEMS_PER_CTA", 1)  # parts: 1 per tile
@@ -221,7 +222,7 @@ def test_blur_kernel_launch_variants(name, gpu):
         t = P.build_plan(cfg, iw, ih, ow, oh, "gray").luma.tables(gpu)
     x = torch.randint(0, 256, (7, ih, iw), dtype=torch.uint8, device=gpu)
     want = round_u8(blur_plain(t.blur.plan, x.float()))
-    lib, stream = blur._lib(), torch.cuda.current_stream().cuda_stream
+    lib, stream = blur.KERNEL.library(), torch.cuda.current_stream().cuda_stream
     n_items = t.blur.tiles.shape[0] * 7
     copies = (blur.COPY_WARP,) + ((blur.COPY_TMA,) if blur.copy_mode(t.blur, x) == blur.COPY_TMA
                                   else ())
@@ -232,8 +233,8 @@ def test_blur_kernel_launch_variants(name, gpu):
                 for ctas in (1, 0, n_items * parts):
                     for cols in (8, 16):  # uint8 at y radius 1: both instantiations
                         out = torch.zeros_like(want)
-                        blur._launch(lib, t.blur, x, out, stream, copy=copy, stages=stages,
-                                     parts=parts, ctas=ctas, cols=cols)
+                        blur.launch(lib, t.blur, x, out, stream, copy=copy, stages=stages,
+                                    parts=parts, ctas=ctas, cols=cols)
                         torch.cuda.synchronize()
                         assert torch.equal(out, want), (name, copy, stages, parts, ctas, cols)
 
@@ -285,7 +286,7 @@ def test_kernels_take_a_batch_of_1024(gpu):
     b = blur.blur_px(t.blur, x)
     assert torch.equal(b, round_u8(blur_plain(t.blur.plan, x.float())))
     got = window.remap_window_px(pp.window_tables(gpu), b)
-    assert torch.equal(got, round_u8(remap_plain(t.remap, b)))
+    assert torch.equal(got, round_u8(remap_plain(DeviceSpec.from_spec(pp.spec, pp.fill, gpu), b)))
 
 
 def test_blur_kernel_unaligned_plane(gpu):
@@ -322,7 +323,7 @@ def test_window_kernel_matches_plain(name, gpu):
     plan = P.build_plan(cfg, iw, ih, ow, oh, "yuv420p")
     g = torch.Generator(device=gpu).manual_seed(1)
     for pp in (plan.luma, plan.chroma):
-        wt = pp.window_tables(gpu)
+        wt, ds = pp.window_tables(gpu), DeviceSpec.from_spec(pp.spec, pp.fill, gpu)
         for B in (1, 3, 8, 128, 256):
             x = torch.randint(0, 256, (B, pp.in_h, pp.in_w), dtype=torch.uint8,
                               device=gpu, generator=g)
@@ -330,7 +331,7 @@ def test_window_kernel_matches_plain(name, gpu):
             got = window.remap_window_px(wt, x)
             torch.cuda.synchronize()
             assert COUNTERS["window.launches"] == n + len(window.launches(wt.groups, B))
-            want = round_u8(remap_plain(pp.tables(gpu).remap, x))
+            want = round_u8(remap_plain(ds, x))
             assert torch.equal(got, want), f"K3 {name} B={B}"
     if name == "decimated-global":
         wp = window.build_window_plan(plan.luma.spec, plan.luma.fill)
@@ -346,7 +347,7 @@ def test_window_kernel_unaligned_plane(name, gpu):
     buf = torch.randint(0, 256, (2 * ih * iw + 1,), dtype=torch.uint8, device=gpu)
     x = buf[1:].view(2, ih, iw)
     got = window.remap_window_px(wt, x)
-    assert torch.equal(got, round_u8(remap_plain(pp.tables(gpu).remap, x)))
+    assert torch.equal(got, round_u8(remap_plain(DeviceSpec.from_spec(pp.spec, pp.fill, gpu), x)))
 
 
 INTERPS = {1: Interpolation.NEAREST, 2: Interpolation.LINEAR, 4: Interpolation.CUBIC,
@@ -389,7 +390,7 @@ def test_window_kernel_ragged_width_and_every_word_offset(gpu):
     wt = window.WindowTables.from_plan(wp, gpu)
     x = torch.randint(0, 256, (5, 512, 1024), dtype=torch.uint8, device=gpu)
     got = window.remap_window_px(wt, x)
-    assert torch.equal(got, round_u8(remap_plain(pp.tables(gpu).remap, x)))
+    assert torch.equal(got, round_u8(remap_plain(DeviceSpec.from_spec(pp.spec, pp.fill, gpu), x)))
 
 
 @pytest.mark.parametrize("frames", [1, 2, 3, 5, 0])
@@ -400,14 +401,14 @@ def test_window_kernel_frame_groups_and_passes(frames, gpu):
     # cubemap (windows across the seam), the barrel's clamp-with-fill and
     # REFLECT_101 (lanczos4) and the global path (pole tiles)
     g = torch.Generator(device=gpu).manual_seed(7)
-    lib, stream = window._lib(), torch.cuda.current_stream().cuda_stream
+    lib, stream = window.KERNEL.library(), torch.cuda.current_stream().cuda_stream
     cases = [CASES[n] for n in ("cubic-cubemap", "linear-barrel", "lanczos4-barrel")]
     cases.append((TransformConfig(**MONO), 2048, 1024, 192, 128))  # pole tiles: global path
     for cfg, iw, ih, ow, oh in cases:
         pp = P.build_plan(cfg, iw, ih, ow, oh, "gray").luma
         wt = pp.window_tables(gpu)
         x = torch.randint(0, 256, (17, ih, iw), dtype=torch.uint8, device=gpu, generator=g)
-        want = round_u8(remap_plain(pp.tables(gpu).remap, x))
+        want = round_u8(remap_plain(DeviceSpec.from_spec(pp.spec, pp.fill, gpu), x))
         for b in (1, 2, 5, 17):
             for pair in (False, True):
                 out = torch.zeros((b, wt.out_h, wt.out_w), dtype=torch.uint8, device=gpu)
@@ -432,9 +433,10 @@ def test_window_kernel_seam_rows_and_unaligned_rows(sample_bytes, gpu):
         assert (wp.meta[staged, 3] + wp.meta[staged, 5] > iw).any()  # across the seam
         x = _rand_u16((5, ih, iw), mx, gpu, g) if sample_bytes == 2 else \
             torch.randint(0, 256, (5, ih, iw), dtype=torch.uint8, device=gpu, generator=g)
+        ds = DeviceSpec.from_spec(pp.spec, pp.fill, gpu)
         for b in (1, 5):
             got = window.remap_window_px(pp.window_tables(gpu), x[:b], mx)
-            want = round_px(remap_plain(pp.tables(gpu).remap, x[:b]), mx, pp.dtype)
+            want = round_px(remap_plain(ds, x[:b]), mx, pp.dtype)
             assert _same(got, want), (iw, b)
 
 
@@ -448,9 +450,10 @@ def test_window_kernel_latency_band_plans(gpu):
         for pp in (band.luma, band.chroma):
             x = torch.randint(0, 256, (3, pp.in_h, pp.in_w), dtype=torch.uint8, device=gpu,
                               generator=g)
+            ds = DeviceSpec.from_spec(pp.spec, pp.fill, gpu)
             for b in (1, 3):
                 got = window.remap_window_px(pp.window_tables(gpu), x[:b])
-                assert torch.equal(got, round_u8(remap_plain(pp.tables(gpu).remap, x[:b])))
+                assert torch.equal(got, round_u8(remap_plain(ds, x[:b])))
 
 
 def test_engine_routes_by_batch_on_the_card(gpu):
@@ -530,11 +533,12 @@ def test_kernels_read_two_sources(layout, depth, gpu):
     # own, frames per CTA 1, 2, 3 and all)
     g = torch.Generator(device=gpu).manual_seed(21)
     mx = 255 if depth == 8 else 1023
-    lib, stream = window._lib(), torch.cuda.current_stream().cuda_stream
+    lib, stream = window.KERNEL.library(), torch.cuda.current_stream().cuda_stream
     for name in ("cubic-cubemap", "lanczos4-barrel", "wide-y-taps"):
         cfg, iw, ih, ow, oh = CASES[name]
         pp = P.build_plan(cfg, iw, ih, ow, oh, "yuv420p" if depth == 8 else "yuv420p10le").chroma
         t, wt = pp.tables(gpu), pp.window_tables(gpu)
+        ds = DeviceSpec.from_spec(pp.spec, pp.fill, gpu)
         for b0, b1 in ((1, 1), (1, 4), (3, 4), (2, 2), (5, 3)):
             shape = (b0 + b1, pp.in_h, pp.in_w)
             x = torch.randint(0, 256, shape, dtype=torch.uint8, device=gpu, generator=g) \
@@ -543,7 +547,7 @@ def test_kernels_read_two_sources(layout, depth, gpu):
             want = round_px(blur_plain(t.blur.plan, x.float()), mx, pp.dtype)
             got = blur.blur_px(t.blur, xs, mx)
             assert _same(got, want), ("K1", name, layout, b0, b1)
-            want = round_px(remap_plain(t.remap, x), mx, pp.dtype)
+            want = round_px(remap_plain(ds, x), mx, pp.dtype)
             assert _same(window.remap_window_px(wt, xs, mx), want), ("K3", name, layout, b0, b1)
             for frames in (1, 2, 3, 0):
                 for pair in (False, True):
@@ -602,11 +606,11 @@ def test_window_kernel_at_4k(name, depth, gpu):
     plan = P.open_filter(K3_4K[name], 3840, 2160, pix_fmt=pix_fmt, device=gpu).plan
     g = torch.Generator(device=gpu).manual_seed(depth)
     for pp in (plan.luma, plan.chroma):
-        wt, t, mx = pp.window_tables(gpu), pp.tables(gpu), pp.maxval
+        wt, ds, mx = pp.window_tables(gpu), DeviceSpec.from_spec(pp.spec, pp.fill, gpu), pp.maxval
         shape = (128, pp.in_h, pp.in_w)
         x = torch.randint(0, 256, shape, dtype=torch.uint8, device=gpu, generator=g) \
             if depth == 8 else _rand_u16(shape, mx, gpu, g)
-        want = torch.cat([round_px(remap_plain(t.remap, x[k:k + 16]), mx, pp.dtype)
+        want = torch.cat([round_px(remap_plain(ds, x[k:k + 16]), mx, pp.dtype)
                           for k in range(0, 128, 16)])
         for b in (1, 16, 127, 128):
             assert _same(window.remap_window_px(wt, x[:b], mx), want[:b]), (name, depth, b)
@@ -639,9 +643,9 @@ def _wide_tables(pp, gpu):
                                          gpu)
 
 
-def _plain_in_chunks(pp, t, x, mx):
-    """``remap_plain`` rounded, 16 frames at a time."""
-    return torch.cat([round_px(remap_plain(t.remap, x[k:k + 16]), mx, pp.dtype)
+def _plain_in_chunks(pp, ds, x, mx):
+    """``remap_plain`` on ``ds`` rounded, 16 frames at a time."""
+    return torch.cat([round_px(remap_plain(ds, x[k:k + 16]), mx, pp.dtype)
                       for k in range(0, x.shape[0], 16)])
 
 
@@ -656,14 +660,14 @@ def test_window_kernel_wide_passes(name, depth, gpu):
     # batch and on 3 and 11 frames a CTA (passes cut short, odd counts)
     cfg, iw, ih, ow, oh = WIDE_CASES[name]
     pp = P.build_plan(cfg, iw, ih, ow, oh, "gray" if depth == 8 else "gray10le").luma
-    wt, t, mx = _wide_tables(pp, gpu), pp.tables(gpu), pp.maxval
+    wt, ds, mx = _wide_tables(pp, gpu), DeviceSpec.from_spec(pp.spec, pp.fill, gpu), pp.maxval
     assert [g[3] for g in wt.groups] == [window.WIDE_FRAMES, 2, 1]
     g = torch.Generator(device=gpu).manual_seed(depth + 22)
     shape = (129, ih, iw)
     x = torch.randint(0, 256, shape, dtype=torch.uint8, device=gpu, generator=g) \
         if depth == 8 else _rand_u16(shape, mx, gpu, g)
-    want = _plain_in_chunks(pp, t, x, mx)
-    lib, stream = window._lib(), torch.cuda.current_stream().cuda_stream
+    want = _plain_in_chunks(pp, ds, x, mx)
+    lib, stream = window.KERNEL.library(), torch.cuda.current_stream().cuda_stream
     tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     try:
         for on in (True, False):
@@ -689,16 +693,16 @@ def test_window_kernel_wide_passes_two_sources(layout, gpu):
     for pix_fmt, mx in (("yuv420p", 255), ("yuv420p10le", 1023)):
         cfg, iw, ih, ow, oh = WIDE_CASES["cubic-cubemap"]
         pp = P.build_plan(cfg, 2 * iw, 2 * ih, 2 * ow, 2 * oh, pix_fmt).chroma
-        wt, t = _wide_tables(pp, gpu), pp.tables(gpu)
+        wt, ds = _wide_tables(pp, gpu), DeviceSpec.from_spec(pp.spec, pp.fill, gpu)
         assert wt.groups[0][3] == window.WIDE_FRAMES
         g = torch.Generator(device=gpu).manual_seed(mx)
-        lib, stream = window._lib(), torch.cuda.current_stream().cuda_stream
+        lib, stream = window.KERNEL.library(), torch.cuda.current_stream().cuda_stream
         for b0, b1 in ((13, 16), (21, 19), (1, 16)):
             shape = (b0 + b1, pp.in_h, pp.in_w)
             x = torch.randint(0, 256, shape, dtype=torch.uint8, device=gpu, generator=g) \
                 if mx == 255 else _rand_u16(shape, mx, gpu, g)
             xs = _two_sources(x, b0, layout)
-            want = _plain_in_chunks(pp, t, x, mx)
+            want = _plain_in_chunks(pp, ds, x, mx)
             assert _same(window.remap_window_px(wt, xs, mx), want), (pix_fmt, b0, b1)
             for frames in (b0 + b1, 5, 16):
                 out = torch.zeros((b0 + b1, wt.out_h, wt.out_w), dtype=pp.dtype, device=gpu)
@@ -770,7 +774,8 @@ def test_uint16_kernels_match_plain(name, depth, gpu):
         assert COUNTERS["window.launches_u16"] == n + len(window.launches(wt.groups, 5))
         assert got.dtype == torch.uint16
         assert (COUNTERS["blur.launches"], COUNTERS["window.launches"]) == n8  # no uint8 launch
-        want = round_px(remap_plain(t.remap, x), mx, torch.uint16)
+        want = round_px(remap_plain(DeviceSpec.from_spec(pp.spec, pp.fill, gpu), x), mx,
+                        torch.uint16)
         _assert_close(got, want, f"K3 u16 {name}")
         assert int(got.int().max()) <= mx
 
@@ -805,7 +810,8 @@ def test_uint16_kernels_unaligned_plane(name, gpu):
         want = round_px(blur_plain(t.blur.plan, x.float()), 4095, torch.uint16)
         assert _same(blur.blur_px(t.blur, x, 4095), want)
     got = window.remap_window_px(pp.window_tables(gpu), x, 4095)
-    assert _same(got, round_px(remap_plain(t.remap, x), 4095, torch.uint16))
+    ds = DeviceSpec.from_spec(pp.spec, pp.fill, gpu)
+    assert _same(got, round_px(remap_plain(ds, x), 4095, torch.uint16))
 
 
 AREA_CASES = {  # INTER_AREA (K4): (scaled w, h), (out w, h)
@@ -884,7 +890,7 @@ def test_area_kernel_launch_variants(name, gpu):
     g = torch.Generator(device=gpu).manual_seed(11)
     x = _area_input(9, sw, sh, 8, gpu, g)
     want = area.area_plain(da, x)
-    lib = area._lib()
+    lib = area.KERNEL.library()
     stream = torch.cuda.current_stream().cuda_stream
     n_items = da.tiles.shape[0] * x.shape[0]
     copies = [area.COPY_SCALAR] + ([area.COPY_TMA, area.COPY_ASYNC]

@@ -31,9 +31,9 @@ from transform360_tpu.plan import build_plan as jax_build_plan
 import transform360_tpu_torch as P
 from transform360_tpu_torch import cli, pipeline
 from transform360_tpu_torch.cli import main as cli_main
-from transform360_tpu_torch.ops import nodes
+from transform360_tpu_torch.ops import blur, nodes, window
 from transform360_tpu_torch.ops.sources import Source
-from transform360_tpu_torch.plan import _DeviceCache, clear_plan_cache, plan_from_jax
+from transform360_tpu_torch.plan import clear_plan_cache, plan_from_jax
 from transform360_tpu_torch.utils.profiling import COUNTERS
 from transform360_tpu_torch.utils.yuv import read_yuv420_batch, write_yuv420_batch
 
@@ -155,7 +155,8 @@ def test_engines_with_one_config_share_executors(plans):
 def test_a_plan_of_other_content_under_one_key_replaces_it(plans):
     _, tp = plans
     spec = dataclasses.replace(tp.luma.spec, frac_x=np.zeros_like(tp.luma.spec.frac_x))
-    luma = dataclasses.replace(tp.luma, spec=spec, _cache=_DeviceCache())
+    luma = dataclasses.replace(tp.luma, spec=spec)  # a device cache of its own
+    assert luma._cache is not tp.luma._cache
     assert luma.key == tp.luma.key and luma.digest() != tp.luma.digest()
     x = torch.from_numpy(_planes(1, seed=5)[0])
     pipeline.clear_executor_cache()
@@ -263,62 +264,83 @@ def test_graph_key_holds_alignment_frame_stride_and_host_planes():
     assert one(_src(frames=1, aligned=False)) != one(_src(frames=1))
 
 
+class _Library:
+    """A K1 and K3 library's stand-in: each launch returns the next node
+    handle; each update logs (node, source 0's base, output) as the seam
+    pointed its call, or, for the nodes in ``refuse``, fails."""
+
+    def __init__(self):
+        self.handles, self.log, self.refuse = 0, [], set()
+
+    def _launch(self, call, stream, node):
+        self.handles += 1
+        node._obj.value = self.handles
+        return 0
+
+    def _update(self, exec_, node, call):
+        if node in self.refuse:
+            return 1
+        self.log.append((node, call._obj.src0, call._obj.dst))
+        return 0
+
+    t360_blur = t360_window = _launch
+    t360_blur_update = t360_window_update = _update
+
+    def t360_error_string(self, err):
+        return b"refused"
+
+
 def _program(src, out):
-    """A program of four recorded nodes -- K1 reading ``src``, a node
-    between that touches neither, two K3 launches writing ``out`` -- whose
-    updates log (node, sources, output)."""
-    log = []
-    mid = 7 << 20
-
-    def node(handle, s, o):
-        return nodes.Node(handle, s, o, lambda exec_, h, s_, o_: log.append((h, s_, o_)))
-
-    recorded = [node(1, src, mid), node(2, (_src(mid),), mid + 1), node(3, (_src(mid + 1),), out),
-                node(4, (_src(mid + 1),), out)]
-    return nodes.Program(recorded, src, out), log
+    """A program of four nodes recorded through the seam -- K1 reading
+    ``src``, a node between that touches neither, two K3 launches writing
+    ``out`` -- and the library whose updates log them."""
+    lib, mid = _Library(), 7 << 20
+    with nodes.recording() as recorded:
+        blur.KERNEL.launch(lib, blur.BlurCall(), src, mid, 0)
+        window.KERNEL.launch(lib, window.WindowCall(), (_src(mid),), mid + 1, 0)
+        for _ in range(2):
+            window.KERNEL.launch(lib, window.WindowCall(), (_src(mid + 1),), out, 0)
+    return nodes.Program(recorded, src, out), lib
 
 
 def test_program_repoints_only_the_nodes_on_the_callers_memory():
     src, out = (_src(),), 9 << 20
-    prog, log = _program(src, out)
+    prog, lib = _program(src, out)
     assert [(n.handle, r, w) for n, r, w in prog.nodes] == [(1, True, False), (3, False, True),
                                                            (4, False, True)]
     u0 = COUNTERS["nodes.updates"]
     prog.repoint(0, src, out)  # where the capture left them: nothing to update
-    assert log == [] and COUNTERS["nodes.updates"] == u0
-    new_src = (_src(ptr=3 << 20),)
-    prog.repoint(0, new_src, out)
-    assert log == [(1, new_src, 7 << 20)]
-    log.clear()
-    prog.repoint(0, new_src, 10 << 20)  # the output alone: the writers
-    mid = (_src((7 << 20) + 1),)  # node 2's output, which nodes 3 and 4 read
-    assert log == [(3, mid, 10 << 20), (4, mid, 10 << 20)]
+    assert lib.log == [] and COUNTERS["nodes.updates"] == u0
+    prog.repoint(0, (_src(ptr=3 << 20),), out)
+    assert lib.log == [(1, 3 << 20, 7 << 20)]
+    lib.log.clear()
+    prog.repoint(0, (_src(ptr=3 << 20),), 10 << 20)  # the output alone: the writers
+    mid = (7 << 20) + 1  # node 2's output, which nodes 3 and 4 read
+    assert lib.log == [(3, mid, 10 << 20), (4, mid, 10 << 20)]
     prog.repoint(0, src, 9 << 20)  # other planes and another output: every node
     assert COUNTERS["nodes.updates"] - u0 == 1 + 2 + 3
 
 
 def test_program_after_a_failed_update_repoints_every_node():
     src, out = (_src(),), 9 << 20
-    log = []
-    fail = [True]
-
-    def update(exec_, h, s, o):
-        if h == 3 and fail[0]:
-            raise RuntimeError("refused")
-        log.append(h)
-
-    recorded = [nodes.Node(1, src, 7 << 20, update), nodes.Node(3, (_src(7 << 20),), out, update)]
+    lib = _Library()
+    with nodes.recording() as recorded:
+        blur.KERNEL.launch(lib, blur.BlurCall(), src, 7 << 20, 0)
+        lib.handles = 2
+        window.KERNEL.launch(lib, window.WindowCall(), (_src(7 << 20),), out, 0)
     prog = nodes.Program(recorded, src, out)
-    with pytest.raises(RuntimeError, match="refused"):
+    lib.refuse.add(3)
+    with pytest.raises(RuntimeError, match="window kernel node update failed: refused"):
         prog.repoint(0, (_src(3 << 20),), 10 << 20)
-    assert log == [1]
-    fail[0] = False
+    assert [h for h, _, _ in lib.log] == [1]
+    lib.refuse.clear()
     prog.repoint(0, src, out)  # the capture's pointers again, but not known to hold
-    assert log == [1, 1, 3]
+    assert [h for h, _, _ in lib.log] == [1, 1, 3]
 
 
 def test_a_program_without_a_node_on_the_callers_memory_is_refused():
     src, out = (_src(),), 9 << 20
-    other = [nodes.Node(1, (_src(5 << 20),), 6 << 20, None)]
+    with nodes.recording() as other:
+        blur.KERNEL.launch(_Library(), blur.BlurCall(), (_src(5 << 20),), 6 << 20, 0)
     with pytest.raises(RuntimeError, match="no node that reads"):
         nodes.Program(other, src, out)

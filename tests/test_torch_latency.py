@@ -144,13 +144,14 @@ def test_band_plans_structure_and_memo():
 def test_plan_row_costs_model():
     """K3's tiles per output row, weighted by their class's window bytes,
     chroma counted twice; a supersampled plan folds its scaled rows."""
-    from transform360_tpu_torch.ops.window import CLASS_BYTES, TH
+    from transform360_tpu_torch.ops.window import CLASS_BYTES, TH, row_costs
 
     plan = P.build_plan(TransformConfig(**MONO), 512, 256, 384, 256)
     costs = L.plan_row_costs(plan)
     assert costs.shape == (256,) and (costs > 0).all()
-    luma = L._plane_row_costs(plan.luma)
     wp = plan.luma.window_plan()
+    luma = row_costs(wp)
+    assert np.array_equal(L._plane_row_costs(plan.luma), luma)  # no fold at scale 1
     assert plan.luma.window_plan() is wp  # built once, shared with window_tables
     win = {}  # a class's largest launch window: class 0 has two launches
     for f, c, w, _ in wp.groups:

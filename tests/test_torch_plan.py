@@ -153,7 +153,28 @@ def test_device_tables_cached_per_device():
     cfg = P.TransformConfig(**{k: P.StereoFormat(int(v)) for k, v in MONO.items()})
     pp = P.build_plan(cfg, 256, 128, 96, 64).luma
     a, b = pp.tables("cpu"), pp.tables("cpu")
-    assert a is b and a.remap.base_y.device.type == "cpu"
-    assert a.remap.wtab.shape == (1024, 16) and a.blur.tiles.device.type == "cpu"
+    assert a is b and a.blur.kx.device.type == "cpu" and a.area is None
+    assert pp.window_tables("cpu").wtab.shape == (1024, 16) and a.blur.tiles.device.type == "cpu"
     # the prefilter's tiles cover the plane
     assert int((a.blur.tiles[:, 2] * a.blur.tiles[:, 3]).sum()) == pp.in_h * pp.in_w
+
+
+def test_a_cpu_engine_builds_no_device_spec(monkeypatch):
+    # DeviceSpec is the reference remap's input only: neither the plan's
+    # device tables nor K3's plain version build one
+    from transform360_tpu_torch import pipeline, sampling
+
+    def refuse(*a, **k):
+        raise AssertionError("a DeviceSpec was built")
+
+    monkeypatch.setattr(sampling.DeviceSpec, "from_spec", refuse)
+    tplan.clear_plan_cache()
+    pipeline.clear_executor_cache()
+    eng = P.open_filter("cube_edge_length=32:interpolation_alg=cubic:enable_low_pass_filter=1:"
+                        "input_stereo_format=mono", 256, 144, device="cpu")
+    rng = np.random.default_rng(3)
+    y, u, v = (rng.integers(0, 256, (1, h, w), dtype=np.uint8)
+               for h, w in ((144, 256), (72, 128), (72, 128)))
+    out = eng.transform(y, u, v)
+    assert [tuple(o.shape) for o in out] == [(1, 64, 96), (1, 32, 48), (1, 32, 48)]
+    assert eng.plan.luma.tables("cpu").blur is not None

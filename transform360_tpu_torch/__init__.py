@@ -1,13 +1,13 @@
 """transform360_tpu_torch — the PyTorch/CUDA port of transform360_tpu.
 
 360° video re-projection (equirect ↔ cubemap and friends) on an NVIDIA
-GPU: plan-time warp maps and prefilter plans built on the CPU, and two
-hand-written CUDA kernels on the frame path — the adaptive prefilter
-(``csrc/blur.cu``) and the window-gather remap (``csrc/window.cu``) —
-each with a plain PyTorch version that serves CPU tensors, for 8-bit
-and deep (10-, 12-, 16-bit) pixel formats; supersampled configs resize
-with INTER_AREA in torch, and plans save to and load from the JAX
-package's plan files.  ``python -m transform360_tpu_torch.cli`` is the
+GPU: plan-time warp maps and prefilter plans built on the CPU, and three
+hand-written CUDA kernels on the frame path — K1, the adaptive prefilter
+(``csrc/blur.cu``), K3, the window-gather remap (``csrc/window.cu``),
+and K4, the INTER_AREA resize of supersampled configs (``csrc/area.cu``)
+— each with a plain PyTorch version that serves CPU tensors, for 8-bit
+and deep (10-, 12-, 16-bit) pixel formats; ``ops.nodes`` is their one C
+ABI seam, and plans save to and load from the JAX package's plan files.  ``python -m transform360_tpu_torch.cli`` is the
 command-line front end.  The JAX package
 ``transform360_tpu`` is the reference; this package imports neither it
 nor jax.

@@ -30,11 +30,8 @@ frames in order.  A plane whose rows and base are
 with plain loads (``COPY_SCALAR``): the shape chooses, never a failure.
 
 For a CUDA tensor :func:`area_px` launches the kernel or raises; it never
-falls back.  A launch hands the library one :class:`AreaCall`; one made
-while a capture is recorded (:mod:`.nodes`) keeps it, and a replay
-re-points the captured node at a new output through
-``t360_area_update``, which checks it and encodes the tensor map as a
-launch does.  The counters ``area.launches`` and ``area.launches_u16``
+falls back.  :mod:`.nodes` binds, launches, records and re-points the
+kernel (``KERNEL``).  The counters ``area.launches`` and ``area.launches_u16``
 (:data:`..utils.profiling.COUNTERS`) count the uint8 and the uint16
 instantiations' launches (one per call on a CUDA tensor); the span
 ``t360.k4.launch`` times :func:`area_px`.
@@ -43,16 +40,15 @@ instantiations' launches (one per call on a CUDA tensor); the span
 from __future__ import annotations
 
 import ctypes
-import functools
-import threading
-from typing import Dict, List, Tuple
+from typing import List, Tuple
 
 import numpy as np
 import torch
 
 from ..sampling import AreaAxis, AreaTables, DeviceArea, area_resize, round_px
-from ..utils.profiling import count, span
-from . import _build, nodes, sources
+from ..utils.profiling import span
+from . import nodes, sources
+from .nodes import grid_ctas
 
 TR, TC = 8, 128  # output tile: a warp per row, 4 columns per thread
 ALIGN = 16  # span origin, in samples: whole 16-byte chunks at either size
@@ -65,8 +61,6 @@ COPY_TMA, COPY_ASYNC, COPY_SCALAR = 0, 1, 2  # how a stage is filled
 
 _c_void_p = ctypes.c_void_p
 _c_int = ctypes.c_int
-_LOCK = threading.Lock()
-_RESIDENT: Dict[tuple, int] = {}  # (device, sample bytes, taps, smem) -> resident CTAs
 
 
 def taps(kr: int, kc: int) -> int:
@@ -188,12 +182,6 @@ def work_list(n_tiles: int, B: int, ctas: int,
     return out
 
 
-def grid_ctas(n_items: int, resident: int) -> int:
-    """The persistent grid: every CTA the card holds at once
-    (``resident``), but no more than there are items."""
-    return max(1, min(n_items, resident))
-
-
 def area_plain(da: DeviceArea, x: torch.Tensor, maxval: int = 255) -> torch.Tensor:
     """Plain version of K4: INTER_AREA (:func:`..sampling.area_resize`)
     then the half-up round saturated at ``maxval``, in ``x``'s dtype."""
@@ -216,27 +204,13 @@ class AreaCall(ctypes.Structure):
         ("copy", _c_int), ("packed", _c_int), ("ctas", _c_int), ("order", _c_int),
     ]
 
-
-def _lib() -> ctypes.CDLL:
-    lib = _build.library("area")
-    fn = lib.t360_area
-    if fn.argtypes is None:
-        call = ctypes.POINTER(AreaCall)
-        lib.t360_area_update.argtypes = [_c_void_p, _c_void_p, call]  # graph, node, call
-        lib.t360_area_update.restype = _c_int
-        lib.t360_area_attrs.argtypes = [_c_int, _c_int, _c_int, _c_int, _c_void_p]
-        lib.t360_area_attrs.restype = _c_int
-        lib.t360_error_string.argtypes = [_c_int]
-        lib.t360_error_string.restype = ctypes.c_char_p
-        fn.restype = _c_int
-        fn.argtypes = [call, _c_void_p, ctypes.POINTER(_c_void_p)]  # call, stream, node out
-    return lib
+    def point(self, src: tuple, out: int) -> None:
+        """Set the source (one, described) and the output."""
+        (s,) = src
+        self.src, self.dst = s.ptr, out
 
 
-def _error(lib: ctypes.CDLL, err: int) -> str:
-    if err < 0:
-        return f"cuTensorMapEncodeTiled returned CUresult {-err}"
-    return lib.t360_error_string(err).decode()
+KERNEL = nodes.Kernel("area", AreaCall, 4, 4, "INTER_AREA", "area.launches")
 
 
 def _check_input(da: DeviceArea, x: torch.Tensor) -> None:
@@ -275,19 +249,10 @@ def resident_ctas(lib: ctypes.CDLL, da: DeviceArea, sample_bytes: int, stages: i
     """CTAs of K4 resident on all of the current card's SMs at once for a
     launch of ``da``'s plan (memoized per card, sample size, taps and
     shared memory)."""
-    dev = torch.cuda.current_device()
-    key = (dev, sample_bytes, taps(da.row_w.shape[1], da.col_w.shape[1]),
-           smem_bytes(da, sample_bytes, stages))
-    with _LOCK:
-        n = _RESIDENT.get(key)
-    if n is None:
-        per_sm = kernel_attrs(da, sample_bytes, stages, lib)["ctas_per_sm"]
-        if per_sm <= 0:
-            raise RuntimeError(f"area kernel: no CTA fits an SM with {key[3]} B of shared memory")
-        n = per_sm * torch.cuda.get_device_properties(dev).multi_processor_count
-        with _LOCK:
-            _RESIDENT[key] = n
-    return n
+    return KERNEL.resident(
+        (sample_bytes, taps(da.row_w.shape[1], da.col_w.shape[1]),
+         smem_bytes(da, sample_bytes, stages)),
+        lambda: kernel_attrs(da, sample_bytes, stages, lib)["ctas_per_sm"])
 
 
 def launch(lib: ctypes.CDLL, da: DeviceArea, x: torch.Tensor, out: torch.Tensor, stream: int,
@@ -308,7 +273,7 @@ def launch(lib: ctypes.CDLL, da: DeviceArea, x: torch.Tensor, out: torch.Tensor,
     n_items = da.tiles.shape[0] * x.shape[0]
     kr, kc = da.row_w.shape[1], da.col_w.shape[1]
     call = AreaCall(
-        src=x.data_ptr(), dst=out.data_ptr(), sample_bytes=sb, maxval=maxval, B=x.shape[0],
+        sample_bytes=sb, maxval=maxval, B=x.shape[0],
         H=da.in_h, W=da.in_w, OH=da.out_shape[0], OW=da.out_shape[1],
         row_first=da.row_first.data_ptr(), row_w=da.row_w.data_ptr(), kr=kr,
         col_first=da.col_first.data_ptr(), col_w=da.col_w.data_ptr(), kc=kc, taps=taps(kr, kc),
@@ -317,26 +282,7 @@ def launch(lib: ctypes.CDLL, da: DeviceArea, x: torch.Tensor, out: torch.Tensor,
         packed=int(packed),
         ctas=min(ctas or grid_ctas(n_items, resident_ctas(lib, da, sb, stages)), n_items),
         order=order)
-    ref = nodes.handle_ref()
-    err = lib.t360_area(ctypes.byref(call), stream, None if ref is None else ctypes.byref(ref))
-    if err:
-        raise RuntimeError(f"area kernel launch failed: {_error(lib, err)}")
-    if ref is not None:  # recording a capture
-        nodes.add(ref, sources.describe((x,)), out.data_ptr(),
-                  functools.partial(_update, lib, call))
-
-
-def _update(lib: ctypes.CDLL, call: AreaCall, exec_: int, node: int, src: tuple,
-            out: int) -> None:
-    """Re-point a captured launch's node in the graph ``exec_`` at the
-    source ``src`` (one, described) and the output at ``out``, with the
-    rest of its ``call`` as captured (:class:`..nodes.Node`).  Raises if
-    the library refuses them."""
-    (s,) = src
-    call.src, call.dst = s.ptr, out
-    err = lib.t360_area_update(exec_, node, ctypes.byref(call))
-    if err:
-        raise RuntimeError(f"area kernel node update failed: {_error(lib, err)}")
+    KERNEL.launch(lib, call, sources.describe((x,)), out.data_ptr(), stream)
 
 
 def area_px(da: DeviceArea, x: torch.Tensor, maxval: int = 255) -> torch.Tensor:
@@ -346,21 +292,9 @@ def area_px(da: DeviceArea, x: torch.Tensor, maxval: int = 255) -> torch.Tensor:
     sample)."""
     with span("k4.launch"):
         _check_input(da, x)
-        sb = x.element_size()
-        if sb == 1 and maxval != 255:
-            raise ValueError(f"uint8 samples saturate at 255, not {maxval}")
-        if not 255 <= maxval <= 65535:
-            raise ValueError(f"largest sample {maxval} is not a depth of 8 to 16 bits")
-        if x.device.type == "cpu":
-            return area_plain(da, x, maxval)
-        if x.device.type != "cuda":
-            raise ValueError(f"INTER_AREA runs on cpu or cuda tensors, not {x.device}")
-        out = torch.empty((x.shape[0],) + da.out_shape, dtype=x.dtype, device=x.device)
-        lib = _lib()
-        with torch.cuda.device(x.device):
-            launch(lib, da, x, out, torch.cuda.current_stream(x.device).cuda_stream, maxval)
-        count("area.launches" if sb == 1 else "area.launches_u16")
-        return out
+        return KERNEL.run(x.device, x.element_size(), maxval, (x.shape[0],) + da.out_shape,
+                          x.dtype, lambda: area_plain(da, x, maxval),
+                          lambda lib, out, stream: launch(lib, da, x, out, stream, maxval))
 
 
 def kernel_attrs(da: DeviceArea, sample_bytes: int = 1, stages: int = 0,
@@ -370,12 +304,6 @@ def kernel_attrs(da: DeviceArea, sample_bytes: int = 1, stages: int = 0,
     for a launch of ``da``'s plan with a ring of ``stages`` (default
     :func:`ring_stages`), that launch's dynamic shared memory, and the
     stages."""
-    lib = lib or _lib()
     stages = stages or ring_stages(da, sample_bytes)
-    out = (_c_int * 4)()
-    err = lib.t360_area_attrs(sample_bytes, taps(da.row_w.shape[1], da.col_w.shape[1]),
-                              stage_bytes(da.box, sample_bytes), stages, out)
-    if err:
-        raise RuntimeError(f"area kernel attributes: {_error(lib, err)}")
-    return dict(zip(("registers", "local_bytes", "ctas_per_sm", "smem_bytes"), out),
-                stages=stages)
+    return dict(KERNEL.attrs(lib, sample_bytes, taps(da.row_w.shape[1], da.col_w.shape[1]),
+                             stage_bytes(da.box, sample_bytes), stages), stages=stages)

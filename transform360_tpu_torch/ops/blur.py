@@ -32,12 +32,9 @@ never a failure.  The tables memoize each batch's choices
 (:func:`geometry`) by its sources' frame counts and alignment, so that
 a call after the first spends no host time on them.  For CUDA tensors the
 wrapper launches the kernel or raises; it never falls back, and never
-copies a source.  A launch hands the library one :class:`BlurCall`; one
-made while a capture is recorded (:mod:`.nodes`) keeps it, and a replay
-re-points the captured node at new sources and a new output through
-``t360_blur_update``, which checks them and encodes the tensor maps as a
-launch does.
-The counters ``blur.launches`` and ``blur.launches_u16``
+copies a source.  :mod:`.nodes` binds, launches, records and re-points
+the kernel (``KERNEL``); its update encodes the tensor maps anew, as a
+launch does.  The counters ``blur.launches`` and ``blur.launches_u16``
 (:data:`..utils.profiling.COUNTERS`) count the uint8 and the uint16
 instantiations' launches (one per call on a CUDA tensor); the span
 ``t360.k1.launch`` times :func:`blur_px`.
@@ -47,9 +44,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import functools
-import threading
-from typing import Dict, List, Tuple
+from typing import List, Tuple
 
 import numpy as np
 import torch
@@ -57,8 +52,9 @@ import torch
 from ..config import StereoFormat
 from ..filtering import BlurPlan, band_radii, blur_plain, plan_radii
 from ..sampling import round_px
-from ..utils.profiling import count, span
-from . import _build, nodes, sources
+from ..utils.profiling import span
+from . import nodes, sources
+from .nodes import grid_ctas
 from .sources import Planes
 
 TILE_COLS = {1: 1024, 2: 768}  # a tile's columns by sample bytes (csrc/blur.cu: kTW)
@@ -82,8 +78,6 @@ COPY_TMA, COPY_WARP = 0, 1  # how a stage is filled
 
 _c_void_p = ctypes.c_void_p
 _c_int = ctypes.c_int
-_LOCK = threading.Lock()
-_RESIDENT: Dict[tuple, int] = {}  # (device, sample bytes, ring, columns, ring bytes) -> CTAs
 
 
 def tile_width(sample_bytes: int) -> int:
@@ -178,7 +172,7 @@ class BlurTables:
     min_rows: int  # rows of the shortest tile that is not zeros
     sample_bytes: int  # 1: uint8 planes, 2: uint16
     # (device, sources' frame counts, sources' 16-byte alignment) -> (copy,
-    # stages, cols, parts, ctas) of a launch
+    # cols, parts, ctas) of a launch
     memo: dict = dataclasses.field(default_factory=dict, init=False, repr=False,
                                        compare=False)
 
@@ -291,20 +285,11 @@ def launch_parts(bt: BlurTables, B: int, ctas: int) -> int:
     return max(1, min(parts, ctas // items)) if items <= ctas else parts
 
 
-def grid_ctas(n_items: int, resident: int) -> int:
-    """The persistent grid: every CTA the card holds at once
-    (``resident``), but no more than there are items."""
-    return max(1, min(n_items, resident))
-
-
-class BlurCall(ctypes.Structure):
+class BlurCall(nodes.PlaneCall):
     """The arguments of a launch of K1 and of a graph node's update, as
-    ``csrc/blur.cu``'s ``BlurCall`` lays them out."""
+    ``csrc/blur.cu``'s ``BlurCall`` lays them out past the pointers."""
 
     _fields_ = [
-        ("x0", _c_void_p), ("fs0", ctypes.c_longlong), ("b0", _c_int),  # source 0, its frames
-        ("x1", _c_void_p), ("fs1", ctypes.c_longlong),  # source 1
-        ("out", _c_void_p),
         ("sample_bytes", _c_int), ("maxval", _c_int),  # largest sample
         ("B", _c_int), ("H", _c_int), ("W", _c_int),
         ("tiles", _c_void_p), ("n_tiles", _c_int),
@@ -316,31 +301,7 @@ class BlurCall(ctypes.Structure):
     ]
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.library("blur")
-    fn = lib.t360_blur
-    if fn.argtypes is None:
-        call = ctypes.POINTER(BlurCall)
-        lib.t360_blur_update.argtypes = [_c_void_p, _c_void_p, call]  # graph, node, call
-        lib.t360_blur_update.restype = _c_int
-        lib.t360_blur_attrs.argtypes = [_c_int] * 6 + [_c_void_p]
-        lib.t360_blur_attrs.restype = _c_int
-        lib.t360_error_string.argtypes = [_c_int]
-        lib.t360_error_string.restype = ctypes.c_char_p
-        fn.restype = _c_int
-        fn.argtypes = [call, _c_void_p, ctypes.POINTER(_c_void_p)]  # call, stream, node out
-    return lib
-
-
-def _error(lib: ctypes.CDLL, err: int) -> str:
-    if err < 0:
-        return f"cuTensorMapEncodeTiled returned CUresult {-err}"
-    return lib.t360_error_string(err).decode()
-
-
-def _check_input(bt: BlurTables, x: Planes) -> tuple:
-    """(sources, their descriptions) of ``x``, checked."""
-    return sources.check_sources(x, bt.H, bt.W, bt.dtype, bt.kx.device, "blur")
+KERNEL = nodes.Kernel("blur", BlurCall, 6, 5, "blur", "blur.launches")
 
 
 def copy_mode(bt: BlurTables, x: Planes) -> int:
@@ -360,31 +321,16 @@ def kernel_attrs(bt: BlurTables, stages: int = STAGES, lib: ctypes.CDLL = None,
     the current GPU: its registers, local memory bytes (spills and stack),
     resident CTAs per SM and dynamic shared memory for a launch with a
     ring of ``stages``, its threads per CTA, and the stages."""
-    lib = lib or _lib()
-    out = (_c_int * 5)()
-    err = lib.t360_blur_attrs(bt.sample_bytes, bt.ring_ry, cols, bt.pitch, bt.slab, stages, out)
-    if err:
-        raise RuntimeError(f"blur kernel attributes: {_error(lib, err)}")
-    return dict(zip(("registers", "local_bytes", "ctas_per_sm", "smem_bytes", "threads"), out),
+    return dict(KERNEL.attrs(lib, bt.sample_bytes, bt.ring_ry, cols, bt.pitch, bt.slab, stages),
                 stages=stages, cols=cols)
 
 
 def resident_ctas(lib: ctypes.CDLL, bt: BlurTables, stages: int = STAGES, cols: int = 8) -> int:
     """CTAs of K1 resident on all of the current card's SMs at once for a
-    launch of ``bt`` (memoized per card, sample size, kernel and shared
-    memory)."""
-    dev = torch.cuda.current_device()
-    key = (dev, bt.sample_bytes, bt.ring_ry, cols, bt.pitch * bt.slab * stages)
-    with _LOCK:
-        n = _RESIDENT.get(key)
-    if n is None:
-        per_sm = kernel_attrs(bt, stages, lib, cols)["ctas_per_sm"]
-        if per_sm <= 0:
-            raise RuntimeError(f"blur kernel: no CTA fits an SM with a ring of {key[4]} B")
-        n = per_sm * torch.cuda.get_device_properties(dev).multi_processor_count
-        with _LOCK:
-            _RESIDENT[key] = n
-    return n
+    launch of ``bt`` (memoized per card, sample size, kernel and ring
+    bytes)."""
+    return KERNEL.resident((bt.sample_bytes, bt.ring_ry, cols, bt.pitch * bt.slab * stages),
+                           lambda: kernel_attrs(bt, stages, lib, cols)["ctas_per_sm"])
 
 
 def launch_cols(lib: ctypes.CDLL, bt: BlurTables, B: int, stages: int = STAGES) -> int:
@@ -413,75 +359,31 @@ def geometry(lib: ctypes.CDLL, bt: BlurTables, B: int, stages: int = STAGES, *, 
 
 
 def launch(lib: ctypes.CDLL, bt: BlurTables, x: Planes, out: torch.Tensor, stream: int,
-           maxval: int = 255, src: tuple = None) -> None:
+           maxval: int = 255, src: tuple = None, *, copy: int = -1, stages: int = STAGES,
+           parts: int = 0, ctas: int = 0, cols: int = 0) -> None:
     """One launch of K1 from ``lib`` over ``bt``'s tiles, reading the
     sources ``x`` (described by ``src``, or here) where they lie, into
     ``out`` (stacked) on the CUDA stream ``stream``; uint16 samples round
     and saturate to ``maxval``.  The sources' alignment picks the copy
     (:func:`copy_mode`) and the batch the rest (:func:`geometry`),
-    memoized in ``bt``.  Raises if the launch fails."""
+    memoized in ``bt``.  The tests and ``port_tools/`` may set each
+    choice: the copy (-1: as picked), the ring's depth, and the columns
+    per thread, parts per tile and CTAs (0: as picked); a launch with any
+    of them set memoizes nothing.  Raises if the launch fails."""
     xs = sources.as_sources(x)
     src = src or sources.describe(xs)
-    key = (xs[0].device.index, tuple([s.frames for s in src]), tuple([s.aligned for s in src]))
-    g = bt.memo.get(key)
-    if g is None:
-        g = bt.memo[key] = (copy_mode(bt, xs), STAGES, *geometry(lib, bt, sources.frames(xs)))
-    _call(lib, bt, src, out, stream, maxval, *g)
-
-
-def _launch(lib: ctypes.CDLL, bt: BlurTables, x: Planes, out: torch.Tensor, stream: int,
-            maxval: int = 255, *, copy: int = -1, stages: int = STAGES, parts: int = 0,
-            ctas: int = 0, cols: int = 0) -> None:
-    """:func:`launch` with each choice open to the tests and
-    ``port_tools/``: the copy (-1: :func:`copy_mode`), the ring's depth,
-    and the columns per thread, parts per tile and CTAs (0: as
-    :func:`geometry` picks them); nothing memoized."""
-    xs = sources.as_sources(x)
-    copy = copy_mode(bt, xs) if copy < 0 else copy
-    g = geometry(lib, bt, sources.frames(xs), stages, cols=cols, parts=parts, ctas=ctas)
-    _call(lib, bt, sources.describe(xs), out, stream, maxval, copy, stages, *g)
-
-
-def _call(lib: ctypes.CDLL, bt: BlurTables, src: tuple, out: torch.Tensor, stream: int,
-          maxval: int, copy: int, stages: int, cols: int, parts: int, ctas: int) -> None:
-    """A launch with its choices made; while a capture is recorded
-    (:mod:`.nodes`), its node and its update are recorded too."""
-    call = _call_of(bt, src, out.data_ptr(), maxval, copy, stages, cols, parts, ctas)
-    ref = nodes.handle_ref()
-    err = lib.t360_blur(ctypes.byref(call), stream, None if ref is None else ctypes.byref(ref))
-    if err:
-        raise RuntimeError(f"blur kernel launch failed: {_error(lib, err)}")
-    if ref is not None:
-        nodes.add(ref, src, out.data_ptr(), functools.partial(_update, lib, call))
-
-
-def _update(lib: ctypes.CDLL, call: BlurCall, exec_: int, node: int, src: tuple,
-            out: int) -> None:
-    """Re-point a captured launch's node in the graph ``exec_`` at the
-    sources ``src`` and the output at ``out``, with the rest of its
-    ``call`` as captured (:class:`..nodes.Node`).  Raises if the library
-    refuses them: a TMA copy or vector stores that the new pointers do not
-    allow."""
-    _point(call, src, out)
-    err = lib.t360_blur_update(exec_, node, ctypes.byref(call))
-    if err:
-        raise RuntimeError(f"blur kernel node update failed: {_error(lib, err)}")
-
-
-def _point(call: BlurCall, src: tuple, out: int) -> None:
-    """Set ``call``'s sources (described) and output: what a replay
-    re-points."""
-    s0, s1 = src[0], src[-1]
-    call.x0, call.fs0, call.b0 = s0.ptr, s0.stride, s0.frames
-    call.x1, call.fs1 = s1.ptr if len(src) > 1 else None, s1.stride
-    call.out = out
-
-
-def _call_of(bt: BlurTables, src: tuple, out: int, maxval: int, copy: int, stages: int,
-             cols: int, parts: int, ctas: int) -> BlurCall:
-    """The arguments of a launch over ``bt``'s tiles with these choices."""
-    B = sum(s.frames for s in src)
-    n = bt.tiles.shape[0]
+    B = sources.frames(xs)
+    if copy < 0 and stages == STAGES and not (parts or ctas or cols):
+        key = (xs[0].device.index, tuple([s.frames for s in src]),
+               tuple([s.aligned for s in src]))
+        g = bt.memo.get(key)
+        if g is None:
+            g = bt.memo[key] = (copy_mode(bt, xs), *geometry(lib, bt, B))
+        copy, cols, parts, ctas = g
+    else:
+        copy = copy_mode(bt, xs) if copy < 0 else copy
+        cols, parts, ctas = geometry(lib, bt, B, stages, cols=cols, parts=parts, ctas=ctas)
+    n, ptr = bt.tiles.shape[0], out.data_ptr()
     call = BlurCall(
         sample_bytes=bt.sample_bytes, maxval=maxval, B=B, H=bt.H, W=bt.W,
         tiles=bt.tiles.data_ptr(), n_tiles=n,
@@ -489,9 +391,8 @@ def _call_of(bt: BlurTables, src: tuple, out: int, maxval: int, copy: int, stage
         ky=bt.ky.data_ptr(), ry=bt.ry.data_ptr(), ly=bt.ky.shape[1],
         ring_ry=bt.ring_ry, cols=cols, row_bytes=bt.row_bytes, pitch=bt.pitch, slab=bt.slab,
         stages=stages, parts=parts, copy=copy, ctas=min(ctas, n * B * parts),
-        vec_out=int(bt.W % 16 == 0 and out % 16 == 0))
-    _point(call, src, out)
-    return call
+        vec_out=int(bt.W % 16 == 0 and ptr % 16 == 0))
+    KERNEL.launch(lib, call, src, ptr, stream)
 
 
 def blur_px(bt: BlurTables, x: Planes, maxval: int = 255) -> torch.Tensor:
@@ -501,19 +402,8 @@ def blur_px(bt: BlurTables, x: Planes, maxval: int = 255) -> torch.Tensor:
     (saturated at 255), or uint16 saturated at ``maxval`` (the depth's
     largest sample)."""
     with span("k1.launch"):
-        xs, src = _check_input(bt, x)
-        if bt.sample_bytes == 1 and maxval != 255:
-            raise ValueError(f"uint8 samples saturate at 255, not {maxval}")
-        if not 255 <= maxval <= 65535:
-            raise ValueError(f"largest sample {maxval} is not a depth of 8 to 16 bits")
-        dev = xs[0].device
-        if dev.type == "cpu":
-            return round_px(blur_plain(bt.plan, sources.stacked(xs).float()), maxval, bt.dtype)
-        if dev.type != "cuda":
-            raise ValueError(f"blur runs on cpu or cuda tensors, not {dev}")
-        out = torch.empty((sources.frames(xs), bt.H, bt.W), dtype=bt.dtype, device=dev)
-        lib = _lib()
-        with torch.cuda.device(dev):
-            launch(lib, bt, xs, out, torch.cuda.current_stream(dev).cuda_stream, maxval, src)
-        count("blur.launches" if bt.sample_bytes == 1 else "blur.launches_u16")
-        return out
+        xs, src = sources.check_sources(x, bt.H, bt.W, bt.dtype, bt.kx.device, "blur")
+        return KERNEL.run(
+            xs[0].device, bt.sample_bytes, maxval, (sources.frames(xs), bt.H, bt.W), bt.dtype,
+            lambda: round_px(blur_plain(bt.plan, sources.stacked(xs).float()), maxval, bt.dtype),
+            lambda lib, out, stream: launch(lib, bt, xs, out, stream, maxval, src))

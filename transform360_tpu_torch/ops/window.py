@@ -33,11 +33,8 @@ the second source starts, so that each CTA reads one source.  For
 CUDA tensors it launches the kernel (:func:`launches`: the plan's
 launches, class 0's two ranges as one at two frames a pass on batches
 of ``CTA_FRAMES_MIN`` frames or fewer) or raises; it never falls
-back, and never copies a source.  A launch hands the library one
-:class:`WindowCall`; one made while a capture is recorded
-(:mod:`.nodes`) keeps it, and a replay re-points the captured node at new
-sources and a new output through ``t360_window_update``, which checks
-them as a launch does.  The counters ``window.launches`` and
+back, and never copies a source.  :mod:`.nodes` binds, launches,
+records and re-points the kernel (``KERNEL``).  The counters ``window.launches`` and
 ``window.launches_u16`` (:data:`..utils.profiling.COUNTERS`) count the
 uint8 and the uint16 instantiations' launches, ``window.tiles`` and
 ``window.tiles_u16`` their tiles, and ``window.tiles_wide`` and
@@ -49,7 +46,6 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import functools
 from typing import Tuple
 
 import numpy as np
@@ -69,7 +65,7 @@ from ..sampling import (
     weight_table,
 )
 from ..utils.profiling import count, span
-from . import _build, nodes, sources
+from . import nodes, sources
 from .sources import Planes
 
 # Output tile (rows, columns): one CTA of 256 threads, a pixel each.  2 or
@@ -397,14 +393,11 @@ def remap_window_plain(wt: WindowTables, x: torch.Tensor) -> torch.Tensor:
     return out.reshape(B, wt.out_h, wt.out_w)
 
 
-class WindowCall(ctypes.Structure):
+class WindowCall(nodes.PlaneCall):
     """The arguments of a launch of K3 and of a graph node's update, as
-    ``csrc/window.cu``'s ``WindowCall`` lays them out."""
+    ``csrc/window.cu``'s ``WindowCall`` lays them out past the pointers."""
 
     _fields_ = [
-        ("src0", _c_void_p), ("fs0", ctypes.c_longlong), ("b0", _c_int),  # source 0, its frames
-        ("src1", _c_void_p), ("fs1", ctypes.c_longlong),  # source 1
-        ("dst", _c_void_p),
         ("sample_bytes", _c_int), ("maxval", ctypes.c_float),  # largest sample
         ("B", _c_int), ("H", _c_int), ("W", _c_int), ("out_h", _c_int), ("out_w", _c_int),
         ("meta", _c_void_p), ("pos", _c_void_p), ("fy", _c_void_p), ("fx", _c_void_p),
@@ -415,91 +408,30 @@ class WindowCall(ctypes.Structure):
     ]
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.library("window")
-    fn = lib.t360_window
-    if fn.argtypes is None:
-        call = ctypes.POINTER(WindowCall)
-        lib.t360_window_update.argtypes = [_c_void_p, _c_void_p, call]  # graph, node, call
-        lib.t360_window_update.restype = _c_int
-        lib.t360_window_attrs.argtypes = [_c_int, _c_int, _c_int, _c_int, _c_int, _c_void_p]
-        lib.t360_window_attrs.restype = _c_int
-        lib.t360_error_string.argtypes = [_c_int]
-        lib.t360_error_string.restype = ctypes.c_char_p
-        fn.restype = _c_int
-        fn.argtypes = [call, _c_void_p, ctypes.POINTER(_c_void_p)]  # call, stream, node out
-    return lib
-
-
-def _check_input(wt: WindowTables, x: Planes) -> tuple:
-    """(sources, their descriptions) of ``x``, checked."""
-    return sources.check_sources(x, wt.in_h, wt.in_w, wt.dtype, wt.meta.device, "remap")
+KERNEL = nodes.Kernel("window", WindowCall, 5, 4, "remap")
 
 
 def launch_class(lib: ctypes.CDLL, wt: WindowTables, x: Planes, out: torch.Tensor,
                  group: Tuple[int, ...], frames: int, pass_frames: int, stream: int,
-                 maxval: int = 255) -> None:
+                 maxval: int = 255, src: tuple = None) -> None:
     """One launch of K3 from ``lib`` over the tiles of ``group`` (first
     tile, tiles, window bytes, ...) of ``wt``: up to ``frames`` frames of
-    one source of ``x`` per CTA (the groups cut where source 1 starts),
-    ``pass_frames`` (1, or even up to 8) a pass, into ``out`` (stacked) on
-    the CUDA stream ``stream``; uint16 samples round and saturate to
-    ``maxval``.  Raises if the launch fails."""
-    _launch_class(lib, wt, sources.describe(sources.as_sources(x)), out, group, frames,
-                  pass_frames, stream, maxval)
-
-
-def _launch_class(lib: ctypes.CDLL, wt: WindowTables, src: tuple, out: torch.Tensor,
-                  group: Tuple[int, ...], frames: int, pass_frames: int, stream: int,
-                  maxval: int) -> None:
-    """:func:`launch_class` on sources already described
-    (:func:`.sources.describe`); while a capture is recorded
-    (:mod:`.nodes`), its node and its update are recorded too."""
-    call = _call_of(wt, src, out.data_ptr(), group, frames, pass_frames, maxval)
-    ref = nodes.handle_ref()
-    err = lib.t360_window(ctypes.byref(call), stream, None if ref is None else ctypes.byref(ref))
-    if err:
-        raise RuntimeError(f"window kernel launch failed: {lib.t360_error_string(err).decode()}")
-    if ref is not None:
-        nodes.add(ref, src, out.data_ptr(), functools.partial(_update, lib, call))
-
-
-def _update(lib: ctypes.CDLL, call: WindowCall, exec_: int, node: int, src: tuple,
-            out: int) -> None:
-    """Re-point a captured launch's node in the graph ``exec_`` at the
-    sources ``src`` and the output at ``out``, with the rest of its
-    ``call`` as captured (:class:`..nodes.Node`).  Raises if the library
-    refuses them: 16-byte copies that the new pointers do not allow."""
-    _point(call, src, out)
-    err = lib.t360_window_update(exec_, node, ctypes.byref(call))
-    if err:
-        raise RuntimeError(f"window kernel node update failed: "
-                           f"{lib.t360_error_string(err).decode()}")
-
-
-def _point(call: WindowCall, src: tuple, out: int) -> None:
-    """Set ``call``'s sources (described) and output: what a replay
-    re-points."""
-    s0, s1 = src[0], src[-1]
-    call.src0, call.fs0, call.b0 = s0.ptr, s0.stride, s0.frames
-    call.src1, call.fs1 = s1.ptr if len(src) > 1 else None, s1.stride
-    call.dst = out
-
-
-def _call_of(wt: WindowTables, src: tuple, out: int, group: Tuple[int, ...], frames: int,
-             pass_frames: int, maxval: int) -> WindowCall:
-    """The arguments of a launch over the tiles of ``group`` of ``wt``."""
-    first, count, win = group[:3]
+    one source of ``x`` (described by ``src``, or here) per CTA (the
+    groups cut where source 1 starts), ``pass_frames`` (1, or even up to
+    8) a pass, into ``out`` (stacked) on the CUDA stream ``stream``;
+    uint16 samples round and saturate to ``maxval``.  Raises if the
+    launch fails."""
+    src = src or sources.describe(sources.as_sources(x))
+    first, tiles, win = group[:3]
     call = WindowCall(
         sample_bytes=wt.sample_bytes, maxval=float(maxval),
         B=sum(s.frames for s in src), H=wt.in_h, W=wt.in_w, out_h=wt.out_h, out_w=wt.out_w,
         meta=wt.meta.data_ptr(), pos=wt.pos.data_ptr(), fy=wt.fy.data_ptr(),
         fx=wt.fx.data_ptr(), wtab=wt.wtab.data_ptr(),
-        first=first, tiles=count, win_bytes=win, taps=wt.taps, mode=wt.mode, fill=wt.fill,
+        first=first, tiles=tiles, win_bytes=win, taps=wt.taps, mode=wt.mode, fill=wt.fill,
         vec=int(wt.in_w * wt.sample_bytes % VEC == 0 and all(s.aligned for s in src)),
         frames=frames, pass_frames=pass_frames)
-    _point(call, src, out)
-    return call
+    KERNEL.launch(lib, call, src, out.data_ptr(), stream)
 
 
 def remap_window_px(wt: WindowTables, x: Planes, maxval: int = 255) -> torch.Tensor:
@@ -510,21 +442,12 @@ def remap_window_px(wt: WindowTables, x: Planes, maxval: int = 255) -> torch.Ten
     at ``maxval`` (the depth's largest sample, 1023 at 10 bits).  Any
     batch size is accepted."""
     with span("k3.launch"):
-        xs, src = _check_input(wt, x)
-        if wt.sample_bytes == 1 and maxval != 255:
-            raise ValueError(f"uint8 samples saturate at 255, not {maxval}")
-        if not 255 <= maxval <= 65535:
-            raise ValueError(f"largest sample {maxval} is not a depth of 8 to 16 bits")
-        dev = xs[0].device
-        if dev.type == "cpu":
-            return round_px(remap_window_plain(wt, sources.stacked(xs)), maxval, wt.dtype)
-        if dev.type != "cuda":
-            raise ValueError(f"remap runs on cpu or cuda tensors, not {dev}")
-        out = torch.empty((sources.frames(xs), wt.out_h, wt.out_w), dtype=wt.dtype, device=dev)
-        with torch.cuda.device(dev):
-            _launch_plan(_lib(), wt, src, out, torch.cuda.current_stream(dev).cuda_stream,
-                         maxval)
-        return out
+        xs, src = sources.check_sources(x, wt.in_h, wt.in_w, wt.dtype, wt.meta.device, "remap")
+        return KERNEL.run(
+            xs[0].device, wt.sample_bytes, maxval, (sources.frames(xs), wt.out_h, wt.out_w),
+            wt.dtype,
+            lambda: round_px(remap_window_plain(wt, sources.stacked(xs)), maxval, wt.dtype),
+            lambda lib, out, stream: _launch_plan(lib, wt, src, out, stream, maxval))
 
 
 def _launch_plan(lib: ctypes.CDLL, wt: WindowTables, src: tuple, out: torch.Tensor,
@@ -536,7 +459,7 @@ def _launch_plan(lib: ctypes.CDLL, wt: WindowTables, src: tuple, out: torch.Tens
     u16 = "" if wt.sample_bytes == 1 else "_u16"
     counts = [s.frames for s in src]
     for first, tiles, win, fp, frames in launches(wt.groups, sum(counts), max(counts)):
-        _launch_class(lib, wt, src, out, (first, tiles, win), frames, fp, stream, maxval)
+        launch_class(lib, wt, None, out, (first, tiles, win), frames, fp, stream, maxval, src)
         count("window.launches" + u16)
         count("window.tiles" + u16, tiles)
         if fp > 2:
@@ -549,9 +472,23 @@ def kernel_attrs(taps: int, mode: int, win_bytes: int, pass_frames: int,
     memory bytes (spills and stack), resident CTAs per SM for a launch with
     ``win_bytes`` of window and ``pass_frames`` frames a pass, and that
     launch's dynamic shared memory."""
-    lib = _lib()
-    out = (_c_int * 4)()
-    err = lib.t360_window_attrs(sample_bytes, taps, mode, win_bytes, pass_frames, out)
-    if err:
-        raise RuntimeError(f"window kernel attributes: {lib.t360_error_string(err).decode()}")
-    return dict(zip(("registers", "local_bytes", "ctas_per_sm", "smem_bytes"), out))
+    return KERNEL.attrs(None, sample_bytes, taps, mode, win_bytes, pass_frames)
+
+
+def row_costs(wp: WindowPlan) -> np.ndarray:
+    """[wp.out_h] modelled cost of each output row of the plan: each tile
+    weighs the window bytes its launch stages per frame at one frame (its
+    class's largest: class 0's two ranges go out as one launch there; a
+    global-path tile, whose window exceeds the largest class, weighs the
+    largest class), spread evenly over its rows."""
+    win = {c: CLASS_BYTES[c] for c in range(len(CLASS_BYTES))}
+    launched = {}  # a class's largest launch window (class 0 has two launches)
+    for first, n, nbytes, _ in wp.groups:
+        c = int(wp.tile_class[first + n - 1])
+        if c >= 0:
+            launched[c] = max(launched.get(c, 0), nbytes)
+    win.update(launched)
+    cost = np.array([win[c] if c >= 0 else CLASS_BYTES[-1] for c in wp.tile_class.tolist()],
+                    np.float64)
+    per_tile_row = np.bincount(wp.meta[:, 0] // TH, weights=cost, minlength=-(-wp.out_h // TH))
+    return np.repeat(per_tile_row / TH, TH)[: wp.out_h]

@@ -43,9 +43,9 @@ import numpy as np
 import torch
 
 from ..config import chroma_dims
-from ..ops.window import CLASS_BYTES, TH
+from ..ops import window
 from ..pipeline import as_plane, drop_executors, transform_frame_planes
-from ..plan import PlanePlan, TransformPlan, _DeviceCache
+from ..plan import PlanePlan, TransformPlan
 from ..sampling import AreaAxis, AreaTables
 from . import distributed
 from .mesh import default_devices, make_mesh
@@ -69,8 +69,9 @@ def _slice_area_rows(axis: AreaAxis, y0: int, y1: int) -> Tuple[AreaAxis, int, i
 
 def _slice_plane(pp: PlanePlan, y0: int, y1: int) -> PlanePlan:
     """Row band ``[y0, y1)`` of a plane plan's OUTPUT (final, after any
-    INTER_AREA resize), with its own key and device cache: its tables and
-    the remap's tile plan are built for the band's rows."""
+    INTER_AREA resize), with its own key and (as every plan made by
+    ``dataclasses.replace``) device cache: its tables and the remap's tile
+    plan are built for the band's rows."""
     area = pp.area
     if area is not None:
         row, s0, s1 = _slice_area_rows(area.row, y0, y1)
@@ -93,33 +94,17 @@ def _slice_plane(pp: PlanePlan, y0: int, y1: int) -> PlanePlan:
         out_h=y1 - y0,
         scaled_h=s1 - s0,
         area=area,
-        _cache=_DeviceCache(),
     )
 
 
 def _plane_row_costs(pp: PlanePlan) -> np.ndarray:
-    """[out_h] modelled K3 cost of each output row of one plane: each tile
-    of the remap's tile plan weighs the window bytes its launch stages
-    per frame at one frame (its class's largest: class 0's two ranges go
-    out as one launch there; a global-path tile, whose window exceeds the
-    largest class, weighs the largest class), spread evenly over its rows; the
-    rows of a supersampled plan's scaled size fold onto the output rows
-    they are resized into."""
-    wp = pp.window_plan()
-    win = {c: CLASS_BYTES[c] for c in range(len(CLASS_BYTES))}
-    launched = {}  # a class's largest launch window (class 0 has two launches)
-    for first, count, nbytes, _ in wp.groups:
-        c = int(wp.tile_class[first + count - 1])
-        if c >= 0:
-            launched[c] = max(launched.get(c, 0), nbytes)
-    win.update(launched)
-    cost = np.array([win[c] if c >= 0 else CLASS_BYTES[-1] for c in wp.tile_class.tolist()],
-                    np.float64)
-    per_tile_row = np.bincount(wp.meta[:, 0] // TH, weights=cost, minlength=-(-wp.out_h // TH))
-    scaled = np.repeat(per_tile_row / TH, TH)[: wp.out_h]
-    if wp.out_h == pp.out_h:
+    """[out_h] modelled K3 cost of each output row of one plane
+    (:func:`..ops.window.row_costs`); the rows of a supersampled plan's
+    scaled size fold onto the output rows they are resized into."""
+    scaled = window.row_costs(pp.window_plan())
+    if scaled.size == pp.out_h:
         return scaled
-    return np.bincount(np.arange(wp.out_h) * pp.out_h // wp.out_h, weights=scaled,
+    return np.bincount(np.arange(scaled.size) * pp.out_h // scaled.size, weights=scaled,
                        minlength=pp.out_h)
 
 

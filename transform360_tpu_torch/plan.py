@@ -43,7 +43,6 @@ from .ops.window import WindowPlan, WindowTables, build_window_plan
 from .sampling import (
     AreaTables,
     DeviceArea,
-    DeviceSpec,
     SampleSpec,
     make_sample_spec,
     sample_dtype,
@@ -52,9 +51,9 @@ from .sampling import (
 
 @dataclasses.dataclass(frozen=True)
 class DeviceTables:
-    """A plane plan's arrays on one device, in the kernels' form."""
+    """K1's and K4's tables of a plane plan on one device (K3's:
+    :meth:`PlanePlan.window_tables`)."""
 
-    remap: DeviceSpec
     blur: Optional[BlurTables]
     area: Optional[DeviceArea]
 
@@ -85,7 +84,6 @@ class _DeviceCache:
             hit = self._by_device.get(key)
             if hit is None:
                 hit = DeviceTables(
-                    remap=DeviceSpec.from_spec(pp.spec, pp.fill, device),
                     blur=None
                     if pp.blur is None
                     else BlurTables.from_plan(pp.blur, pp.in_h, pp.in_w, device,
@@ -150,8 +148,9 @@ class PlanePlan:
     fill: int  # transparent-border fill: 0 luma, neutral chroma (128 << depth - 8)
     area: Optional[AreaTables]  # INTER_AREA from scaled to out dims, or None
     depth: int  # sample bit depth: uint8 planes up to 8, else uint16
+    # built anew for every plan, also by dataclasses.replace
     _cache: _DeviceCache = dataclasses.field(
-        default_factory=_DeviceCache, compare=False, repr=False
+        default_factory=_DeviceCache, init=False, compare=False, repr=False
     )
 
     @property
